@@ -1,0 +1,267 @@
+// Fused closest-hit kernels for Hopper (sm_90a): K1 (planar) and K2 (sphere).
+//
+// K1 replaces cpu_ray_tracing_implementation_tpu/ops/pallas_intersect.py:_kernel
+// (closest hit of each ray against K chunks of C quads or triangles);
+// K2 replaces pallas_intersect.py:_sphere_kernel (the same for moving spheres).
+// Plain versions: ops/chunked.py planar_closest / sphere_closest.
+//
+// Layouts are the Pallas kernels': rays [8,R] f32 (org xyz, dir xyz, time,
+// pad), primitive constants [K,16,C] f32 (ops/fused_intersect.py pack_*),
+// output [8,R] f32 (K1: t, unit normal xyz, u, v, mat, valid; K2: t, center
+// xyz at ray time, rad, mat, valid, 0).
+//
+// Design. One thread per ray. The TPU kernel's grid walks the chunk axis in
+// order and carries the running hit in the revisited VMEM output block; CUDA
+// blocks run in no order, so each block loops over all K chunks itself. A
+// block stages a [16, TILE_C] slice of a chunk's pack in shared memory (8 KB)
+// and every thread reads the same constant at once (a broadcast, no bank
+// conflicts). Each ray keeps its running (t, payload) in registers and writes
+// its 8 output rows once, coalesced. The Pallas kernel's six depth-3
+// contractions per (ray, primitive) become per-thread FMAs; no [R,C]
+// intermediate exists anywhere.
+//
+// Bound (an estimate from the source, not traced per instruction). At the
+// main path's shapes (R = 262144 rays, one chunk of C = 128 lanes of which
+// 18 hold Cornell's quads) K1 reads 24 B of ray rows and writes 32 B of hit
+// rows per ray, 14.7 MB in all (~4.4 us of HBM at 3.35 TB/s), and does ~40
+// useful flops per (ray, live quad), 0.19 GFLOP (~3 us of FP32). Neither
+// bounds it: every thread walks all 128 lanes, ~4 instructions per padded
+// lane and ~60 per live one (shared loads, the IEEE divide, the tests), so
+// ~1500 instructions per warp and 12.5 M warp-instructions over 132 SMs
+// issuing 4 a cycle, ~13 us at 1.8 GHz before the launch. Instruction issue
+// in the lane loop is the largest term; the padded lanes are 30% of it. The
+// card reads about twice the estimate per launch (PERF.md); divergence
+// within a warp and the launch itself are the likely rest, not yet traced.
+// Later work: a per-chunk live count, several rays per thread, cp.async
+// double-buffering of the packs, per-chunk AABB culling for the chunked
+// route.
+//
+// Rounding. K1 is compiled with nvcc's default multiply-add contraction. K2
+// writes its expanded quadratic (|o|^2 - 2 o.c + |c|^2 - r^2, which cancels
+// heavily) with __fmul_rn/__fadd_rn, which are never contracted, so it
+// rounds as its plain PyTorch version does (one kernel per operation) and
+// grazing rays hit or miss on both alike.
+//
+// Ties: a candidate replaces the running hit only when strictly nearer, and
+// primitives are visited in index order, so the first index of the minimum
+// wins, as jnp.argmin does in the Pallas kernel.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float BIG = 1e30f;
+constexpr int NROWS = 16;
+constexpr int THREADS = 128;
+constexpr int TILE_C = 128;
+
+// planar pack rows
+constexpr int ROW_UNORM = 0, ROW_EVW = 3, ROW_WEU = 6, ROW_DPLANE = 9,
+              ROW_CA = 10, ROW_CB = 11, ROW_ACTIVE = 12, ROW_MAT = 13;
+// sphere pack rows
+constexpr int SROW_C0 = 0, SROW_DC = 3, SROW_C0C0 = 6, SROW_C0DC = 7,
+              SROW_DCDC = 8, SROW_RAD2 = 9, SROW_RAD = 10, SROW_ACTIVE = 11,
+              SROW_MAT = 12;
+
+// Copy pack[k, :, c0:c0+nc] into s[16][TILE_C] (zeros past nc).
+__device__ __forceinline__ void stage(float* s, const float* __restrict__ pack,
+                                      int k, int C, int c0, int nc) {
+  const float* pk = pack + (size_t)k * NROWS * C;
+  for (int i = threadIdx.x; i < NROWS * TILE_C; i += THREADS) {
+    const int row = i / TILE_C, col = i % TILE_C;
+    s[i] = col < nc ? pk[(size_t)row * C + c0 + col] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float clip_big(float x) {
+  return fminf(fmaxf(x, -BIG), BIG);
+}
+
+// One rounding per product and per sum, never contracted into an FMA.
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
+  return add(add(mul(ax, bx), mul(ay, by)), mul(az, bz));
+}
+
+template <bool TRIANGLE>
+__global__ void __launch_bounds__(THREADS)
+planar_closest_kernel(const float* __restrict__ rays, int R,
+                      const float* __restrict__ pack, int K, int C,
+                      float tmin, float tmax, float* __restrict__ out) {
+  __shared__ float s[NROWS * TILE_C];
+  const int r = blockIdx.x * THREADS + threadIdx.x;
+  const bool live = r < R;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  if (live) {
+    ox = rays[0 * (size_t)R + r]; oy = rays[1 * (size_t)R + r];
+    oz = rays[2 * (size_t)R + r]; dx = rays[3 * (size_t)R + r];
+    dy = rays[4 * (size_t)R + r]; dz = rays[5 * (size_t)R + r];
+  }
+  float t_best = fminf(BIG, tmax);
+  float nx = 0.f, ny = 0.f, nz = 0.f, bu = 0.f, bv = 0.f, bm = 0.f;
+  float valid = 0.f;
+
+  for (int k = 0; k < K; ++k) {
+    for (int c0 = 0; c0 < C; c0 += TILE_C) {
+      const int nc = min(TILE_C, C - c0);
+      __syncthreads();  // previous slice fully consumed
+      stage(s, pack, k, C, c0, nc);
+      __syncthreads();
+      for (int j = 0; j < nc; ++j) {
+        if (s[ROW_ACTIVE * TILE_C + j] <= 0.5f) continue;
+        const float unx = s[(ROW_UNORM + 0) * TILE_C + j];
+        const float uny = s[(ROW_UNORM + 1) * TILE_C + j];
+        const float unz = s[(ROW_UNORM + 2) * TILE_C + j];
+        const float d_n = dx * unx + dy * uny + dz * unz;
+        if (!(fabsf(d_n) > 1e-20f)) continue;
+        const float o_n = ox * unx + oy * uny + oz * unz;
+        const float t = (s[ROW_DPLANE * TILE_C + j] - o_n) / d_n;
+        if (!(t >= tmin && t < t_best)) continue;
+        const float ex = s[(ROW_EVW + 0) * TILE_C + j];
+        const float ey = s[(ROW_EVW + 1) * TILE_C + j];
+        const float ez = s[(ROW_EVW + 2) * TILE_C + j];
+        const float wx = s[(ROW_WEU + 0) * TILE_C + j];
+        const float wy = s[(ROW_WEU + 1) * TILE_C + j];
+        const float wz = s[(ROW_WEU + 2) * TILE_C + j];
+        const float a = clip_big((ox * ex + oy * ey + oz * ez)
+                                 + t * (dx * ex + dy * ey + dz * ez)
+                                 - s[ROW_CA * TILE_C + j]);
+        const float b = clip_big((ox * wx + oy * wy + oz * wz)
+                                 + t * (dx * wx + dy * wy + dz * wz)
+                                 - s[ROW_CB * TILE_C + j]);
+        const bool interior = TRIANGLE
+            ? (a >= 0.f && b >= 0.f && a + b <= 1.f)
+            : (a >= 0.f && a <= 1.f && b >= 0.f && b <= 1.f);
+        if (!interior) continue;
+        t_best = t;
+        nx = unx; ny = uny; nz = unz;
+        bu = a; bv = b;
+        bm = s[ROW_MAT * TILE_C + j];
+        valid = 1.f;
+      }
+    }
+  }
+  if (live) {
+    out[0 * (size_t)R + r] = t_best;
+    out[1 * (size_t)R + r] = nx;
+    out[2 * (size_t)R + r] = ny;
+    out[3 * (size_t)R + r] = nz;
+    out[4 * (size_t)R + r] = bu;
+    out[5 * (size_t)R + r] = bv;
+    out[6 * (size_t)R + r] = bm;
+    out[7 * (size_t)R + r] = valid;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+sphere_closest_kernel(const float* __restrict__ rays, int R,
+                      const float* __restrict__ pack, int K, int C,
+                      float tmin, float tmax, float* __restrict__ out) {
+  __shared__ float s[NROWS * TILE_C];
+  const int r = blockIdx.x * THREADS + threadIdx.x;
+  const bool live = r < R;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f, tm = 0.f;
+  if (live) {
+    ox = rays[0 * (size_t)R + r]; oy = rays[1 * (size_t)R + r];
+    oz = rays[2 * (size_t)R + r]; dx = rays[3 * (size_t)R + r];
+    dy = rays[4 * (size_t)R + r]; dz = rays[5 * (size_t)R + r];
+    tm = rays[6 * (size_t)R + r];
+  }
+  // ray-only terms of the expanded quadratic
+  const float a = dot3(dx, dy, dz, dx, dy, dz);
+  const float oo = dot3(ox, oy, oz, ox, oy, oz);
+  const float dor = dot3(dx, dy, dz, ox, oy, oz);
+  const float two_a = 2.f * fmaxf(a, 1e-20f);
+  float t_best = fminf(BIG, tmax);
+  float cx = 0.f, cy = 0.f, cz = 0.f, br = 1.f, bm = 0.f, valid = 0.f;
+
+  for (int k = 0; k < K; ++k) {
+    for (int c0 = 0; c0 < C; c0 += TILE_C) {
+      const int nc = min(TILE_C, C - c0);
+      __syncthreads();
+      stage(s, pack, k, C, c0, nc);
+      __syncthreads();
+      for (int j = 0; j < nc; ++j) {
+        if (s[SROW_ACTIVE * TILE_C + j] <= 0.5f) continue;
+        const float c0x = s[(SROW_C0 + 0) * TILE_C + j];
+        const float c0y = s[(SROW_C0 + 1) * TILE_C + j];
+        const float c0z = s[(SROW_C0 + 2) * TILE_C + j];
+        const float dcx = s[(SROW_DC + 0) * TILE_C + j];
+        const float dcy = s[(SROW_DC + 1) * TILE_C + j];
+        const float dcz = s[(SROW_DC + 2) * TILE_C + j];
+        const float d_c = add(dot3(dx, dy, dz, c0x, c0y, c0z),
+                              mul(tm, dot3(dx, dy, dz, dcx, dcy, dcz)));
+        const float o_c = add(dot3(ox, oy, oz, c0x, c0y, c0z),
+                              mul(tm, dot3(ox, oy, oz, dcx, dcy, dcz)));
+        const float cc = add(add(s[SROW_C0C0 * TILE_C + j],
+                                 mul(mul(2.f, tm), s[SROW_C0DC * TILE_C + j])),
+                             mul(mul(tm, tm), s[SROW_DCDC * TILE_C + j]));
+        const float b = mul(2.f, sub(dor, d_c));
+        const float c = sub(add(sub(oo, mul(2.f, o_c)), cc),
+                            s[SROW_RAD2 * TILE_C + j]);
+        const float disc = sub(mul(b, b), mul(mul(4.f, a), c));
+        if (!(disc > 0.f)) continue;
+        const float sq = sqrtf(disc);
+        const float t0 = (-b - sq) / two_a;
+        const float t1 = (-b + sq) / two_a;
+        float t;
+        if (t0 >= tmin && t0 < t_best) t = t0;
+        else if (t1 >= tmin && t1 < t_best) t = t1;
+        else continue;
+        t_best = t;
+        cx = add(c0x, mul(tm, dcx));
+        cy = add(c0y, mul(tm, dcy));
+        cz = add(c0z, mul(tm, dcz));
+        br = fmaxf(s[SROW_RAD * TILE_C + j], 1e-20f);
+        bm = s[SROW_MAT * TILE_C + j];
+        valid = 1.f;
+      }
+    }
+  }
+  if (live) {
+    out[0 * (size_t)R + r] = t_best;
+    out[1 * (size_t)R + r] = cx;
+    out[2 * (size_t)R + r] = cy;
+    out[3 * (size_t)R + r] = cz;
+    out[4 * (size_t)R + r] = br;
+    out[5 * (size_t)R + r] = bm;
+    out[6 * (size_t)R + r] = valid;
+    out[7 * (size_t)R + r] = 0.f;
+  }
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. Each returns cudaGetLastError() after the
+// launch (0 = success); nothing synchronises.
+extern "C" int crt_planar_closest(const float* rays, int R, const float* pack,
+                                  int K, int C, float tmin, float tmax,
+                                  int triangle, float* out, void* stream) {
+  if (R <= 0) return 0;
+  const dim3 grid((R + THREADS - 1) / THREADS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (triangle)
+    planar_closest_kernel<true><<<grid, THREADS, 0, st>>>(rays, R, pack, K, C,
+                                                          tmin, tmax, out);
+  else
+    planar_closest_kernel<false><<<grid, THREADS, 0, st>>>(rays, R, pack, K, C,
+                                                           tmin, tmax, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int crt_sphere_closest(const float* rays, int R, const float* pack,
+                                  int K, int C, float tmin, float tmax,
+                                  float* out, void* stream) {
+  if (R <= 0) return 0;
+  const dim3 grid((R + THREADS - 1) / THREADS);
+  sphere_closest_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      rays, R, pack, K, C, tmin, tmax, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* crt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

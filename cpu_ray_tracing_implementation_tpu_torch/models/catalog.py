@@ -1,0 +1,68 @@
+"""Catalog scenes ported so far.
+
+Port of ``cpu_ray_tracing_implementation_tpu/models/catalog.py``: each
+function mirrors one scene of reference src/main.cc and returns ``(scene,
+camera)`` on ``device``. ``width``/``spp``/``max_depth`` overrides run
+scaled-down versions of the same geometry. The other 26 scenes are
+ROADMAP M13.
+"""
+
+from __future__ import annotations
+
+from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam
+from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
+
+
+def _cam_args(width, spp, max_depth, dw, dspp, ddepth):
+    return (dw if width is None else width,
+            dspp if spp is None else spp,
+            ddepth if max_depth is None else max_depth)
+
+
+def three_material_ball(width=None, spp=None, max_depth=None, device="cpu"):
+    """main.cc:69-85"""
+    w, s, d = _cam_args(width, spp, max_depth, 1280, 100, 5)
+    b = SceneBuilder()
+    ground = b.lambertian(b.checker(odd=(1, 1, 1), even=(0.6, 0.6, 0.2), scale=1.0))
+    glass = b.dielectric(1.5)
+    matte = b.lambertian((0.4, 0.2, 0.1))
+    metal = b.metal((0.7, 0.6, 0.5), 0.0)
+    b.sphere((0, -1000, 0), 1000, ground)
+    b.sphere((0, 1, 0), 1.0, glass)
+    b.sphere((-4, 1, 0), 1.0, matte)
+    b.sphere((4, 1, 0), 1.0, metal)
+    b.set_background(b.solid((0.7, 0.8, 1.0)))
+    return b.build(device), cam.perspective(w, 16 / 9, (13, 2, 3), (0, 0, 0), 1,
+                                            20.0, s, d, device=device)
+
+
+def _cornell_walls(b: SceneBuilder, red, white, green):
+    """The five walls of the cornell_box layout (main.cc:204-212)."""
+    b.quad((555, 0, 0), (0, 555, 0), (0, 0, 555), green)
+    b.quad((0, 0, 0), (0, 555, 0), (0, 0, 555), red)
+    b.quad((0, 0, 0), (555, 0, 0), (0, 0, 555), white)
+    b.quad((555, 555, 555), (-555, 0, 0), (0, 0, -555), white)
+    b.quad((0, 0, 555), (555, 0, 0), (0, 555, 0), white)
+
+
+def cornell_box(width=None, spp=None, max_depth=None, device="cpu"):
+    """main.cc:198-225, the benchmark scene."""
+    w, s, d = _cam_args(width, spp, max_depth, 600, 40, 4)
+    b = SceneBuilder()
+    red = b.lambertian((0.65, 0.05, 0.05))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    _cornell_walls(b, red, white, green)
+    b.box((0, 0, 0), (165, 330, 165), white, translate=(100, 0, 200))
+    b.box((0, 0, 0), (165, 165, 165), white, translate=(50, 0, 100))
+    light_q = b.quad((343, 554, 332), (-130, 0, 0), (0, 0, -105),
+                     b.diffuse_light((15, 15, 15)))
+    b.light(light_q)
+    return b.build(device), cam.perspective(w, 1.0, (278, 278, -800), (278, 278, 0),
+                                            1, 40.0, s, d, device=device)
+
+
+SCENES = {
+    "three_material_ball": three_material_ball,
+    "cornell_box": cornell_box,
+}

@@ -1,0 +1,469 @@
+"""Structure-of-arrays scene tables + host-side builder.
+
+Port of ``cpu_ray_tracing_implementation_tpu/models/scene.py``: every
+primitive, material and texture lives in a flat table padded to at least
+one row and addressed by integer id. Tables are frozen dataclasses of
+tensors on one device (``SceneBuilder.build(device=...)``).
+
+This slice ports the dense tables (at most ``chunked.DENSE_MAX`` rows per
+primitive type), solid and checker textures, the lambertian, metal,
+dielectric and diffuse-light materials, quad lights, a solid background and
+the ``world_offset`` recentering. The builder methods for other features
+are not here yet (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as chunked_mod
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+
+# material type codes (src/material.h concrete classes)
+MAT_LAMBERTIAN = 0
+MAT_METAL = 1
+MAT_DIELECTRIC = 2
+MAT_GLOSS = 3
+MAT_ISOTROPIC = 4
+MAT_DIFFUSE_LIGHT = 5
+
+# texture type codes (src/texture.h concrete classes)
+TEX_SOLID = 0
+TEX_CHECKER = 1
+TEX_PICTURE = 2
+TEX_PERLIN = 3
+TEX_VALUE = 4
+TEX_WORLEY = 5
+TEX_VORONOI = 6
+
+# volume boundary kinds
+VOL_BOX = 0
+VOL_SPHERE = 1
+VOL_MESH = 2
+
+
+@dataclass(frozen=True)
+class Spheres:
+    c0: torch.Tensor      # [S,3] center at time 0
+    c1: torch.Tensor      # [S,3] center at time 1 (== c0 for static)
+    rad: torch.Tensor     # [S]
+    mat: torch.Tensor     # [S] int32
+    active: torch.Tensor  # [S] bool (False on padding rows)
+
+
+@dataclass(frozen=True)
+class Quads:
+    corner: torch.Tensor  # [Q,3]
+    eu: torch.Tensor      # [Q,3] edge u
+    ev: torch.Tensor      # [Q,3] edge v
+    mat: torch.Tensor     # [Q] int32
+    active: torch.Tensor  # [Q] bool
+
+
+@dataclass(frozen=True)
+class Triangles:
+    v0: torch.Tensor      # [T,3]
+    v1: torch.Tensor      # [T,3]
+    v2: torch.Tensor      # [T,3]
+    mat: torch.Tensor     # [T] int32
+    active: torch.Tensor  # [T] bool
+
+
+@dataclass(frozen=True)
+class Volumes:
+    kind: torch.Tensor    # [V] int32: VOL_BOX | VOL_SPHERE | VOL_MESH
+    center: torch.Tensor  # [V,3]
+    half: torch.Tensor    # [V,3] half extents (sphere: radius in [:,0])
+    rot: torch.Tensor     # [V,3,3] object->world rotation
+    neg_inv_density: torch.Tensor  # [V] -1/density (src/volumne.h:36)
+    mat: torch.Tensor     # [V] int32
+    active: torch.Tensor  # [V] bool
+
+
+@dataclass(frozen=True)
+class Materials:
+    mtype: torch.Tensor      # [M] int32
+    tex: torch.Tensor        # [M] int32 texture id (albedo or emission)
+    fuzz: torch.Tensor       # [M] metal fuzz
+    ior: torch.Tensor        # [M] dielectric refraction index
+    smoothness: torch.Tensor  # [M] gloss smoothness
+    spec_prob: torch.Tensor  # [M] gloss specular probability
+    dispersion: torch.Tensor  # [M] Cauchy B (0 = non-dispersive)
+
+
+@dataclass(frozen=True)
+class Textures:
+    ttype: torch.Tensor     # [X] int32
+    color0: torch.Tensor    # [X,3] solid color / checker even
+    color1: torch.Tensor    # [X,3] checker odd
+    scale: torch.Tensor     # [X] checker cell width
+    image_id: torch.Tensor  # [X] int32
+    tfilter: torch.Tensor   # [X] int32 image filter
+
+
+@dataclass(frozen=True)
+class Scene:
+    spheres: Spheres
+    quads: Quads
+    tris: Triangles
+    volumes: Volumes
+    materials: Materials
+    textures: Textures
+    lights: torch.Tensor     # [L] int32 quad indices sampled as lights
+    background: int = -1     # texture id or -1
+    # static feature sets: branches for kinds the scene never uses are skipped
+    tex_types_used: tuple = ()
+    mat_types_used: tuple = ()
+    # real (unpadded) row counts: (spheres, quads, tris, volumes)
+    counts: tuple = (-1, -1, -1, -1)
+    # static scene AABB in the traced (recentered) frame
+    world_lo: tuple | None = None
+    world_hi: tuple | None = None
+    # world = stored + world_offset (None = identity); see _maybe_recenter
+    world_offset: torch.Tensor | None = None
+
+    @property
+    def n_volumes(self) -> int:
+        return int(self.volumes.kind.shape[0])
+
+    @property
+    def has_lights(self) -> bool:
+        return int(self.lights.shape[0]) > 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.quads.corner.device
+
+    # The 1-chunk views of the dense tables and their kernel constant packs,
+    # built once per scene rather than once per bounce.
+    @functools.cached_property
+    def quad_view(self):
+        view = fi.dense_quad_view(self.quads)
+        return view, fi.pack_prim_constants(view)
+
+    @functools.cached_property
+    def tri_view(self):
+        view = fi.dense_tri_view(self.tris)
+        return view, fi.pack_prim_constants(view)
+
+    @functools.cached_property
+    def sphere_view(self):
+        view = fi.dense_sphere_view(self.spheres)
+        return view, fi.pack_sphere_constants(view)
+
+
+def _rot_matrix(axis: str, degrees: float) -> np.ndarray:
+    """Object->world rotation matching reference rotate_{x,y,z}
+    (src/hittable.h:93-293)."""
+    th = math.radians(degrees)
+    c, s = math.cos(th), math.sin(th)
+    m = np.eye(3)
+    i, j = {"x": (1, 2), "y": (0, 2), "z": (0, 1)}[axis]
+    m[i, i] = c
+    m[i, j] = s
+    m[j, i] = -s
+    m[j, j] = c
+    return m
+
+
+def _apply_instance(points, rotate, translate, is_vector: bool = False) -> np.ndarray:
+    """Fold a rotate-then-translate instance transform into point/vector
+    data; ``rotate`` is None, (axis, degrees) or a list of them, applied
+    innermost first."""
+    out = np.asarray(points, np.float64)
+    if rotate is not None:
+        rots = [rotate] if isinstance(rotate, tuple) else list(rotate)
+        for axis, deg in rots:
+            out = out @ _rot_matrix(axis, deg).T
+    if translate is not None and not is_vector:
+        out = out + np.asarray(translate, np.float64)
+    return out
+
+
+class SceneBuilder:
+    """Accumulates python-side lists; ``build()`` emits padded tables."""
+
+    # beyond this centroid distance from the origin, geometry is recentered
+    # at build time (f32 catastrophic-cancellation guard)
+    RECENTER_THRESHOLD = 2000.0
+
+    def __init__(self):
+        self._sph = []    # (c0, c1, rad, mat)
+        self._quads = []  # (corner, eu, ev, mat)
+        self._tris = []   # (v0, v1, v2, mat)
+        self._vols = []   # (kind, center, half, rot, density, mat)
+        self._mats = []   # dict rows
+        self._texs = []   # dict rows
+        self._lights = []
+        self._background = -1
+
+    # ---------------- textures ----------------
+    def _tex_row(self, **kw) -> int:
+        row = dict(ttype=TEX_SOLID, color0=(0, 0, 0), color1=(0, 0, 0),
+                   scale=1.0, image_id=0, tfilter=0)
+        row.update(kw)
+        self._texs.append(row)
+        return len(self._texs) - 1
+
+    def solid(self, color) -> int:
+        return self._tex_row(ttype=TEX_SOLID, color0=tuple(color))
+
+    def checker(self, odd, even, scale: float) -> int:
+        """3-D position-based checker (src/texture.h:39-63)."""
+        return self._tex_row(ttype=TEX_CHECKER, color0=tuple(even),
+                             color1=tuple(odd), scale=scale)
+
+    def _as_tex(self, tex_or_color) -> int:
+        if isinstance(tex_or_color, (int, np.integer)):
+            return int(tex_or_color)
+        return self.solid(tex_or_color)
+
+    # ---------------- materials ----------------
+    def _mat_row(self, **kw) -> int:
+        row = dict(mtype=MAT_LAMBERTIAN, tex=0, fuzz=0.0, ior=1.0,
+                   smoothness=0.0, spec_prob=0.0, dispersion=0.0)
+        row.update(kw)
+        self._mats.append(row)
+        return len(self._mats) - 1
+
+    def lambertian(self, tex_or_color) -> int:
+        return self._mat_row(mtype=MAT_LAMBERTIAN, tex=self._as_tex(tex_or_color))
+
+    def metal(self, tex_or_color, fuzz: float = 0.0) -> int:
+        return self._mat_row(mtype=MAT_METAL, tex=self._as_tex(tex_or_color),
+                             fuzz=float(np.clip(fuzz, 0.0, 1.0)))
+
+    def dielectric(self, ior: float, tex_or_color=(1.0, 1.0, 1.0)) -> int:
+        return self._mat_row(mtype=MAT_DIELECTRIC, tex=self._as_tex(tex_or_color),
+                             ior=float(ior))
+
+    def diffuse_light(self, tex_or_color) -> int:
+        return self._mat_row(mtype=MAT_DIFFUSE_LIGHT, tex=self._as_tex(tex_or_color))
+
+    # ---------------- primitives ----------------
+    def sphere(self, center, radius: float, mat: int) -> int:
+        c = np.asarray(center, np.float64)
+        self._sph.append((c, c, max(0.0, float(radius)), int(mat)))
+        return len(self._sph) - 1
+
+    def moving_sphere(self, center0, center1, radius: float, mat: int) -> int:
+        self._sph.append((np.asarray(center0, np.float64),
+                          np.asarray(center1, np.float64),
+                          max(0.0, float(radius)), int(mat)))
+        return len(self._sph) - 1
+
+    def quad(self, corner, u, v, mat: int, rotate=None, translate=None) -> int:
+        c = _apply_instance(np.asarray(corner, np.float64), rotate, translate)
+        eu = _apply_instance(np.asarray(u, np.float64), rotate, None, is_vector=True)
+        ev = _apply_instance(np.asarray(v, np.float64), rotate, None, is_vector=True)
+        self._quads.append((c, eu, ev, int(mat)))
+        return len(self._quads) - 1
+
+    def box(self, a, b, mat: int, rotate=None, translate=None) -> list:
+        """Axis-aligned box as six quads (src/quad.h:91-112), with an
+        optional folded rotate/translate instance transform."""
+        a = np.asarray(a, np.float64)
+        b = np.asarray(b, np.float64)
+        mn, mx = np.minimum(a, b), np.maximum(a, b)
+        dx = np.array([mx[0] - mn[0], 0, 0])
+        dy = np.array([0, mx[1] - mn[1], 0])
+        dz = np.array([0, 0, mx[2] - mn[2]])
+        faces = [
+            ((mn[0], mn[1], mx[2]), dy, dx),    # front
+            ((mx[0], mn[1], mx[2]), dy, -dz),   # right
+            ((mx[0], mn[1], mn[2]), dy, -dx),   # back
+            ((mn[0], mn[1], mn[2]), dy, dz),    # left
+            ((mn[0], mx[1], mx[2]), -dz, dx),   # top
+            ((mn[0], mn[1], mn[2]), dz, dx),    # bottom
+        ]
+        return [self.quad(c, u, v, mat, rotate=rotate, translate=translate)
+                for c, u, v in faces]
+
+    def triangle(self, p0, p1, p2, mat: int, rotate=None, translate=None) -> int:
+        pts = _apply_instance(np.stack([np.asarray(p, np.float64)
+                                        for p in (p0, p1, p2)]),
+                              rotate, translate)
+        self._tris.append((pts[0], pts[1], pts[2], int(mat)))
+        return len(self._tris) - 1
+
+    def light(self, quad_id: int):
+        """Register a quad as an MIS-sampled light (src/camera.h:135)."""
+        self._lights.append(int(quad_id))
+
+    def set_background(self, tex_id: int):
+        """Solid or position-textured background found by BSDF sampling
+        (src/camera.h:205-210)."""
+        self._background = int(tex_id)
+
+    def _maybe_recenter(self) -> np.ndarray | None:
+        """Fold a size-weighted scene centroid out of all geometry when it
+        is far from the origin. Returns the offset (world = stored +
+        offset) or None. Weights are 1/feature-size: f32 cancellation in
+        the expanded quadratics scales with |center|^2 / size^2."""
+        pts, wts = [], []
+
+        def add(center, size):
+            pts.append(np.asarray(center, np.float64))
+            wts.append(1.0 / max(float(size), 1e-6))
+
+        for r in self._sph:
+            add(r[0], r[2])
+        for r in self._quads:
+            add(np.asarray(r[0], np.float64)
+                + 0.5 * (np.asarray(r[1], np.float64) + np.asarray(r[2], np.float64)),
+                max(np.linalg.norm(r[1]), np.linalg.norm(r[2])))
+        for r in self._tris:
+            v0 = np.asarray(r[0], np.float64)
+            add((v0 + np.asarray(r[1], np.float64) + np.asarray(r[2], np.float64)) / 3.0,
+                max(np.linalg.norm(np.asarray(r[1], np.float64) - v0),
+                    np.linalg.norm(np.asarray(r[2], np.float64) - v0)))
+        for r in self._vols:
+            add(r[1], np.linalg.norm(r[2]))
+        if not pts:
+            return None
+        w = np.asarray(wts)[:, None]
+        centroid = (np.stack(pts) * w).sum(axis=0) / w.sum()
+        if np.linalg.norm(centroid) <= self.RECENTER_THRESHOLD:
+            return None
+        off = centroid.astype(np.float32).astype(np.float64)
+        self._sph = [(r[0] - off, r[1] - off, r[2], r[3]) for r in self._sph]
+        self._quads = [(r[0] - off, r[1], r[2], r[3]) for r in self._quads]
+        self._tris = [(r[0] - off, r[1] - off, r[2] - off, r[3])
+                      for r in self._tris]
+        self._vols = [(r[0], r[1] - off, r[2], r[3], r[4], r[5])
+                      for r in self._vols]
+        return off
+
+    # ---------------- build ----------------
+    def build(self, device="cpu") -> Scene:
+        """Padded tables on ``device``. Tables above ``chunked.DENSE_MAX``
+        rows need the chunked route, which is not ported yet."""
+        for name, rows in (("spheres", self._sph), ("quads", self._quads),
+                           ("triangles", self._tris)):
+            if len(rows) > chunked_mod.DENSE_MAX:
+                raise NotImplementedError(
+                    f"{len(rows)} {name}: chunked tables (ROADMAP M8) are "
+                    "not ported yet")
+        f32 = np.float32
+        world_offset = self._maybe_recenter()
+
+        def stack3(rows, idx):
+            if rows:
+                return np.stack([np.asarray(r[idx], f32) for r in rows])
+            return np.zeros((0, 3), f32)
+
+        def col(rows, idx, dtype=f32):
+            return (np.array([r[idx] for r in rows], dtype) if rows
+                    else np.zeros((0,), dtype))
+
+        def pad(arr, n, fill=0):
+            if arr.shape[0] >= n:
+                return arr
+            pad_shape = (n - arr.shape[0],) + arr.shape[1:]
+            return np.concatenate([arr, np.full(pad_shape, fill, arr.dtype)])
+
+        def table(rows, specs):
+            n = max(1, len(rows))
+            out = []
+            for idx, dtype in specs:
+                a = stack3(rows, idx) if dtype == "vec3" else col(rows, idx, dtype)
+                out.append(pad(a, n))
+            out.append(np.arange(n) < len(rows))
+            return out
+
+        vec4 = [(0, "vec3"), (1, "vec3"), (2, "vec3"), (3, np.int32)]
+        sph = table(self._sph, [(0, "vec3"), (1, "vec3"), (2, f32), (3, np.int32)])
+        qds = table(self._quads, vec4)
+        tri = table(self._tris, vec4)
+
+        vol_rows = self._vols
+        n_v = max(1, len(vol_rows))
+        vols = [
+            pad(col(vol_rows, 0, np.int32), n_v),
+            pad(stack3(vol_rows, 1), n_v),
+            pad(stack3(vol_rows, 2), n_v, 1),
+            pad(np.stack([np.asarray(r[3], f32) for r in vol_rows])
+                if vol_rows else np.zeros((0, 3, 3), f32), n_v),
+            pad(np.array([-1.0 / r[4] for r in vol_rows], f32), n_v, -1),
+            pad(col(vol_rows, 5, np.int32), n_v),
+            np.arange(n_v) < len(vol_rows),
+        ]
+
+        if not self._mats:
+            self._mat_row()
+        mats = [np.array([m[k] for m in self._mats], dt) for k, dt in (
+            ("mtype", np.int32), ("tex", np.int32), ("fuzz", f32), ("ior", f32),
+            ("smoothness", f32), ("spec_prob", f32), ("dispersion", f32))]
+        if not self._texs:
+            self._tex_row()
+        texs = [np.array([t[k] for t in self._texs], dt) for k, dt in (
+            ("ttype", np.int32), ("color0", f32), ("color1", f32),
+            ("scale", f32), ("image_id", np.int32), ("tfilter", np.int32))]
+
+        # static scene AABB (traced frame): union over all primitive bounds
+        blo = np.full(3, np.inf)
+        bhi = np.full(3, -np.inf)
+
+        def acc(lo_pts, hi_pts):
+            nonlocal blo, bhi
+            blo = np.minimum(blo, np.min(lo_pts, axis=0))
+            bhi = np.maximum(bhi, np.max(hi_pts, axis=0))
+
+        if self._sph:
+            c0 = np.stack([np.asarray(r[0], np.float64) for r in self._sph])
+            c1 = np.stack([np.asarray(r[1], np.float64) for r in self._sph])
+            rr = np.array([r[2] for r in self._sph])[:, None]
+            acc(np.minimum(c0, c1) - rr, np.maximum(c0, c1) + rr)
+        if self._quads:
+            qc, qu, qv = (np.stack([np.asarray(r[i], np.float64)
+                                    for r in self._quads]) for i in range(3))
+            p = np.stack([qc, qc + qu, qc + qv, qc + qu + qv])
+            acc(p.min(axis=0), p.max(axis=0))
+        if self._tris:
+            tv = np.stack([[np.asarray(r[i], np.float64) for i in range(3)]
+                           for r in self._tris])
+            acc(tv.min(axis=1), tv.max(axis=1))
+        if self._vols:
+            vc = np.stack([np.asarray(r[1], np.float64) for r in self._vols])
+            vr = np.array([np.linalg.norm(r[2]) for r in self._vols])[:, None]
+            acc(vc - vr, vc + vr)
+        have_bounds = bool(np.isfinite(blo).all() and np.isfinite(bhi).all())
+
+        return scene_from_tables(
+            dict(spheres=sph, quads=qds, tris=tri, volumes=vols,
+                 materials=mats, textures=texs,
+                 lights=np.array(self._lights, np.int32),
+                 world_offset=(None if world_offset is None
+                               else world_offset.astype(f32))),
+            device=device,
+            background=self._background,
+            tex_types_used=tuple(sorted({t["ttype"] for t in self._texs})),
+            mat_types_used=tuple(sorted({m["mtype"] for m in self._mats})),
+            counts=(len(self._sph), len(self._quads), len(self._tris),
+                    len(self._vols)),
+            world_lo=tuple(float(x) for x in blo) if have_bounds else None,
+            world_hi=tuple(float(x) for x in bhi) if have_bounds else None)
+
+
+_TABLES = {"spheres": Spheres, "quads": Quads, "tris": Triangles,
+           "volumes": Volumes, "materials": Materials, "textures": Textures}
+
+
+def scene_from_tables(arrays: dict, device="cpu", **static) -> Scene:
+    """Scene on ``device`` from numpy arrays: ``arrays`` maps each table
+    name of ``_TABLES`` to its column list (dataclass field order), plus
+    ``lights`` and ``world_offset`` (or None). ``static`` holds the
+    non-tensor Scene fields."""
+    def t(a):
+        return torch.as_tensor(np.array(a), device=device)  # own, writable copy
+
+    tables = {name: cls(*[t(a) for a in arrays[name]])
+              for name, cls in _TABLES.items()}
+    off = arrays["world_offset"]
+    return Scene(**tables, lights=t(arrays["lights"]),
+                 world_offset=None if off is None else t(off), **static)

@@ -1,0 +1,134 @@
+"""Batched ray-primitive intersection over flat scene tables.
+
+Port of ``cpu_ray_tracing_implementation_tpu/ops/intersect.py`` for dense
+tables. Each primitive type present in the scene is intersected by one
+fused closest-hit call on its 1-chunk view (``ops/fused_intersect.py``:
+kernel K1 for quads and triangles, K2 for spheres; the plain chunk scan on
+CPU tensors), then the nearest type wins per ray and its shading
+attributes are merged into one ``Hit``.
+
+Not ported yet: chunked tables (ROADMAP M8/M9), volumes and per-vertex
+triangle attributes (ROADMAP M4).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
+from cpu_ray_tracing_implementation_tpu_torch.ops.sampling import PI
+
+INF = float("inf")
+
+
+@dataclass(frozen=True)
+class Hit:
+    valid: torch.Tensor   # [R] bool
+    t: torch.Tensor       # [R]
+    p: torch.Tensor       # [R,3]
+    normal: torch.Tensor  # [R,3] face-forward unit normal
+    front: torch.Tensor   # [R] bool (dot(ray_dir, outward_normal) < 0)
+    u: torch.Tensor       # [R]
+    v: torch.Tensor       # [R]
+    mat: torch.Tensor     # [R] int32
+
+
+def sphere_uv(n: torch.Tensor):
+    """Spherical UV from the unit outward normal (src/sphere.h:90-95)."""
+    y = torch.clamp(-n[..., 1], -1.0, 1.0)
+    theta = torch.arccos(y)
+    nz, nx = -n[..., 2], n[..., 0]
+    # atan2 of (+-0, +-0) is defined as 0 here, as in the JAX package
+    deg = (nz == 0.0) & (nx == 0.0)
+    phi = torch.where(deg, torch.zeros_like(nz), torch.atan2(nz, nx)) + PI
+    return phi / (2.0 * PI), theta / PI
+
+
+def _finite_or_zero(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(t), t, torch.zeros_like(t))
+
+
+def intersect_brute(scene, org, dirs, time, tmin, u_vol, tmax=INF,
+                    active=None):
+    """Closest hit across all primitive tables -> Hit. ``u_vol``: [R, V]
+    volume uniforms (unused until volumes are ported). Dense tables never
+    take the JAX package's coherence sort, so this is ``_intersect_core``.
+    """
+    return _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax, active)
+
+
+def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
+                    active=None):
+    """Closest hit in the caller's lane order. ``scene.counts`` is static,
+    so primitive types the scene does not contain are skipped."""
+    n_sph, n_quad, n_tri, n_vol = scene.counts
+    if n_vol:
+        raise NotImplementedError("volumes (ROADMAP M4) are not ported yet")
+    R = org.shape[0]
+    inf_t = torch.full((R,), INF, dtype=org.dtype, device=org.device)
+
+    t_s = t_q = t_t = inf_t
+    sph_payload = quad_payload = tri_payload = None
+    if n_sph:
+        view, pack = scene.sphere_view
+        t_s, sph_payload = fi.sphere_closest_fused(org, dirs, time, view,
+                                                   tmin, tmax, pack=pack)
+    if n_quad:
+        view, pack = scene.quad_view
+        t_q, quad_payload = fi.planar_closest_fused(org, dirs, view, tmin,
+                                                    False, tmax, pack=pack)
+    if n_tri:
+        view, pack = scene.tri_view
+        t_t, tri_payload = fi.planar_closest_fused(org, dirs, view, tmin,
+                                                   True, tmax, pack=pack)
+
+    t_all = torch.stack([t_s, t_q, t_t, inf_t], dim=-1)   # [R,4]
+    which = torch.argmin(t_all, dim=-1)                   # 0 sph, 1 quad, 2 tri
+    t = torch.amin(t_all, dim=-1)
+    valid = torch.isfinite(t)
+
+    p = org + _finite_or_zero(t)[:, None] * dirs
+    normal = org.new_tensor([1.0, 0.0, 0.0]).expand(R, 3)
+    front = torch.ones((R,), dtype=torch.bool, device=org.device)
+    uu = torch.zeros((R,), dtype=org.dtype, device=org.device)
+    vv = torch.zeros((R,), dtype=org.dtype, device=org.device)
+    mat = torch.zeros((R,), dtype=torch.int32, device=org.device)
+
+    def merge(cond, attrs):
+        nonlocal normal, front, uu, vv, mat
+        n_k, f_k, u_k, v_k, m_k = attrs
+        normal = torch.where(cond[:, None], n_k, normal)
+        front = torch.where(cond, f_k, front)
+        uu = torch.where(cond, u_k, uu)
+        vv = torch.where(cond, v_k, vv)
+        mat = torch.where(cond, m_k, mat)
+
+    def planar_attrs(payload, zero_uv):
+        """(normal, front, u, v, mat) from a planar payload; triangles
+        carry no UV in the reference (src/triangle.h)."""
+        unorm, u_k, v_k, m_k = payload
+        front_k = vm.dot(dirs, unorm) < 0.0
+        normal_k = torch.where(front_k[:, None], unorm, -unorm)
+        if zero_uv:
+            u_k = torch.zeros_like(u_k)
+            v_k = torch.zeros_like(v_k)
+        return normal_k, front_k, u_k, v_k, m_k
+
+    if sph_payload is not None:
+        center, rad_w, m_w = sph_payload
+        pk = org + _finite_or_zero(t_s)[:, None] * dirs
+        outward = (pk - center) / rad_w[:, None]
+        front_k = vm.dot(dirs, outward) < 0.0
+        normal_k = torch.where(front_k[:, None], outward, -outward)
+        u_k, v_k = sphere_uv(outward)
+        merge(which == 0, (normal_k, front_k, u_k, v_k, m_w))
+    if quad_payload is not None:
+        merge(which == 1, planar_attrs(quad_payload, zero_uv=False))
+    if tri_payload is not None:
+        merge(which == 2, planar_attrs(tri_payload, zero_uv=True))
+
+    return Hit(valid=valid, t=t, p=p, normal=normal, front=front, u=uu,
+               v=vv, mat=torch.where(valid, mat, torch.zeros_like(mat)))

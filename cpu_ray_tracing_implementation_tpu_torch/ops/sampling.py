@@ -1,0 +1,60 @@
+"""Direction samplers and pdf evaluators, driven by explicit uniforms.
+
+Port of ``cpu_ray_tracing_implementation_tpu/ops/sampling.py`` (the parts
+``materials.scatter`` and ``materials.light_sample`` call). Semantics match
+reference src/utility.h:30-69 and src/pdf.h.
+
+``cosine_dir`` is the JAX package's default construction
+(``CRT_COSINE=sphere``): normalize(n + a uniform point on the unit sphere).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
+
+PI = 3.14159265358979323846
+INV_4PI = 1.0 / (4.0 * PI)
+
+
+def unit_sphere_dir(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the unit sphere, y the polar axis
+    (src/utility.h:30-43)."""
+    cos_theta = 1.0 - 2.0 * u1
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    phi = 2.0 * PI * u2
+    return torch.stack(
+        [sin_theta * torch.cos(phi), cos_theta, sin_theta * torch.sin(phi)],
+        dim=-1)
+
+
+def cosine_dir(normal: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted direction about unit ``normal``: a uniform point on
+    the unit sphere about the normal tip (RTiOW §9.4)."""
+    s = unit_sphere_dir(u1, u2)
+    d = normal + s
+    # s == -normal (measure zero): fall back to the normal itself, like the
+    # reference's lambertian near_zero guard (src/material.h:66-68)
+    degenerate = (vm.length_sq(d) < 1e-12)[..., None]
+    return vm.normalize(torch.where(degenerate, normal, d))
+
+
+def cosine_pdf(normal: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    """max(0, cos(theta))/pi (src/pdf.h:37-40); ``normal`` must be unit."""
+    cos_theta = vm.dot(vm.normalize(direction), normal)
+    return torch.clamp(cos_theta / PI, min=0.0)
+
+
+def sphere_pdf(direction: torch.Tensor) -> torch.Tensor:
+    """pdf of the uniform sphere sampler: 1/(4 pi) (src/pdf.h:15-20)."""
+    return torch.full(direction.shape[:-1], INV_4PI, dtype=direction.dtype,
+                      device=direction.device)
+
+
+def schlick_reflectance(cosine: torch.Tensor, refraction_index: torch.Tensor) -> torch.Tensor:
+    """Schlick's approximation (src/material.h:135-139)."""
+    r0 = (1.0 - refraction_index) / (1.0 + refraction_index)
+    r0 = r0 * r0
+    one_minus = 1.0 - cosine
+    return r0 + (1.0 - r0) * one_minus ** 5

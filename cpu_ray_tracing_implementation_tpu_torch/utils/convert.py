@@ -1,0 +1,88 @@
+"""Carry the JAX package's state across into the port.
+
+The tests render one scene with both packages. These helpers take the JAX
+package's ``Scene`` / ``Camera`` (any object with the same attributes whose
+leaves ``np.asarray`` can read) and ``jax.random.key_data(key)`` as numpy,
+and build the port's objects on a given device, so both packages trace
+exactly the same tables with the same key. Nothing here imports ``jax``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
+from cpu_ray_tracing_implementation_tpu_torch.models import scene as sc
+
+# Scene features outside this slice, with the ROADMAP item that ports them
+_UNPORTED = {
+    "sphere_chunks": "chunked tables (ROADMAP M8)",
+    "quad_chunks": "chunked tables (ROADMAP M8)",
+    "tri_chunks": "chunked tables (ROADMAP M8)",
+    "tri_attrs": "per-vertex triangle attributes (ROADMAP M4)",
+    "sphere_lights": "sphere lights (ROADMAP M5)",
+    "env_texel_p": "environment importance sampling (ROADMAP M5)",
+}
+
+
+def _columns(obj, cls) -> list:
+    return [np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(cls)]
+
+
+def scene_from_numpy(jscene, device="cpu") -> sc.Scene:
+    """The port's Scene holding the same tables as the JAX ``jscene``."""
+    for name, what in _UNPORTED.items():
+        if getattr(jscene, name, None) is not None:
+            raise NotImplementedError(f"{what} are not ported yet")
+    if getattr(jscene, "has_dispersion", False):
+        raise NotImplementedError("spectral dispersion (ROADMAP M6) is not "
+                                  "ported yet")
+    vols = jscene.volumes
+    if getattr(vols, "mesh_v0", None) is not None:
+        raise NotImplementedError("mesh volumes (ROADMAP M4) are not ported yet")
+    arrays = {name: _columns(getattr(jscene, name), cls)
+              for name, cls in sc._TABLES.items()}
+    off = jscene.world_offset
+    arrays.update(lights=np.asarray(jscene.lights, np.int32),
+                  world_offset=None if off is None else np.asarray(off, np.float32))
+    return sc.scene_from_tables(
+        arrays, device=device, background=int(jscene.background),
+        tex_types_used=tuple(jscene.tex_types_used),
+        mat_types_used=tuple(jscene.mat_types_used),
+        counts=tuple(jscene.counts), world_lo=jscene.world_lo,
+        world_hi=jscene.world_hi)
+
+
+def camera_from_numpy(jcam, device="cpu") -> cam_mod.Camera:
+    """The port's Camera with the same parameters as the JAX ``jcam``."""
+    if int(jcam.mode) != cam_mod.PERSPECTIVE:
+        raise NotImplementedError("only the perspective camera is ported "
+                                  "(other modes: ROADMAP M3)")
+    for flag in ("qmc", "nee"):
+        if getattr(jcam, flag, False):
+            raise NotImplementedError(f"camera.{flag} (ROADMAP M6/M12) is not "
+                                      "ported yet")
+    if getattr(jcam, "rr_depth", 0):
+        raise NotImplementedError("Russian roulette (ROADMAP M6) is not "
+                                  "ported yet")
+
+    def f32(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+
+    return cam_mod.Camera(
+        pos=f32(jcam.pos), lookat=f32(jcam.lookat), fovy_deg=f32(jcam.fovy_deg),
+        focal_length=f32(jcam.focal_length), mode=int(jcam.mode),
+        width=int(jcam.width), height=int(jcam.height), spp=int(jcam.spp),
+        max_depth=int(jcam.max_depth), stratify=bool(jcam.stratify),
+        clamp=float(jcam.clamp))
+
+
+def key_from_numpy(key_data) -> np.ndarray:
+    """[2] uint32 key words from ``jax.random.key_data(key)``."""
+    k = np.asarray(key_data, np.uint32)
+    if k.shape != (2,):
+        raise ValueError(f"expected threefry key data of shape (2,), got {k.shape}")
+    return k

@@ -1,0 +1,132 @@
+"""Where the time goes in the port's Cornell render on one GPU.
+
+Counterpart of ``cpu_ray_tracing_implementation_tpu/utils/profiling.py``
+for the port. Run on a machine with an NVIDIA GPU::
+
+    python -m cpu_ray_tracing_implementation_tpu_torch.utils.profiling
+
+It renders cornell_box at 512x512, depth 8 (the main path's workload) for
+``SPP`` samples after a 2-sample warm-up: once on the host clock, then
+under ``torch.profiler`` with a range around each stage of a bounce. The
+stage functions are wrapped for the profiled run only, so the main path
+carries no instrumentation. It prints the wall seconds of both runs, the
+device time summed over kernels, kernels per bounce, the device busy share,
+the top kernels by device time, each stage's host and device time, and the
+launches and device time of kernels K1 and K2.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import subprocess
+import sys
+import time
+
+import torch
+
+from cpu_ray_tracing_implementation_tpu_torch.kernels import build
+from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
+from cpu_ray_tracing_implementation_tpu_torch.models import catalog, integrator
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
+from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
+
+# (module, function, range name): the stages of one bounce and of raygen
+STAGES = (
+    (isect, "intersect_brute", "intersect"),
+    (integrator, "background_color", "background"),
+    (mat_ops, "mat_rows", "mat_rows"),
+    (mat_ops, "emitted", "emitted"),
+    (mat_ops, "scatter", "scatter"),
+    (integrator, "_per_ray_uniforms", "uniforms"),
+    (cam_mod, "generate_rays", "raygen"),
+)
+SPP = 8
+TOP = 20  # kernels listed by device time
+KERNELS = {"planar_closest": "planar_closest_kernel",
+           "sphere_closest": "sphere_closest_kernel"}
+
+
+@contextlib.contextmanager
+def stage_ranges():
+    """Wrap each stage function in a ``record_function`` range."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in STAGES]
+
+    def ranged(fn, label):
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    for (mod, name, label), (_, _, fn) in zip(STAGES, saved):
+        setattr(mod, name, ranged(fn, label))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profiling: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
+    build.load()
+    dev = torch.device("cuda", 0)
+    scene, cam = catalog.cornell_box(width=512, spp=SPP, max_depth=8,
+                                     device=dev)
+    bounces = SPP * cam.max_depth
+    integrator.render_image(scene, cam, keys.key(1), spp=2)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    integrator.render_image(scene, cam, keys.key(1), spp=SPP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    fi.reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with stage_ranges(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        integrator.render_image(scene, cam, keys.key(1), spp=SPP)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = {label for _, _, label in STAGES}
+    events = prof.key_averages()
+    kern = sorted(((e.key, e.count, e.self_device_time_total) for e in events
+                   if e.device_type == cuda and e.key not in ranges),
+                  key=lambda k: -k[2])
+    dev_s = sum(k[2] for k in kern) / 1e6
+    n_kern = sum(k[1] for k in kern)
+    print(f"cornell_box 512x512 depth 8, {SPP} spp: wall {wall:.4f} s "
+          f"unprofiled, {wall_prof:.4f} s profiled")
+    print(f"device kernel time {dev_s:.4f} s over {n_kern} kernels "
+          f"({n_kern / bounces:.1f} per bounce); busy share "
+          f"{dev_s / wall:.4f} of the unprofiled wall, "
+          f"{dev_s / wall_prof:.4f} of the profiled")
+    for name, symbol in KERNELS.items():
+        hits = [k for k in kern if symbol in k[0]]
+        n = sum(k[1] for k in hits)
+        us = sum(k[2] for k in hits)
+        print(f"{name}: {fi.LAUNCHES[name]} launches, device {us / 1e3:.4f} ms"
+              + (f", {us / n:.2f} us each, {us / 1e6 / dev_s:.4f} of device time"
+                 if n else ""))
+    print("top kernels (name, count, device us, share of device time):")
+    for key, count, us in kern[:TOP]:
+        print(f"  {key[:100]:100} {count:7d} {us:10.1f} {us / 1e6 / dev_s:.4f}")
+    print("stages (count, host s, device s of the kernels launched inside):")
+    for e in events:
+        if e.key in ranges and e.device_type != cuda:
+            print(f"  {e.key:12} {e.count:6d} host {e.cpu_time_total / 1e6:.4f} "
+                  f"device {e.device_time_total / 1e6:.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,32 @@
+"""The port's profiling entry point: stage ranges wrap and restore, and a
+CPU render under the profiler records one range per stage call."""
+
+import pytest
+import torch
+
+from cpu_ray_tracing_implementation_tpu_torch.models import catalog, integrator
+from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
+from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+from cpu_ray_tracing_implementation_tpu_torch.utils import profiling
+
+
+def test_stage_ranges_record_and_restore():
+    before = [getattr(mod, name) for mod, name, _ in profiling.STAGES]
+    scene, cam = catalog.cornell_box(width=8, spp=1, max_depth=2)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with profiling.stage_ranges(), torch.profiler.profile(activities=acts) as prof:
+        assert isect.intersect_brute is not before[0]
+        img = integrator.render_image(scene, cam, keys.key(0))
+    assert bool(torch.isfinite(img).all())
+    assert [getattr(mod, name) for mod, name, _ in profiling.STAGES] == before
+    counts = {e.key: e.count for e in prof.key_averages()}
+    # one camera pass, then intersect and scatter once per bounce
+    assert counts["raygen"] == 1
+    assert counts["intersect"] == cam.max_depth
+    assert counts["scatter"] == cam.max_depth
+
+
+def test_main_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal without a GPU")
+    assert profiling.main() == 2
