@@ -5,24 +5,46 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Build the CUDA kernels from ``cpu_ray_tracing_implementation_tpu_torch/csrc``.
-2. Hold each kernel against its plain PyTorch version on the card: K1
-   (planar closest hit) in quad and triangle mode and K2 (sphere closest
-   hit), at the main path's shapes (512*512 rays against the 1-chunk views
-   of cornell_box and three_material_ball, primary and secondary rays) and
-   on random 700-primitive, 6-chunk tables. Equal hit masks and materials;
-   t within rtol 1e-4 / atol 1e-4; every other output row (K1: normal, u,
-   v; K2: center, rad) within atol 1e-3. Kernel and plain times from CUDA
-   events.
-3. Main path, checked: both scenes at the golden workload (16 px, 4 spp,
-   depth 3, key 42; image mean within 2e-3 of tests/test_golden.py), and
-   the C++ reference parity gates of tests/test_parity.py (cornell_box 300
-   px 16 spp: PSNR > 30 dB, mean rel err < 0.04; three_material_ball 320 px
-   16 spp: > 38 dB, < 0.02).
-4. Main path, full workload: cornell_box at 512x512, 256 spp, depth 8.
-   The image must be finite; prints seconds and camera rays/s.
-5. Kernel launch counts over phases 3-4 (reset just before phase 3): both
-   kernels must have launched.
+1. Build the CUDA kernels from ``cpu_ray_tracing_implementation_tpu_torch/csrc``
+   (one nvcc per source, in parallel).
+2. Hold each kernel against its plain PyTorch version on the card, at the
+   main paths' shapes:
+   - K1 (planar closest hit) in quad and triangle mode and K2 (sphere
+     closest hit): 512*512 rays against the 1-chunk views of cornell_box
+     and three_material_ball, primary and secondary rays, and random
+     700-primitive, 6-chunk tables. Equal hit masks and materials; t within
+     rtol 1e-4 / atol 1e-4; every other output row (K1: normal, u, v; K2:
+     center, rad) within atol 1e-3.
+   - K3 (cull + top-V select): the colonnade's 2,015 chunk boxes, 40,000
+     primary camera rays and 40,000 secondary rays, packed and exact mode,
+     phase 1 and the phase after it. ids, nears and rest bit-equal.
+   - K4 (visit-list sweep) on the ids and nears K3 gave: triangles (the
+     colonnade table) and spheres (a random 6,000-sphere table, 47
+     chunks). Equal hit masks, pid and mat; t within rtol 1e-4; every other
+     column within atol 1e-3; each column's error reported.
+   Kernel and plain times from CUDA events.
+3. Checks, their launches not counted: cornell_box, three_material_ball
+   and sponza (the colonnade) at the golden workload (16 px, 4 spp, depth
+   3, key 42; image mean within 2e-3 of tests/test_golden.py); the Cornell
+   C++ reference parity gate of tests/test_parity.py (300 px 16 spp: PSNR
+   > 30 dB, mean rel err < 0.04); and the per-ray closest hit (K3 + K4)
+   against the chunk-scan oracle on the full colonnade: the same winner's
+   t within rtol 1e-4 or, for grazing hits at the colonnade's +-1,200
+   coordinates, hit points within 1e-3 along the plane's normal; a ray
+   whose winners or hit masks differ must have a hit the two triangle
+   tests round apart (a near-tie, a triangle edge, or the surface the ray
+   leaves; counted and printed).
+4. Main paths, full workloads: cornell_box at 512x512, 256 spp, depth 8;
+   three_material_ball at its parity size (320 px, 16 spp, depth 5),
+   which must pass its parity gate (> 38 dB, mean rel err < 0.02); and
+   the colonnade at 200x200, 30 spp, depth 5. Each image must be finite;
+   prints seconds, camera rays/s, the mean and, for the colonnade, the
+   selection phases per bounce.
+5. Kernel launch counts of each phase-4 render, set to 0 just before it
+   and read just after: the Cornell render must launch K1, the
+   three_material_ball render K2, and the colonnade render K1 (its light
+   quad), K3 and K4. The ``kernels`` line gives each kernel's launches in
+   the render of its own slice's scene.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -42,20 +64,46 @@ import torch
 from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, film, integrator
+from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
-from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
+from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
+from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
+from cpu_ray_tracing_implementation_tpu_torch.utils import profiling
 
 TMIN = 1e-3
+INF = float("inf")
 R_MAIN = 512 * 512
-GOLDEN_MEANS = {"cornell_box": 0.160999, "three_material_ball": 0.563181}
+COLONNADE_PX = 200
+R_COLONNADE = COLONNADE_PX * COLONNADE_PX
+GOLDEN_MEANS = {"cornell_box": 0.160999, "three_material_ball": 0.563181,
+                "sponza": 0.402695}
 PARITY = {"cornell_box": (300, 16, 4, 30.0, 0.04),
           "three_material_ball": (320, 16, 4, 38.0, 0.02)}
+PKG = "cpu_ray_tracing_implementation_tpu_torch/csrc/"
+JAX = "cpu_ray_tracing_implementation_tpu/"
+# name -> (id, source, the TPU kernel it replaces)
 KERNELS = {
-    "planar_closest": ("K1", "cpu_ray_tracing_implementation_tpu/ops/pallas_intersect.py:81"),
-    "sphere_closest": ("K2", "cpu_ray_tracing_implementation_tpu/ops/pallas_intersect.py:267"),
+    "planar_closest": ("K1", PKG + "closest_hit.cu", JAX + "ops/pallas_intersect.py:81"),
+    "sphere_closest": ("K2", PKG + "closest_hit.cu", JAX + "ops/pallas_intersect.py:267"),
+    "cull_select": ("K3", PKG + "cull_select.cu", JAX + "ops/pallas_select.py:48"),
+    "visit_sweep": ("K4", PKG + "visit_sweep.cu", JAX + "ops/pallas_sweep.py:175"),
 }
-SOURCE = "cpu_ray_tracing_implementation_tpu_torch/csrc/closest_hit.cu"
+# the card's peak rates (H100 SXM data sheet): 3.35 TB/s of HBM and 67
+# TFLOP/s of FP32, which counts a fused multiply-add as two operations, so
+# FP32 instructions of any kind issue at half that rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 33.5e12
+# FP32 instructions (a fused multiply-add counts once, a divide, square
+# root, min, max or compare once) per (ray, primitive) or (ray, box) pair,
+# counted from each kernel's source: K1 the plane and edge tests of a live
+# quad (contracted into FMAs), K2 the expanded quadratic of a live sphere,
+# K3 one slab test and key, K4 one primitive test of a visited row
+# (planar / sphere); K2, K3 and K4 round each product and sum on its own
+OPS = {"planar_closest": 36, "sphere_closest": 50, "cull_select": 30,
+       "visit_sweep_planar": 130, "visit_sweep_sphere": 50}
 
 
 def log(*a):
@@ -170,10 +218,24 @@ def compare(label, got, ref, fields):
     return max(err.values())
 
 
+def bound(nbytes: float, ops: float):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take to move ``nbytes`` once and issue ``ops`` FP32 instructions."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_INSTR_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_kernels(dev):
+    """K1 and K2 against their plain versions; returns (errs, times,
+    bounds) keyed by kernel name."""
     gen = torch.Generator().manual_seed(0)
     errs = {"planar_closest": 0.0, "sphere_closest": 0.0}
-    times = {}
+    times, bounds = {}, {}
+
+    def closest_bound(name, R, pack, live):
+        # rays [8,R] in, hit rows [8,R] out, the pack read once
+        nbytes = 4 * (8 * R + pack.numel() + 8 * R)
+        return bound(nbytes, R * live * OPS[name])
 
     def planar_case(label, org, dirs, view, pack, tri, timed=False):
         got = fi.planar_closest_fused(org, dirs, view, TMIN, tri, pack=pack)
@@ -187,6 +249,8 @@ def phase_kernels(dev):
                 cuda_ms(lambda: ch.planar_closest(org, dirs, view, TMIN, tri)),
                 cuda_ms(lambda: fi.planar_closest_fused(org, dirs, view, TMIN, tri,
                                                         pack=pack)))
+            bounds["planar_closest"] = closest_bound(
+                "planar_closest", org.shape[0], pack, int(view.active.sum()))
         return ref
 
     def sphere_case(label, org, dirs, time, view, pack, timed=False):
@@ -201,6 +265,8 @@ def phase_kernels(dev):
                 cuda_ms(lambda: ch.sphere_closest(org, dirs, time, view, TMIN)),
                 cuda_ms(lambda: fi.sphere_closest_fused(org, dirs, time, view, TMIN,
                                                         pack=pack)))
+            bounds["sphere_closest"] = closest_bound(
+                "sphere_closest", org.shape[0], pack, int(view.active.sum()))
         return ref
 
     scene, org, dirs, _ = camera_rays("cornell_box", gen, dev)
@@ -232,18 +298,170 @@ def phase_kernels(dev):
     sphere_case("K2, random 700 in 6 chunks", org, dirs, time, chunks,
                 fi.pack_sphere_constants(chunks))
     torch.cuda.synchronize()
-    return errs, times
+    return errs, times, bounds
 
 
-# ------------------------------------------------------------ phases 3-4
-def psnr_gate(name, dev):
+# ------------------------------------------------- phase 2: K3 and K4
+def colonnade_rays(scene, cam, gen, dev):
+    """R_COLONNADE primary camera rays of the colonnade and their caps."""
+    ids = torch.arange(R_COLONNADE, dtype=torch.int32, device=dev)
+    u = torch.rand(R_COLONNADE, cam_mod.N_CAM_SLOTS, generator=gen).to(dev)
+    org, dirs, _ = cam_mod.generate_rays(cam, ids, u)
+    org = org.contiguous()
+    return org, dirs, isect._packet_cap(scene, org, dirs, None, INF, TMIN)
+
+
+def colonnade_secondary(scene, org, dirs, t, gen):
+    """Rays leaving the primary hits in random directions; a tenth of the
+    lanes dead (cap = tmin), as terminated paths are in the render."""
+    o2, d2 = secondary(org, dirs, t, gen)
+    alive = (torch.rand(org.shape[0], generator=gen) > 0.1).to(org.device)
+    return o2, d2, isect._packet_cap(scene, o2, d2, alive, INF, TMIN)
+
+
+def bits_equal(label, got, ref) -> float:
+    """K3 outputs bit-equal (NaN where NaN); returns the largest abs error
+    of the finite nears (0.0 when bit-equal)."""
+    for name, x, y in zip(("ids", "nears", "rest"), got, ref):
+        if x.dtype == torch.float32:
+            same = ((x.view(torch.int32) == y.view(torch.int32))
+                    | (torch.isnan(x) & torch.isnan(y)))
+        else:
+            same = x == y
+        if not bool(same.all()):
+            raise AssertionError(f"{label}: {name} differ in {int((~same).sum())} "
+                                 "entries")
+    fin = torch.isfinite(ref[1])
+    log(f"  {label}: bit-equal; finite slots {int(fin.sum())} of {fin.numel()}, "
+        f"rays with a finite rest {int(torch.isfinite(ref[2]).sum())}")
+    return max_abs(got[1][fin], ref[1][fin])
+
+
+def sweep_compare(label, got, ref, cap, sphere) -> float:
+    """K4 against its plain version: equal hit masks, pid and mat; t within
+    rtol 1e-4; every other column within atol 1e-3. Reports each column's
+    largest abs error and returns the largest."""
+    hit, hit_r = got[:, 0] < cap, ref[:, 0] < cap
+    if not torch.equal(hit, hit_r):
+        raise AssertionError(f"{label}: hit masks differ in {int((hit != hit_r).sum())} rays")
+    if not torch.equal(got[:, 6:8], ref[:, 6:8]):
+        raise AssertionError(f"{label}: mat or pid differ in "
+                             f"{int((got[:, 6:8] != ref[:, 6:8]).any(1).sum())} rays")
+    names = (("t", "cx", "cy", "cz", "rad", "v") if sphere
+             else ("t", "nx", "ny", "nz", "u", "v"))
+    torch.testing.assert_close(got[hit, 0], ref[hit, 0], rtol=1e-4, atol=0)
+    err = {}
+    for i, name in enumerate(names):
+        if i:
+            torch.testing.assert_close(got[hit, i], ref[hit, i], rtol=0, atol=1e-3,
+                                       msg=lambda m, n=name: f"{label}: {n}: {m}")
+        err[name] = max_abs(got[hit, i], ref[hit, i])
+    log(f"  {label}: rays {got.shape[0]} hits {int(hit.sum())} max abs err {err}")
+    return max(err.values())
+
+
+def phase_select_sweep(scene, cam, dev):
+    """K3 and K4 against their plain versions at the colonnade's shapes;
+    returns (errs, times, bounds) keyed by kernel name."""
+    gen = torch.Generator().manual_seed(1)
+    tabs = scene.tri_perray
+    K = scene.tri_chunks.corner.shape[0]
+    V = min(perray.VISIT_BLOCK, K)
+    errs = {"cull_select": 0.0, "visit_sweep": 0.0}
+    times, bounds = {}, {}
+
+    org, dirs, cap = colonnade_rays(scene, cam, gen, dev)
+    t, _ = perray.planar_closest_perray(org, dirs, scene.tri_chunks, TMIN, True,
+                                        cap, tabs=tabs)
+    o2, d2, cap2 = colonnade_secondary(scene, org, dirs, t, gen)
+    lists = {}
+    for which, (o, d, c) in (("primary", (org, dirs, cap)),
+                             ("secondary", (o2, d2, cap2))):
+        rays = fs.pack_rays(o, d, c)
+        for packed in (True, False):
+            excl = fs.first_excl(o.shape[0], dev)
+            for phase in (1, 2):
+                label = (f"K3 {'packed' if packed else 'exact'}, colonnade "
+                         f"{which}, phase {phase}")
+                got = fs.cull_select_kernel(rays, tabs.boxes, excl, V, K, TMIN, packed)
+                ref = fs.cull_select_plain(rays, tabs.boxes, excl, V, K, TMIN, packed)
+                errs["cull_select"] = max(errs["cull_select"], bits_equal(label, got, ref))
+                if packed and phase == 1:
+                    lists[which] = (o, d, c, got[0], got[1])
+                excl = fs.next_excl(*got[:2])
+        if which == "primary":
+            excl0 = fs.first_excl(o.shape[0], dev)
+            times["cull_select"] = (
+                cuda_ms(lambda: fs.cull_select_kernel(rays, tabs.boxes, excl0, V, K, TMIN)),
+                cuda_ms(lambda: fs.cull_select_plain(rays, tabs.boxes, excl0, V, K, TMIN)))
+            R = o.shape[0]
+            nbytes = 4 * (8 * R + tabs.boxes.numel() + 2 * R + 2 * V * R + R)
+            bounds["cull_select"] = bound(nbytes, R * K * OPS["cull_select"])
+
+    def sweep_case(label, o, d, time, c, ids, nears, table, tri, sphere, timed=False):
+        rays = fsw.pack_rays(o, d, time)
+        z = torch.zeros_like(c)
+        best = (fsw.pack_best_sphere(c, torch.zeros_like(o), z + 1, z.int(), z.int())
+                if sphere else
+                fsw.pack_best_planar(c, torch.zeros_like(o), z, z, z.int(), z.int()))
+        got = fsw.sweep_kernel(rays, ids, nears, best, table, TMIN, tri, sphere)
+        stats = {}
+        ref = fsw.sweep_plain(rays, ids, nears, best, table, TMIN, tri, sphere, stats)
+        errs["visit_sweep"] = max(errs["visit_sweep"],
+                                  sweep_compare(label, got, ref, c, sphere))
+        if timed:
+            times["visit_sweep"] = (
+                cuda_ms(lambda: fsw.sweep_kernel(rays, ids, nears, best, table, TMIN,
+                                                 tri, sphere)),
+                cuda_ms(lambda: fsw.sweep_plain(rays, ids, nears, best, table, TMIN,
+                                                tri, sphere)))
+            R, Vs = ids.shape
+            F, C = table.shape[1], table.shape[2]
+            rows = int(torch.unique(ids.clamp(0, table.shape[0] - 1)).numel())
+            nbytes = 4 * (8 * R + 2 * R * Vs + 8 * R + 8 * R + rows * F * C)
+            kind = "visit_sweep_sphere" if sphere else "visit_sweep_planar"
+            bounds["visit_sweep"] = bound(nbytes, stats["visits"] * C * OPS[kind])
+            log(f"  K4 work at the timed shapes: {stats['visits']} visited (ray, slot) "
+                f"pairs of {R * Vs}, {rows} distinct rows")
+
+    for which, (o, d, c, ids, nears) in lists.items():
+        sweep_case(f"K4 triangles, colonnade {which}, phase 1", o, d, None, c, ids,
+                   nears, tabs.table, True, False, timed=which == "primary")
+
+    # spheres: a random table of 6,000 moving spheres (47 chunks)
+    rng = np.random.default_rng(2)
+    b = SceneBuilder()
+    mats = [b.lambertian((0.5, 0.5, 0.5)), b.metal((0.7, 0.7, 0.7))]
+    for i, c in enumerate(rng.uniform(-30, 30, (6000, 3))):
+        b.moving_sphere(c, c + rng.normal(0, 0.2, 3), rng.uniform(0.2, 1.2), mats[i % 2])
+    sph = b.build(dev)
+    stabs = sph.sphere_perray
+    Ks = sph.sphere_chunks.rad.shape[0]
+    o = (torch.rand(R_COLONNADE, 3, generator=gen) * 70 - 35).to(dev)
+    d = torch.randn(R_COLONNADE, 3, generator=gen).to(dev)
+    time = torch.rand(R_COLONNADE, generator=gen).to(dev)
+    c = isect._packet_cap(sph, o, d, None, INF, TMIN)
+    ids, nears, _ = fs.cull_select_kernel(fs.pack_rays(o, d, c), stabs.boxes,
+                                          fs.first_excl(R_COLONNADE, dev),
+                                          min(perray.VISIT_BLOCK, Ks), Ks, TMIN)
+    sweep_case(f"K4 spheres, random 6000 in {Ks} chunks, phase 1", o, d, time, c,
+               ids, nears, stabs.table, False, True)
+    torch.cuda.synchronize()
+    return errs, times, bounds
+
+
+# ------------------------------------------------------------ phases 3-5
+def parity_scene(name, dev):
+    width, spp = PARITY[name][:2]
+    return catalog.SCENES[name](width=width, spp=spp, device=dev)
+
+
+def psnr_gate(name, img):
+    """The C++ reference parity gate of tests/test_parity.py on ``img``,
+    rendered at the scene's parity size with key 0."""
     width, spp, f, min_psnr, max_rel = PARITY[name]
     ref = np.load(f"tests/data/parity_{name}.npz")["ref_ds"].astype(np.float64)
-    scene, cam = catalog.SCENES[name](width=width, spp=spp, device=dev)
-    t0 = time.perf_counter()
-    img = integrator.render_image(scene, cam, keys.key(0))
     ours = np.clip(film.linear_to_gamma(img).cpu().numpy(), 0.0, 1.0)
-    secs = time.perf_counter() - t0
     h, w = (ours.shape[0] // f) * f, (ours.shape[1] // f) * f
     a = ours[:h, :w].reshape(h // f, f, w // f, f, 3).mean(axis=(1, 3))
     if a.shape != ref.shape:
@@ -251,7 +469,7 @@ def psnr_gate(name, dev):
     psnr = 10.0 * np.log10(1.0 / max(float(np.mean((a - ref) ** 2)), 1e-12))
     rel = abs(ours.mean() - ref.mean()) / ref.mean()
     log(f"  parity {name} {width}px {spp}spp: PSNR {psnr:.3f} dB (gate > {min_psnr}), "
-        f"mean rel err {rel:.5f} (gate < {max_rel}), {secs:.2f} s")
+        f"mean rel err {rel:.5f} (gate < {max_rel})")
     if not (psnr > min_psnr and rel < max_rel):
         raise AssertionError(f"{name}: parity gate failed")
 
@@ -265,19 +483,98 @@ def golden(name, dev):
         raise AssertionError(f"{name}: golden mean off")
 
 
-def full_workload(dev):
-    scene, cam = catalog.cornell_box(width=512, spp=256, max_depth=8, device=dev)
+def perray_vs_oracle(scene, cam, dev):
+    """The per-ray closest hit (K3 + K4) against the chunk-scan oracle on
+    the full colonnade, primary and secondary rays."""
+    gen = torch.Generator().manual_seed(3)
+    org, dirs, cap = colonnade_rays(scene, cam, gen, dev)
+    rays = {"primary": (org, dirs, cap)}
+    t, _ = perray.planar_closest_perray(org, dirs, scene.tri_chunks, TMIN, True,
+                                        cap, tabs=scene.tri_perray)
+    rays["secondary"] = colonnade_secondary(scene, org, dirs, t, gen)
+    for which, (o, d, c) in rays.items():
+        t, pay = perray.planar_closest_perray(o, d, scene.tri_chunks, TMIN, True,
+                                              c, tabs=scene.tri_perray)
+        t0 = time.perf_counter()
+        t_o, pay_o = ch.planar_closest(o, d, scene.tri_chunks, TMIN, True, tmax=c)
+        secs = time.perf_counter() - t0
+        # The same winner: t within rtol 1e-4 or hit points within 1e-3 (8
+        # ulp of 1,200) along the normal: the two formulas round n.c - n.o
+        # apart by a few ulp of the coordinates, which a grazing ray divides
+        # by a small n.d. A ray whose winners or hit masks differ must have
+        # a hit the two triangle tests can round apart: a near-tie (both
+        # hit, t as close as above: two surfaces at one depth), a hit within
+        # 1e-2 of an edge of its triangle (at +-1,200 the edge coefficients
+        # of the columns' sliver triangles, 0.12 units wide, step by
+        # ~1e-3), or a hit on the surface the ray leaves, within 5e-3 of
+        # its origin along the normal (a secondary ray starts where the
+        # primary's t, itself ~1e-3 off, put it).
+        hit, hit_o = torch.isfinite(t), torch.isfinite(t_o)
+
+        def marginal(tt, p):
+            u, v = p[1], p[2]
+            edge = torch.minimum(torch.minimum(u, v), 1.0 - u - v) < 1e-2
+            fin = torch.where(torch.isfinite(tt), tt, torch.zeros_like(tt))
+            own = (fin * (p[0] * d).sum(-1)).abs() <= 5e-3
+            return torch.isfinite(tt) & (edge | own)
+
+        both = hit & hit_o
+        same = both & (pay[4] == pay_o[4])
+        other = both & ~same
+        masks = hit != hit_o
+        err = (t - t_o).abs()
+        close = both & ((err <= 1e-4 * t_o.abs())
+                        | (err * (pay[0] * d).sum(-1).abs() <= 1e-3))
+        explained = close | marginal(t, pay) | marginal(t_o, pay_o)
+        bad = (same & ~close) | ((other | masks) & ~explained)
+        if bool(bad.any()):
+            rows = [f"ray {i}: t {float(t[i])} / {float(t_o[i])}, pid "
+                    f"{int(pay[4][i])} / {int(pay_o[4][i])}, u v {float(pay[1][i])} "
+                    f"{float(pay[2][i])} / {float(pay_o[1][i])} {float(pay_o[2][i])}, "
+                    f"n.d {float((pay[0][i] * d[i]).sum())} / "
+                    f"{float((pay_o[0][i] * d[i]).sum())}"
+                    for i in torch.nonzero(bad)[:8, 0].tolist()]
+            raise AssertionError(f"per-ray vs oracle, {which}: {int(bad.sum())} "
+                                 "rays disagree:\n  " + "\n  ".join(rows))
+        log(f"  per-ray vs oracle, colonnade {which}: rays {o.shape[0]} hits "
+            f"{int(hit_o.sum())}; same winner {int(same.sum())}, t max abs err "
+            f"{max_abs(t[same], t_o[same]):.3g}, "
+            f"{int((same & (err > 1e-4 * t_o.abs())).sum())} outside rtol 1e-4; "
+            f"another winner {int(other.sum())} (near-ties "
+            f"{int((other & close).sum())}, largest t gap "
+            f"{float(err[other].max()) if bool(other.any()) else 0.0:.3g}); hit "
+            f"in one only {int(masks.sum())}; oracle {secs:.2f} s")
+
+
+def full_render(label, scene, cam):
+    """Render the whole image once with key 0; returns (seconds, camera
+    rays/s, image)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img = integrator.render_image(scene, cam, keys.key(0))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    if img.shape != (512, 512, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError("full render: wrong shape or non-finite values")
+    if img.shape != (cam.height, cam.width, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: wrong shape or non-finite values")
     rays = cam.width * cam.height * cam.spp
-    log(f"  cornell_box 512x512 256spp depth 8: {secs:.3f} s, "
-        f"{rays / secs / 1e6:.3f} M camera rays/s, mean {float(img.mean()):.6f}")
-    return secs, rays / secs
+    log(f"  {label}: {secs:.3f} s, {rays / secs / 1e6:.3f} M camera rays/s, "
+        f"mean {float(img.mean()):.6f}")
+    return secs, rays / secs, img
+
+
+def main_path(label, scene, cam, names):
+    """One main-path render, its kernel launches counted alone: every count
+    set to 0 just before it and read just after. Fails unless each kernel
+    in ``names`` launched. Returns (seconds, camera rays/s, image,
+    launches)."""
+    profiling.reset_counts()
+    secs, rps, img = full_render(label, scene, cam)
+    launches = profiling.launches()
+    log(f"  launches in this render: {launches}")
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
+    return secs, rps, img, launches
 
 
 def main() -> int:
@@ -297,37 +594,67 @@ def main() -> int:
     log(f"  built {build.library_path().name} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.last_build['seconds']:.2f} s, cached {build.last_build['cached']})")
     for line in build.last_build["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
 
     log("phase 2: kernels against their plain versions")
-    errs, times = phase_kernels(dev)
+    errs, times, bounds = phase_kernels(dev)
+    t0 = time.perf_counter()
+    col_scene, col_cam = catalog.sponza(device=dev)
+    log(f"  colonnade {COLONNADE_PX} px built in {time.perf_counter() - t0:.2f} s: "
+        f"{col_scene.counts[2]} triangles in {col_scene.tri_chunks.corner.shape[0]} "
+        f"chunks, {col_scene.counts[1]} light quad")
+    e, t, b = phase_select_sweep(col_scene, col_cam, dev)
+    errs.update(e)
+    times.update(t)
+    bounds.update(b)
 
-    log("phase 3: main path, checked (launch counts reset)")
-    fi.reset_launches()
-    for name in sorted(GOLDEN_MEANS):
+    log("phase 3: checks (their launches are not counted)")
+    for name in ("cornell_box", "three_material_ball", "sponza"):
         golden(name, dev)
-    for name in sorted(PARITY):
-        psnr_gate(name, dev)
+    psnr_gate("cornell_box", full_render("cornell_box parity size",
+                                         *parity_scene("cornell_box", dev))[2])
+    perray_vs_oracle(col_scene, col_cam, dev)
 
-    log("phase 4: main path, full workload")
-    full_secs, rays_per_s = full_workload(dev)
-    launches = dict(fi.LAUNCHES)
-    log(f"phase 5: launches over phases 3-4: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    log("phase 4, 5: main paths, each render's launches counted on its own")
+    scene, cam = catalog.cornell_box(width=512, spp=256, max_depth=8, device=dev)
+    cornell_secs, cornell_rps, _, launches_cornell = main_path(
+        "cornell_box 512x512 256spp depth 8", scene, cam, ("planar_closest",))
+    # the slice-1 path's sphere scene at its parity size, which the gate reads
+    _, _, img, launches_ball = main_path(
+        "three_material_ball 320px 16spp depth 5",
+        *parity_scene("three_material_ball", dev), ("sphere_closest",))
+    psnr_gate("three_material_ball", img)
+    perray.reset_phases()
+    col_secs, col_rps, _, launches_col = main_path(
+        f"colonnade {COLONNADE_PX}x{COLONNADE_PX} {col_cam.spp}spp depth "
+        f"{col_cam.max_depth}", col_scene, col_cam,
+        ("planar_closest", "cull_select", "visit_sweep"))
+    calls, phases = perray.PHASES["calls"], perray.PHASES["phases"]
+    log(f"  colonnade render: {calls} per-ray closest-hit calls (bounces), "
+        f"{phases} selection phases, {phases / max(calls, 1):.3f} per bounce")
+    # each kernel's launches in the render of its own slice's scene
+    launches = {"planar_closest": launches_cornell["planar_closest"],
+                "sphere_closest": launches_ball["sphere_closest"],
+                "cull_select": launches_col["cull_select"],
+                "visit_sweep": launches_col["visit_sweep"]}
 
     kernels = []
-    for name, (kid, replaces) in KERNELS.items():
-        ms, plain_ms, wrapped_ms = times[name]
-        log(f"  {kid} {name} at {R_MAIN} rays: kernel {ms:.4f} ms, with the "
-            f"wrapper's packing {wrapped_ms:.4f} ms, plain {plain_ms:.4f} ms")
-        kernels.append({"name": f"{kid} {name}", "route": "cuda", "source": SOURCE,
+    for name, (kid, source, replaces) in KERNELS.items():
+        ms, plain_ms = times[name][:2]
+        bound_ms, bound_by = bounds[name]
+        log(f"  {kid} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})"
+            + (f", with the wrapper's packing {times[name][2]:.4f} ms"
+               if len(times[name]) > 2 else ""))
+        kernels.append({"name": f"{kid} {name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms})
-    log(f"full workload: {full_secs:.3f} s, {rays_per_s:.1f} camera rays/s; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+                        "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
+    log(f"full workloads: cornell_box {cornell_secs:.3f} s, {cornell_rps:.1f} camera "
+        f"rays/s; colonnade {col_secs:.3f} s, {col_rps:.1f} camera rays/s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, into ``build/`` inside the package (listed in
 ``.gitignore``), and is redone whenever a source's content changes: the
 library's file name carries a hash of the sources.
@@ -27,9 +28,10 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
-SOURCES = ("closest_hit.cu",)
+SOURCES = ("closest_hit.cu", "cull_select.cu", "visit_sweep.cu")
 # multiply-add contraction stays on; a kernel that must round like its plain
-# version says so in its source (K2's sphere quadratic, csrc/closest_hit.cu)
+# version says so in its source (K2's sphere quadratic, csrc/closest_hit.cu;
+# K4, csrc/visit_sweep.cu)
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 
 _lock = threading.Lock()
@@ -61,26 +63,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcrt_kernels_{source_hash()}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{Path(cmd[0]).name} failed ({p.returncode}) "
+                               f"on {cmd[-1]}:\n{out}")
+    return "".join(outs)
+
+
 def compile_library() -> Path:
-    """Compile the sources if the library for their hash is missing."""
+    """Compile the sources if the library for their hash is missing: one
+    ``nvcc -c`` per source in parallel, then one link."""
     path = library_path()
     if path.exists():
         last_build.update(seconds=0.0, cached=True, log="")
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *FLAGS, "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-o", tmp] + [str(CSRC / s) for s in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    last_build.update(seconds=seconds, cached=False,
-                      log=proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [str(Path(work) / f"{Path(s).stem}.o") for s in SOURCES]
+        log = _run_all([[nvcc, *FLAGS, "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                         "-c", "-o", o, str(CSRC / s)]
+                        for s, o in zip(SOURCES, objs)])
+        tmp = str(Path(work) / "lib.so")
+        log += _run_all([[nvcc, *FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    last_build.update(seconds=time.perf_counter() - t0, cached=False, log=log)
     return path
 
 
@@ -97,6 +110,12 @@ def load() -> ctypes.CDLL:
             lib.crt_sphere_closest.argtypes = [ptr, i32, ptr, i32, i32, f32,
                                                f32, ptr, ptr]
             lib.crt_sphere_closest.restype = i32
+            lib.crt_cull_select.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
+                                            f32, i32, i32, ptr, ptr, ptr, ptr]
+            lib.crt_cull_select.restype = i32
+            lib.crt_visit_sweep.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                            i32, f32, i32, i32, ptr, ptr]
+            lib.crt_visit_sweep.restype = i32
             lib.crt_error_string.argtypes = [i32]
             lib.crt_error_string.restype = ctypes.c_char_p
             _lib = lib

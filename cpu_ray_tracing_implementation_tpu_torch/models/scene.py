@@ -5,11 +5,13 @@ primitive, material and texture lives in a flat table padded to at least
 one row and addressed by integer id. Tables are frozen dataclasses of
 tensors on one device (``SceneBuilder.build(device=...)``).
 
-This slice ports the dense tables (at most ``chunked.DENSE_MAX`` rows per
-primitive type), solid and checker textures, the lambertian, metal,
-dielectric and diffuse-light materials, quad lights, a solid background and
-the ``world_offset`` recentering. The builder methods for other features
-are not here yet (ROADMAP queue 1).
+Ported so far: the dense tables, and for tables above
+``chunked.DENSE_MAX`` rows the chunked tables (primitives in BVH order,
+cut into chunks of ``chunked.CHUNK`` with AABBs, ``utils/accel.py``) that
+the per-ray accelerator (``ops/perray.py``) reads; solid and checker
+textures, the lambertian, metal, dielectric and diffuse-light materials,
+quad lights, a solid background and the ``world_offset`` recentering. The
+builder methods for other features are not here yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as chunked_mod
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+from cpu_ray_tracing_implementation_tpu_torch.ops import perray
+from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
+from cpu_ray_tracing_implementation_tpu_torch.utils import accel
 
 # material type codes (src/material.h concrete classes)
 MAT_LAMBERTIAN = 0
@@ -126,6 +131,15 @@ class Scene:
     world_hi: tuple | None = None
     # world = stored + world_offset (None = identity); see _maybe_recenter
     world_offset: torch.Tensor | None = None
+    # tables above chunked.DENSE_MAX rows, in BVH order and cut into chunks
+    # (None for small tables, which take the 1-chunk views below)
+    sphere_chunks: chunked_mod.SphereChunks | None = None
+    quad_chunks: chunked_mod.PlanarChunks | None = None
+    tri_chunks: chunked_mod.PlanarChunks | None = None
+    # build-time BVH permutation (dense row -> chunk-major position)
+    sphere_chunk_order: torch.Tensor | None = None  # [S] int32
+    quad_chunk_order: torch.Tensor | None = None    # [Q] int32
+    tri_chunk_order: torch.Tensor | None = None     # [T] int32
 
     @property
     def n_volumes(self) -> int:
@@ -140,21 +154,45 @@ class Scene:
         return self.quads.corner.device
 
     # The 1-chunk views of the dense tables and their kernel constant packs,
-    # built once per scene rather than once per bounce.
+    # and the per-ray accelerator's sweep tables and box packs of the
+    # chunked ones, built once per scene rather than once per bounce. A
+    # chunked table never gets a 1-chunk view.
     @functools.cached_property
     def quad_view(self):
+        _dense_only("quad", self.quad_chunks)
         view = fi.dense_quad_view(self.quads)
         return view, fi.pack_prim_constants(view)
 
     @functools.cached_property
     def tri_view(self):
+        _dense_only("triangle", self.tri_chunks)
         view = fi.dense_tri_view(self.tris)
         return view, fi.pack_prim_constants(view)
 
     @functools.cached_property
     def sphere_view(self):
+        _dense_only("sphere", self.sphere_chunks)
         view = fi.dense_sphere_view(self.spheres)
         return view, fi.pack_sphere_constants(view)
+
+    @functools.cached_property
+    def quad_perray(self) -> perray.PerRayTables:
+        return perray.planar_tables(self.quad_chunks)
+
+    @functools.cached_property
+    def tri_perray(self) -> perray.PerRayTables:
+        return perray.planar_tables(self.tri_chunks)
+
+    @functools.cached_property
+    def sphere_perray(self) -> perray.PerRayTables:
+        return perray.sphere_tables(self.sphere_chunks)
+
+
+def _dense_only(kind: str, chunks) -> None:
+    if chunks is not None:
+        raise ValueError(f"the {kind} table is chunked (above "
+                         f"{chunked_mod.DENSE_MAX} rows): it has no 1-chunk "
+                         "view, the per-ray accelerator reads it")
 
 
 def _rot_matrix(axis: str, degrees: float) -> np.ndarray:
@@ -284,6 +322,13 @@ class SceneBuilder:
         return [self.quad(c, u, v, mat, rotate=rotate, translate=translate)
                 for c, u, v in faces]
 
+    def triangles(self, verts, mat: int, rotate=None, translate=None):
+        """Bulk add [T,3,3] triangle vertices (a mesh, main.cc:345-498)."""
+        verts = _apply_instance(np.asarray(verts, np.float64).reshape(-1, 3),
+                                rotate, translate).reshape(-1, 3, 3)
+        for t in verts:
+            self._tris.append((t[0], t[1], t[2], int(mat)))
+
     def triangle(self, p0, p1, p2, mat: int, rotate=None, translate=None) -> int:
         pts = _apply_instance(np.stack([np.asarray(p, np.float64)
                                         for p in (p0, p1, p2)]),
@@ -340,15 +385,11 @@ class SceneBuilder:
         return off
 
     # ---------------- build ----------------
-    def build(self, device="cpu") -> Scene:
-        """Padded tables on ``device``. Tables above ``chunked.DENSE_MAX``
-        rows need the chunked route, which is not ported yet."""
-        for name, rows in (("spheres", self._sph), ("quads", self._quads),
-                           ("triangles", self._tris)):
-            if len(rows) > chunked_mod.DENSE_MAX:
-                raise NotImplementedError(
-                    f"{len(rows)} {name}: chunked tables (ROADMAP M8) are "
-                    "not ported yet")
+    def build(self, device=tbl.DEFAULT_DEVICE) -> Scene:
+        """Padded tables on ``device`` (the card unless the caller asks for
+        the CPU). A table above ``chunked.DENSE_MAX`` rows also gets its
+        chunked form (``scene.py:660-735`` of the JAX package)."""
+        device = tbl.as_device(device)
         f32 = np.float32
         world_offset = self._maybe_recenter()
 
@@ -380,6 +421,8 @@ class SceneBuilder:
         sph = table(self._sph, [(0, "vec3"), (1, "vec3"), (2, f32), (3, np.int32)])
         qds = table(self._quads, vec4)
         tri = table(self._tris, vec4)
+
+        chunks = self._chunk_tables()
 
         vol_rows = self._vols
         n_v = max(1, len(vol_rows))
@@ -439,7 +482,7 @@ class SceneBuilder:
                  materials=mats, textures=texs,
                  lights=np.array(self._lights, np.int32),
                  world_offset=(None if world_offset is None
-                               else world_offset.astype(f32))),
+                               else world_offset.astype(f32)), **chunks),
             device=device,
             background=self._background,
             tex_types_used=tuple(sorted({t["ttype"] for t in self._texs})),
@@ -450,20 +493,91 @@ class SceneBuilder:
             world_hi=tuple(float(x) for x in bhi) if have_bounds else None)
 
 
+    def _chunk_tables(self) -> dict:
+        """Chunked tables of the families above ``chunked.DENSE_MAX`` rows:
+        ``{"<family>_chunks": column list | None, "<family>_chunk_order":
+        [n] int32 | None}`` with the columns in dataclass field order."""
+        f32 = np.float32
+        C = chunked_mod.CHUNK
+
+        def chunkify(cols, lo, hi, mats):
+            """BVH order, pad to a CHUNK multiple, reshape chunk-major."""
+            n = len(lo)
+            order, _ = accel.build_bvh((lo + hi) / 2.0, lo, hi,
+                                       max_leaf=MAX_LEAF)
+            k = (n + C - 1) // C
+            pad_n = k * C - n
+            out = []
+            for col in cols:
+                a = np.asarray(col, f32)[order]
+                a = np.concatenate([a, np.zeros((pad_n,) + a.shape[1:], a.dtype)])
+                out.append(a.reshape((k, C) + a.shape[1:]))
+            m = np.concatenate([np.asarray(mats, np.int32)[order],
+                                np.zeros(pad_n, np.int32)])
+            act = np.concatenate([np.ones(n, bool), np.zeros(pad_n, bool)])
+            clo, chi = accel.chunk_bounds(lo[order], hi[order], C)
+            return (out + [m.reshape(k, C), act.reshape(k, C), clo, chi],
+                    np.asarray(order, np.int32))
+
+        def planar(corner, eu, ev, mats):
+            pts = np.stack([corner, corner + eu, corner + ev, corner + eu + ev])
+            # pad degenerate axes (src/aabb.h:81-86)
+            return chunkify([corner, eu, ev], pts.min(axis=0) - 1e-4,
+                            pts.max(axis=0) + 1e-4, mats)
+
+        def stack(rows, idx):
+            return np.stack([np.asarray(r[idx], f32) for r in rows])
+
+        out = {f"{fam}_{what}": None for fam in ("sphere", "quad", "tri")
+               for what in ("chunks", "chunk_order")}
+        big = chunked_mod.DENSE_MAX
+        if len(self._sph) > big:
+            c0, c1 = stack(self._sph, 0), stack(self._sph, 1)
+            rad = np.array([r[2] for r in self._sph], f32)
+            out["sphere_chunks"], out["sphere_chunk_order"] = chunkify(
+                [c0, c1, rad], np.minimum(c0, c1) - rad[:, None],
+                np.maximum(c0, c1) + rad[:, None], [r[3] for r in self._sph])
+        if len(self._quads) > big:
+            out["quad_chunks"], out["quad_chunk_order"] = planar(
+                stack(self._quads, 0), stack(self._quads, 1),
+                stack(self._quads, 2), [r[3] for r in self._quads])
+        if len(self._tris) > big:
+            v0 = stack(self._tris, 0)
+            out["tri_chunks"], out["tri_chunk_order"] = planar(
+                v0, stack(self._tris, 1) - v0, stack(self._tris, 2) - v0,
+                [r[3] for r in self._tris])
+        return out
+
+
+# primitives per BVH leaf of the chunk order (the JAX package's MAX_LEAF)
+MAX_LEAF = 8
+
 _TABLES = {"spheres": Spheres, "quads": Quads, "tris": Triangles,
            "volumes": Volumes, "materials": Materials, "textures": Textures}
+_CHUNKS = {"sphere_chunks": chunked_mod.SphereChunks,
+           "quad_chunks": chunked_mod.PlanarChunks,
+           "tri_chunks": chunked_mod.PlanarChunks}
 
 
-def scene_from_tables(arrays: dict, device="cpu", **static) -> Scene:
+def scene_from_tables(arrays: dict, device, **static) -> Scene:
     """Scene on ``device`` from numpy arrays: ``arrays`` maps each table
     name of ``_TABLES`` to its column list (dataclass field order), plus
-    ``lights`` and ``world_offset`` (or None). ``static`` holds the
-    non-tensor Scene fields."""
+    ``lights`` and ``world_offset`` (or None), and optionally, for each
+    name of ``_CHUNKS``, its column list and its ``*_chunk_order`` array as
+    ``SceneBuilder._chunk_tables`` gives them (absent or None: the table is
+    dense). ``static`` holds the non-tensor Scene fields."""
     def t(a):
         return torch.as_tensor(np.array(a), device=device)  # own, writable copy
 
+    def opt(a):
+        return None if a is None else t(a)
+
     tables = {name: cls(*[t(a) for a in arrays[name]])
               for name, cls in _TABLES.items()}
-    off = arrays["world_offset"]
+    for name, cls in _CHUNKS.items():
+        cols = arrays.get(name)
+        tables[name] = None if cols is None else cls(*[t(a) for a in cols])
+        order = name.replace("_chunks", "_chunk_order")
+        tables[order] = opt(arrays.get(order))
     return Scene(**tables, lights=t(arrays["lights"]),
-                 world_offset=None if off is None else t(off), **static)
+                 world_offset=opt(arrays["world_offset"]), **static)

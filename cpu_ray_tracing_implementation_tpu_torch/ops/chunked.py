@@ -7,7 +7,8 @@ running closest hit, and skips a chunk whose AABB no ray can reach.
 
 ``planar_closest`` and ``sphere_closest`` are what ``ops/fused_intersect``
 runs for CPU tensors, and what the CUDA kernels in ``csrc/closest_hit.cu``
-are compared against on the card.
+are compared against on the card. They are also the oracle that the
+per-ray accelerator (``ops/perray.py``) is held to.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
 
 INF = float("inf")
 
+# primitives per chunk of a chunked table
+CHUNK = 128
 # tables at or below this stay on the dense single-pass path
 DENSE_MAX = 512
 

@@ -1,0 +1,207 @@
+"""Fused per-ray chunk cull + top-V select: the wrapper of CUDA kernel K3.
+
+Port of ``cpu_ray_tracing_implementation_tpu/ops/pallas_select.py``. Each
+ray is slab-tested against all K chunk AABBs and the V nearest crossed
+chunks are selected, ascending by (entry t, chunk id), without an [R, K]
+matrix in device memory (``csrc/cull_select.cu``).
+
+Phase semantics (the per-ray accelerator's exactness loop,
+``ops/perray.py``): a phase excludes everything at or below its
+predecessor's last selected key (thr, last id), so consecutive phases
+partition the whole ordered visit list.
+
+Packed mode (the default, needs tmin > 0) selects on one int32 key
+(near's f32 bits with the low IDB bits cleared | chunk id): the nears it
+returns are rounded down by the stolen bits, which only ever makes the
+phase loop do more work, never less. An exhausted slot returns NaN. Exact
+mode selects on (near, id) lexicographically with a first-index tie-break
+and returns +inf (and id 0) for an exhausted slot.
+
+Dispatch is by the device of the tensors: a CPU tensor takes the plain
+version ``cull_select_plain``; a CUDA tensor launches the kernel or raises.
+``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
+
+BIG = 1e30
+INF = float("inf")
+MASKV = 0x7FFFFFFF        # above every real key
+# the kernel is instantiated for these visit-block sizes (ops/perray.py
+# takes min(V, K) with V = 16)
+V_MAX = 16
+
+LAUNCHES = {"cull_select": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["cull_select"] = 0
+
+
+def id_bits(Kp: int) -> int:
+    """Low key bits holding the chunk id (packed mode)."""
+    return max(11, (Kp - 1).bit_length())
+
+
+def pack_rays(org, dirs, cap) -> torch.Tensor:
+    """[R, 8] ray rows: org xyz, dir xyz, cap (the per-ray traversal
+    bound), pad."""
+    R = org.shape[0]
+    rays = torch.zeros((R, 8), dtype=torch.float32, device=org.device)
+    rays[:, 0:3] = org
+    rays[:, 3:6] = dirs
+    rays[:, 6] = cap
+    return rays
+
+
+def pack_boxes(lo, hi) -> torch.Tensor:
+    """[8, Kp] AABB pack (rows lo xyz, hi xyz, pad), chunks padded to a
+    multiple of 128 with inverted boxes that never cull in."""
+    K = lo.shape[0]
+    Kp = -(-K // 128) * 128
+    pack = torch.full((8, Kp), BIG, dtype=torch.float32, device=lo.device)
+    pack[0:3, :K] = lo.T
+    pack[3:6, :K] = hi.T
+    pack[3:6, K:] = -BIG
+    return pack
+
+
+def first_excl(R: int, device) -> torch.Tensor:
+    """[R, 2] phase-1 exclusion key (threshold -BIG, last id -1): exclude
+    nothing."""
+    excl = torch.empty((R, 2), dtype=torch.float32, device=device)
+    excl[:, 0] = -BIG
+    excl[:, 1] = -1.0
+    return excl
+
+
+def next_excl(ids, nears) -> torch.Tensor:
+    """[R, 2] exclusion key of the phase after one that returned (ids,
+    nears): its last selected (near, id)."""
+    return torch.stack([nears[:, -1], ids[:, -1].to(torch.float32)], dim=1)
+
+
+# -------------------------------------------------------- plain version
+def _near_matrix(rays, boxes, K_real: int, tmin: float) -> torch.Tensor:
+    """[R, Kp] entry t of each ray into each box, +inf where its [tmin, cap]
+    interval misses (pallas_select.py:48-67, op for op)."""
+    R, Kp = rays.shape[0], boxes.shape[1]
+    near = torch.full((R, Kp), -BIG, dtype=torch.float32, device=rays.device)
+    far = torch.full((R, Kp), BIG, dtype=torch.float32, device=rays.device)
+    for a in range(3):
+        o = rays[:, a:a + 1]
+        d = rays[:, 3 + a:4 + a]
+        inv = 1.0 / torch.where(torch.abs(d) > 1e-20, d,
+                                torch.full_like(d, 1e-20))
+        t0 = (boxes[a:a + 1, :] - o) * inv
+        t1 = (boxes[3 + a:4 + a, :] - o) * inv
+        near = torch.maximum(near, torch.minimum(t0, t1))
+        far = torch.minimum(far, torch.maximum(t0, t1))
+    cap = rays[:, 6:7]
+    col = torch.arange(Kp, device=rays.device)[None, :]
+    ok = (near <= far) & (far >= tmin) & (near <= cap) & (col < K_real)
+    return torch.where(ok, torch.clamp(near, min=tmin),
+                       torch.full_like(near, INF))
+
+
+def cull_select_plain(rays, boxes, excl, V: int, K_real: int, tmin: float,
+                      packed: bool = True):
+    """Plain PyTorch K3: the Pallas kernel's V selection rounds over the
+    [R, Kp] near matrix. Returns (ids [R,V] int32, nears [R,V] f32,
+    rest [R] f32)."""
+    if tmin <= 0.0:
+        packed = False
+    R, Kp = rays.shape[0], boxes.shape[1]
+    nearm = _near_matrix(rays, boxes, K_real, tmin)
+    col = torch.arange(Kp, dtype=torch.int32, device=rays.device)[None, :]
+    thr = excl[:, 0:1]
+    lid = excl[:, 1:2].to(torch.int32)
+    ids = torch.empty((R, V), dtype=torch.int32, device=rays.device)
+    nears = torch.empty((R, V), dtype=torch.float32, device=rays.device)
+
+    if packed:
+        hmask = -(1 << id_bits(Kp))
+        key = (nearm.view(torch.int32) & hmask) | col
+        thr_bits = ((torch.clamp(thr, min=0.0).view(torch.int32) & hmask)
+                    | torch.clamp(lid, min=0))
+        excl_key = torch.where(
+            thr >= 0.0, thr_bits,
+            torch.where(torch.isnan(thr), torch.full_like(thr_bits, MASKV),
+                        torch.zeros_like(thr_bits)))
+        maskv = torch.full_like(key, MASKV)
+        key = torch.where(key <= excl_key, maskv, key)
+        for v in range(V):
+            m = torch.amin(key, dim=1, keepdim=True)
+            ids[:, v:v + 1] = m & ~hmask
+            nears[:, v:v + 1] = (m & hmask).view(torch.float32)
+            key = torch.where(key == m, maskv, key)
+        rest = (torch.amin(key, dim=1) & hmask).view(torch.float32)
+        return ids, nears, rest
+
+    visited = (nearm < thr) | ((nearm == thr) & (col <= lid))
+    inf = torch.full_like(nearm, INF)
+    nearm = torch.where(visited, inf, nearm)
+    for v in range(V):
+        m = torch.amin(nearm, dim=1, keepdim=True)
+        idx = torch.amin(torch.where(nearm == m, col, torch.full_like(col, Kp)),
+                         dim=1, keepdim=True)
+        ids[:, v:v + 1] = idx
+        nears[:, v:v + 1] = m
+        nearm = torch.where(col == idx, inf, nearm)
+    return ids, nears, torch.amin(nearm, dim=1)
+
+
+# ---------------------------------------------------------- kernel call
+def cull_select_kernel(rays, boxes, excl, V: int, K_real: int, tmin: float,
+                       packed: bool = True):
+    """Kernel K3 on CUDA tensors: rays [R,8], boxes [8,Kp], excl [R,2]
+    f32 -> (ids [R,V] int32, nears [R,V] f32, rest [R] f32)."""
+    from cpu_ray_tracing_implementation_tpu_torch.kernels import build
+
+    if tmin <= 0.0:
+        packed = False
+    R, Kp = rays.shape[0], boxes.shape[1]
+    tbl.check_cuda("rays", rays, torch.float32, (R, 8))
+    tbl.check_cuda("boxes", boxes, torch.float32, (8, Kp))
+    tbl.check_cuda("excl", excl, torch.float32, (R, 2))
+    if not (1 <= V <= V_MAX):
+        raise ValueError(f"K3 is built for V in 1..{V_MAX}, got {V}")
+    if Kp % 128 or not (0 < K_real <= Kp):
+        raise ValueError(f"boxes must hold K_real={K_real} chunks padded to a "
+                         f"multiple of 128, got {Kp}")
+    if rays.device != boxes.device or rays.device != excl.device:
+        raise ValueError("rays, boxes and excl lie on different devices")
+    ids = torch.empty((R, V), dtype=torch.int32, device=rays.device)
+    nears = torch.empty((R, V), dtype=torch.float32, device=rays.device)
+    rest = torch.empty((R,), dtype=torch.float32, device=rays.device)
+    lib = build.load()
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        err = lib.crt_cull_select(rays.data_ptr(), boxes.data_ptr(),
+                                  excl.data_ptr(), R, Kp, K_real, V,
+                                  float(tmin), int(bool(packed)),
+                                  id_bits(Kp), ids.data_ptr(),
+                                  nears.data_ptr(), rest.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"crt_cull_select launch failed: "
+                           f"{build.error_string(err)}")
+    LAUNCHES["cull_select"] += 1
+    return ids, nears, rest
+
+
+def cull_select(rays, boxes, excl, V: int, K_real: int, tmin: float,
+                packed: bool = True):
+    """(ids [R,V] int32, nears [R,V] f32 ascending, rest [R] f32): kernel
+    K3 on CUDA tensors, the plain version on CPU tensors.
+
+    ``rays``: [R,8] (``pack_rays``); ``boxes``: [8,Kp] (``pack_boxes``);
+    ``excl``: [R,2] (threshold, last id as f32), ``first_excl`` for phase
+    1, ``next_excl`` after. ``rest`` is the nearest chunk left unselected.
+    """
+    if rays.device.type == "cpu":
+        return cull_select_plain(rays, boxes, excl, V, K_real, tmin, packed)
+    return cull_select_kernel(rays, boxes, excl, V, K_real, tmin, packed)

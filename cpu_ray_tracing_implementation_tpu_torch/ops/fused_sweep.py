@@ -1,0 +1,252 @@
+"""Per-ray visit-list sweep: the wrapper of CUDA kernel K4.
+
+Port of ``cpu_ray_tracing_implementation_tpu/ops/pallas_sweep.py``. For
+each ray and each of its V visit slots, the chunk row that the slot names
+is read from the [K, F, C] sweep table and its C primitives are
+intersected; the first-index minimum replaces the running best hit when
+``t_c < t_best`` and the slot's entry t is below ``t_best`` too
+(``csrc/visit_sweep.cu``). The best hit travels as one [R, 8] f32 matrix:
+
+- planar (F = 9 rows: corner, eu, ev): t, unit normal xyz, u, v, mat, pid;
+- sphere (F = 7 rows: c0, c1, rad): t, center xyz at ray time, rad, 0,
+  mat, pid.
+
+pid = chunk id * C + lane, carried in f32 (exact below 2^24). The mat
+column passes through untouched: the winner's material is recovered once
+after the phase loop (``ops/perray.py``). Inactive lanes are baked into
+the table (eu = ev = 0, rad = 0), so they never hit.
+
+Rounding: the plain version runs one PyTorch operation per arithmetic
+step; the kernel writes the same steps with ``__fmul_rn``/``__fadd_rn``
+(never contracted into a multiply-add) and the ``rsqrtf`` that
+``torch.rsqrt`` runs on the card, so both round alike.
+
+Dispatch is by the device of the tensors: a CPU tensor takes
+``sweep_plain``; a CUDA tensor launches the kernel or raises.
+``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
+
+BIG = 1e30
+INF = float("inf")
+
+PLANAR_ROWS = 9
+SPHERE_ROWS = 7
+
+LAUNCHES = {"visit_sweep": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["visit_sweep"] = 0
+
+
+def pack_rays(org, dirs, time=None) -> torch.Tensor:
+    """[R, 8] ray rows: org xyz, dir xyz, time (0 without), pad."""
+    R = org.shape[0]
+    rays = torch.zeros((R, 8), dtype=torch.float32, device=org.device)
+    rays[:, 0:3] = org
+    rays[:, 3:6] = dirs
+    if time is not None:
+        rays[:, 6] = time
+    return rays
+
+
+def pack_best_planar(t, n, u, v, mat, pid) -> torch.Tensor:
+    """Planar best hit -> [R, 8] (t nx ny nz u v mat pid)."""
+    return torch.stack([t, n[:, 0], n[:, 1], n[:, 2], u, v,
+                        mat.to(t.dtype), pid.to(t.dtype)], dim=1)
+
+
+def unpack_best_planar(pk):
+    """[R, 8] -> (t, n [R,3], u, v, mat int32, pid int32)."""
+    return (pk[:, 0], pk[:, 1:4], pk[:, 4], pk[:, 5],
+            torch.round(pk[:, 6]).to(torch.int32),
+            torch.round(pk[:, 7]).to(torch.int32))
+
+
+def pack_best_sphere(t, center, rad, mat, pid) -> torch.Tensor:
+    """Sphere best hit -> [R, 8] (t cx cy cz rad 0 mat pid)."""
+    return torch.stack([t, center[:, 0], center[:, 1], center[:, 2], rad,
+                        torch.zeros_like(t), mat.to(t.dtype),
+                        pid.to(t.dtype)], dim=1)
+
+
+def unpack_best_sphere(pk):
+    """[R, 8] -> (t, center [R,3], rad, mat int32, pid int32)."""
+    return (pk[:, 0], pk[:, 1:4], pk[:, 4],
+            torch.round(pk[:, 6]).to(torch.int32),
+            torch.round(pk[:, 7]).to(torch.int32))
+
+
+# -------------------------------------------------------- plain version
+def _dot3(ax, ay, az, b):
+    """[R,C] dot of per-lane component planes with a per-ray [R,3] vector,
+    summed left to right."""
+    return ax * b[:, 0:1] + ay * b[:, 1:2] + az * b[:, 2:3]
+
+
+def _cross3(ax, ay, az, bx, by, bz):
+    return (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
+
+
+def _planar_slot(org, dirs, row, tmin, t_best, triangle):
+    """[R, C] candidate t (inf = miss), edge coefficients a, b and the
+    unit normal planes, for each ray against its gathered row [R, 9, C]
+    (pallas_sweep.py:94-140, op for op)."""
+    cx, cy, cz = row[:, 0], row[:, 1], row[:, 2]
+    eux, euy, euz = row[:, 3], row[:, 4], row[:, 5]
+    evx, evy, evz = row[:, 6], row[:, 7], row[:, 8]
+
+    nx, ny, nz = _cross3(eux, euy, euz, evx, evy, evz)
+    nn = nx * nx + ny * ny + nz * nz
+    # torch.rsqrt runs CUDA's rsqrtf on a CUDA tensor; the kernel calls the
+    # same function
+    inv_len = torch.rsqrt(torch.clamp(nn, min=1e-30))
+    unx, uny, unz = nx * inv_len, ny * inv_len, nz * inv_len
+    d_plane = unx * cx + uny * cy + unz * cz
+    inv_nn = 1.0 / torch.clamp(nn, min=1e-20)
+    wx, wy, wz = nx * inv_nn, ny * inv_nn, nz * inv_nn
+    ewx, ewy, ewz = _cross3(evx, evy, evz, wx, wy, wz)        # ev x w
+    wex, wey, wez = _cross3(wx, wy, wz, eux, euy, euz)        # w x eu
+
+    o_n = _dot3(unx, uny, unz, org)
+    d_n = _dot3(unx, uny, unz, dirs)
+    ok0 = torch.abs(d_n) > 1e-20
+    t = torch.where(ok0, (d_plane - o_n) / torch.where(ok0, d_n, torch.ones_like(d_n)),
+                    torch.full_like(d_n, BIG))
+    a = torch.clamp(_dot3(ewx, ewy, ewz, org) + t * _dot3(ewx, ewy, ewz, dirs)
+                    - (ewx * cx + ewy * cy + ewz * cz), -BIG, BIG)
+    b = torch.clamp(_dot3(wex, wey, wez, org) + t * _dot3(wex, wey, wez, dirs)
+                    - (wex * cx + wey * cy + wez * cz), -BIG, BIG)
+    if triangle:
+        interior = (a >= 0.0) & (b >= 0.0) & (a + b <= 1.0)
+    else:
+        interior = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (b <= 1.0)
+    ok = ok0 & (t >= tmin) & (t <= t_best[:, None]) & interior
+    return torch.where(ok, t, torch.full_like(t, INF)), (unx, uny, unz, a, b)
+
+
+def _sphere_slot(org, dirs, time, row, tmin, t_best):
+    """[R, C] sphere t against each ray's gathered row [R, 7, C], and the
+    center-at-time and radius planes (pallas_sweep.py:143-172)."""
+    c0x, c0y, c0z = row[:, 0], row[:, 1], row[:, 2]
+    c1x, c1y, c1z = row[:, 3], row[:, 4], row[:, 5]
+    rad = row[:, 6]
+    tt = time[:, None]
+    ctx = c0x + tt * (c1x - c0x)
+    cty = c0y + tt * (c1y - c0y)
+    ctz = c0z + tt * (c1z - c0z)
+    ocx = org[:, 0:1] - ctx
+    ocy = org[:, 1:2] - cty
+    ocz = org[:, 2:3] - ctz
+    d0, d1, d2 = dirs[:, 0:1], dirs[:, 1:2], dirs[:, 2:3]
+    a_q = d0 * d0 + d1 * d1 + d2 * d2
+    b_q = 2.0 * (d0 * ocx + d1 * ocy + d2 * ocz)
+    c_q = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+    disc = b_q * b_q - 4.0 * a_q * c_q
+    has = disc > 0.0
+    sq = torch.sqrt(torch.where(has, disc, torch.ones_like(disc)))
+    t0 = (-b_q - sq) / (2.0 * a_q)
+    t1 = (-b_q + sq) / (2.0 * a_q)
+    tb = t_best[:, None]
+    in0 = (t0 >= tmin) & (t0 <= tb)
+    in1 = (t1 >= tmin) & (t1 <= tb)
+    inf = torch.full_like(t0, INF)
+    t = torch.where(in0, t0, torch.where(in1, t1, inf))
+    return torch.where(has, t, inf), (ctx, cty, ctz, rad)
+
+
+def sweep_plain(rays, ids, nears, best, table, tmin: float, triangle: bool,
+                sphere: bool, stats: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch K4: the updated [R, 8] best. Every slot is computed
+    for every ray and masked, as in the Pallas kernel, so nothing waits on
+    the host. ``stats``, when given, gains ``"visits"``: the (ray, slot)
+    pairs whose entry t was below the running best (what the kernel reads
+    and intersects; it synchronises once per slot)."""
+    K, _, C = table.shape
+    R, V = ids.shape
+    org, dirs, time = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
+    ids = torch.clamp(ids, 0, K - 1)
+    lane = torch.arange(C, device=rays.device)[None, :]
+    best = best.clone()
+    for s in range(V):
+        t_b = best[:, 0]
+        ns = nears[:, s]
+        row = table[ids[:, s]]                                # [R, F, C]
+        if sphere:
+            ts, planes = _sphere_slot(org, dirs, time, row, tmin, t_b)
+        else:
+            ts, planes = _planar_slot(org, dirs, row, tmin, t_b, triangle)
+        t_c = torch.amin(ts, dim=1)
+        idx = torch.amin(torch.where(ts == t_c[:, None], lane,
+                                     torch.full_like(lane, C)), dim=1)
+
+        def sel(plane):
+            return plane.gather(1, idx[:, None])[:, 0]
+
+        better = (t_c < t_b) & (ns < t_b)
+        if stats is not None:
+            stats["visits"] = stats.get("visits", 0) + int((ns < t_b).sum())
+        if sphere:
+            ctx, cty, ctz, rad = planes
+            cols = [sel(ctx), sel(cty), sel(ctz),
+                    torch.clamp(sel(rad), min=1e-20), best[:, 5]]
+        else:
+            cols = [sel(p) for p in planes]
+        pid = ids[:, s].to(torch.float32) * C + idx.to(torch.float32)
+        new = torch.stack([t_c] + cols + [best[:, 6], pid], dim=1)
+        best = torch.where(better[:, None], new, best)
+    return best
+
+
+# ---------------------------------------------------------- kernel call
+def sweep_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
+                 sphere: bool) -> torch.Tensor:
+    """Kernel K4 on CUDA tensors -> the updated [R, 8] best."""
+    from cpu_ray_tracing_implementation_tpu_torch.kernels import build
+
+    K, F, C = table.shape
+    R, V = ids.shape
+    tbl.check_cuda("rays", rays, torch.float32, (R, 8))
+    tbl.check_cuda("ids", ids, torch.int32, (R, V))
+    tbl.check_cuda("nears", nears, torch.float32, (R, V))
+    tbl.check_cuda("best", best, torch.float32, (R, 8))
+    tbl.check_cuda("table", table, torch.float32, (K, F, C))
+    if F != (SPHERE_ROWS if sphere else PLANAR_ROWS) or C != 128:
+        raise ValueError(f"K4 takes [K, {SPHERE_ROWS if sphere else PLANAR_ROWS}, "
+                         f"128] tables, got {tuple(table.shape)}")
+    devs = {x.device for x in (rays, ids, nears, best, table)}
+    if len(devs) != 1:
+        raise ValueError("the sweep's inputs lie on different devices")
+    out = torch.empty((R, 8), dtype=torch.float32, device=rays.device)
+    lib = build.load()
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        err = lib.crt_visit_sweep(rays.data_ptr(), ids.data_ptr(),
+                                  nears.data_ptr(), best.data_ptr(),
+                                  table.data_ptr(), R, V, K, float(tmin),
+                                  int(bool(triangle)), int(bool(sphere)),
+                                  out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"crt_visit_sweep launch failed: "
+                           f"{build.error_string(err)}")
+    LAUNCHES["visit_sweep"] += 1
+    return out
+
+
+def sweep(rays, ids, nears, best, table, tmin: float, triangle: bool,
+          sphere: bool) -> torch.Tensor:
+    """One V-slot sweep -> the updated [R, 8] best: kernel K4 on CUDA
+    tensors, the plain version on CPU tensors. ``rays`` [R,8]
+    (``pack_rays``), ``ids`` [R,V] int32 (clipped to [0, K-1] here),
+    ``nears`` [R,V] ascending entry t, ``best`` [R,8], ``table`` [K,F,C].
+    V and C come from the shapes."""
+    if rays.device.type == "cpu":
+        return sweep_plain(rays, ids, nears, best, table, tmin, triangle,
+                           sphere)
+    return sweep_kernel(rays, ids, nears, best, table, tmin, triangle, sphere)

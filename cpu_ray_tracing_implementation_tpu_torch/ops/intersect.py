@@ -1,14 +1,19 @@
-"""Batched ray-primitive intersection over flat scene tables.
+"""Batched ray-primitive intersection over the scene tables.
 
-Port of ``cpu_ray_tracing_implementation_tpu/ops/intersect.py`` for dense
-tables. Each primitive type present in the scene is intersected by one
-fused closest-hit call on its 1-chunk view (``ops/fused_intersect.py``:
-kernel K1 for quads and triangles, K2 for spheres; the plain chunk scan on
-CPU tensors), then the nearest type wins per ray and its shading
-attributes are merged into one ``Hit``.
+Port of ``cpu_ray_tracing_implementation_tpu/ops/intersect.py``. Each
+primitive type present in the scene is intersected by one closest-hit
+call, then the nearest type wins per ray and its shading attributes are
+merged into one ``Hit``:
 
-Not ported yet: chunked tables (ROADMAP M8/M9), volumes and per-vertex
-triangle attributes (ROADMAP M4).
+- a dense table (at most ``chunked.DENSE_MAX`` rows) by one fused call on
+  its 1-chunk view (``ops/fused_intersect.py``: kernel K1 for quads and
+  triangles, K2 for spheres; the plain chunk scan on CPU tensors);
+- a chunked table by the per-ray accelerator (``ops/perray.py``: kernels
+  K3 and K4), each ray capped at its exit from the scene's AABB.
+
+Not ported yet: the tile-packet and BVH accelerators (ROADMAP M11; the
+per-ray route takes every chunked table until then, and both are exact),
+volumes and per-vertex triangle attributes (ROADMAP M4).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+from cpu_ray_tracing_implementation_tpu_torch.ops import perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
 from cpu_ray_tracing_implementation_tpu_torch.ops.sampling import PI
 
@@ -51,12 +57,35 @@ def _finite_or_zero(t: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(t), t, torch.zeros_like(t))
 
 
+def _packet_cap(scene, org, dirs, active, tmax, tmin):
+    """Per-ray traversal cap of the accelerators: a ray's closest hit cannot
+    lie beyond its exit from the scene AABB, so miss rays stop there
+    instead of riding t = inf through every chunk; terminated lanes
+    (``active`` False) get cap = tmin and visit next to nothing. A pure
+    bound: every true hit lies strictly inside it (intersect.py:433-451)."""
+    cap = torch.broadcast_to(torch.as_tensor(tmax, dtype=org.dtype,
+                                             device=org.device), org.shape[:1])
+    if scene.world_lo is not None:
+        lo = org.new_tensor(scene.world_lo)
+        hi = org.new_tensor(scene.world_hi)
+        inv = 1.0 / torch.where(torch.abs(dirs) > 1e-20, dirs,
+                                torch.full_like(dirs, 1e-20))
+        t0 = (lo[None, :] - org) * inv
+        t1 = (hi[None, :] - org) * inv
+        far = torch.amin(torch.maximum(t0, t1), dim=-1)
+        cap = torch.minimum(torch.clamp(far, min=tmin) * 1.0001 + 1e-3, cap)
+    if active is not None:
+        cap = torch.where(active, cap, torch.full_like(cap, tmin))
+    return cap.detach()
+
+
 def intersect_brute(scene, org, dirs, time, tmin, u_vol, tmax=INF,
                     active=None):
     """Closest hit across all primitive tables -> Hit. ``u_vol``: [R, V]
-    volume uniforms (unused until volumes are ported). Dense tables never
-    take the JAX package's coherence sort, so this is ``_intersect_core``.
-    """
+    volume uniforms (unused until volumes are ported). The JAX package
+    coherence-sorts large scenes only for its tile-packet accelerator
+    (``_sort_wanted`` is False on the per-ray route), so this is
+    ``_intersect_core``."""
     return _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax, active)
 
 
@@ -69,18 +98,36 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
         raise NotImplementedError("volumes (ROADMAP M4) are not ported yet")
     R = org.shape[0]
     inf_t = torch.full((R,), INF, dtype=org.dtype, device=org.device)
+    # Every chunked table takes the per-ray route: the JAX package sends
+    # tables under 256 chunks to its tile-packet accelerator, which is not
+    # ported yet (ROADMAP M11); both are exact.
+    chunked = (scene.sphere_chunks, scene.quad_chunks, scene.tri_chunks)
+    cap = (None if all(c is None for c in chunked)
+           else _packet_cap(scene, org, dirs, active, tmax, tmin))
 
     t_s = t_q = t_t = inf_t
     sph_payload = quad_payload = tri_payload = None
-    if n_sph:
+    if scene.sphere_chunks is not None:
+        t_s, sph_payload = perray.sphere_closest_perray(
+            org, dirs, time, scene.sphere_chunks, tmin, cap,
+            tabs=scene.sphere_perray)
+    elif n_sph:
         view, pack = scene.sphere_view
         t_s, sph_payload = fi.sphere_closest_fused(org, dirs, time, view,
                                                    tmin, tmax, pack=pack)
-    if n_quad:
+    if scene.quad_chunks is not None:
+        t_q, quad_payload = perray.planar_closest_perray(
+            org, dirs, scene.quad_chunks, tmin, False, cap,
+            tabs=scene.quad_perray)
+    elif n_quad:
         view, pack = scene.quad_view
         t_q, quad_payload = fi.planar_closest_fused(org, dirs, view, tmin,
                                                     False, tmax, pack=pack)
-    if n_tri:
+    if scene.tri_chunks is not None:
+        t_t, tri_payload = perray.planar_closest_perray(
+            org, dirs, scene.tri_chunks, tmin, True, cap,
+            tabs=scene.tri_perray)
+    elif n_tri:
         view, pack = scene.tri_view
         t_t, tri_payload = fi.planar_closest_fused(org, dirs, view, tmin,
                                                    True, tmax, pack=pack)
@@ -108,8 +155,10 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
 
     def planar_attrs(payload, zero_uv):
         """(normal, front, u, v, mat) from a planar payload; triangles
-        carry no UV in the reference (src/triangle.h)."""
-        unorm, u_k, v_k, m_k = payload
+        carry no UV in the reference (src/triangle.h). The per-ray route's
+        payload also carries the winner's pid, which only per-vertex
+        triangle attributes read (ROADMAP M4)."""
+        unorm, u_k, v_k, m_k = payload[:4]
         front_k = vm.dot(dirs, unorm) < 0.0
         normal_k = torch.where(front_k[:, None], unorm, -unorm)
         if zero_uv:
@@ -118,7 +167,7 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
         return normal_k, front_k, u_k, v_k, m_k
 
     if sph_payload is not None:
-        center, rad_w, m_w = sph_payload
+        center, rad_w, m_w = sph_payload[:3]
         pk = org + _finite_or_zero(t_s)[:, None] * dirs
         outward = (pk - center) / rad_w[:, None]
         front_k = vm.dot(dirs, outward) < 0.0

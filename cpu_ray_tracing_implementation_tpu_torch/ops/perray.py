@@ -1,0 +1,172 @@
+"""Per-ray visit-list closest hit over chunked tables.
+
+Port of ``cpu_ray_tracing_implementation_tpu/ops/perray.py`` (its Pallas
+phase loop, ``perray.py:163-201``). Each ray gets its own front-to-back list
+of the chunks its [tmin, cap] interval crosses, the batched form of the
+reference's per-ray BVH descent (src/bvh_node.h:49-58):
+
+ 1. CULL + SELECT, kernel K3 (``ops/fused_select.py``): each ray's V
+    nearest crossed chunks, ascending by entry t, and the entry t of the
+    nearest chunk left over (``rest``).
+ 2. SWEEP, kernel K4 (``ops/fused_sweep.py``): each ray intersects the
+    chunk rows of its V slots, front to back, tightening its best hit.
+ 3. Exactness: while some ray's nearest unvisited chunk could still beat
+    its best hit (``any(rest < t_best)``), the next phase selects the next
+    V chunks past the previous phase's last (near, id). The result equals
+    the chunk-scan oracle (``ops/chunked.py``) for every ray, whatever V.
+
+The phase condition is read on the host: one synchronisation per phase.
+``PHASES`` counts the closest-hit calls and the phases they ran.
+
+Forward only. The JAX package's custom VJP replays the winning primitive
+(``perray.py:902-948``, ``ops/replay.py``); that is ROADMAP M7, and an
+input that needs a gradient raises here. Left out on purpose: the XLA
+near-matrix route (``_near_matrix``, ``_select_block``), the sub-tile and
+quantized-row experiments (ROADMAP M16), the packet and BVH accelerators
+(ROADMAP M11).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
+
+INF = float("inf")
+
+# visit slots selected per phase (the JAX package's CRT_RAYV default)
+VISIT_BLOCK = 16
+
+PHASES = {"calls": 0, "phases": 0}
+
+
+def reset_phases() -> None:
+    PHASES["calls"] = 0
+    PHASES["phases"] = 0
+
+
+@dataclass(frozen=True)
+class PerRayTables:
+    """What the kernels read of one chunked table, built once per scene."""
+    table: torch.Tensor   # [K, F, C] sweep rows (fused_sweep layout)
+    boxes: torch.Tensor   # [8, Kp] chunk AABB pack (fused_select layout)
+
+
+def planar_tables(chunks: ch.PlanarChunks) -> PerRayTables:
+    """[K, 9, C] rows of corner, eu, ev components. ``active`` is baked in
+    (inactive lanes get eu = ev = 0, so d.n == 0 and the plane test fails)
+    and mat is not swept: the winner's is recovered once (_recover_mat)."""
+    act = chunks.active[..., None]
+    eu = torch.where(act, chunks.eu, torch.zeros_like(chunks.eu))
+    ev = torch.where(act, chunks.ev, torch.zeros_like(chunks.ev))
+    table = torch.cat([chunks.corner, eu, ev], dim=2).transpose(1, 2)
+    return PerRayTables(table=table.contiguous(),
+                        boxes=fs.pack_boxes(chunks.lo, chunks.hi))
+
+
+def sphere_tables(chunks: ch.SphereChunks) -> PerRayTables:
+    """[K, 7, C] rows of c0, c1 components and rad. Inactive lanes get
+    rad = 0, whose discriminant is never positive (Cauchy-Schwarz)."""
+    rad = torch.where(chunks.active, chunks.rad, torch.zeros_like(chunks.rad))
+    table = torch.cat([chunks.c0, chunks.c1, rad[..., None]], dim=2)
+    return PerRayTables(table=table.transpose(1, 2).contiguous(),
+                        boxes=fs.pack_boxes(chunks.lo, chunks.hi))
+
+
+def _forward_only(*xs) -> None:
+    if any(torch.is_tensor(x) and x.requires_grad for x in xs):
+        raise NotImplementedError(
+            "the per-ray accelerator is forward only: its winner-replay "
+            "backward (perray.py:902-948) is ROADMAP M7")
+
+
+def _recover_mat(chunk_mat, pid, hit):
+    """[R] material of chunk-order primitive ``pid``; miss rays keep the
+    chunk-scan oracle's sentinel 0 (pid is 0 on a miss, and chunk_mat[0,0]
+    would leak through otherwise)."""
+    mat = chunk_mat.reshape(-1)[pid.long()]
+    return torch.where(hit, mat, torch.zeros_like(mat))
+
+
+def _phase_loop(org, dirs, cap, tabs: PerRayTables, K_real, tmin, V,
+                sweep_fn, best):
+    """The exactness phase loop: K3 selects, ``sweep_fn(ids, nears, best)``
+    (K4) sweeps, until no ray's ``rest`` is below its best t. Phases carry
+    only the (threshold, last id) exclusion key: no [R, K] matrix."""
+    rays = fs.pack_rays(org, dirs, cap)
+    excl = fs.first_excl(org.shape[0], org.device)
+    phases = 0
+    while True:
+        ids, nears, rest = fs.cull_select(rays, tabs.boxes, excl, V, K_real,
+                                          float(tmin))
+        best = sweep_fn(ids, nears, best)
+        phases += 1
+        excl = fs.next_excl(ids, nears)
+        if not bool(torch.any(rest < best[:, 0])):
+            break
+    PHASES["calls"] += 1
+    PHASES["phases"] += phases
+    return best
+
+
+def _cap(org, tmax):
+    return torch.broadcast_to(
+        torch.as_tensor(tmax, dtype=org.dtype, device=org.device),
+        org.shape[:1]).contiguous()
+
+
+def planar_closest_perray(org, dirs, chunks: ch.PlanarChunks, tmin,
+                          triangle: bool, tmax=INF, V: int = VISIT_BLOCK,
+                          tabs: PerRayTables | None = None):
+    """Drop-in for ``chunked.planar_closest`` (forward only; exact).
+
+    ``tmax``: scalar or per-ray [R] cap; ``tabs``: the scene's cached
+    ``planar_tables(chunks)``. Returns (t [R], (unorm [R,3], u [R], v [R],
+    mat [R], pid [R]))."""
+    _forward_only(org, dirs, tmax, chunks.corner, chunks.eu, chunks.ev)
+    R = org.shape[0]
+    K = chunks.corner.shape[0]
+    tabs = planar_tables(chunks) if tabs is None else tabs
+    cap = _cap(org, tmax)
+    z = torch.zeros((R,), dtype=org.dtype, device=org.device)
+    best0 = fsw.pack_best_planar(cap, torch.zeros_like(org), z, z,
+                                 z.to(torch.int32), z.to(torch.int32))
+    rays = fsw.pack_rays(org, dirs)
+    best = _phase_loop(
+        org, dirs, cap, tabs, K, tmin, min(V, K),
+        lambda ids, nears, b: fsw.sweep(rays, ids, nears, b, tabs.table,
+                                        float(tmin), triangle, False),
+        best0)
+    t, n, u, v, _, p = fsw.unpack_best_planar(best)
+    hit = t < cap
+    return torch.where(hit, t, torch.full_like(t, INF)), (
+        n, u, v, _recover_mat(chunks.mat, p, hit), p)
+
+
+def sphere_closest_perray(org, dirs, time, chunks: ch.SphereChunks, tmin,
+                          tmax=INF, V: int = VISIT_BLOCK,
+                          tabs: PerRayTables | None = None):
+    """Drop-in for ``chunked.sphere_closest`` (forward only; exact).
+    Returns (t [R], (center_at_t [R,3], rad [R], mat [R], pid [R]))."""
+    _forward_only(org, dirs, time, tmax, chunks.c0, chunks.c1, chunks.rad)
+    R = org.shape[0]
+    K = chunks.rad.shape[0]
+    tabs = sphere_tables(chunks) if tabs is None else tabs
+    cap = _cap(org, tmax)
+    z = torch.zeros((R,), dtype=org.dtype, device=org.device)
+    best0 = fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1.0,
+                                 z.to(torch.int32), z.to(torch.int32))
+    rays = fsw.pack_rays(org, dirs, time)
+    best = _phase_loop(
+        org, dirs, cap, tabs, K, tmin, min(V, K),
+        lambda ids, nears, b: fsw.sweep(rays, ids, nears, b, tabs.table,
+                                        float(tmin), False, True),
+        best0)
+    t, ctr, rad, _, p = fsw.unpack_best_sphere(best)
+    hit = t < cap
+    return torch.where(hit, t, torch.full_like(t, INF)), (
+        ctr, rad, _recover_mat(chunks.mat, p, hit), p)

@@ -16,12 +16,12 @@ import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
 from cpu_ray_tracing_implementation_tpu_torch.models import scene as sc
+from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
+from cpu_ray_tracing_implementation_tpu_torch.ops.tables import DEFAULT_DEVICE
 
-# Scene features outside this slice, with the ROADMAP item that ports them
+# Scene features outside the port so far, with the ROADMAP item that ports
+# them. The JAX scene's BVH trees (``*_tree``, ROADMAP M11) are not carried.
 _UNPORTED = {
-    "sphere_chunks": "chunked tables (ROADMAP M8)",
-    "quad_chunks": "chunked tables (ROADMAP M8)",
-    "tri_chunks": "chunked tables (ROADMAP M8)",
     "tri_attrs": "per-vertex triangle attributes (ROADMAP M4)",
     "sphere_lights": "sphere lights (ROADMAP M5)",
     "env_texel_p": "environment importance sampling (ROADMAP M5)",
@@ -32,8 +32,9 @@ def _columns(obj, cls) -> list:
     return [np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(cls)]
 
 
-def scene_from_numpy(jscene, device="cpu") -> sc.Scene:
-    """The port's Scene holding the same tables as the JAX ``jscene``."""
+def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
+    """The port's Scene holding the same tables as the JAX ``jscene``,
+    its chunked tables and chunk orders included."""
     for name, what in _UNPORTED.items():
         if getattr(jscene, name, None) is not None:
             raise NotImplementedError(f"{what} are not ported yet")
@@ -45,18 +46,24 @@ def scene_from_numpy(jscene, device="cpu") -> sc.Scene:
         raise NotImplementedError("mesh volumes (ROADMAP M4) are not ported yet")
     arrays = {name: _columns(getattr(jscene, name), cls)
               for name, cls in sc._TABLES.items()}
+    for name, cls in sc._CHUNKS.items():
+        chunks = getattr(jscene, name)
+        arrays[name] = None if chunks is None else _columns(chunks, cls)
+        oname = name.replace("_chunks", "_chunk_order")
+        order = getattr(jscene, oname)
+        arrays[oname] = None if order is None else np.asarray(order, np.int32)
     off = jscene.world_offset
     arrays.update(lights=np.asarray(jscene.lights, np.int32),
                   world_offset=None if off is None else np.asarray(off, np.float32))
     return sc.scene_from_tables(
-        arrays, device=device, background=int(jscene.background),
+        arrays, device=tbl.as_device(device), background=int(jscene.background),
         tex_types_used=tuple(jscene.tex_types_used),
         mat_types_used=tuple(jscene.mat_types_used),
         counts=tuple(jscene.counts), world_lo=jscene.world_lo,
         world_hi=jscene.world_hi)
 
 
-def camera_from_numpy(jcam, device="cpu") -> cam_mod.Camera:
+def camera_from_numpy(jcam, device=DEFAULT_DEVICE) -> cam_mod.Camera:
     """The port's Camera with the same parameters as the JAX ``jcam``."""
     if int(jcam.mode) != cam_mod.PERSPECTIVE:
         raise NotImplementedError("only the perspective camera is ported "
@@ -68,6 +75,8 @@ def camera_from_numpy(jcam, device="cpu") -> cam_mod.Camera:
     if getattr(jcam, "rr_depth", 0):
         raise NotImplementedError("Russian roulette (ROADMAP M6) is not "
                                   "ported yet")
+
+    device = tbl.as_device(device)
 
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)

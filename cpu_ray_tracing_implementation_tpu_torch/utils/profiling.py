@@ -1,18 +1,21 @@
-"""Where the time goes in the port's Cornell render on one GPU.
+"""Where the time goes in the port's renders on one GPU.
 
 Counterpart of ``cpu_ray_tracing_implementation_tpu/utils/profiling.py``
 for the port. Run on a machine with an NVIDIA GPU::
 
-    python -m cpu_ray_tracing_implementation_tpu_torch.utils.profiling
+    python -m cpu_ray_tracing_implementation_tpu_torch.utils.profiling [cornell|colonnade]
 
-It renders cornell_box at 512x512, depth 8 (the main path's workload) for
-``SPP`` samples after a 2-sample warm-up: once on the host clock, then
-under ``torch.profiler`` with a range around each stage of a bounce. The
-stage functions are wrapped for the profiled run only, so the main path
-carries no instrumentation. It prints the wall seconds of both runs, the
-device time summed over kernels, kernels per bounce, the device busy share,
-the top kernels by device time, each stage's host and device time, and the
-launches and device time of kernels K1 and K2.
+``cornell`` (the default) renders cornell_box at 512x512, depth 8;
+``colonnade`` renders catalog.sponza (the 258k-triangle colonnade) at
+200x200, depth 5. Each runs ``spp`` samples after a 2-sample warm-up: once
+on the host clock, then under ``torch.profiler`` with a range around each
+stage of a bounce (and, on the colonnade, around the per-ray accelerator's
+select and sweep calls). The stage functions are wrapped for the profiled
+run only, so the main path carries no instrumentation. It prints the wall
+seconds of both runs, the device time summed over kernels, kernels per
+bounce, the device busy share, the top kernels by device time, each
+stage's host and device time, the launches and device time of kernels
+K1-K4, and the per-ray selection phases per bounce.
 """
 
 from __future__ import annotations
@@ -28,11 +31,14 @@ from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, integrator
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
-from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
 
-# (module, function, range name): the stages of one bounce and of raygen
+# (module, function, range name): the stages of one bounce and of raygen,
+# and the per-ray accelerator's calls inside the intersect stage
 STAGES = (
     (isect, "intersect_brute", "intersect"),
     (integrator, "background_color", "background"),
@@ -41,11 +47,19 @@ STAGES = (
     (mat_ops, "scatter", "scatter"),
     (integrator, "_per_ray_uniforms", "uniforms"),
     (cam_mod, "generate_rays", "raygen"),
+    (fs, "cull_select", "select"),
+    (fsw, "sweep", "sweep"),
 )
-SPP = 8
+# name -> (catalog scene, its arguments, samples profiled)
+WORKLOADS = {
+    "cornell": (catalog.cornell_box, dict(width=512, max_depth=8), 8),
+    "colonnade": (catalog.sponza, dict(width=200, max_depth=5), 4),
+}
 TOP = 20  # kernels listed by device time
 KERNELS = {"planar_closest": "planar_closest_kernel",
-           "sphere_closest": "sphere_closest_kernel"}
+           "sphere_closest": "sphere_closest_kernel",
+           "cull_select": "cull_select_kernel",
+           "visit_sweep": "visit_sweep_kernel"}
 
 
 @contextlib.contextmanager
@@ -68,7 +82,24 @@ def stage_ranges():
             setattr(mod, name, fn)
 
 
-def main() -> int:
+def launches() -> dict:
+    return {**fi.LAUNCHES, **fs.LAUNCHES, **fsw.LAUNCHES}
+
+
+def reset_counts() -> None:
+    fi.reset_launches()
+    fs.reset_launches()
+    fsw.reset_launches()
+    perray.reset_phases()
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    name = argv[0] if argv else "cornell"
+    if name not in WORKLOADS:
+        print(f"profiling: unknown workload {name!r}; one of {sorted(WORKLOADS)}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profiling: no CUDA device", file=sys.stderr)
         return 2
@@ -77,22 +108,22 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip())
     build.load()
     dev = torch.device("cuda", 0)
-    scene, cam = catalog.cornell_box(width=512, spp=SPP, max_depth=8,
-                                     device=dev)
-    bounces = SPP * cam.max_depth
+    make, kwargs, spp = WORKLOADS[name]
+    scene, cam = make(spp=spp, device=dev, **kwargs)
+    bounces = spp * cam.max_depth
     integrator.render_image(scene, cam, keys.key(1), spp=2)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    integrator.render_image(scene, cam, keys.key(1), spp=SPP)
+    integrator.render_image(scene, cam, keys.key(1), spp=spp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
-    fi.reset_launches()
+    reset_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with stage_ranges(), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        integrator.render_image(scene, cam, keys.key(1), spp=SPP)
+        integrator.render_image(scene, cam, keys.key(1), spp=spp)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
 
@@ -104,19 +135,24 @@ def main() -> int:
                   key=lambda k: -k[2])
     dev_s = sum(k[2] for k in kern) / 1e6
     n_kern = sum(k[1] for k in kern)
-    print(f"cornell_box 512x512 depth 8, {SPP} spp: wall {wall:.4f} s "
-          f"unprofiled, {wall_prof:.4f} s profiled")
+    print(f"{name} {cam.width}x{cam.height} depth {cam.max_depth}, {spp} spp: wall "
+          f"{wall:.4f} s unprofiled, {wall_prof:.4f} s profiled")
     print(f"device kernel time {dev_s:.4f} s over {n_kern} kernels "
           f"({n_kern / bounces:.1f} per bounce); busy share "
           f"{dev_s / wall:.4f} of the unprofiled wall, "
           f"{dev_s / wall_prof:.4f} of the profiled")
-    for name, symbol in KERNELS.items():
+    counts = launches()
+    for kname, symbol in KERNELS.items():
         hits = [k for k in kern if symbol in k[0]]
         n = sum(k[1] for k in hits)
         us = sum(k[2] for k in hits)
-        print(f"{name}: {fi.LAUNCHES[name]} launches, device {us / 1e3:.4f} ms"
+        print(f"{kname}: {counts[kname]} launches, device {us / 1e3:.4f} ms"
               + (f", {us / n:.2f} us each, {us / 1e6 / dev_s:.4f} of device time"
                  if n else ""))
+    if perray.PHASES["calls"]:
+        print(f"per-ray closest-hit calls {perray.PHASES['calls']}, selection "
+              f"phases {perray.PHASES['phases']}, "
+              f"{perray.PHASES['phases'] / perray.PHASES['calls']:.3f} per call")
     print("top kernels (name, count, device us, share of device time):")
     for key, count, us in kern[:TOP]:
         print(f"  {key[:100]:100} {count:7d} {us:10.1f} {us / 1e6 / dev_s:.4f}")

@@ -1,13 +1,15 @@
-"""The CUDA kernels K1 and K2 on the card, against their plain versions.
+"""The CUDA kernels K1-K4 on the card, against their plain versions.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
 The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances are chip_smoke.py's: equal hit masks and materials, t within
-rtol 1e-4 / atol 1e-4, every other payload field (normal, u, v; center,
-rad) within atol 1e-3.
+Tolerances are chip_smoke.py's. K1, K2: equal hit masks and materials, t
+within rtol 1e-4 / atol 1e-4, every other payload field (normal, u, v;
+center, rad) within atol 1e-3. K3: ids, nears and rest bit-equal. K4:
+equal hit masks, pid and mat, t within rtol 1e-4, every other column
+within atol 1e-3.
 """
 
 import numpy as np
@@ -15,9 +17,12 @@ import pytest
 import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, integrator
+from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
-from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
+from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 
 pytestmark = pytest.mark.cuda
 
@@ -136,14 +141,138 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
 
 @pytest.mark.parametrize("name,golden", [("cornell_box", 0.160999),
-                                         ("three_material_ball", 0.563181)])
+                                         ("three_material_ball", 0.563181),
+                                         ("sponza", 0.402695)])
 def test_golden_render_on_card(dev, name, golden):
-    """The main path on the card launches its kernel and gives the golden
+    """The main path on the card launches its kernels and gives the golden
     workload's mean (tests/test_golden.py, atol 2e-3)."""
     scene, cam = catalog.SCENES[name](width=16, spp=4, max_depth=3, device=dev)
     fi.reset_launches()
+    fs.reset_launches()
+    fsw.reset_launches()
     img = integrator.render_image(scene, cam, keys.key(42))
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     assert abs(float(img.mean()) - golden) <= 2e-3
     kernel = "sphere_closest" if name == "three_material_ball" else "planar_closest"
     assert fi.LAUNCHES[kernel] == cam.spp * cam.max_depth
+    if name == "sponza":   # the light quad on K1, the triangles on K3 + K4
+        assert fs.LAUNCHES["cull_select"] >= cam.spp * cam.max_depth
+        assert fsw.LAUNCHES["visit_sweep"] == fs.LAUNCHES["cull_select"]
+
+
+def _boxes_and_rays(rng, dev, K=300, R=5000):
+    c = rng.normal(0, 6.0, (K, 3))
+    half = rng.uniform(0.1, 1.5, (K, 3))
+    boxes = fs.pack_boxes(_t((c - half).astype(np.float32), dev),
+                          _t((c + half).astype(np.float32), dev))
+    org, dirs, _ = _rays(rng, dev, R)
+    cap = _t(rng.uniform(1.0, 40.0, R).astype(np.float32), dev)
+    cap[:100] = TMIN                      # dead lanes
+    return boxes, fs.pack_rays(org, dirs, cap)
+
+
+@pytest.mark.parametrize("V", [1, 3, 16])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "exact"])
+def test_cull_select_kernel_bit_equal(dev, packed, V):
+    rng = np.random.default_rng(V)
+    boxes, rays = _boxes_and_rays(rng, dev)
+    excl = fs.first_excl(rays.shape[0], dev)
+    for _ in range(3):                    # phase 1 and two phases after it
+        fs.reset_launches()
+        got = fs.cull_select(rays, boxes, excl, V, 300, TMIN, packed)
+        assert fs.LAUNCHES == {"cull_select": 1}
+        ref = fs.cull_select_plain(rays, boxes, excl, V, 300, TMIN, packed)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0])
+        for x, y in zip(got[1:], ref[1:]):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+        excl = fs.next_excl(got[0], got[1])
+
+
+def test_cull_select_refuses_other_v(dev):
+    boxes, rays = _boxes_and_rays(np.random.default_rng(0), dev, R=64)
+    with pytest.raises(ValueError, match="V in 1..16"):
+        fs.cull_select(rays, boxes, fs.first_excl(64, dev), 17, 300, TMIN)
+
+
+def _random_scene(kind, dev, n=2000):
+    rng = np.random.default_rng({"quad": 1, "tri": 2, "sphere": 3}[kind])
+    b = SceneBuilder()
+    mats = [b.lambertian((0.5, 0.5, 0.5)), b.metal((0.7, 0.7, 0.7))]
+    for i, c in enumerate(rng.uniform(-10, 10, (n, 3))):
+        if kind == "sphere":
+            b.moving_sphere(c, c + rng.normal(0, 0.1, 3), rng.uniform(0.1, 0.6),
+                            mats[i % 2])
+        elif kind == "tri":
+            v = c + rng.normal(0, 0.6, (3, 3))
+            b.triangle(v[0], v[1], v[2], mats[i % 2])
+        else:
+            b.quad(c, rng.normal(0, 0.6, 3), rng.normal(0, 0.6, 3), mats[i % 2])
+    return b.build(dev)
+
+
+@pytest.mark.parametrize("kind", ["quad", "tri", "sphere"])
+def test_sweep_kernel_matches_plain(dev, kind):
+    scene = _random_scene(kind, dev)
+    sphere = kind == "sphere"
+    chunks = scene.sphere_chunks if sphere else (
+        scene.tri_chunks if kind == "tri" else scene.quad_chunks)
+    tabs = scene.sphere_perray if sphere else (
+        scene.tri_perray if kind == "tri" else scene.quad_perray)
+    K = tabs.table.shape[0]
+    org, dirs, time = _rays(np.random.default_rng(9), dev, 8000)
+    cap = torch.full((8000,), 60.0, device=dev)
+    ids, nears, _ = fs.cull_select(fs.pack_rays(org, dirs, cap), tabs.boxes,
+                                   fs.first_excl(8000, dev), 16, K, TMIN)
+    rays = fsw.pack_rays(org, dirs, time if sphere else None)
+    z = torch.zeros_like(cap)
+    best = (fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1, z.int(), z.int())
+            if sphere else
+            fsw.pack_best_planar(cap, torch.zeros_like(org), z, z, z.int(), z.int()))
+    fsw.reset_launches()
+    got = fsw.sweep(rays, ids, nears, best, tabs.table, TMIN, kind == "tri", sphere)
+    assert fsw.LAUNCHES == {"visit_sweep": 1}
+    ref = fsw.sweep_plain(rays, ids, nears, best, tabs.table, TMIN, kind == "tri",
+                          sphere)
+    torch.cuda.synchronize()
+    hit = ref[:, 0] < cap
+    assert int(hit.sum()) > 100 and int(chunks.active.sum()) == 2000
+    assert torch.equal(got[:, 0] < cap, hit)
+    assert torch.equal(got[:, 6:8], ref[:, 6:8])
+    torch.testing.assert_close(got[hit, 0], ref[hit, 0], rtol=1e-4, atol=0)
+    torch.testing.assert_close(got[hit, 1:6], ref[hit, 1:6], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["tri", "sphere"])
+def test_perray_on_card_matches_oracle(dev, kind):
+    """K3 + K4 phase loop (V = 4, several phases) against the chunk scan."""
+    scene = _random_scene(kind, dev)
+    org, dirs, time = _rays(np.random.default_rng(4), dev, 4000)
+    cap = torch.full((4000,), 60.0, device=dev)
+    if kind == "sphere":
+        t, pay = perray.sphere_closest_perray(org, dirs, time, scene.sphere_chunks,
+                                              TMIN, cap, V=4)
+        t_o, pay_o = ch.sphere_closest(org, dirs, time, scene.sphere_chunks, TMIN,
+                                       tmax=cap)
+        # the oracle's expanded quadratic |o|^2 - 2 o.c + |c|^2 cancels
+        # (|o| <= 21 here); the JAX package holds the same pair to rtol 5e-4,
+        # atol 3e-4 (tests/test_perray.py:233-239)
+        rtol, atol = 5e-4, 3e-4
+    else:
+        t, pay = perray.planar_closest_perray(org, dirs, scene.tri_chunks, TMIN,
+                                              True, cap, V=4)
+        t_o, pay_o = ch.planar_closest(org, dirs, scene.tri_chunks, TMIN, True,
+                                       tmax=cap)
+        # the two plane formulas round n.c - n.o apart by a few ulp of the
+        # coordinates (|x| <= 12): ~1e-6 of distance, which rtol misses at
+        # t ~ 1e-3
+        rtol, atol = 1e-4, 1e-5
+    hit = torch.isfinite(t_o)
+    assert int(hit.sum()) > 100
+    assert torch.equal(torch.isfinite(t), hit)
+    # compared as distances along the ray (t |d|): the directions are not
+    # unit, and the oracle's rounding is a distance
+    dl = dirs.norm(dim=-1)[hit]
+    torch.testing.assert_close(t[hit] * dl, t_o[hit] * dl, rtol=rtol, atol=atol)
+    assert torch.equal(pay[-1][hit], pay_o[-1][hit])
+    assert torch.equal(pay[-2], pay_o[-2])

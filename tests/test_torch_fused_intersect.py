@@ -160,7 +160,7 @@ def test_sphere_random_table():
 def test_planar_cornell_view():
     """The main path: Cornell's 18 quads as one chunk of 128."""
     js, org, dirs, _ = _scene_rays("cornell_box")
-    scene = convert.scene_from_numpy(js)
+    scene = convert.scene_from_numpy(js, device="cpu")
     view, pack = scene.quad_view
     assert view.corner.shape == (1, 128, 3)
     jview = jpk.dense_quad_view(js.quads)
@@ -178,7 +178,7 @@ def test_planar_cornell_view():
 def test_sphere_three_material_ball_view():
     """The main path: three_material_ball's 4 spheres as one chunk of 128."""
     js, org, dirs, time = _scene_rays("three_material_ball")
-    scene = convert.scene_from_numpy(js)
+    scene = convert.scene_from_numpy(js, device="cpu")
     view, pack = scene.sphere_view
     assert view.rad.shape == (1, 128)
     jview = jpk.dense_sphere_view(js.spheres)
@@ -202,7 +202,7 @@ def test_triangle_view():
         p = r.uniform(-3, 3, 3)
         b.triangle(p, p + r.normal(size=3), p + r.normal(size=3), m)
     js = b.build()
-    scene = convert.scene_from_numpy(js)
+    scene = convert.scene_from_numpy(js, device="cpu")
     view, _ = scene.tri_view
     org, dirs, _ = _rays(5, 800, -4, 4)
     got = _port_planar(org, dirs, view, True)

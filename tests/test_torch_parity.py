@@ -32,7 +32,7 @@ def _downsample(img: np.ndarray, f: int) -> np.ndarray:
 def test_reference_parity(name):
     width, spp, f, min_psnr, max_mean_rel = CASES[name]
     ref_ds = np.load(os.path.join(DATA, f"parity_{name}.npz"))["ref_ds"].astype(np.float64)
-    scene, cam = catalog.SCENES[name](width=width, spp=spp)
+    scene, cam = catalog.SCENES[name](width=width, spp=spp, device="cpu")
     img = integrator.render_image(scene, cam, keys.key(0))
     ours = np.clip(film.linear_to_gamma(img).numpy(), 0.0, 1.0)
     a = _downsample(ours, f)

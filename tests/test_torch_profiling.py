@@ -1,18 +1,20 @@
 """The port's profiling entry point: stage ranges wrap and restore, and a
-CPU render under the profiler records one range per stage call."""
+CPU render under the profiler records one range per stage call, for the
+Cornell and the colonnade workloads."""
 
 import pytest
 import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, integrator
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
-from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 from cpu_ray_tracing_implementation_tpu_torch.utils import profiling
 
 
 def test_stage_ranges_record_and_restore():
     before = [getattr(mod, name) for mod, name, _ in profiling.STAGES]
-    scene, cam = catalog.cornell_box(width=8, spp=1, max_depth=2)
+    scene, cam = catalog.cornell_box(width=8, spp=1, max_depth=2,
+                                      device="cpu")
     acts = [torch.profiler.ProfilerActivity.CPU]
     with profiling.stage_ranges(), torch.profiler.profile(activities=acts) as prof:
         assert isect.intersect_brute is not before[0]
@@ -26,7 +28,28 @@ def test_stage_ranges_record_and_restore():
     assert counts["scatter"] == cam.max_depth
 
 
+def test_colonnade_ranges_the_per_ray_accelerator():
+    """The colonnade workload at a CPU size: each bounce's intersect range
+    holds at least one select and one sweep range (one per phase)."""
+    scene, cam = catalog.sponza(width=8, spp=1, max_depth=2, device="cpu")
+    assert scene.tri_chunks is not None
+    profiling.reset_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with profiling.stage_ranges(), torch.profiler.profile(activities=acts) as prof:
+        img = integrator.render_image(scene, cam, keys.key(0))
+    assert bool(torch.isfinite(img).all())
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert counts["intersect"] == cam.max_depth
+    assert counts["select"] == counts["sweep"] >= cam.max_depth
+    assert counts["select"] == perray.PHASES["phases"]
+    assert perray.PHASES["calls"] == cam.max_depth
+    # CPU tensors take the plain versions: no kernel launched
+    assert set(profiling.launches().values()) == {0}
+
+
 def test_main_needs_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal without a GPU")
-    assert profiling.main() == 2
+    assert profiling.main([]) == 2
+    assert profiling.main(["colonnade"]) == 2
+    assert profiling.main(["nope"]) == 2

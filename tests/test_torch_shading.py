@@ -72,7 +72,7 @@ def test_vecmath():
 def test_checker_texture_negative_coords():
     """jnp.mod parity below zero: remainder, not fmod."""
     js, _ = jcat.three_material_ball(width=16)
-    ps = convert.scene_from_numpy(js)
+    ps = convert.scene_from_numpy(js, device="cpu")
     p = RNG.uniform(-7, 7, (N, 3)).astype(np.float32)
     uu, vv = _u(N), _u(N)
     tid = RNG.integers(0, js.textures.ttype.shape[0], N).astype(np.int32)
@@ -101,7 +101,7 @@ def test_intersect_matches_jax(name):
     """Port: fused wrappers on the 1-chunk views; JAX on the CPU: the dense
     XLA route. Same hits to rounding."""
     js, jc = jcat.SCENES[name](width=16)
-    ps = convert.scene_from_numpy(js)
+    ps = convert.scene_from_numpy(js, device="cpu")
     org, dirs, time = _scene_rays(js, jc)
     u_vol = np.zeros((N, js.n_volumes), np.float32)
     jh = jisect.intersect_brute(js, org, dirs, time, 1e-3, u_vol)
@@ -124,7 +124,7 @@ def test_scatter_matches_jax(name):
     """Given the same Hit and uniforms, scatter gives the same direction,
     weight and continuation."""
     js, jc = jcat.SCENES[name](width=16)
-    ps = convert.scene_from_numpy(js)
+    ps = convert.scene_from_numpy(js, device="cpu")
     org, dirs, time = _scene_rays(js, jc)
     u_vol = np.zeros((N, js.n_volumes), np.float32)
     jh = jisect.intersect_brute(js, org, dirs, time, 1e-3, u_vol)
@@ -142,7 +142,7 @@ def test_scatter_matches_jax(name):
 
 def test_light_sample_and_pdf_match_jax():
     js, _ = jcat.cornell_box(width=16)
-    ps = convert.scene_from_numpy(js)
+    ps = convert.scene_from_numpy(js, device="cpu")
     origin = RNG.uniform(1, 554, (N, 3)).astype(np.float32)
     u3 = _u(N, 3)
     ref = jmat.light_sample(js, origin, u3[:, 0], u3[:, 1], u3[:, 2])
@@ -159,7 +159,7 @@ def test_unported_families_raise():
     m = b.lambertian((1, 1, 1))
     b._mat_row(mtype=sc.MAT_GLOSS)
     b.sphere((0, 0, 0), 1.0, m)
-    ps = b.build()
+    ps = b.build("cpu")
     h = isect.Hit(valid=torch.ones(2, dtype=torch.bool), t=torch.ones(2),
                   p=torch.zeros(2, 3), normal=torch.ones(2, 3),
                   front=torch.ones(2, dtype=torch.bool), u=torch.zeros(2),

@@ -1,0 +1,149 @@
+"""Plain K4 (``ops/fused_sweep.sweep_plain``) against the JAX Pallas
+kernel ``pallas_sweep.sweep``, which runs in interpret mode on the CPU as
+tests/test_pallas_sweep.py:55-97 runs it.
+
+The same rays, visit lists (the XLA selection rounds of ``perray``) and
+running best go through both, for planar quads, planar triangles and
+spheres, over two consecutive phases. pid and mat are equal; every one
+of the 8 best columns agrees within rtol = atol = 2e-5, except u and v of
+grazing planar hits (|d.n| < 0.05 with unit d), which are held to 1e-4.
+Why: XLA's CPU code contracts multiply-adds into FMAs inside its fused
+loops, PyTorch rounds every operation (measured: d.n 3 ulp apart on one
+ray). At a grazing hit t = (n.c - n.o)/(d.n) cancels, so those few ulp
+become 189 ulp of t (1.3e-5 relative, still inside 2e-5) and 4.7e-5 of
+the edge coefficients, which carry t times |d.(ev x w)|. The sweep tables
+are equal exactly.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cpu_ray_tracing_implementation_tpu.models import scene as jscene
+from cpu_ray_tracing_implementation_tpu.ops import pallas_sweep as jpsw
+from cpu_ray_tracing_implementation_tpu.ops import perray as jperray
+from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
+from cpu_ray_tracing_implementation_tpu_torch.ops import perray
+
+TMIN = 1e-3
+R = jpsw.RB
+
+
+def _scene(kind):
+    rng = np.random.default_rng({"quad": 11, "tri": 12, "sphere": 13}[kind])
+    b = jscene.SceneBuilder()
+    mats = [b.lambertian((0.5, 0.5, 0.5)), b.metal((0.5, 0.5, 0.5))]
+    for i, c in enumerate(rng.normal(0, 3.0, (600, 3))):
+        if kind == "sphere":
+            b.moving_sphere(c, c + rng.normal(0, 0.1, 3),
+                            abs(rng.normal(0.2, 0.05)) + 0.05, mats[i % 2])
+        elif kind == "tri":
+            v = c + rng.normal(0, 0.3, (3, 3))
+            b.triangle(v[0], v[1], v[2], mats[i % 2])
+        else:
+            b.quad(c, rng.normal(0, 0.3, 3), rng.normal(0, 0.3, 3), mats[i % 2])
+    s = b.build()
+    return {"quad": s.quad_chunks, "tri": s.tri_chunks,
+            "sphere": s.sphere_chunks}[kind]
+
+
+def _to_torch(jchunks, cls):
+    return cls(*[torch.as_tensor(np.array(getattr(jchunks, f.name)))
+                 for f in dataclasses.fields(cls)])
+
+
+@pytest.mark.parametrize("kind", ["quad", "tri", "sphere"])
+def test_plain_matches_jax_kernel(kind):
+    jchunks = _scene(kind)
+    sphere = kind == "sphere"
+    K, C = jchunks.mat.shape
+    rng = np.random.default_rng(21)
+    org = rng.normal(0, 3.0, (R, 3)).astype(np.float32)
+    d = rng.normal(0, 1, (R, 3))
+    dirs = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    time = rng.uniform(0, 1, R).astype(np.float32)
+    cap = np.full(R, 50.0, np.float32)
+    cap[:16] = rng.uniform(0.5, 3.0, 16)
+    jo, jd, jt, jc = (jnp.asarray(x) for x in (org, dirs, time, cap))
+
+    if sphere:
+        jtable = jperray._sphere_table(jchunks).reshape(K, 7, C)
+        tabs = perray.sphere_tables(_to_torch(jchunks, ch.SphereChunks))
+        jrays = jpsw.pack_rays(jo, jd, jt)
+        rays = fsw.pack_rays(*(torch.as_tensor(x) for x in (org, dirs, time)))
+        pk = jpsw.pack_best_sphere((jc, jnp.zeros((R, 3)), jnp.ones((R,)),
+                                    jnp.zeros((R,), jnp.int32),
+                                    jnp.zeros((R,), jnp.int32)))
+    else:
+        jtable = jperray._planar_table(jchunks).reshape(K, 9, C)
+        tabs = perray.planar_tables(_to_torch(jchunks, ch.PlanarChunks))
+        jrays = jpsw.pack_rays(jo, jd)
+        rays = fsw.pack_rays(torch.as_tensor(org), torch.as_tensor(dirs))
+        pk = jpsw.pack_best_planar((jc, jnp.zeros((R, 3)), jnp.zeros((R,)),
+                                    jnp.zeros((R,)), jnp.zeros((R,), jnp.int32),
+                                    jnp.zeros((R,), jnp.int32)))
+    np.testing.assert_array_equal(tabs.table.numpy(), np.asarray(jtable))
+    np.testing.assert_array_equal(rays.numpy(), np.asarray(jrays))
+    best = torch.as_tensor(np.array(pk))
+
+    V = 4
+    nr = jperray._near_matrix(jo, jd, jchunks.lo, jchunks.hi, TMIN, jc)
+    hits = 0
+    for _ in range(2):                    # phase 1, then phase 2 from its best
+        ids, nears, nr = jperray._select_block(nr, V)
+        ids = jnp.clip(ids, 0, K - 1)
+        ref = jpsw.sweep(jrays, ids, nears, pk, jtable, V, C, TMIN,
+                         kind == "tri", sphere)
+        got = fsw.sweep(rays, torch.as_tensor(np.array(ids)),
+                        torch.as_tensor(np.array(nears)), best, tabs.table,
+                        TMIN, kind == "tri", sphere)
+        ref_np, got_np = np.asarray(ref), got.numpy()
+        np.testing.assert_array_equal(got_np[:, 6:8], ref_np[:, 6:8])
+        grazing = np.zeros(R, bool)
+        if not sphere:
+            hit = ref_np[:, 0] < cap
+            grazing = hit & (np.abs(np.sum(dirs * ref_np[:, 1:4], axis=1)) < 0.05)
+        assert grazing.sum() <= R // 50
+        np.testing.assert_allclose(got_np[~grazing], ref_np[~grazing],
+                                   rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(got_np[grazing][:, [0, 1, 2, 3]],
+                                   ref_np[grazing][:, [0, 1, 2, 3]],
+                                   rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(got_np[grazing][:, 4:6],
+                                   ref_np[grazing][:, 4:6], rtol=0, atol=1e-4)
+        hits = int((ref_np[:, 0] < cap).sum())
+        pk, best = ref, got
+    assert hits > 20
+
+
+def test_best_packing_round_trips():
+    rng = np.random.default_rng(3)
+    t, u, v = (torch.as_tensor(rng.uniform(0, 9, 5).astype(np.float32))
+               for _ in range(3))
+    n = torch.as_tensor(rng.normal(size=(5, 3)).astype(np.float32))
+    m = torch.arange(5, dtype=torch.int32)
+    p = torch.arange(5, dtype=torch.int32) * 1000 + 262143 - 5000
+    for a, b in zip(fsw.unpack_best_planar(fsw.pack_best_planar(t, n, u, v, m, p)),
+                    (t, n, u, v, m, p)):
+        assert torch.equal(a, b)
+    for a, b in zip(fsw.unpack_best_sphere(fsw.pack_best_sphere(t, n, u, m, p)),
+                    (t, n, u, m, p)):
+        assert torch.equal(a, b)
+
+
+def test_cpu_tensors_launch_nothing_and_kernel_refuses_them():
+    table = torch.zeros((2, 9, 128))
+    rays = torch.zeros((4, 8))
+    ids = torch.zeros((4, 2), dtype=torch.int32)
+    nears = torch.full((4, 2), float("inf"))
+    best = torch.zeros((4, 8))
+    best[:, 0] = 10.0
+    fsw.reset_launches()
+    out = fsw.sweep(rays, ids, nears, best, table, TMIN, False, False)
+    assert torch.equal(out, best) and fsw.LAUNCHES == {"visit_sweep": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        fsw.sweep_kernel(rays, ids, nears, best, table, TMIN, False, False)
