@@ -22,6 +22,15 @@ Phases (any failure raises and the script exits non-zero):
      colonnade table) and spheres (a random 6,000-sphere table, 47
      chunks). Equal hit masks, pid and mat; t within rtol 1e-4; every other
      column within atol 1e-3; each column's error reported.
+   - K1 and K2 with their pid output (the winner's lane, which the
+     gradient path replays) against the plain versions' pid, at the same
+     Cornell and three_material_ball shapes: equal wherever hit masks and
+     materials are equal and the ray is no near-tie (counted and printed);
+     K1's time with and without pid.
+   - K5 (gather-sum probe) against its plain version (rel err max |a - b| /
+     (|b| + 1) <= 1e-5) at the probe's defaults (an 11.5 MB table, inside
+     the L2) and with a 738 MB table (K 131,072: device memory), with its
+     time, gathered GB/s, bound and the embedding_bag call's time.
    Kernel and plain times from CUDA events.
 3. Checks, their launches not counted: cornell_box, three_material_ball
    and sponza (the colonnade) at the golden workload (16 px, 4 spp, depth
@@ -39,12 +48,23 @@ Phases (any failure raises and the script exits non-zero):
    which must pass its parity gate (> 38 dB, mean rel err < 0.02); and
    the colonnade at 200x200, 30 spp, depth 5. Each image must be finite;
    prints seconds, camera rays/s, the mean and, for the colonnade, the
-   selection phases per bounce.
-5. Kernel launch counts of each phase-4 render, set to 0 just before it
-   and read just after: the Cornell render must launch K1, the
+   selection phases per bounce. Then the gradient path
+   (``diff.loss_and_grads``): cornell_box at 512x512, 256 spp, depth 8
+   (bench.py's workload), geometry=False then True, and the colonnade at
+   200x200, depth 5, 8 spp; each prints seconds, fwd+bwd camera rays/s,
+   peak device memory, each pass's seconds and, for Cornell, (fwd+bwd -
+   fwd) / fwd against the forward render above. Loss and gradients must
+   be finite.
+5. Kernel launch counts of each phase-4 run, set to 0 just before it and
+   read just after: the Cornell render must launch K1, the
    three_material_ball render K2, and the colonnade render K1 (its light
-   quad), K3 and K4. The ``kernels`` line gives each kernel's launches in
-   the render of its own slice's scene.
+   quad), K3 and K4. Cornell's gradient runs launch K1 2,048 times in the
+   forward pass (256 x 8) and none in the backward pass (the winners are
+   replayed from the tape); the colonnade's gradient run launches K1, K3
+   and K4 in both passes (no tape on chunked tables: the accelerator runs
+   again). K5 is on no path: its launches are those of one probe call. The
+   ``kernels`` line gives each kernel's launches in the render of its own
+   slice's scene.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -53,6 +73,7 @@ printing a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -63,7 +84,7 @@ import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
-from cpu_ray_tracing_implementation_tpu_torch.models import catalog, film, integrator
+from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, film, integrator
 from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
@@ -71,7 +92,9 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
-from cpu_ray_tracing_implementation_tpu_torch.utils import profiling
+from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe, profiling
+from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
+    FP32_INSTR_PER_S, HBM_BYTES_PER_S, cuda_ms)
 
 TMIN = 1e-3
 INF = float("inf")
@@ -90,12 +113,20 @@ KERNELS = {
     "sphere_closest": ("K2", PKG + "closest_hit.cu", JAX + "ops/pallas_intersect.py:267"),
     "cull_select": ("K3", PKG + "cull_select.cu", JAX + "ops/pallas_select.py:48"),
     "visit_sweep": ("K4", PKG + "visit_sweep.cu", JAX + "ops/pallas_sweep.py:175"),
+    "gather_sum": ("K5", PKG + "gather_sum.cu", "tools/dma_gather_probe.py:40"),
 }
-# the card's peak rates (H100 SXM data sheet): 3.35 TB/s of HBM and 67
-# TFLOP/s of FP32, which counts a fused multiply-add as two operations, so
-# FP32 instructions of any kind issue at half that rate
-HBM_BYTES_PER_S = 3.35e12
-FP32_INSTR_PER_S = 33.5e12
+# K5's two tables: the probe's default (11.5 MB, inside the 50 MB L2) and
+# one of 738 MB, whose random rows come mostly from device memory
+GATHER_KS = (2_048, 131_072)
+# gradient tolerances: the JAX package's replay-against-remat test
+# (tests/test_replay.py:106-112)
+LOSS_RTOL = 1e-4
+SCENE_TOL = dict(rtol=2e-3, atol=1e-5)
+CAMERA_TOL = dict(rtol=5e-3, atol=1e-4)
+# the families __graft_entry__.py asserts live on all_materials_fixture
+LIVE = ("tex_color0", "tex_color1", "mat_fuzz", "mat_ior", "mat_smoothness",
+        "mat_spec_prob", "pos", "lookat", "fovy_deg", "focal_length", "geo_sph_c1")
+COLONNADE_GRAD_SPP = 8
 # FP32 instructions (a fused multiply-add counts once, a divide, square
 # root, min, max or compare once) per (ray, primitive) or (ray, box) pair,
 # counted from each kernel's source: K1 the plane and edge tests of a live
@@ -115,26 +146,6 @@ def gpu_name_and_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters=20, warmup=3) -> float:
-    """Device ms per call of ``fn``, from CUDA events. The card first spins
-    for ~50 ms, so the host queues every call before the first runs and a
-    call that does not synchronise is timed on the card alone, not at the
-    host's launch rate. A call that synchronises (the plain versions' chunk
-    cull) still pays its host time."""
-    for _ in range(warmup):
-        fn()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
 
 
 # ------------------------------------------------------------ phase 2
@@ -450,6 +461,247 @@ def phase_select_sweep(scene, cam, dev):
     return errs, times, bounds
 
 
+
+# ----------------------------------------------- phase 2: pid and K5
+def pid_compare(label, out, pid, ref_t, ref_pid, ref_mat, valid_row, mat_row):
+    """A kernel's pid output against the plain version's: equal on every
+    ray whose hit mask and material agree, unless a near-tie (both t within
+    rtol 1e-4: two primitives at one depth). Returns (rays whose pid
+    differs, near-ties among them, rays whose mask or material differs)."""
+    hit = out[valid_row] > 0.5
+    hit_r = torch.isfinite(ref_t)
+    mat = torch.round(out[mat_row]).to(torch.int32)
+    agree = (hit == hit_r) & (~hit | (mat == ref_mat))
+    differ = agree & hit & (pid != ref_pid)
+    near = differ & ((out[0] - ref_t).abs() <= 1e-4 * ref_t.abs())
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"{label}: pid differs from the plain version's in "
+                             f"{int((differ & ~near).sum())} rays that are no near-tie")
+    if bool((~hit & (pid != 0)).any()):
+        raise AssertionError(f"{label}: pid is not 0 on a miss")
+    counts = (int(differ.sum()), int(near.sum()), int((~agree).sum()))
+    log(f"  {label}: rays {pid.shape[0]} hits {int(hit_r.sum())}; pid differs in "
+        f"{counts[0]} (near-ties {counts[1]}); mask or material differs in {counts[2]}")
+    return counts
+
+
+def phase_pid(dev):
+    """K1 and K2 with their pid output against the plain versions' pid, at
+    the Cornell and three_material_ball shapes; returns K1's ms without
+    and with pid on Cornell's primary rays."""
+    gen = torch.Generator().manual_seed(4)
+    scene, org, dirs, _ = camera_rays("cornell_box", gen, dev)
+    view, pack = scene.quad_view
+    rays0 = fi.pack_rays(org, dirs)
+    for which in ("primary", "secondary"):
+        rays = fi.pack_rays(org, dirs)
+        for tri in (False, True):
+            out, pid = fi.planar_closest_kernel(rays, pack, TMIN, triangle=tri,
+                                                with_pid=True)
+            t_r, pay_r = ch.planar_closest(org, dirs, view, TMIN, tri)
+            pid_compare(f"K1 pid {'tri' if tri else 'quad'}, cornell view, {which}",
+                        out, pid, t_r, pay_r[4], pay_r[3], fi.OUT_VALID, fi.OUT_MAT)
+            if not tri:
+                t_quad = t_r
+        org, dirs = secondary(org, dirs, t_quad, gen)
+    ms = (cuda_ms(lambda: fi.planar_closest_kernel(rays0, pack, TMIN)),
+          cuda_ms(lambda: fi.planar_closest_kernel(rays0, pack, TMIN, with_pid=True)))
+    log(f"  K1 at the Cornell primary shape: {ms[0]:.4f} ms without pid, "
+        f"{ms[1]:.4f} ms with pid")
+
+    scene, org, dirs, time_ = camera_rays("three_material_ball", gen, dev)
+    view, pack = scene.sphere_view
+    for which in ("primary", "secondary"):
+        out, pid = fi.sphere_closest_kernel(fi.pack_rays(org, dirs, time_), pack, TMIN,
+                                            with_pid=True)
+        t_r, pay_r = ch.sphere_closest(org, dirs, time_, view, TMIN)
+        pid_compare(f"K2 pid, three_material_ball view, {which}", out, pid, t_r,
+                    pay_r[3], pay_r[2], fi.SOUT_VALID, fi.SOUT_MAT)
+        org, dirs = secondary(org, dirs, t_r, gen)
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_gather(dev):
+    """K5 against its plain version at both table sizes; returns the
+    probe's results (the first at the defaults)."""
+    R, _, V, rowf = gather_probe.DEFAULTS
+    results = []
+    for K in GATHER_KS:
+        r = gather_probe.measure(R, K, V, rowf, dev)
+        log(f"  K5 {R} rays x {V} slots from a {r['table_mb']:.1f} MB table: kernel "
+            f"{r['ms']:.4f} ms ({r['gbps']:.1f} GB/s gathered), plain "
+            f"{r['plain_ms']:.4f} ms, embedding_bag {r['library_ms']:.4f} ms "
+            f"({r['library_gbps']:.1f} GB/s), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); rel err {r['rel_err']:.3g} (embedding_bag "
+            f"{r['library_rel_err']:.3g})")
+        if not r["rel_err"] <= 1e-5:
+            raise AssertionError(f"K5 rel err {r['rel_err']} > 1e-5 at K {K}")
+        results.append(r)
+    return results
+
+
+# ------------------------------------------------- phase 3: gradients
+def grads_close(label, got, ref):
+    """(loss, (scene grads, camera grads)) against a reference at the
+    tolerances above; logs each family's largest abs error."""
+    loss, (gs, gc) = got
+    loss_r, (gs_r, gc_r) = ref
+    torch.testing.assert_close(float(loss), float(loss_r), rtol=LOSS_RTOL, atol=0)
+    err = {}
+    for grads, grads_r, tol in ((gs, gs_r, SCENE_TOL), (gc, gc_r, CAMERA_TOL)):
+        for name, g in grads.items():
+            g, g_r = g.detach().cpu(), grads_r[name].detach().cpu()
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{label}: {name} is not finite")
+            torch.testing.assert_close(g, g_r, **tol,
+                                       msg=lambda m, n=name: f"{label}: {n}: {m}")
+            err[name] = max_abs(g, g_r)
+    log(f"  {label}: loss {float(loss):.6f} / {float(loss_r):.6f}; max abs err "
+        + ", ".join(f"{k} {v:.2e}" for k, v in err.items()))
+
+
+def grads_of(scene, cam, seed, **kw):
+    target = torch.zeros((cam.height, cam.width, 3), device=scene.device)
+    return diff.loss_and_grads(scene, cam, keys.key(seed), target, cam.spp, **kw)
+
+
+def kernel_route_grads(dev):
+    """K1's and K2's autograd route (kernel forward, chunk-scan backward)
+    against plain autograd through the chunk scan on the same CUDA tensors.
+    Per-ray gradients are the same operations; table gradients sum
+    262,144 rays' terms with atomic adds in no fixed order (rtol 1e-4)."""
+    gen = torch.Generator().manual_seed(5)
+    for name in ("cornell_box", "three_material_ball"):
+        scene, org, dirs, time_ = camera_rays(name, gen, dev)
+        view, pack = scene.quad_view if name == "cornell_box" else scene.sphere_view
+        fields = ("corner", "eu", "ev") if name == "cornell_box" else ("c0", "c1", "rad")
+        view = dataclasses.replace(view, **{f: getattr(view, f).clone().requires_grad_()
+                                            for f in fields})
+        org = org.clone().requires_grad_()
+        dirs = dirs.clone().requires_grad_()
+        leaves = [org, dirs] + [getattr(view, f) for f in fields]
+        w = torch.randn((org.shape[0], 8), generator=gen).to(dev)
+
+        def weighted(outs):
+            total = 0.0
+            for i, x in enumerate(outs):
+                x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+                x = x.reshape(x.shape[0], -1)
+                total = total + (x * w[:, i:i + x.shape[1]]).sum()
+            return total
+
+        if name == "cornell_box":
+            t, pay = fi.planar_closest_fused(org, dirs, view, TMIN, False, pack=pack)
+            t_r, pay_r = ch.planar_closest(org, dirs, view, TMIN, False)
+            got, ref = (t, *pay[:3]), (t_r, *pay_r[:3])
+        else:
+            t, pay = fi.sphere_closest_fused(org, dirs, time_, view, TMIN, pack=pack)
+            t_r, pay_r = ch.sphere_closest(org, dirs, time_, view, TMIN)
+            got, ref = (t, *pay[:2]), (t_r, *pay_r[:2])
+        g = torch.autograd.grad(weighted(got), leaves)
+        g_r = torch.autograd.grad(weighted(ref), leaves)
+        errs = []
+        for a, b, n in zip(g, g_r, ["org", "dirs", *fields]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6,
+                                       msg=lambda m, n=n: f"{name}: d/d {n}: {m}")
+            errs.append(f"{n} {max_abs(a, b):.2e}")
+        log(f"  {'K1' if name == 'cornell_box' else 'K2'} autograd route vs plain "
+            f"autograd, {name} view, {org.shape[0]} rays: max abs err " + ", ".join(errs))
+
+
+def finite_difference(dev):
+    """Central differences of the replay loss against its gradient on the
+    card: a wall albedo and the back wall's depth (cornell_box, 10 px, 2
+    spp, depth 2, key 5; tests/test_torch_diff.py's cases)."""
+    scene, cam = catalog.cornell_box(width=10, spp=2, max_depth=2, device=dev)
+    target = torch.zeros((cam.height, cam.width, 3), device=dev)
+    key = keys.key(5)
+    _, (gs, _) = diff.loss_and_grads(scene, cam, key, target, 2)
+    p0 = diff.scene_params(scene)
+    for name, idx, eps, rtol in (("tex_color0", (1, 0), 1e-2, 2e-2),
+                                 ("geo_quad_corner", (4, 2), 0.3, 1e-2)):
+        def loss_at(delta):
+            p = dict(p0)
+            p[name] = p0[name].clone()
+            p[name][idx] += delta
+            return float(diff.image_loss(diff.apply_scene_params(scene, p), cam, key,
+                                         target, 2))
+
+        fd = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
+        ad = float(gs[name][idx])
+        log(f"  finite differences, {name}{list(idx)}: gradient {ad:.6e}, central "
+            f"difference (eps {eps}) {fd:.6e}, rel err {abs(ad - fd) / abs(fd):.2e} "
+            f"(gate {rtol})")
+        if not (abs(ad) > 1e-6 and abs(ad - fd) <= rtol * abs(fd)):
+            raise AssertionError(f"finite differences of {name} disagree")
+
+
+def phase_grad_checks(dev):
+    kernel_route_grads(dev)
+    scene, cam = catalog.cornell_box(width=64, spp=4, max_depth=4, device=dev)
+    grads_close("cornell_box 64 px 4 spp depth 4, replay vs oracle route",
+                grads_of(scene, cam, 3), grads_of(scene, cam, 3, replay_isect=False))
+    finite_difference(dev)
+    mk = lambda d: catalog.all_materials_fixture(width=24, spp=4, max_depth=3, device=d)
+    got = grads_of(*mk(dev), 0)
+    grads = {**got[1][0], **got[1][1]}
+    dead = [n for n in LIVE if not float(grads[n].norm()) > 0.0]
+    if dead:
+        raise AssertionError(f"all_materials_fixture: families with no gradient: {dead}")
+    log("  all_materials_fixture 24 px 4 spp depth 3, gradient norms: "
+        + ", ".join(f"{n} {float(grads[n].norm()):.3e}" for n in LIVE))
+    grads_close("all_materials_fixture, card vs CPU port", got, grads_of(*mk("cpu"), 0))
+    mk = lambda d: catalog.sponza(width=16, spp=2, max_depth=2, device=d)
+    grads_close("colonnade 16 px 2 spp depth 2 (vertex gradients), card vs CPU port",
+                grads_of(*mk(dev), 6), grads_of(*mk("cpu"), 6))
+
+
+# ------------------------------------------- phases 4, 5: gradient runs
+def grad_path(label, scene, cam, geometry=True, fwd_secs=None):
+    """One ``diff.loss_and_grads`` at the camera's spp, its launches counted
+    by pass: every count set to 0 just before it, read where the backward
+    pass starts and again at the end. Returns (seconds, fwd+bwd camera
+    rays/s, (forward-pass launches, backward-pass launches))."""
+    target = torch.zeros((cam.height, cam.width, 3), device=scene.device)
+    marks = {}
+    backward_pass = diff._backward_pass
+
+    def counted(*a, **k):
+        torch.cuda.synchronize()
+        marks["fwd"] = (time.perf_counter(), profiling.launches())
+        return backward_pass(*a, **k)
+
+    diff._backward_pass = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiling.reset_counts()
+        t0 = time.perf_counter()
+        loss, (gs, gc) = diff.loss_and_grads(scene, cam, keys.key(0), target, cam.spp,
+                                             geometry=geometry)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        diff._backward_pass = backward_pass
+    total = profiling.launches()
+    fwd = marks["fwd"][1]
+    bwd = {k: total[k] - fwd[k] for k in total}
+    bad = [n for n, g in {**gs, **gc}.items() if not bool(torch.isfinite(g).all())]
+    if not np.isfinite(float(loss)) or bad:
+        raise AssertionError(f"{label}: loss {float(loss)}, non-finite gradients {bad}")
+    rays = cam.width * cam.height * cam.spp
+    fwd_pass = marks["fwd"][0] - t0
+    log(f"  {label}: {secs:.3f} s, {rays / secs / 1e6:.3f} M fwd+bwd camera rays/s, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; forward "
+        f"pass {fwd_pass:.3f} s, backward pass {secs - fwd_pass:.3f} s; loss "
+        f"{float(loss):.6f}"
+        + (f"; (fwd+bwd - fwd) / fwd = {(secs - fwd_secs) / fwd_secs:.3f} against "
+           f"the forward render's {fwd_secs:.3f} s" if fwd_secs else ""))
+    log(f"  launches: forward pass {fwd}, backward pass {bwd}")
+    return secs, rays / secs, (fwd, bwd)
+
+
 # ------------------------------------------------------------ phases 3-5
 def parity_scene(name, dev):
     width, spp = PARITY[name][:2]
@@ -608,6 +860,12 @@ def main() -> int:
     errs.update(e)
     times.update(t)
     bounds.update(b)
+    phase_pid(dev)
+    probes = phase_gather(dev)
+    r = probes[0]
+    errs["gather_sum"] = r["max_abs_err"]
+    times["gather_sum"] = (r["ms"], r["plain_ms"])
+    bounds["gather_sum"] = (r["bound_ms"], r["bound_by"])
 
     log("phase 3: checks (their launches are not counted)")
     for name in ("cornell_box", "three_material_ball", "sponza"):
@@ -615,6 +873,7 @@ def main() -> int:
     psnr_gate("cornell_box", full_render("cornell_box parity size",
                                          *parity_scene("cornell_box", dev))[2])
     perray_vs_oracle(col_scene, col_cam, dev)
+    phase_grad_checks(dev)
 
     log("phase 4, 5: main paths, each render's launches counted on its own")
     scene, cam = catalog.cornell_box(width=512, spp=256, max_depth=8, device=dev)
@@ -633,11 +892,48 @@ def main() -> int:
     calls, phases = perray.PHASES["calls"], perray.PHASES["phases"]
     log(f"  colonnade render: {calls} per-ray closest-hit calls (bounces), "
         f"{phases} selection phases, {phases / max(calls, 1):.3f} per bounce")
+
+    log("phase 4, 5: the gradient path, each run's launches counted by pass")
+    grad_secs = {}
+    for geometry in (False, True):
+        label = (f"cornell_box 512x512 256spp depth 8 loss_and_grads, geometry="
+                 f"{geometry}")
+        grad_secs[geometry], _, (fwd, bwd) = grad_path(label, scene, cam, geometry,
+                                                       fwd_secs=cornell_secs)
+        want = cam.spp * cam.max_depth
+        if fwd["planar_closest"] != want or bwd["planar_closest"] != 0:
+            raise AssertionError(f"{label}: K1 launched {fwd['planar_closest']} times "
+                                 f"in the forward pass (want {want}) and "
+                                 f"{bwd['planar_closest']} in the backward (want 0)")
+    col_grad_cam = col_cam.replace(spp=COLONNADE_GRAD_SPP)
+    perray.reset_phases()
+    col_grad_secs, _, (fwd, bwd) = grad_path(
+        f"colonnade {COLONNADE_PX}x{COLONNADE_PX} {COLONNADE_GRAD_SPP}spp depth "
+        f"{col_cam.max_depth} loss_and_grads", col_scene, col_grad_cam)
+    log("  colonnade gradient: chunked tables are not taped; the backward pass runs "
+        f"the per-ray accelerator again (K3 {fwd['cull_select']} + "
+        f"{bwd['cull_select']}, K4 {fwd['visit_sweep']} + {bwd['visit_sweep']} "
+        "launches in the forward + backward pass)")
+    for name in ("planar_closest", "cull_select", "visit_sweep"):
+        if not (fwd[name] > 0 and bwd[name] > 0):
+            raise AssertionError(f"colonnade gradient: kernel {name} was not "
+                                 "launched in both passes")
+    # K5 lies on no path: its launches are those of one probe call
+    profiling.reset_counts()
+    R, K, V, rowf = gather_probe.DEFAULTS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gather_probe.gather_sum(torch.randint(0, K, (R, V), generator=gen, device=dev,
+                                          dtype=torch.int32),
+                            torch.randn((K, rowf), generator=gen, device=dev))
+    launches_probe = profiling.launches()
+    log(f"  launches in one gather-probe call: {launches_probe}")
     # each kernel's launches in the render of its own slice's scene
     launches = {"planar_closest": launches_cornell["planar_closest"],
                 "sphere_closest": launches_ball["sphere_closest"],
                 "cull_select": launches_col["cull_select"],
-                "visit_sweep": launches_col["visit_sweep"]}
+                "visit_sweep": launches_col["visit_sweep"],
+                "gather_sum": launches_probe["gather_sum"]}
+    library_ms = {"gather_sum": r["library_ms"]}
 
     kernels = []
     for name, (kid, source, replaces) in KERNELS.items():
@@ -651,9 +947,13 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+                        "library_ms": library_ms.get(name)})
+    n_cornell = cam.width * cam.height * cam.spp
     log(f"full workloads: cornell_box {cornell_secs:.3f} s, {cornell_rps:.1f} camera "
-        f"rays/s; colonnade {col_secs:.3f} s, {col_rps:.1f} camera rays/s; total "
+        f"rays/s; colonnade {col_secs:.3f} s, {col_rps:.1f} camera rays/s; cornell_box "
+        f"fwd+bwd {grad_secs[False]:.3f} s ({n_cornell / grad_secs[False]:.1f} camera "
+        f"rays/s), with geometry {grad_secs[True]:.3f} s ({n_cornell / grad_secs[True]:.1f}"
+        f"); colonnade fwd+bwd {col_grad_secs:.3f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power())
     log(json.dumps({"kernels": kernels}))

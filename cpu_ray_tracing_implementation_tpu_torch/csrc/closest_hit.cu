@@ -8,7 +8,14 @@
 // Layouts are the Pallas kernels': rays [8,R] f32 (org xyz, dir xyz, time,
 // pad), primitive constants [K,16,C] f32 (ops/fused_intersect.py pack_*),
 // output [8,R] f32 (K1: t, unit normal xyz, u, v, mat, valid; K2: t, center
-// xyz at ray time, rad, mat, valid, 0).
+// xyz at ray time, rad, mat, valid, 0), and, when the caller passes a pid
+// buffer, [R] int32 chunk-order index k*C + lane of each ray's winner (0 on
+// a miss, as the plain versions give it). The gradient path's winner replay
+// (ops/replay.py) reads pid to re-intersect that one primitive. The pid is
+// a template parameter: the forward render passes a null pointer and runs
+// the instantiation without it, unchanged (tracking the index in the lane
+// loop costs K1 ~26% at the Cornell shape: 0.0265 ms without, 0.0334 ms
+// with, in one chip_smoke.py call; PERF.md).
 //
 // Design. One thread per ray. The TPU kernel's grid walks the chunk axis in
 // order and carries the running hit in the revisited VMEM output block; CUDA
@@ -86,11 +93,12 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
   return add(add(mul(ax, bx), mul(ay, by)), mul(az, bz));
 }
 
-template <bool TRIANGLE>
+template <bool TRIANGLE, bool WITH_PID>
 __global__ void __launch_bounds__(THREADS)
 planar_closest_kernel(const float* __restrict__ rays, int R,
                       const float* __restrict__ pack, int K, int C,
-                      float tmin, float tmax, float* __restrict__ out) {
+                      float tmin, float tmax, float* __restrict__ out,
+                      int* __restrict__ pid) {
   __shared__ float s[NROWS * TILE_C];
   const int r = blockIdx.x * THREADS + threadIdx.x;
   const bool live = r < R;
@@ -103,6 +111,7 @@ planar_closest_kernel(const float* __restrict__ rays, int R,
   float t_best = fminf(BIG, tmax);
   float nx = 0.f, ny = 0.f, nz = 0.f, bu = 0.f, bv = 0.f, bm = 0.f;
   float valid = 0.f;
+  int bp = 0;
 
   for (int k = 0; k < K; ++k) {
     for (int c0 = 0; c0 < C; c0 += TILE_C) {
@@ -141,10 +150,12 @@ planar_closest_kernel(const float* __restrict__ rays, int R,
         bu = a; bv = b;
         bm = s[ROW_MAT * TILE_C + j];
         valid = 1.f;
+        if (WITH_PID) bp = k * C + c0 + j;
       }
     }
   }
   if (live) {
+    if (WITH_PID) pid[r] = bp;
     out[0 * (size_t)R + r] = t_best;
     out[1 * (size_t)R + r] = nx;
     out[2 * (size_t)R + r] = ny;
@@ -156,10 +167,12 @@ planar_closest_kernel(const float* __restrict__ rays, int R,
   }
 }
 
+template <bool WITH_PID>
 __global__ void __launch_bounds__(THREADS)
 sphere_closest_kernel(const float* __restrict__ rays, int R,
                       const float* __restrict__ pack, int K, int C,
-                      float tmin, float tmax, float* __restrict__ out) {
+                      float tmin, float tmax, float* __restrict__ out,
+                      int* __restrict__ pid) {
   __shared__ float s[NROWS * TILE_C];
   const int r = blockIdx.x * THREADS + threadIdx.x;
   const bool live = r < R;
@@ -177,6 +190,7 @@ sphere_closest_kernel(const float* __restrict__ rays, int R,
   const float two_a = 2.f * fmaxf(a, 1e-20f);
   float t_best = fminf(BIG, tmax);
   float cx = 0.f, cy = 0.f, cz = 0.f, br = 1.f, bm = 0.f, valid = 0.f;
+  int bp = 0;
 
   for (int k = 0; k < K; ++k) {
     for (int c0 = 0; c0 < C; c0 += TILE_C) {
@@ -218,10 +232,12 @@ sphere_closest_kernel(const float* __restrict__ rays, int R,
         br = fmaxf(s[SROW_RAD * TILE_C + j], 1e-20f);
         bm = s[SROW_MAT * TILE_C + j];
         valid = 1.f;
+        if (WITH_PID) bp = k * C + c0 + j;
       }
     }
   }
   if (live) {
+    if (WITH_PID) pid[r] = bp;
     out[0 * (size_t)R + r] = t_best;
     out[1 * (size_t)R + r] = cx;
     out[2 * (size_t)R + r] = cy;
@@ -236,29 +252,41 @@ sphere_closest_kernel(const float* __restrict__ rays, int R,
 }  // namespace
 
 // Plain C interface for ctypes. Each returns cudaGetLastError() after the
-// launch (0 = success); nothing synchronises.
+// launch (0 = success); nothing synchronises. ``pid`` may be null.
 extern "C" int crt_planar_closest(const float* rays, int R, const float* pack,
                                   int K, int C, float tmin, float tmax,
-                                  int triangle, float* out, void* stream) {
+                                  int triangle, float* out, int* pid,
+                                  void* stream) {
   if (R <= 0) return 0;
   const dim3 grid((R + THREADS - 1) / THREADS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (triangle)
-    planar_closest_kernel<true><<<grid, THREADS, 0, st>>>(rays, R, pack, K, C,
-                                                          tmin, tmax, out);
+  if (triangle && pid)
+    planar_closest_kernel<true, true><<<grid, THREADS, 0, st>>>(
+        rays, R, pack, K, C, tmin, tmax, out, pid);
+  else if (triangle)
+    planar_closest_kernel<true, false><<<grid, THREADS, 0, st>>>(
+        rays, R, pack, K, C, tmin, tmax, out, pid);
+  else if (pid)
+    planar_closest_kernel<false, true><<<grid, THREADS, 0, st>>>(
+        rays, R, pack, K, C, tmin, tmax, out, pid);
   else
-    planar_closest_kernel<false><<<grid, THREADS, 0, st>>>(rays, R, pack, K, C,
-                                                           tmin, tmax, out);
+    planar_closest_kernel<false, false><<<grid, THREADS, 0, st>>>(
+        rays, R, pack, K, C, tmin, tmax, out, pid);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int crt_sphere_closest(const float* rays, int R, const float* pack,
                                   int K, int C, float tmin, float tmax,
-                                  float* out, void* stream) {
+                                  float* out, int* pid, void* stream) {
   if (R <= 0) return 0;
   const dim3 grid((R + THREADS - 1) / THREADS);
-  sphere_closest_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      rays, R, pack, K, C, tmin, tmax, out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pid)
+    sphere_closest_kernel<true><<<grid, THREADS, 0, st>>>(rays, R, pack, K, C,
+                                                          tmin, tmax, out, pid);
+  else
+    sphere_closest_kernel<false><<<grid, THREADS, 0, st>>>(rays, R, pack, K, C,
+                                                           tmin, tmax, out, pid);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,7 +28,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
-SOURCES = ("closest_hit.cu", "cull_select.cu", "visit_sweep.cu")
+SOURCES = ("closest_hit.cu", "cull_select.cu", "visit_sweep.cu",
+           "gather_sum.cu")
 # multiply-add contraction stays on; a kernel that must round like its plain
 # version says so in its source (K2's sphere quadratic, csrc/closest_hit.cu;
 # K4, csrc/visit_sweep.cu)
@@ -105,10 +106,10 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(compile_library()))
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.crt_planar_closest.argtypes = [ptr, i32, ptr, i32, i32, f32,
-                                               f32, i32, ptr, ptr]
+                                               f32, i32, ptr, ptr, ptr]
             lib.crt_planar_closest.restype = i32
             lib.crt_sphere_closest.argtypes = [ptr, i32, ptr, i32, i32, f32,
-                                               f32, ptr, ptr]
+                                               f32, ptr, ptr, ptr]
             lib.crt_sphere_closest.restype = i32
             lib.crt_cull_select.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
                                             f32, i32, i32, ptr, ptr, ptr, ptr]
@@ -116,6 +117,9 @@ def load() -> ctypes.CDLL:
             lib.crt_visit_sweep.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                             i32, f32, i32, i32, ptr, ptr]
             lib.crt_visit_sweep.restype = i32
+            lib.crt_gather_sum.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr,
+                                           ptr]
+            lib.crt_gather_sum.restype = i32
             lib.crt_error_string.argtypes = [i32]
             lib.crt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -46,6 +48,11 @@ class Camera:
     @property
     def device(self) -> torch.device:
         return self.pos.device
+
+    def replace(self, **changes) -> "Camera":
+        """A copy with fields replaced (``apply_camera_params`` of
+        ``models/diff.py``)."""
+        return dataclasses.replace(self, **changes)
 
 
 def _image_height(width: int, aspect_ratio: float) -> int:

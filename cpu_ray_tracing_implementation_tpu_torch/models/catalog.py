@@ -96,6 +96,27 @@ def sponza(width=None, spp=None, max_depth=None, device=DEFAULT_DEVICE,
                                             1, 45.0, s, d, device=device)
 
 
+def all_materials_fixture(width=None, spp=None, max_depth=None,
+                          device=DEFAULT_DEVICE):
+    """Every differentiable material family live in one small scene
+    (``catalog.py:540-565`` of the JAX package; not in SCENES): a checker
+    ground (tex_color0 and tex_color1), a dielectric (ior), a fuzzy metal
+    (fuzz), a gloss sphere (smoothness, spec_prob) and a quad light, seen
+    by a perspective camera (ray time keeps geo_sph_c1 live)."""
+    w, s, d = _cam_args(width, spp, max_depth, 64, 4, 4)
+    b = SceneBuilder()
+    ground = b.lambertian(b.checker((1, 1, 1), (0.6, 0.6, 0.2), 1.0))
+    b.sphere((0, -1000, 0), 1000, ground)
+    b.sphere((0, 1, 0), 1.0, b.dielectric(1.5))
+    b.sphere((-2.2, 1, 0), 1.0, b.metal((0.7, 0.6, 0.5), 0.3))
+    b.sphere((2.2, 1, 0), 1.0, b.gloss((0.2, 0.5, 0.3), 0.8, 0.3))
+    light_q = b.quad((-1, 4, -1), (2, 0, 0), (0, 0, 2), b.diffuse_light((5, 5, 5)))
+    b.light(light_q)
+    b.set_background(b.solid((0.4, 0.5, 0.7)))
+    return b.build(device), cam.perspective(w, 1.0, (0, 2, 9), (0, 1, 0), 1, 30.0,
+                                            s, d, device=device)
+
+
 SCENES = {
     "three_material_ball": three_material_ball,
     "cornell_box": cornell_box,

@@ -9,13 +9,21 @@ Ported so far: the dense tables, and for tables above
 ``chunked.DENSE_MAX`` rows the chunked tables (primitives in BVH order,
 cut into chunks of ``chunked.CHUNK`` with AABBs, ``utils/accel.py``) that
 the per-ray accelerator (``ops/perray.py``) reads; solid and checker
-textures, the lambertian, metal, dielectric and diffuse-light materials,
-quad lights, a solid background and the ``world_offset`` recentering. The
-builder methods for other features are not here yet (ROADMAP queue 1).
+textures, the lambertian, metal, dielectric, gloss and diffuse-light
+materials, quad lights, a solid background and the ``world_offset``
+recentering. The builder methods for other features are not here yet
+(ROADMAP queue 1).
+
+Tables are replaceable (``dataclasses.replace``, ``Scene.replace``), so the
+gradient path (``models/diff.py``) builds a scene from parameter tensors.
+The views and packs the kernels read are cached per scene and built from
+detached tables: the kernels only decide, and gradients flow through the
+winner replay or the chunk-scan VJP.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -153,39 +161,69 @@ class Scene:
     def device(self) -> torch.device:
         return self.quads.corner.device
 
+    def replace(self, **changes) -> "Scene":
+        """A copy with fields replaced (its cached views are rebuilt)."""
+        return dataclasses.replace(self, **changes)
+
     # The 1-chunk views of the dense tables and their kernel constant packs,
     # and the per-ray accelerator's sweep tables and box packs of the
-    # chunked ones, built once per scene rather than once per bounce. A
-    # chunked table never gets a 1-chunk view.
+    # chunked ones, built once per scene rather than once per bounce, from
+    # detached tables. A chunked table never gets a 1-chunk view.
     @functools.cached_property
     def quad_view(self):
         _dense_only("quad", self.quad_chunks)
-        view = fi.dense_quad_view(self.quads)
+        view = fi.dense_quad_view(_detached(self.quads))
         return view, fi.pack_prim_constants(view)
 
     @functools.cached_property
     def tri_view(self):
         _dense_only("triangle", self.tri_chunks)
-        view = fi.dense_tri_view(self.tris)
+        view = fi.dense_tri_view(_detached(self.tris))
         return view, fi.pack_prim_constants(view)
 
     @functools.cached_property
     def sphere_view(self):
         _dense_only("sphere", self.sphere_chunks)
-        view = fi.dense_sphere_view(self.spheres)
+        view = fi.dense_sphere_view(_detached(self.spheres))
         return view, fi.pack_sphere_constants(view)
+
+    def fused_view(self, kind: str):
+        """(view, pack) of the dense ``kind`` table ("quad", "tri",
+        "sphere") for the fused closest hit. Under autograd, when the table
+        needs a gradient, the view is rebuilt from the live table on each
+        call, so the chunk-scan VJP reaches it and no graph outlives one
+        backward; the pack, which only the kernel reads, stays cached."""
+        view, pack = getattr(self, f"{kind}_view")
+        table = {"quad": self.quads, "tri": self.tris, "sphere": self.spheres}[kind]
+        if tbl.needs_grad(*_tensor_fields(table)):
+            view = _VIEWS[kind](table)
+        return view, pack
 
     @functools.cached_property
     def quad_perray(self) -> perray.PerRayTables:
-        return perray.planar_tables(self.quad_chunks)
+        return perray.planar_tables(_detached(self.quad_chunks))
 
     @functools.cached_property
     def tri_perray(self) -> perray.PerRayTables:
-        return perray.planar_tables(self.tri_chunks)
+        return perray.planar_tables(_detached(self.tri_chunks))
 
     @functools.cached_property
     def sphere_perray(self) -> perray.PerRayTables:
-        return perray.sphere_tables(self.sphere_chunks)
+        return perray.sphere_tables(_detached(self.sphere_chunks))
+
+
+def _tensor_fields(table) -> list:
+    return [getattr(table, f.name) for f in dataclasses.fields(table)]
+
+
+def _detached(table):
+    """``table`` with every tensor field detached from the graph."""
+    return dataclasses.replace(table, **{
+        f.name: getattr(table, f.name).detach() for f in dataclasses.fields(table)})
+
+
+_VIEWS = {"quad": fi.dense_quad_view, "tri": fi.dense_tri_view,
+          "sphere": fi.dense_sphere_view}
 
 
 def _dense_only(kind: str, chunks) -> None:
@@ -279,6 +317,13 @@ class SceneBuilder:
     def dielectric(self, ior: float, tex_or_color=(1.0, 1.0, 1.0)) -> int:
         return self._mat_row(mtype=MAT_DIELECTRIC, tex=self._as_tex(tex_or_color),
                              ior=float(ior))
+
+    def gloss(self, tex_or_color, smoothness: float, spec_prob: float) -> int:
+        """Probabilistic specular/diffuse lobe pick with a smoothness lerp of
+        the specular direction (src/material.h:158-173)."""
+        return self._mat_row(mtype=MAT_GLOSS, tex=self._as_tex(tex_or_color),
+                             smoothness=float(np.clip(smoothness, 0.0, 1.0)),
+                             spec_prob=float(spec_prob))
 
     def diffuse_light(self, tex_or_color) -> int:
         return self._mat_row(mtype=MAT_DIFFUSE_LIGHT, tex=self._as_tex(tex_or_color))

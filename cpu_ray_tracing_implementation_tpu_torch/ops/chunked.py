@@ -8,11 +8,14 @@ running closest hit, and skips a chunk whose AABB no ray can reach.
 ``planar_closest`` and ``sphere_closest`` are what ``ops/fused_intersect``
 runs for CPU tensors, and what the CUDA kernels in ``csrc/closest_hit.cu``
 are compared against on the card. They are also the oracle that the
-per-ray accelerator (``ops/perray.py``) is held to.
+per-ray accelerator (``ops/perray.py``) is held to. Their backward (plain
+autograd) is the VJP of the fused wrappers, and ``rechunk_*`` re-derives
+chunked tables from dense ones for geometry gradients.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -139,7 +142,7 @@ def planar_closest(org, dirs, chunks: PlanarChunks, tmin, triangle: bool,
         idx = torch.argmin(ts, dim=-1)
         better = t_c < t_best
         t_best = torch.where(better, t_c, t_best)
-        n_b = torch.where(better[:, None], unorm[idx], n_b)
+        n_b = torch.where(better[:, None], torch.index_select(unorm, 0, idx), n_b)
         u_b = torch.where(better, a.gather(1, idx[:, None])[:, 0], u_b)
         v_b = torch.where(better, b.gather(1, idx[:, None])[:, 0], v_b)
         m_b = torch.where(better, chunks.mat[k, :w][idx], m_b)
@@ -207,12 +210,69 @@ def sphere_closest(org, dirs, time, chunks: SphereChunks, tmin, tmax=INF):
         t_c = torch.amin(ts, dim=-1)
         idx = torch.argmin(ts, dim=-1)
         better = t_c < t_best
-        c0_w, c1_w = c0[idx], c1[idx]
+        c0_w = torch.index_select(c0, 0, idx)
+        c1_w = torch.index_select(c1, 0, idx)
         ctr_c = c0_w + time[:, None] * (c1_w - c0_w)
         t_best = torch.where(better, t_c, t_best)
         ctr_b = torch.where(better[:, None], ctr_c, ctr_b)
-        rad_b = torch.where(better, torch.clamp(rad[idx], min=1e-20), rad_b)
+        rad_b = torch.where(better, torch.clamp(torch.index_select(rad, 0, idx),
+                                                min=1e-20), rad_b)
         m_b = torch.where(better, chunks.mat[k, :w][idx], m_b)
         p_b = torch.where(better, (k * C + idx).to(torch.int32), p_b)
     t = torch.where(t_best < t_init, t_best, torch.full_like(t_best, INF))
     return t, (ctr_b, rad_b, m_b, p_b)
+
+
+# ---------------- differentiable re-chunk (geometry gradients at scale)
+# The chunk tables are a build-time gather of the dense tables into BVH
+# order (models/scene.py _chunk_tables). Re-deriving them from the dense
+# tables in the graph (chunked.py:245-304 of the JAX package) makes a
+# chunked render differentiable in the dense geometry: the gather's
+# backward scatter-adds the winner replay's chunk gradients onto the dense
+# rows. The chunk AABBs follow the geometry but carry no gradient: they only
+# cull, and the replay never differentiates the visit selection.
+
+def _chunk_shape(a, K: int, C: int, order) -> torch.Tensor:
+    """Gather dense rows into chunk-major [K,C,...] (zero-padded tail)."""
+    n = order.shape[0]
+    g = torch.index_select(a, 0, order)
+    pad = K * C - n
+    if pad:
+        g = torch.cat([g, torch.zeros((pad,) + tuple(a.shape[1:]),
+                                      dtype=a.dtype, device=a.device)])
+    return g.reshape((K, C) + tuple(a.shape[1:]))
+
+
+def _bounds_from_lanes(lo_lane, hi_lane, active):
+    """[K,3] chunk AABBs from per-lane primitive bounds; inactive lanes give
+    the build's inverted-box convention (accel.chunk_bounds). Detached."""
+    act = active[..., None]
+    lo = torch.where(act, lo_lane, torch.full_like(lo_lane, INF)).amin(dim=1)
+    hi = torch.where(act, hi_lane, torch.full_like(hi_lane, -INF)).amax(dim=1)
+    return lo.detach(), hi.detach()
+
+
+def rechunk_planar(chunks: PlanarChunks, corner, eu, ev, order) -> PlanarChunks:
+    """PlanarChunks re-derived from dense (corner, eu, ev) tables through
+    the build-time BVH order: the build's values when the dense tables are
+    unchanged, differentiable otherwise. mat and active stay the build's
+    (the order is fixed at build time)."""
+    K, C = chunks.mat.shape
+    ck = _chunk_shape(corner, K, C, order)
+    euk = _chunk_shape(eu, K, C, order)
+    evk = _chunk_shape(ev, K, C, order)
+    pts = torch.stack([ck, ck + euk, ck + evk, ck + euk + evk])
+    lo, hi = _bounds_from_lanes(pts.amin(dim=0) - 1e-4, pts.amax(dim=0) + 1e-4,
+                                chunks.active)
+    return dataclasses.replace(chunks, corner=ck, eu=euk, ev=evk, lo=lo, hi=hi)
+
+
+def rechunk_sphere(chunks: SphereChunks, c0, c1, rad, order) -> SphereChunks:
+    K, C = chunks.mat.shape
+    c0k = _chunk_shape(c0, K, C, order)
+    c1k = _chunk_shape(c1, K, C, order)
+    rk = _chunk_shape(rad, K, C, order)
+    lo, hi = _bounds_from_lanes(torch.minimum(c0k, c1k) - rk[..., None],
+                                torch.maximum(c0k, c1k) + rk[..., None],
+                                chunks.active)
+    return dataclasses.replace(chunks, c0=c0k, c1=c1k, rad=rk, lo=lo, hi=hi)

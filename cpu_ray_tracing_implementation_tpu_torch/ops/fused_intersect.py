@@ -12,6 +12,16 @@ rows: t, center xyz at ray time, rad, mat, valid, pad).
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (``ops/chunked.py``); a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches per kernel.
+
+Gradients. The kernels write outputs with no graph, so a raw kernel call
+refuses inputs that need a gradient. The drop-ins ``planar_closest_fused``
+/ ``sphere_closest_fused`` are ``torch.autograd.Function``s when an input
+needs one: the kernel (or, on the CPU, the plain scan) decides and gives
+the values; the backward is autograd through the plain chunk scan on the
+saved inputs, as the JAX package's Pallas wrappers do (the oracle route of
+``models/diff.py``). The gradient path's own route decides with the
+kernels' pid output (``planar_winner`` / ``sphere_winner``) and replays
+the winner (``ops/replay.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
+from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
 
 BIG = 1e30
@@ -122,9 +133,10 @@ def _check(name: str, x: torch.Tensor, rows: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, fn, rays, pack, tmin, tmax, *extra) -> torch.Tensor:
+def _launch(name: str, fn, rays, pack, tmin, tmax, with_pid, *extra):
     from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 
+    tbl.check_no_grad(fn, rays, pack)
     _check("rays", rays, 8)
     _check("pack", pack, NROWS)
     if rays.dim() != 2 or pack.dim() != 3:
@@ -134,30 +146,36 @@ def _launch(name: str, fn, rays, pack, tmin, tmax, *extra) -> torch.Tensor:
     R = rays.shape[1]
     K, _, C = pack.shape
     out = torch.empty((8, R), dtype=torch.float32, device=rays.device)
+    pid = (torch.empty((R,), dtype=torch.int32, device=rays.device)
+           if with_pid else None)
     lib = build.load()
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         err = getattr(lib, fn)(rays.data_ptr(), R, pack.data_ptr(), K, C,
                                float(tmin), float(min(tmax, BIG)), *extra,
-                               out.data_ptr(), stream)
+                               out.data_ptr(),
+                               None if pid is None else pid.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: {build.error_string(err)}")
     LAUNCHES[name] += 1
-    return out
+    return (out, pid) if with_pid else out
 
 
 def planar_closest_kernel(rays: torch.Tensor, pack: torch.Tensor, tmin: float,
-                          tmax: float = BIG, triangle: bool = False) -> torch.Tensor:
-    """Kernel K1: [8,R] hit rows of rays [8,R] against pack [K,16,C]."""
+                          tmax: float = BIG, triangle: bool = False,
+                          with_pid: bool = False):
+    """Kernel K1: [8,R] hit rows of rays [8,R] against pack [K,16,C]; with
+    ``with_pid`` also the [R] int32 chunk-order index of each winner."""
     return _launch("planar_closest", "crt_planar_closest", rays, pack, tmin,
-                   tmax, int(bool(triangle)))
+                   tmax, with_pid, int(bool(triangle)))
 
 
 def sphere_closest_kernel(rays: torch.Tensor, pack: torch.Tensor, tmin: float,
-                          tmax: float = BIG) -> torch.Tensor:
-    """Kernel K2: [8,R] hit rows of rays [8,R] against pack [K,16,C]."""
+                          tmax: float = BIG, with_pid: bool = False):
+    """Kernel K2: [8,R] hit rows of rays [8,R] against pack [K,16,C]; with
+    ``with_pid`` also the [R] int32 chunk-order index of each winner."""
     return _launch("sphere_closest", "crt_sphere_closest", rays, pack, tmin,
-                   tmax)
+                   tmax, with_pid)
 
 
 def pack_rays(org, dirs, time=None) -> torch.Tensor:
@@ -177,48 +195,155 @@ def _scalar_tmax(tmax) -> float:
     return float(tmax)
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """A CPU tensor takes the plain version; any other launches the kernel
+    (whose wrapper raises on what is not a CUDA tensor)."""
+    return x.device.type != "cpu"
+
+
+def _planar_hit(org, dirs, chunks, tmin, triangle, tmax, pack, with_pid):
+    """(t [R], (unorm, u, v, mat), pid or None) of K1 or, on CPU tensors,
+    of the plain chunk scan; no graph either way."""
+    with torch.no_grad():
+        if not _on_card(org):
+            t, (n, u, v, mat, pid) = ch.planar_closest(org, dirs, chunks, tmin,
+                                                       triangle, tmax=tmax)
+            return t, (n, u, v, mat), pid
+        if pack is None:
+            pack = pack_prim_constants(chunks)
+        out = planar_closest_kernel(pack_rays(org, dirs), pack, tmin,
+                                    _scalar_tmax(tmax), triangle, with_pid)
+        out, pid = out if with_pid else (out, None)
+        t = torch.where(out[OUT_VALID] > 0.5, out[OUT_T],
+                        torch.full_like(out[OUT_T], INF))
+        mat = torch.round(out[OUT_MAT]).to(torch.int32)
+        return t, (out[OUT_NX:OUT_NZ + 1].T, out[OUT_U], out[OUT_V], mat), pid
+
+
+def _sphere_hit(org, dirs, time, chunks, tmin, tmax, pack, with_pid):
+    """(t [R], (center_at_t, rad, mat), pid or None) of K2 or, on CPU
+    tensors, of the plain chunk scan; no graph either way."""
+    with torch.no_grad():
+        if not _on_card(org):
+            t, (ctr, rad, mat, pid) = ch.sphere_closest(org, dirs, time, chunks,
+                                                        tmin, tmax=tmax)
+            return t, (ctr, rad, mat), pid
+        if pack is None:
+            pack = pack_sphere_constants(chunks)
+        out = sphere_closest_kernel(pack_rays(org, dirs, time), pack, tmin,
+                                    _scalar_tmax(tmax), with_pid)
+        out, pid = out if with_pid else (out, None)
+        t = torch.where(out[SOUT_VALID] > 0.5, out[SOUT_T],
+                        torch.full_like(out[SOUT_T], INF))
+        mat = torch.round(out[SOUT_MAT]).to(torch.int32)
+        return t, (out[SOUT_CX:SOUT_CZ + 1].T, out[SOUT_RAD], mat), pid
+
+
+class _PlanarClosest(torch.autograd.Function):
+    """Kernel K1 forward, chunk-scan VJP backward: autograd through the
+    plain closest hit on the saved (org, dirs, chunk tables), as the JAX
+    package's ``pallas_intersect.py:203-225`` does. The remat-everything
+    VJP oracle of ``models/diff.py``."""
+
+    @staticmethod
+    def forward(ctx, org, dirs, corner, eu, ev, chunks, tmin, triangle, tmax,
+                pack):
+        t, (n, u, v, mat), _ = _planar_hit(org, dirs, chunks, tmin, triangle,
+                                           tmax, pack, False)
+        ctx.save_for_backward(org, dirs, corner, eu, ev)
+        ctx.args = (chunks.mat, chunks.active, chunks.lo, chunks.hi, tmin,
+                    triangle, tmax)
+        ctx.mark_non_differentiable(mat)
+        return t, n, u, v, mat
+
+    @staticmethod
+    def backward(ctx, g_t, g_n, g_u, g_v, _g_mat):
+        mat, active, lo, hi, tmin, triangle, tmax = ctx.args
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            chunks = ch.PlanarChunks(corner=xs[2], eu=xs[3], ev=xs[4], mat=mat,
+                                     active=active, lo=lo, hi=hi)
+            t, (n, u, v, _, _) = ch.planar_closest(xs[0], xs[1], chunks, tmin,
+                                                   triangle, tmax=tmax)
+            grads = tbl.vjp((t, n, u, v), xs, (g_t, g_n, g_u, g_v))
+        return (*grads, None, None, None, None, None)
+
+
+class _SphereClosest(torch.autograd.Function):
+    """Kernel K2 forward, chunk-scan VJP backward (see _PlanarClosest)."""
+
+    @staticmethod
+    def forward(ctx, org, dirs, time, c0, c1, rad, chunks, tmin, tmax, pack):
+        t, (ctr, r, mat), _ = _sphere_hit(org, dirs, time, chunks, tmin, tmax,
+                                          pack, False)
+        ctx.save_for_backward(org, dirs, time, c0, c1, rad)
+        ctx.args = (chunks.mat, chunks.active, chunks.lo, chunks.hi, tmin,
+                    tmax)
+        ctx.mark_non_differentiable(mat)
+        return t, ctr, r, mat
+
+    @staticmethod
+    def backward(ctx, g_t, g_ctr, g_rad, _g_mat):
+        mat, active, lo, hi, tmin, tmax = ctx.args
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            chunks = ch.SphereChunks(c0=xs[3], c1=xs[4], rad=xs[5], mat=mat,
+                                     active=active, lo=lo, hi=hi)
+            t, (ctr, r, _, _) = ch.sphere_closest(xs[0], xs[1], xs[2], chunks,
+                                                  tmin, tmax=tmax)
+            grads = tbl.vjp((t, ctr, r), xs, (g_t, g_ctr, g_rad))
+        return (*grads, None, None, None, None)
+
+
 def planar_closest_fused(org, dirs, chunks: ch.PlanarChunks, tmin,
                          triangle: bool, tmax=BIG, pack=None):
     """Drop-in for ``chunked.planar_closest``: kernel K1 on CUDA tensors,
-    the plain chunk scan on CPU tensors.
+    the plain chunk scan on CPU tensors. Differentiable: when an input
+    needs a gradient the call goes through ``_PlanarClosest`` (chunk-scan
+    VJP), so the card and the CPU give the same gradients.
 
     Returns (t [R], (unorm [R,3], u [R], v [R], mat [R])): like the Pallas
-    kernel, no primitive id. ``pack``: the precomputed
-    ``pack_prim_constants(chunks)``.
-    """
-    if org.device.type == "cpu":
-        t, payload = ch.planar_closest(org, dirs, chunks, tmin, triangle,
-                                       tmax=tmax)
-        return t, payload[:4]
-    if pack is None:
-        pack = pack_prim_constants(chunks)
-    out = planar_closest_kernel(pack_rays(org, dirs), pack, tmin,
-                                _scalar_tmax(tmax), triangle)
-    t = torch.where(out[OUT_VALID] > 0.5, out[OUT_T],
-                    torch.full_like(out[OUT_T], INF))
-    unorm = out[OUT_NX:OUT_NZ + 1].T
-    mat = torch.round(out[OUT_MAT]).to(torch.int32)
-    return t, (unorm, out[OUT_U], out[OUT_V], mat)
+    kernel, no primitive id (``planar_winner`` gives it). ``pack``: the
+    precomputed ``pack_prim_constants(chunks)``."""
+    if tbl.needs_grad(org, dirs, chunks.corner, chunks.eu, chunks.ev):
+        t, n, u, v, mat = _PlanarClosest.apply(
+            org, dirs, chunks.corner, chunks.eu, chunks.ev, chunks, tmin,
+            triangle, tmax, pack)
+        return t, (n, u, v, mat)
+    return _planar_hit(org, dirs, chunks, tmin, triangle, tmax, pack, False)[:2]
 
 
 def sphere_closest_fused(org, dirs, time, chunks: ch.SphereChunks, tmin,
                          tmax=BIG, pack=None):
     """Drop-in for ``chunked.sphere_closest``: kernel K2 on CUDA tensors,
-    the plain chunk scan on CPU tensors.
+    the plain chunk scan on CPU tensors; differentiable as
+    ``planar_closest_fused`` is.
 
     Returns (t [R], (center_at_t [R,3], rad [R], mat [R]))."""
-    if org.device.type == "cpu":
-        t, payload = ch.sphere_closest(org, dirs, time, chunks, tmin, tmax=tmax)
-        return t, payload[:3]
-    if pack is None:
-        pack = pack_sphere_constants(chunks)
-    out = sphere_closest_kernel(pack_rays(org, dirs, time), pack, tmin,
-                                _scalar_tmax(tmax))
-    t = torch.where(out[SOUT_VALID] > 0.5, out[SOUT_T],
-                    torch.full_like(out[SOUT_T], INF))
-    center = out[SOUT_CX:SOUT_CZ + 1].T
-    mat = torch.round(out[SOUT_MAT]).to(torch.int32)
-    return t, (center, out[SOUT_RAD], mat)
+    if tbl.needs_grad(org, dirs, time, chunks.c0, chunks.c1, chunks.rad):
+        t, ctr, rad, mat = _SphereClosest.apply(
+            org, dirs, time, chunks.c0, chunks.c1, chunks.rad, chunks, tmin,
+            tmax, pack)
+        return t, (ctr, rad, mat)
+    return _sphere_hit(org, dirs, time, chunks, tmin, tmax, pack, False)[:2]
+
+
+def planar_winner(org, dirs, chunks: ch.PlanarChunks, tmin, triangle: bool,
+                  tmax=BIG, pack=None):
+    """The decision alone, for the winner replay (``ops/replay.py``):
+    (t [R], pid [R] int32) of K1 with its pid output, or of the plain chunk
+    scan on CPU tensors; pid is the chunk-order index k*C + lane (0 on a
+    miss), the dense row index on a 1-chunk view. No graph."""
+    t, _, pid = _planar_hit(org, dirs, chunks, tmin, triangle, tmax, pack, True)
+    return t, pid
+
+
+def sphere_winner(org, dirs, time, chunks: ch.SphereChunks, tmin, tmax=BIG,
+                  pack=None):
+    """(t [R], pid [R] int32) of K2 with its pid output, or of the plain
+    chunk scan on CPU tensors (see ``planar_winner``)."""
+    t, _, pid = _sphere_hit(org, dirs, time, chunks, tmin, tmax, pack, True)
+    return t, pid
 
 
 # ----------------------------------------------- dense (small-scene) entry

@@ -162,6 +162,7 @@ def cull_select_kernel(rays, boxes, excl, V: int, K_real: int, tmin: float,
     f32 -> (ids [R,V] int32, nears [R,V] f32, rest [R] f32)."""
     from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 
+    tbl.check_no_grad("crt_cull_select", rays, boxes, excl)
     if tmin <= 0.0:
         packed = False
     R, Kp = rays.shape[0], boxes.shape[1]

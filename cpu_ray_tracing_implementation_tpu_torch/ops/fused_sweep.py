@@ -210,6 +210,7 @@ def sweep_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
     """Kernel K4 on CUDA tensors -> the updated [R, 8] best."""
     from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 
+    tbl.check_no_grad("crt_visit_sweep", rays, nears, best, table)
     K, F, C = table.shape
     R, V = ids.shape
     tbl.check_cuda("rays", rays, torch.float32, (R, 8))

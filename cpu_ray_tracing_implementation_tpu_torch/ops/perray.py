@@ -18,12 +18,15 @@ reference's per-ray BVH descent (src/bvh_node.h:49-58):
 The phase condition is read on the host: one synchronisation per phase.
 ``PHASES`` counts the closest-hit calls and the phases they ran.
 
-Forward only. The JAX package's custom VJP replays the winning primitive
-(``perray.py:902-948``, ``ops/replay.py``); that is ROADMAP M7, and an
-input that needs a gradient raises here. Left out on purpose: the XLA
-near-matrix route (``_near_matrix``, ``_select_block``), the sub-tile and
-quantized-row experiments (ROADMAP M16), the packet and BVH accelerators
-(ROADMAP M11).
+Gradients (``perray.py:896-948``): when an input needs one, the drop-ins
+go through ``PlanarClosestRay`` / ``SphereClosestRay``, the JAX package's
+``planar_closest_ray`` / ``sphere_closest_ray``. Their forward is the phase
+loop above, which keeps each ray's winning primitive id; their backward is
+the VJP of ``replay.planar_chunks_winner`` / ``sphere_chunks_winner`` at
+that id, O(R) gathers whose backward scatter-adds into the chunk tables.
+Left out on purpose: the XLA near-matrix route (``_near_matrix``,
+``_select_block``), the sub-tile and quantized-row experiments (ROADMAP
+M16), the packet and BVH accelerators (ROADMAP M11).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
+from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 
 INF = float("inf")
 
@@ -77,13 +81,6 @@ def sphere_tables(chunks: ch.SphereChunks) -> PerRayTables:
                         boxes=fs.pack_boxes(chunks.lo, chunks.hi))
 
 
-def _forward_only(*xs) -> None:
-    if any(torch.is_tensor(x) and x.requires_grad for x in xs):
-        raise NotImplementedError(
-            "the per-ray accelerator is forward only: its winner-replay "
-            "backward (perray.py:902-948) is ROADMAP M7")
-
-
 def _recover_mat(chunk_mat, pid, hit):
     """[R] material of chunk-order primitive ``pid``; miss rays keep the
     chunk-scan oracle's sentinel 0 (pid is 0 on a miss, and chunk_mat[0,0]
@@ -119,15 +116,9 @@ def _cap(org, tmax):
         org.shape[:1]).contiguous()
 
 
-def planar_closest_perray(org, dirs, chunks: ch.PlanarChunks, tmin,
-                          triangle: bool, tmax=INF, V: int = VISIT_BLOCK,
-                          tabs: PerRayTables | None = None):
-    """Drop-in for ``chunked.planar_closest`` (forward only; exact).
-
-    ``tmax``: scalar or per-ray [R] cap; ``tabs``: the scene's cached
-    ``planar_tables(chunks)``. Returns (t [R], (unorm [R,3], u [R], v [R],
-    mat [R], pid [R]))."""
-    _forward_only(org, dirs, tmax, chunks.corner, chunks.eu, chunks.ev)
+def _planar_forward(org, dirs, chunks, tmin, triangle, tmax, V, tabs):
+    """The phase loop for a planar table: (t, (unorm, u, v, mat, pid)), no
+    graph."""
     R = org.shape[0]
     K = chunks.corner.shape[0]
     tabs = planar_tables(chunks) if tabs is None else tabs
@@ -147,12 +138,9 @@ def planar_closest_perray(org, dirs, chunks: ch.PlanarChunks, tmin,
         n, u, v, _recover_mat(chunks.mat, p, hit), p)
 
 
-def sphere_closest_perray(org, dirs, time, chunks: ch.SphereChunks, tmin,
-                          tmax=INF, V: int = VISIT_BLOCK,
-                          tabs: PerRayTables | None = None):
-    """Drop-in for ``chunked.sphere_closest`` (forward only; exact).
-    Returns (t [R], (center_at_t [R,3], rad [R], mat [R], pid [R]))."""
-    _forward_only(org, dirs, time, tmax, chunks.c0, chunks.c1, chunks.rad)
+def _sphere_forward(org, dirs, time, chunks, tmin, tmax, V, tabs):
+    """The phase loop for a sphere table: (t, (center, rad, mat, pid)), no
+    graph."""
     R = org.shape[0]
     K = chunks.rad.shape[0]
     tabs = sphere_tables(chunks) if tabs is None else tabs
@@ -170,3 +158,98 @@ def sphere_closest_perray(org, dirs, time, chunks: ch.SphereChunks, tmin,
     hit = t < cap
     return torch.where(hit, t, torch.full_like(t, INF)), (
         ctr, rad, _recover_mat(chunks.mat, p, hit), p)
+
+
+class PlanarClosestRay(torch.autograd.Function):
+    """The phase loop forward, the winner replay's VJP backward
+    (``perray.py:901-923`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, org, dirs, corner, eu, ev, chunks, tmin, triangle, tmax,
+                V, tabs):
+        with torch.no_grad():
+            t, (n, u, v, mat, pid) = _planar_forward(org, dirs, chunks, tmin,
+                                                     triangle, tmax, V, tabs)
+        ctx.save_for_backward(org, dirs, corner, eu, ev, pid)
+        ctx.args = (chunks.mat, chunks.active, chunks.lo, chunks.hi)
+        ctx.mark_non_differentiable(mat, pid)
+        return t, n, u, v, mat, pid
+
+    @staticmethod
+    def backward(ctx, g_t, g_n, g_u, g_v, _g_mat, _g_pid):
+        from cpu_ray_tracing_implementation_tpu_torch.ops import replay
+
+        *saved, pid = ctx.saved_tensors
+        mat, active, lo, hi = ctx.args
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in saved]
+            chunks = ch.PlanarChunks(corner=xs[2], eu=xs[3], ev=xs[4], mat=mat,
+                                     active=active, lo=lo, hi=hi)
+            t, (n, u, v, _, _) = replay.planar_chunks_winner(xs[0], xs[1],
+                                                             chunks, pid)
+            grads = tbl.vjp((t, n, u, v), xs, (g_t, g_n, g_u, g_v))
+        return (*grads, None, None, None, None, None, None)
+
+
+class SphereClosestRay(torch.autograd.Function):
+    """The phase loop forward, the winner replay's VJP backward
+    (``perray.py:926-948`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, org, dirs, time, c0, c1, rad, chunks, tmin, tmax, V,
+                tabs):
+        with torch.no_grad():
+            t, (ctr, r, mat, pid) = _sphere_forward(org, dirs, time, chunks,
+                                                    tmin, tmax, V, tabs)
+        ctx.save_for_backward(org, dirs, time, c0, c1, rad, pid)
+        ctx.args = (chunks.mat, chunks.active, chunks.lo, chunks.hi, tmin)
+        ctx.mark_non_differentiable(mat, pid)
+        return t, ctr, r, mat, pid
+
+    @staticmethod
+    def backward(ctx, g_t, g_ctr, g_rad, _g_mat, _g_pid):
+        from cpu_ray_tracing_implementation_tpu_torch.ops import replay
+
+        *saved, pid = ctx.saved_tensors
+        mat, active, lo, hi, tmin = ctx.args
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in saved]
+            chunks = ch.SphereChunks(c0=xs[3], c1=xs[4], rad=xs[5], mat=mat,
+                                     active=active, lo=lo, hi=hi)
+            t, (ctr, r, _, _) = replay.sphere_chunks_winner(
+                xs[0], xs[1], xs[2], chunks, pid, tmin)
+            grads = tbl.vjp((t, ctr, r), xs, (g_t, g_ctr, g_rad))
+        return (*grads, None, None, None, None, None)
+
+
+def planar_closest_perray(org, dirs, chunks: ch.PlanarChunks, tmin,
+                          triangle: bool, tmax=INF, V: int = VISIT_BLOCK,
+                          tabs: PerRayTables | None = None):
+    """Drop-in for ``chunked.planar_closest`` (exact; differentiable through
+    ``PlanarClosestRay`` when an input needs a gradient).
+
+    ``tmax``: scalar or per-ray [R] cap (no gradient); ``tabs``: the
+    scene's cached ``planar_tables(chunks)``. Returns (t [R], (unorm [R,3],
+    u [R], v [R], mat [R], pid [R]))."""
+    if tbl.needs_grad(org, dirs, chunks.corner, chunks.eu, chunks.ev):
+        t, n, u, v, mat, pid = PlanarClosestRay.apply(
+            org, dirs, chunks.corner, chunks.eu, chunks.ev, chunks, tmin,
+            triangle, tmax, V, tabs)
+        return t, (n, u, v, mat, pid)
+    with torch.no_grad():
+        return _planar_forward(org, dirs, chunks, tmin, triangle, tmax, V, tabs)
+
+
+def sphere_closest_perray(org, dirs, time, chunks: ch.SphereChunks, tmin,
+                          tmax=INF, V: int = VISIT_BLOCK,
+                          tabs: PerRayTables | None = None):
+    """Drop-in for ``chunked.sphere_closest`` (exact; differentiable through
+    ``SphereClosestRay``). Returns (t [R], (center_at_t [R,3], rad [R],
+    mat [R], pid [R]))."""
+    if tbl.needs_grad(org, dirs, time, chunks.c0, chunks.c1, chunks.rad):
+        t, ctr, rad, mat, pid = SphereClosestRay.apply(
+            org, dirs, time, chunks.c0, chunks.c1, chunks.rad, chunks, tmin,
+            tmax, V, tabs)
+        return t, (ctr, rad, mat, pid)
+    with torch.no_grad():
+        return _sphere_forward(org, dirs, time, chunks, tmin, tmax, V, tabs)

@@ -89,6 +89,19 @@ def camera_from_numpy(jcam, device=DEFAULT_DEVICE) -> cam_mod.Camera:
         clamp=float(jcam.clamp))
 
 
+def params_from_numpy(params: dict, device=DEFAULT_DEVICE) -> dict:
+    """The JAX package's ``scene_params`` / ``camera_params`` dict (any
+    leaves ``np.asarray`` reads) as the port's tensors on ``device``."""
+    device = tbl.as_device(device)
+    return {k: torch.as_tensor(np.array(v), device=device) for k, v in params.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """A parameter or gradient dict of either package as numpy arrays."""
+    return {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+            for k, v in params.items()}
+
+
 def key_from_numpy(key_data) -> np.ndarray:
     """[2] uint32 key words from ``jax.random.key_data(key)``."""
     k = np.asarray(key_data, np.uint32)

@@ -3,19 +3,27 @@
 Counterpart of ``cpu_ray_tracing_implementation_tpu/utils/profiling.py``
 for the port. Run on a machine with an NVIDIA GPU::
 
-    python -m cpu_ray_tracing_implementation_tpu_torch.utils.profiling [cornell|colonnade]
+    python -m cpu_ray_tracing_implementation_tpu_torch.utils.profiling [cornell|colonnade|cornell_grad]
 
 ``cornell`` (the default) renders cornell_box at 512x512, depth 8;
 ``colonnade`` renders catalog.sponza (the 258k-triangle colonnade) at
-200x200, depth 5. Each runs ``spp`` samples after a 2-sample warm-up: once
-on the host clock, then under ``torch.profiler`` with a range around each
-stage of a bounce (and, on the colonnade, around the per-ray accelerator's
-select and sweep calls). The stage functions are wrapped for the profiled
-run only, so the main path carries no instrumentation. It prints the wall
-seconds of both runs, the device time summed over kernels, kernels per
-bounce, the device busy share, the top kernels by device time, each
-stage's host and device time, the launches and device time of kernels
-K1-K4, and the per-ray selection phases per bounce.
+200x200, depth 5; ``cornell_grad`` takes ``diff.loss_and_grads`` of
+cornell_box at 512x512, depth 8 (the winner-replay route), one sample.
+Each runs ``spp`` samples after a 2-sample warm-up: once on the host clock,
+then under ``torch.profiler`` with a range around each stage of a bounce
+(on the colonnade also around the per-ray accelerator's select and sweep
+calls; on the gradient, around the forward pass, the backward pass's
+re-render, the winner decision and the replay; the kernels autograd's
+backward launches from its own thread fall in no range and are counted
+apart). The stage functions are wrapped for the
+profiled run only, so the main path carries no instrumentation. It prints
+the wall seconds of both runs, the device time summed over kernels,
+kernels per bounce, the device busy share, the top kernels by device time,
+each stage's host and device time, the launches and device time of
+kernels K1-K4, and the per-ray selection phases per bounce.
+
+``cuda_ms`` and the card's peak rates are shared with ``chip_smoke.py``
+and ``utils/gather_probe.py``.
 """
 
 from __future__ import annotations
@@ -29,13 +37,21 @@ import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
-from cpu_ray_tracing_implementation_tpu_torch.models import catalog, integrator
+from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, integrator
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
+from cpu_ray_tracing_implementation_tpu_torch.ops import replay
+from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe
+
+# the card's peak rates (H100 SXM data sheet): 3.35 TB/s of HBM and 67
+# TFLOP/s of FP32, which counts a fused multiply-add as two operations, so
+# FP32 instructions of any kind issue at half that rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 33.5e12
 
 # (module, function, range name): the stages of one bounce and of raygen,
 # and the per-ray accelerator's calls inside the intersect stage
@@ -49,13 +65,20 @@ STAGES = (
     (cam_mod, "generate_rays", "raygen"),
     (fs, "cull_select", "select"),
     (fsw, "sweep", "sweep"),
+    (diff, "_forward_pass", "forward pass"),
+    (diff, "_backward_pass", "backward pass"),
+    (replay, "winner_pack", "decide"),
+    (replay, "replay_hit", "replay"),
 )
-# name -> (catalog scene, its arguments, samples profiled)
+# name -> (catalog scene, its arguments, samples profiled, gradient or not)
 WORKLOADS = {
-    "cornell": (catalog.cornell_box, dict(width=512, max_depth=8), 8),
-    "colonnade": (catalog.sponza, dict(width=200, max_depth=5), 4),
+    "cornell": (catalog.cornell_box, dict(width=512, max_depth=8), 8, False),
+    "colonnade": (catalog.sponza, dict(width=200, max_depth=5), 4, False),
+    "cornell_grad": (catalog.cornell_box, dict(width=512, max_depth=8), 1, True),
 }
 TOP = 20  # kernels listed by device time
+# the gradient step's two top-level ranges
+PASSES = ("forward pass", "backward pass")
 KERNELS = {"planar_closest": "planar_closest_kernel",
            "sphere_closest": "sphere_closest_kernel",
            "cull_select": "cull_select_kernel",
@@ -83,14 +106,35 @@ def stage_ranges():
 
 
 def launches() -> dict:
-    return {**fi.LAUNCHES, **fs.LAUNCHES, **fsw.LAUNCHES}
+    return {**fi.LAUNCHES, **fs.LAUNCHES, **fsw.LAUNCHES, **gather_probe.LAUNCHES}
 
 
 def reset_counts() -> None:
     fi.reset_launches()
     fs.reset_launches()
     fsw.reset_launches()
+    gather_probe.reset_launches()
     perray.reset_phases()
+
+
+def cuda_ms(fn, iters=20, warmup=3) -> float:
+    """Device ms per call of ``fn``, from CUDA events. The card first spins
+    for ~50 ms, so the host queues every call before the first runs and a
+    call that does not synchronise is timed on the card alone, not at the
+    host's launch rate. A call that synchronises (the plain versions' chunk
+    cull) still pays its host time."""
+    for _ in range(warmup):
+        fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
 
 
 def main(argv=None) -> int:
@@ -108,14 +152,22 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60).stdout.strip())
     build.load()
     dev = torch.device("cuda", 0)
-    make, kwargs, spp = WORKLOADS[name]
+    make, kwargs, spp, grad = WORKLOADS[name]
     scene, cam = make(spp=spp, device=dev, **kwargs)
     bounces = spp * cam.max_depth
-    integrator.render_image(scene, cam, keys.key(1), spp=2)
+    target = torch.zeros((cam.height, cam.width, 3), device=dev)
+
+    def run(n):
+        if grad:
+            diff.loss_and_grads(scene, cam, keys.key(1), target, n)
+        else:
+            integrator.render_image(scene, cam, keys.key(1), spp=n)
+
+    run(2)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    integrator.render_image(scene, cam, keys.key(1), spp=spp)
+    run(spp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -123,7 +175,7 @@ def main(argv=None) -> int:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with stage_ranges(), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        integrator.render_image(scene, cam, keys.key(1), spp=spp)
+        run(spp)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
 
@@ -135,7 +187,8 @@ def main(argv=None) -> int:
                   key=lambda k: -k[2])
     dev_s = sum(k[2] for k in kern) / 1e6
     n_kern = sum(k[1] for k in kern)
-    print(f"{name} {cam.width}x{cam.height} depth {cam.max_depth}, {spp} spp: wall "
+    print(f"{name} {cam.width}x{cam.height} depth {cam.max_depth}, {spp} spp"
+          f"{' fwd+bwd (diff.loss_and_grads)' if grad else ''}: wall "
           f"{wall:.4f} s unprofiled, {wall_prof:.4f} s profiled")
     print(f"device kernel time {dev_s:.4f} s over {n_kern} kernels "
           f"({n_kern / bounces:.1f} per bounce); busy share "
@@ -157,10 +210,17 @@ def main(argv=None) -> int:
     for key, count, us in kern[:TOP]:
         print(f"  {key[:100]:100} {count:7d} {us:10.1f} {us / 1e6 / dev_s:.4f}")
     print("stages (count, host s, device s of the kernels launched inside):")
+    passes = 0.0
     for e in events:
         if e.key in ranges and e.device_type != cuda:
             print(f"  {e.key:12} {e.count:6d} host {e.cpu_time_total / 1e6:.4f} "
                   f"device {e.device_time_total / 1e6:.4f}")
+            if e.key in PASSES:
+                passes += e.device_time_total / 1e6
+    if grad:
+        # autograd runs the backward's kernels on its own thread, outside
+        # every range of the main thread: the rest of the device time
+        print(f"  autograd backward (no range): device {dev_s - passes:.4f}")
     return 0
 
 

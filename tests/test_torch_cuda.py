@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K4 on the card, against their plain versions.
+"""The CUDA kernels K1-K5 on the card, against their plain versions, and
+the gradient path through them.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
 The file imports no JAX, so it also runs on a machine without it:
@@ -9,20 +10,24 @@ Tolerances are chip_smoke.py's. K1, K2: equal hit masks and materials, t
 within rtol 1e-4 / atol 1e-4, every other payload field (normal, u, v;
 center, rad) within atol 1e-3. K3: ids, nears and rest bit-equal. K4:
 equal hit masks, pid and mat, t within rtol 1e-4, every other column
-within atol 1e-3.
+within atol 1e-3. K1 / K2 pid output: equal to the plain versions' pid.
+K5: max |a - b| / (|b| + 1) <= 1e-5. Gradients (the JAX package's
+replay-against-remat tolerances): loss rtol 1e-4, scene rtol 2e-3 / atol
+1e-5, camera rtol 5e-3 / atol 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from cpu_ray_tracing_implementation_tpu_torch.models import catalog, integrator
+from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, integrator
 from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
+from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -276,3 +281,117 @@ def test_perray_on_card_matches_oracle(dev, kind):
     torch.testing.assert_close(t[hit] * dl, t_o[hit] * dl, rtol=rtol, atol=atol)
     assert torch.equal(pay[-1][hit], pay_o[-1][hit])
     assert torch.equal(pay[-2], pay_o[-2])
+
+
+@pytest.mark.parametrize("kind", ["quad", "tri", "sphere"])
+def test_pid_output_matches_plain(dev, kind):
+    rng = np.random.default_rng(21)
+    org, dirs, time = _rays(rng, dev, 20000)
+    fi.reset_launches()
+    if kind == "sphere":
+        chunks = _sphere_chunks(rng, dev)
+        t, pid = fi.sphere_winner(org, dirs, time, chunks, TMIN)
+        t_r, pay_r = ch.sphere_closest(org, dirs, time, chunks, TMIN)
+    else:
+        chunks = _planar_chunks(rng, dev)
+        t, pid = fi.planar_winner(org, dirs, chunks, TMIN, kind == "tri")
+        t_r, pay_r = ch.planar_closest(org, dirs, chunks, TMIN, kind == "tri")
+    assert sum(fi.LAUNCHES.values()) == 1
+    hit = torch.isfinite(t_r)
+    assert int(hit.sum()) > 100 and torch.equal(torch.isfinite(t), hit)
+    assert torch.equal(pid, pay_r[-1])
+
+
+@pytest.mark.parametrize("K", [64, 2048])
+def test_gather_sum_kernel_matches_plain(dev, K):
+    gen = torch.Generator(device=dev).manual_seed(K)
+    table = torch.randn((K, 1408), generator=gen, device=dev)
+    ids = torch.randint(0, K, (5000, 16), generator=gen, device=dev, dtype=torch.int32)
+    gather_probe.reset_launches()
+    got = gather_probe.gather_sum(ids, table)
+    assert gather_probe.LAUNCHES == {"gather_sum": 1}
+    ref = gather_probe.gather_sum_plain(ids, table)
+    torch.cuda.synchronize()
+    assert gather_probe.rel_err(got, ref) <= 1e-5
+
+
+def test_kernel_route_gradients_match_plain_autograd(dev):
+    """K1's autograd route (kernel forward, chunk-scan backward) gives plain
+    autograd's gradients (table gradients: atomic adds, rtol 1e-4)."""
+    rng = np.random.default_rng(22)
+    chunks = _planar_chunks(rng, dev, K=2, n=200)
+    chunks = ch.PlanarChunks(**{**chunks.__dict__, **{
+        f: getattr(chunks, f).clone().requires_grad_() for f in ("corner", "eu", "ev")}})
+    org, dirs, _ = _rays(rng, dev, 8000)
+    org.requires_grad_()
+    dirs.requires_grad_()
+    leaves = [org, dirs, chunks.corner, chunks.eu, chunks.ev]
+    fi.reset_launches()
+    t, (n, u, v, _) = fi.planar_closest_fused(org, dirs, chunks, TMIN, False)
+    assert fi.LAUNCHES["planar_closest"] == 1 and t.grad_fn is not None
+    t_r, (n_r, u_r, v_r, _, _) = ch.planar_closest(org, dirs, chunks, TMIN, False)
+    w = torch.randn((8000, 6), device=dev)
+
+    def loss(tt, nn, uu, vv):
+        tt = torch.where(torch.isfinite(tt), tt, torch.zeros_like(tt))
+        return (torch.cat([tt[:, None], nn, uu[:, None], vv[:, None]], 1) * w).sum()
+
+    g = torch.autograd.grad(loss(t, n, u, v), leaves)
+    g_r = torch.autograd.grad(loss(t_r, n_r, u_r, v_r), leaves)
+    for a, b in zip(g, g_r):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+def _cpu_and_card(make, dev, seed, **kw):
+    out = []
+    for d in ("cpu", dev):
+        scene, cam = make(d)
+        target = torch.zeros((cam.height, cam.width, 3), device=scene.device)
+        out.append(diff.loss_and_grads(scene, cam, keys.key(seed), target, cam.spp, **kw))
+    return out
+
+
+def _close(got, ref):
+    (loss, (gs, gc)), (loss_r, (gs_r, gc_r)) = got, ref
+    assert abs(float(loss) - float(loss_r)) <= 1e-4 * abs(float(loss_r))
+    for grads, grads_r, tol in ((gs, gs_r, dict(rtol=2e-3, atol=1e-5)),
+                                (gc, gc_r, dict(rtol=5e-3, atol=1e-4))):
+        for name, g in grads.items():
+            torch.testing.assert_close(g.cpu(), grads_r[name].cpu(), **tol)
+
+
+@pytest.mark.parametrize("replay_isect", [None, False], ids=["replay", "oracle"])
+def test_loss_and_grads_on_card_match_cpu(dev, replay_isect):
+    ref, got = _cpu_and_card(
+        lambda d: catalog.cornell_box(width=24, spp=2, max_depth=3, device=d), dev, 3,
+        replay_isect=replay_isect)
+    _close(got, ref)
+
+
+def test_dense_backward_pass_launches_no_kernel(dev):
+    """The replay route's backward pass reads the winners from its tape."""
+    scene, cam = catalog.cornell_box(width=16, spp=2, max_depth=3, device=dev)
+    target = torch.zeros((cam.height, cam.width, 3), device=dev)
+    counts = {}
+    backward_pass = diff._backward_pass
+
+    def counted(*a, **k):
+        counts["fwd"] = fi.LAUNCHES["planar_closest"]
+        return backward_pass(*a, **k)
+
+    diff._backward_pass = counted
+    try:
+        fi.reset_launches()
+        diff.loss_and_grads(scene, cam, keys.key(0), target, 2)
+    finally:
+        diff._backward_pass = backward_pass
+    assert counts["fwd"] == 2 * cam.max_depth
+    assert fi.LAUNCHES["planar_closest"] == counts["fwd"]
+
+
+def test_colonnade_gradient_on_card_matches_cpu(dev):
+    fs.reset_launches()
+    ref, got = _cpu_and_card(
+        lambda d: catalog.sponza(width=12, spp=2, max_depth=2, device=d), dev, 6)
+    assert fs.LAUNCHES["cull_select"] >= 2 * 2 * 2   # both passes, every bounce
+    _close(got, ref)

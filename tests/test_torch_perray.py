@@ -21,6 +21,7 @@ import torch
 from cpu_ray_tracing_implementation_tpu.models import scene as jscene
 from cpu_ray_tracing_implementation_tpu.ops import perray as jperray
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import perray
 
 TMIN = 1e-3
@@ -109,13 +110,21 @@ def test_perray_matches_jax_pallas_loop_and_oracle(kind, V, monkeypatch):
 
 
 def test_gradients_are_refused():
+    """The kernels' own wrappers refuse an input that needs a gradient (their
+    outputs carry no graph); the per-ray drop-in takes such an input through
+    its winner-replay backward instead (tests/test_torch_perray_grad.py)."""
     jchunks = _chunks("tri")
     org, dirs, _, cap = _rays(1)
     org_t = torch.as_tensor(org).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="M7"):
-        perray.planar_closest_perray(org_t, torch.as_tensor(dirs),
-                                     _to_torch(jchunks, ch.PlanarChunks), TMIN,
-                                     True, torch.as_tensor(cap))
+    chunks = _to_torch(jchunks, ch.PlanarChunks)
+    rays = fs.pack_rays(org_t, torch.as_tensor(dirs), torch.as_tensor(cap))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fs.cull_select_kernel(rays, perray.planar_tables(chunks).boxes,
+                              fs.first_excl(org.shape[0], "cpu"), 4,
+                              chunks.corner.shape[0], TMIN)
+    t, _ = perray.planar_closest_perray(org_t, torch.as_tensor(dirs), chunks, TMIN,
+                                        True, torch.as_tensor(cap))
+    assert t.grad_fn is not None
 
 
 def test_chunked_tables_take_the_per_ray_route():

@@ -5,7 +5,7 @@ Cornell and the colonnade workloads."""
 import pytest
 import torch
 
-from cpu_ray_tracing_implementation_tpu_torch.models import catalog, integrator
+from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, integrator
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 from cpu_ray_tracing_implementation_tpu_torch.utils import profiling
@@ -53,3 +53,20 @@ def test_main_needs_a_gpu():
     assert profiling.main([]) == 2
     assert profiling.main(["colonnade"]) == 2
     assert profiling.main(["nope"]) == 2
+
+
+def test_gradient_ranges_split_the_passes():
+    """The cornell_grad workload at a CPU size: one forward-pass range (which
+    decides every bounce's winner) and one backward-pass range (which
+    replays them and decides none)."""
+    scene, cam = catalog.cornell_box(width=8, spp=2, max_depth=2, device="cpu")
+    assert profiling.WORKLOADS["cornell_grad"][3]
+    target = torch.zeros((cam.height, cam.width, 3))
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with profiling.stage_ranges(), torch.profiler.profile(activities=acts) as prof:
+        loss, _ = diff.loss_and_grads(scene, cam, keys.key(0), target, 2)
+    assert bool(torch.isfinite(loss))
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert counts["forward pass"] == 1 and counts["backward pass"] == 1
+    assert counts["decide"] == 2 * cam.max_depth
+    assert counts["replay"] == 2 * 2 * cam.max_depth

@@ -155,9 +155,10 @@ def test_light_sample_and_pdf_match_jax():
 
 
 def test_unported_families_raise():
+    """Isotropic media are ROADMAP M5 (gloss is ported)."""
     b = sc.SceneBuilder()
     m = b.lambertian((1, 1, 1))
-    b._mat_row(mtype=sc.MAT_GLOSS)
+    b._mat_row(mtype=sc.MAT_ISOTROPIC)
     b.sphere((0, 0, 0), 1.0, m)
     ps = b.build("cpu")
     h = isect.Hit(valid=torch.ones(2, dtype=torch.bool), t=torch.ones(2),
