@@ -11,13 +11,19 @@ Phases (any failure raises and the script exits non-zero):
    main paths' shapes:
    - K1 (planar closest hit) in quad and triangle mode and K2 (sphere
      closest hit): 512*512 rays against the 1-chunk views of cornell_box
-     and three_material_ball, primary and secondary rays, and random
-     700-primitive, 6-chunk tables. Equal hit masks and materials; t within
+     and three_material_ball, primary and secondary rays, random
+     700-primitive, 6-chunk tables, a random 6-chunk planar table whose
+     active lanes have holes (about half live, lane 0 of each chunk dead,
+     lane 127 live), and K1 on the colonnade's light view (1 live lane of
+     128, timed too). Equal hit masks and materials; t within
      rtol 1e-4 / atol 1e-4; every other output row (K1: normal, u, v; K2:
      center, rad) within atol 1e-3.
    - K3 (cull + top-V select): the colonnade's 2,015 chunk boxes, 40,000
      primary camera rays and 40,000 secondary rays, packed and exact mode,
-     phase 1 and the phase after it. ids, nears and rest bit-equal.
+     phase 1 and the phase after it, as the unmarked loop asks it and with
+     the rays that phase 1 and a real K4 sweep left done marked exhausted
+     (as the phase loop asks it). ids, nears and rest bit-equal. K3's time
+     at phase 1 and at both phase-2 forms.
    - K4 (visit-list sweep) on the ids and nears K3 gave: triangles (the
      colonnade table) and spheres (a random 6,000-sphere table, 47
      chunks). Equal hit masks, pid and mat; t within rtol 1e-4; every other
@@ -26,7 +32,7 @@ Phases (any failure raises and the script exits non-zero):
      gradient path replays) against the plain versions' pid, at the same
      Cornell and three_material_ball shapes: equal wherever hit masks and
      materials are equal and the ray is no near-tie (counted and printed);
-     K1's time with and without pid.
+     K1's time with and without pid; K1's pid on the holed table too.
    - K5 (gather-sum probe) against its plain version (rel err max |a - b| /
      (|b| + 1) <= 1e-5) at the probe's defaults (an 11.5 MB table, inside
      the L2) and with a 738 MB table (K 131,072: device memory), with its
@@ -48,13 +54,16 @@ Phases (any failure raises and the script exits non-zero):
    which must pass its parity gate (> 38 dB, mean rel err < 0.02); and
    the colonnade at 200x200, 30 spp, depth 5. Each image must be finite;
    prints seconds, camera rays/s, the mean and, for the colonnade, the
-   selection phases per bounce. Then the gradient path
-   (``diff.loss_and_grads``): cornell_box at 512x512, 256 spp, depth 8
-   (bench.py's workload), geometry=False then True, and the colonnade at
-   200x200, depth 5, 8 spp; each prints seconds, fwd+bwd camera rays/s,
-   peak device memory, each pass's seconds and, for Cornell, (fwd+bwd -
-   fwd) / fwd against the forward render above. Loss and gradients must
-   be finite.
+   selection phases per bounce and the share of rays still live in each
+   phase. Then the gradient path (``diff.loss_and_grads``): cornell_box at
+   512x512, 256 spp, depth 8 (bench.py's workload), geometry=False then
+   True, and the colonnade at 200x200, depth 5, 8 spp; each prints
+   seconds, fwd+bwd camera rays/s, peak device memory, each pass's seconds
+   and, for Cornell, (fwd+bwd - fwd) / fwd against the forward render
+   above. Loss and gradients must be finite. Last, after every timed run
+   (the profiler may leave per-launch costs behind on these host-bound
+   paths), K3's and K4's summed device time in one more colonnade render
+   under torch.profiler.
 5. Kernel launch counts of each phase-4 run, set to 0 just before it and
    read just after: the Cornell render must launch K1, the
    three_material_ball render K2, and the colonnade render K1 (its light
@@ -149,11 +158,18 @@ def gpu_name_and_power() -> str:
 
 
 # ------------------------------------------------------------ phase 2
-def random_planar(gen, dev, K=6, C=128, n=700):
+def random_planar(gen, dev, K=6, C=128, n=700, holes=False):
+    """K chunks of C random quads (or triangles): the first n active or,
+    with ``holes``, a random half of each chunk with its first lane dead
+    and its last lane live (an active set that is no prefix)."""
     corner = torch.rand(K * C, 3, generator=gen) * 20 - 10
     eu = torch.randn(K * C, 3, generator=gen)
     ev = torch.randn(K * C, 3, generator=gen)
     act = torch.arange(K * C) < n
+    if holes:
+        act = (torch.rand(K, C, generator=gen) < 0.5)
+        act[:, 0], act[:, -1] = False, True
+        act = act.reshape(-1)
     mat = (torch.arange(K * C) % 3).to(torch.int32)
     pts = torch.stack([corner, corner + eu, corner + ev, corner + eu + ev])
     inf = torch.tensor(float("inf"))
@@ -236,17 +252,24 @@ def bound(nbytes: float, ops: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# rows of the [8,R] ray pack each closest-hit kernel reads: K1 org and dir,
+# K2 the ray time too
+RAY_ROWS = {"planar_closest": 6, "sphere_closest": 7}
+
+
+def closest_bound(name, R, pack, live):
+    """K1's or K2's bound: the ray rows it reads, [8,R] hit rows written,
+    the pack read once; ``live`` primitives tested per ray."""
+    nbytes = 4 * (RAY_ROWS[name] * R + pack.numel() + 8 * R)
+    return bound(nbytes, R * live * OPS[name])
+
+
 def phase_kernels(dev):
     """K1 and K2 against their plain versions; returns (errs, times,
     bounds) keyed by kernel name."""
     gen = torch.Generator().manual_seed(0)
     errs = {"planar_closest": 0.0, "sphere_closest": 0.0}
     times, bounds = {}, {}
-
-    def closest_bound(name, R, pack, live):
-        # rays [8,R] in, hit rows [8,R] out, the pack read once
-        nbytes = 4 * (8 * R + pack.numel() + 8 * R)
-        return bound(nbytes, R * live * OPS[name])
 
     def planar_case(label, org, dirs, view, pack, tri, timed=False):
         got = fi.planar_closest_fused(org, dirs, view, TMIN, tri, pack=pack)
@@ -305,6 +328,12 @@ def phase_kernels(dev):
     pack = fi.pack_prim_constants(chunks)
     planar_case("K1 quad, random 700 in 6 chunks", org, dirs, chunks, pack, False)
     planar_case("K1 tri, random 700 in 6 chunks", org, dirs, chunks, pack, True)
+    chunks = random_planar(gen, dev, holes=True)
+    pack = fi.pack_prim_constants(chunks)
+    log(f"  holed table: {int(chunks.active.sum())} of {chunks.active.numel()} lanes "
+        "active, lane 0 of each chunk dead, lane 127 live")
+    planar_case("K1 quad, holed random table in 6 chunks", org, dirs, chunks, pack, False)
+    planar_case("K1 tri, holed random table in 6 chunks", org, dirs, chunks, pack, True)
     chunks = random_spheres(gen, dev)
     sphere_case("K2, random 700 in 6 chunks", org, dirs, time, chunks,
                 fi.pack_sphere_constants(chunks))
@@ -388,26 +417,63 @@ def phase_select_sweep(scene, cam, dev):
     lists = {}
     for which, (o, d, c) in (("primary", (org, dirs, cap)),
                              ("secondary", (o2, d2, cap2))):
+        R = o.shape[0]
         rays = fs.pack_rays(o, d, c)
+        z = torch.zeros_like(c)
+        best0 = fsw.pack_best_planar(c, torch.zeros_like(o), z, z, z.int(), z.int())
         for packed in (True, False):
-            excl = fs.first_excl(o.shape[0], dev)
-            for phase in (1, 2):
-                label = (f"K3 {'packed' if packed else 'exact'}, colonnade "
-                         f"{which}, phase {phase}")
-                got = fs.cull_select_kernel(rays, tabs.boxes, excl, V, K, TMIN, packed)
-                ref = fs.cull_select_plain(rays, tabs.boxes, excl, V, K, TMIN, packed)
-                errs["cull_select"] = max(errs["cull_select"], bits_equal(label, got, ref))
-                if packed and phase == 1:
-                    lists[which] = (o, d, c, got[0], got[1])
-                excl = fs.next_excl(*got[:2])
-        if which == "primary":
-            excl0 = fs.first_excl(o.shape[0], dev)
-            times["cull_select"] = (
-                cuda_ms(lambda: fs.cull_select_kernel(rays, tabs.boxes, excl0, V, K, TMIN)),
-                cuda_ms(lambda: fs.cull_select_plain(rays, tabs.boxes, excl0, V, K, TMIN)))
-            R = o.shape[0]
-            nbytes = 4 * (8 * R + tabs.boxes.numel() + 2 * R + 2 * V * R + R)
-            bounds["cull_select"] = bound(nbytes, R * K * OPS["cull_select"])
+            mode = "packed" if packed else "exact"
+            excl1 = fs.first_excl(R, dev)
+            got = fs.cull_select_kernel(rays, tabs.boxes, excl1, V, K, TMIN, packed)
+            ref = fs.cull_select_plain(rays, tabs.boxes, excl1, V, K, TMIN, packed)
+            errs["cull_select"] = max(errs["cull_select"], bits_equal(
+                f"K3 {mode}, colonnade {which}, phase 1", got, ref))
+            if packed:
+                lists[which] = (o, d, c, got[0], got[1])
+            # phase 2 as the unmarked loop asks it, and as the phase loop
+            # asks it: the rays a real K4 sweep left done marked exhausted
+            best = fsw.sweep_kernel(fsw.pack_rays(o, d), got[0], got[1], best0,
+                                    tabs.table, TMIN, True, False)
+            done = ~(got[2] < best[:, 0])
+            excl2 = {"phase 2": fs.next_excl(*got[:2]),
+                     "phase 2, done rays marked": fs.next_excl(got[0], got[1], done,
+                                                               TMIN, packed)}
+            log(f"  K3 {mode}, colonnade {which}: {int(done.sum())} of {R} rays done "
+                "after phase 1 and its K4 sweep")
+            for label, excl in excl2.items():
+                got2 = fs.cull_select_kernel(rays, tabs.boxes, excl, V, K, TMIN, packed)
+                ref2 = fs.cull_select_plain(rays, tabs.boxes, excl, V, K, TMIN, packed)
+                errs["cull_select"] = max(errs["cull_select"], bits_equal(
+                    f"K3 {mode}, colonnade {which}, {label}", got2, ref2))
+            if which == "primary" and packed:
+                times["cull_select"] = (
+                    cuda_ms(lambda: fs.cull_select_kernel(rays, tabs.boxes, excl1, V, K,
+                                                          TMIN)),
+                    cuda_ms(lambda: fs.cull_select_plain(rays, tabs.boxes, excl1, V, K,
+                                                         TMIN)))
+                ms2 = {label: cuda_ms(lambda e=e: fs.cull_select_kernel(
+                    rays, tabs.boxes, e, V, K, TMIN)) for label, e in excl2.items()}
+                log(f"  K3 at the colonnade's primary rays: phase 1 "
+                    f"{times['cull_select'][0]:.4f} ms; " + "; ".join(
+                        f"{label} {ms:.4f} ms" for label, ms in ms2.items()))
+                times["cull_select_phase2"] = ms2["phase 2, done rays marked"]
+                nbytes = 4 * (8 * R + tabs.boxes.numel() + 2 * R + 2 * V * R + R)
+                bounds["cull_select"] = bound(nbytes, R * K * OPS["cull_select"])
+
+    # K1 on the colonnade's light view: one live lane of 128
+    view, pack = scene.quad_view
+    got = fi.planar_closest_fused(org, dirs, view, TMIN, False, pack=pack)
+    ref = ch.planar_closest(org, dirs, view, TMIN, False)
+    errs["planar_closest_light"] = compare("K1 quad, colonnade light view, primary",
+                                           got, ref, PLANAR_FIELDS)
+    rays1 = fi.pack_rays(org, dirs)
+    R = org.shape[0]
+    live = int(view.active.sum())
+    times["planar_closest_light"] = cuda_ms(lambda: fi.planar_closest_kernel(
+        rays1, pack, TMIN))
+    b_ms, b_by = closest_bound("planar_closest", R, pack, live)
+    log(f"  K1 at the colonnade's light view ({live} live lane of {view.active.numel()}, "
+        f"{R} rays): {times['planar_closest_light']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
     def sweep_case(label, o, d, time, c, ids, nears, table, tri, sphere, timed=False):
         rays = fsw.pack_rays(o, d, time)
@@ -508,6 +574,16 @@ def phase_pid(dev):
           cuda_ms(lambda: fi.planar_closest_kernel(rays0, pack, TMIN, with_pid=True)))
     log(f"  K1 at the Cornell primary shape: {ms[0]:.4f} ms without pid, "
         f"{ms[1]:.4f} ms with pid")
+    chunks = random_planar(gen, dev, holes=True)
+    pack = fi.pack_prim_constants(chunks)
+    org = (torch.rand(R_MAIN, 3, generator=gen) * 24 - 12).to(dev)
+    dirs = torch.randn(R_MAIN, 3, generator=gen).to(dev)
+    rays = fi.pack_rays(org, dirs)
+    for tri in (False, True):
+        out, pid = fi.planar_closest_kernel(rays, pack, TMIN, triangle=tri, with_pid=True)
+        t_r, pay_r = ch.planar_closest(org, dirs, chunks, TMIN, tri)
+        pid_compare(f"K1 pid {'tri' if tri else 'quad'}, holed random table", out, pid,
+                    t_r, pay_r[4], pay_r[3], fi.OUT_VALID, fi.OUT_MAT)
 
     scene, org, dirs, time_ = camera_rays("three_material_ball", gen, dev)
     view, pack = scene.sphere_view
@@ -568,9 +644,20 @@ def grads_of(scene, cam, seed, **kw):
 
 def kernel_route_grads(dev):
     """K1's and K2's autograd route (kernel forward, chunk-scan backward)
-    against plain autograd through the chunk scan on the same CUDA tensors.
-    Per-ray gradients are the same operations; table gradients sum
-    262,144 rays' terms with atomic adds in no fixed order (rtol 1e-4)."""
+    against plain autograd through the chunk scan on the same CUDA tensors
+    (rtol 1e-4). Per-ray gradients are the same operations; table gradients
+    sum 262,144 rays' terms, which the gathers' backward adds atomically in
+    no fixed order, so two runs of either route differ by ~1e-4 of a sum.
+    PyTorch's deterministic algorithms are on for this check only: the sums
+    then run in one order, and what is compared is the kernel's decision."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _kernel_route_grads(dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _kernel_route_grads(dev):
     gen = torch.Generator().manual_seed(5)
     for name in ("cornell_box", "three_material_ball"):
         scene, org, dirs, time_ = camera_rays(name, gen, dev)
@@ -829,6 +916,27 @@ def main_path(label, scene, cam, names):
     return secs, rps, img, launches
 
 
+def colonnade_device_time(scene, cam):
+    """K3's and K4's summed device time in one more colonnade render, under
+    torch.profiler (its launches are not counted)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        integrator.render_image(scene, cam, keys.key(0))
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    total = sum(e.self_device_time_total for e in kern) / 1e3
+    msg = []
+    for name in ("cull_select", "visit_sweep"):
+        hits = [e for e in kern if profiling.KERNELS[name] in e.key]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        msg.append(f"{name} {sum(e.count for e in hits)} launches {ms:.4f} ms "
+                   f"({ms / total:.4f} of device time)")
+    log(f"  colonnade render under the profiler: device time {total:.4f} ms; "
+        + "; ".join(msg))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -857,6 +965,7 @@ def main() -> int:
         f"{col_scene.counts[2]} triangles in {col_scene.tri_chunks.corner.shape[0]} "
         f"chunks, {col_scene.counts[1]} light quad")
     e, t, b = phase_select_sweep(col_scene, col_cam, dev)
+    errs["planar_closest"] = max(errs["planar_closest"], e.pop("planar_closest_light"))
     errs.update(e)
     times.update(t)
     bounds.update(b)
@@ -890,8 +999,11 @@ def main() -> int:
         f"{col_cam.max_depth}", col_scene, col_cam,
         ("planar_closest", "cull_select", "visit_sweep"))
     calls, phases = perray.PHASES["calls"], perray.PHASES["phases"]
+    live = perray.PHASES["live"]
     log(f"  colonnade render: {calls} per-ray closest-hit calls (bounces), "
-        f"{phases} selection phases, {phases / max(calls, 1):.3f} per bounce")
+        f"{phases} selection phases, {phases / max(calls, 1):.3f} per bounce; share "
+        "of rays still live by phase: " + ", ".join(
+            f"{p + 1}: {n / live[0]:.4f}" for p, n in enumerate(live)))
 
     log("phase 4, 5: the gradient path, each run's launches counted by pass")
     grad_secs = {}
@@ -907,7 +1019,7 @@ def main() -> int:
                                  f"{bwd['planar_closest']} in the backward (want 0)")
     col_grad_cam = col_cam.replace(spp=COLONNADE_GRAD_SPP)
     perray.reset_phases()
-    col_grad_secs, _, (fwd, bwd) = grad_path(
+    col_grad_secs, col_grad_rps, (fwd, bwd) = grad_path(
         f"colonnade {COLONNADE_PX}x{COLONNADE_PX} {COLONNADE_GRAD_SPP}spp depth "
         f"{col_cam.max_depth} loss_and_grads", col_scene, col_grad_cam)
     log("  colonnade gradient: chunked tables are not taped; the backward pass runs "
@@ -927,6 +1039,8 @@ def main() -> int:
                             torch.randn((K, rowf), generator=gen, device=dev))
     launches_probe = profiling.launches()
     log(f"  launches in one gather-probe call: {launches_probe}")
+    # last of the timed work: the profiler may leave per-launch costs behind
+    colonnade_device_time(col_scene, col_cam)
     # each kernel's launches in the render of its own slice's scene
     launches = {"planar_closest": launches_cornell["planar_closest"],
                 "sphere_closest": launches_ball["sphere_closest"],
@@ -953,8 +1067,11 @@ def main() -> int:
         f"rays/s; colonnade {col_secs:.3f} s, {col_rps:.1f} camera rays/s; cornell_box "
         f"fwd+bwd {grad_secs[False]:.3f} s ({n_cornell / grad_secs[False]:.1f} camera "
         f"rays/s), with geometry {grad_secs[True]:.3f} s ({n_cornell / grad_secs[True]:.1f}"
-        f"); colonnade fwd+bwd {col_grad_secs:.3f} s; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"); colonnade fwd+bwd {col_grad_secs:.3f} s ({col_grad_rps:.1f} camera rays/s); "
+        f"fwd+bwd against the render, per camera ray: cornell_box "
+        f"{grad_secs[False] / cornell_secs:.3f}, with geometry "
+        f"{grad_secs[True] / cornell_secs:.3f}, colonnade {col_rps / col_grad_rps:.3f}; "
+        f"total {time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

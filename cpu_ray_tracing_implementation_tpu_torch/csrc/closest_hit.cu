@@ -17,31 +17,38 @@
 // loop costs K1 ~26% at the Cornell shape: 0.0265 ms without, 0.0334 ms
 // with, in one chip_smoke.py call; PERF.md).
 //
-// Design. One thread per ray. The TPU kernel's grid walks the chunk axis in
-// order and carries the running hit in the revisited VMEM output block; CUDA
-// blocks run in no order, so each block loops over all K chunks itself. A
-// block stages a [16, TILE_C] slice of a chunk's pack in shared memory (8 KB)
-// and every thread reads the same constant at once (a broadcast, no bank
-// conflicts). Each ray keeps its running (t, payload) in registers and writes
-// its 8 output rows once, coalesced. The Pallas kernel's six depth-3
-// contractions per (ray, primitive) become per-thread FMAs; no [R,C]
-// intermediate exists anywhere.
+// Design. The TPU kernel's grid walks the chunk axis in order and carries
+// the running hit in the revisited VMEM output block; CUDA blocks run in no
+// order, so each block loops over all K chunks itself. Each ray keeps its
+// running (t, payload) in registers and writes its 8 output rows once,
+// coalesced. The Pallas kernel's six depth-3 contractions per (ray,
+// primitive) become per-thread FMAs; no [R,C] intermediate exists anywhere.
+//  - K1 (redesigned for Hopper): each thread carries RAYS_K1 = 2 rays, so
+//    every staged constant feeds two tests and the two IEEE divides
+//    overlap. Per 128-lane slice of a chunk, thread c reads lane c's active
+//    flag; an active lane's 13 read rows go to shared memory as three
+//    float4s (unorm | d_plane, evw | c_a, weu | c_b) and its material, and
+//    a ballot per warp records which lanes are active. The lane loop then
+//    visits the active lanes only, lowest first (find-first-set over the
+//    ballot words): padded lanes and holes cost nothing, the walk ends at
+//    the highest active lane, and lane numbering (pid = k*C + lane) is
+//    unchanged. (The first design took one ray per thread and
+//    walked all 128 lanes: PERF.md.)
+//  - K2 keeps the first design: one thread per ray, a [16, TILE_C] slice
+//    of the pack staged in shared memory (8 KB), every thread reading the
+//    same constant at once (a broadcast), all 128 lanes walked.
 //
-// Bound (an estimate from the source, not traced per instruction). At the
-// main path's shapes (R = 262144 rays, one chunk of C = 128 lanes of which
-// 18 hold Cornell's quads) K1 reads 24 B of ray rows and writes 32 B of hit
-// rows per ray, 14.7 MB in all (~4.4 us of HBM at 3.35 TB/s), and does ~40
-// useful flops per (ray, live quad), 0.19 GFLOP (~3 us of FP32). Neither
-// bounds it: every thread walks all 128 lanes, ~4 instructions per padded
-// lane and ~60 per live one (shared loads, the IEEE divide, the tests), so
-// ~1500 instructions per warp and 12.5 M warp-instructions over 132 SMs
-// issuing 4 a cycle, ~13 us at 1.8 GHz before the launch. Instruction issue
-// in the lane loop is the largest term; the padded lanes are 30% of it. The
-// card reads about twice the estimate per launch (PERF.md); divergence
-// within a warp and the launch itself are the likely rest, not yet traced.
-// Later work: a per-chunk live count, several rays per thread, cp.async
-// double-buffering of the packs, per-chunk AABB culling for the chunked
-// route.
+// Bound. At Cornell's shape (R = 262144 rays, one chunk of C = 128 lanes of
+// which 18 hold the quads) K1 reads 24 B of ray rows and writes 32 B of hit
+// rows per ray, 14.7 MB in all (~4.4 us of HBM at 3.35 TB/s), and issues
+// ~36 FP32 instructions per (ray, live quad) once the pack's per-primitive
+// constants are precomputed (chip_smoke.py's OPS), 0.17 G instructions,
+// ~5.1 us at 33.5e12 per s: the larger term. On one H100 (700 W) the
+// redesigned K1 took 0.0146 ms there (0.0149 with pid; the first design
+// 0.0266 and 0.0334 in the same run) and 0.0034 ms at the colonnade's light view (40,000
+// rays, 1 live lane), so a launch costs ~3 us beyond its bytes; by a count
+// from the source, the IEEE divide and the branches put ~50 instructions
+// on each live (ray, quad), not 36 (PERF.md).
 //
 // Rounding. K1 is compiled with nvcc's default multiply-add contraction. K2
 // writes its expanded quadratic (|o|^2 - 2 o.c + |c|^2 - r^2, which cancels
@@ -61,6 +68,7 @@ constexpr float BIG = 1e30f;
 constexpr int NROWS = 16;
 constexpr int THREADS = 128;
 constexpr int TILE_C = 128;
+constexpr int RAYS_K1 = 2;  // rays per thread in K1
 
 // planar pack rows
 constexpr int ROW_UNORM = 0, ROW_EVW = 3, ROW_WEU = 6, ROW_DPLANE = 9,
@@ -93,77 +101,118 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
   return add(add(mul(ax, bx), mul(ay, by)), mul(az, bz));
 }
 
+// One ray of K1's RAYS_K1, with its running best.
+struct PlanarRay {
+  float ox, oy, oz, dx, dy, dz;
+  float t, nx, ny, nz, u, v, m, valid;
+  int p;
+};
+
+// Test the staged live lane j (constants nd = (unorm, d_plane), ea = (evw,
+// c_a), wb = (weu, c_b)) against one ray; keep it when strictly nearer.
+template <bool TRIANGLE, bool WITH_PID>
+__device__ __forceinline__ void planar_lane(PlanarRay& q, const float4& nd,
+                                            const float4& ea, const float4& wb,
+                                            const float* s_mat, int j,
+                                            float tmin, int prim) {
+  const float d_n = q.dx * nd.x + q.dy * nd.y + q.dz * nd.z;
+  if (!(fabsf(d_n) > 1e-20f)) return;
+  const float o_n = q.ox * nd.x + q.oy * nd.y + q.oz * nd.z;
+  const float t = (nd.w - o_n) / d_n;
+  if (!(t >= tmin && t < q.t)) return;
+  const float a = clip_big((q.ox * ea.x + q.oy * ea.y + q.oz * ea.z)
+                           + t * (q.dx * ea.x + q.dy * ea.y + q.dz * ea.z)
+                           - ea.w);
+  const float b = clip_big((q.ox * wb.x + q.oy * wb.y + q.oz * wb.z)
+                           + t * (q.dx * wb.x + q.dy * wb.y + q.dz * wb.z)
+                           - wb.w);
+  const bool interior = TRIANGLE
+      ? (a >= 0.f && b >= 0.f && a + b <= 1.f)
+      : (a >= 0.f && a <= 1.f && b >= 0.f && b <= 1.f);
+  if (!interior) return;
+  q.t = t;
+  q.nx = nd.x; q.ny = nd.y; q.nz = nd.z;
+  q.u = a; q.v = b;
+  q.m = s_mat[j];
+  q.valid = 1.f;
+  if (WITH_PID) q.p = prim;
+}
+
 template <bool TRIANGLE, bool WITH_PID>
 __global__ void __launch_bounds__(THREADS)
 planar_closest_kernel(const float* __restrict__ rays, int R,
                       const float* __restrict__ pack, int K, int C,
                       float tmin, float tmax, float* __restrict__ out,
                       int* __restrict__ pid) {
-  __shared__ float s[NROWS * TILE_C];
-  const int r = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = r < R;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  if (live) {
-    ox = rays[0 * (size_t)R + r]; oy = rays[1 * (size_t)R + r];
-    oz = rays[2 * (size_t)R + r]; dx = rays[3 * (size_t)R + r];
-    dy = rays[4 * (size_t)R + r]; dz = rays[5 * (size_t)R + r];
+  static_assert(THREADS == TILE_C, "one staging thread per lane");
+  __shared__ float4 s_nd[TILE_C], s_ea[TILE_C], s_wb[TILE_C];
+  __shared__ float s_mat[TILE_C];
+  __shared__ unsigned s_live[TILE_C / 32];  // active-lane bits by warp
+  const int r0 = blockIdx.x * THREADS * RAYS_K1 + threadIdx.x;
+  PlanarRay q[RAYS_K1];
+#pragma unroll
+  for (int i = 0; i < RAYS_K1; ++i) {
+    const int r = r0 + i * THREADS;
+    PlanarRay& x = q[i];
+    x.ox = x.oy = x.oz = x.dx = x.dy = x.dz = 0.f;
+    if (r < R) {
+      x.ox = rays[0 * (size_t)R + r]; x.oy = rays[1 * (size_t)R + r];
+      x.oz = rays[2 * (size_t)R + r]; x.dx = rays[3 * (size_t)R + r];
+      x.dy = rays[4 * (size_t)R + r]; x.dz = rays[5 * (size_t)R + r];
+    }
+    x.t = fminf(BIG, tmax);
+    x.nx = x.ny = x.nz = x.u = x.v = x.m = x.valid = 0.f;
+    x.p = 0;
   }
-  float t_best = fminf(BIG, tmax);
-  float nx = 0.f, ny = 0.f, nz = 0.f, bu = 0.f, bv = 0.f, bm = 0.f;
-  float valid = 0.f;
-  int bp = 0;
 
   for (int k = 0; k < K; ++k) {
     for (int c0 = 0; c0 < C; c0 += TILE_C) {
       const int nc = min(TILE_C, C - c0);
       __syncthreads();  // previous slice fully consumed
-      stage(s, pack, k, C, c0, nc);
+      // thread c stages lane c0 + c, and only if it is active
+      const int c = threadIdx.x;
+      const float* pk = pack + (size_t)k * NROWS * C + c0 + c;
+      const bool act = c < nc && pk[(size_t)ROW_ACTIVE * C] > 0.5f;
+      if (act) {
+        s_nd[c] = make_float4(pk[(size_t)(ROW_UNORM + 0) * C], pk[(size_t)(ROW_UNORM + 1) * C],
+                              pk[(size_t)(ROW_UNORM + 2) * C], pk[(size_t)ROW_DPLANE * C]);
+        s_ea[c] = make_float4(pk[(size_t)(ROW_EVW + 0) * C], pk[(size_t)(ROW_EVW + 1) * C],
+                              pk[(size_t)(ROW_EVW + 2) * C], pk[(size_t)ROW_CA * C]);
+        s_wb[c] = make_float4(pk[(size_t)(ROW_WEU + 0) * C], pk[(size_t)(ROW_WEU + 1) * C],
+                              pk[(size_t)(ROW_WEU + 2) * C], pk[(size_t)ROW_CB * C]);
+        s_mat[c] = pk[(size_t)ROW_MAT * C];
+      }
+      const unsigned bits = __ballot_sync(0xffffffffu, act);
+      if (c % 32 == 0) s_live[c / 32] = bits;
       __syncthreads();
-      for (int j = 0; j < nc; ++j) {
-        if (s[ROW_ACTIVE * TILE_C + j] <= 0.5f) continue;
-        const float unx = s[(ROW_UNORM + 0) * TILE_C + j];
-        const float uny = s[(ROW_UNORM + 1) * TILE_C + j];
-        const float unz = s[(ROW_UNORM + 2) * TILE_C + j];
-        const float d_n = dx * unx + dy * uny + dz * unz;
-        if (!(fabsf(d_n) > 1e-20f)) continue;
-        const float o_n = ox * unx + oy * uny + oz * unz;
-        const float t = (s[ROW_DPLANE * TILE_C + j] - o_n) / d_n;
-        if (!(t >= tmin && t < t_best)) continue;
-        const float ex = s[(ROW_EVW + 0) * TILE_C + j];
-        const float ey = s[(ROW_EVW + 1) * TILE_C + j];
-        const float ez = s[(ROW_EVW + 2) * TILE_C + j];
-        const float wx = s[(ROW_WEU + 0) * TILE_C + j];
-        const float wy = s[(ROW_WEU + 1) * TILE_C + j];
-        const float wz = s[(ROW_WEU + 2) * TILE_C + j];
-        const float a = clip_big((ox * ex + oy * ey + oz * ez)
-                                 + t * (dx * ex + dy * ey + dz * ez)
-                                 - s[ROW_CA * TILE_C + j]);
-        const float b = clip_big((ox * wx + oy * wy + oz * wz)
-                                 + t * (dx * wx + dy * wy + dz * wz)
-                                 - s[ROW_CB * TILE_C + j]);
-        const bool interior = TRIANGLE
-            ? (a >= 0.f && b >= 0.f && a + b <= 1.f)
-            : (a >= 0.f && a <= 1.f && b >= 0.f && b <= 1.f);
-        if (!interior) continue;
-        t_best = t;
-        nx = unx; ny = uny; nz = unz;
-        bu = a; bv = b;
-        bm = s[ROW_MAT * TILE_C + j];
-        valid = 1.f;
-        if (WITH_PID) bp = k * C + c0 + j;
+      // the active lanes only, in index order: padded lanes and holes cost
+      // nothing, and the loop ends at the highest active lane
+      for (int w = 0; w < TILE_C / 32; ++w) {
+        for (unsigned live = s_live[w]; live; live &= live - 1) {
+          const int j = w * 32 + __ffs(live) - 1;
+          const float4 nd = s_nd[j], ea = s_ea[j], wb = s_wb[j];
+#pragma unroll
+          for (int i = 0; i < RAYS_K1; ++i)
+            planar_lane<TRIANGLE, WITH_PID>(q[i], nd, ea, wb, s_mat, j, tmin,
+                                            k * C + c0 + j);
+        }
       }
     }
   }
-  if (live) {
-    if (WITH_PID) pid[r] = bp;
-    out[0 * (size_t)R + r] = t_best;
-    out[1 * (size_t)R + r] = nx;
-    out[2 * (size_t)R + r] = ny;
-    out[3 * (size_t)R + r] = nz;
-    out[4 * (size_t)R + r] = bu;
-    out[5 * (size_t)R + r] = bv;
-    out[6 * (size_t)R + r] = bm;
-    out[7 * (size_t)R + r] = valid;
+#pragma unroll
+  for (int i = 0; i < RAYS_K1; ++i) {
+    const int r = r0 + i * THREADS;
+    if (r >= R) continue;
+    const PlanarRay& x = q[i];
+    if (WITH_PID) pid[r] = x.p;
+    out[0 * (size_t)R + r] = x.t;
+    out[1 * (size_t)R + r] = x.nx;
+    out[2 * (size_t)R + r] = x.ny;
+    out[3 * (size_t)R + r] = x.nz;
+    out[4 * (size_t)R + r] = x.u;
+    out[5 * (size_t)R + r] = x.v;
+    out[6 * (size_t)R + r] = x.m;
+    out[7 * (size_t)R + r] = x.valid;
   }
 }
 
@@ -258,7 +307,7 @@ extern "C" int crt_planar_closest(const float* rays, int R, const float* pack,
                                   int triangle, float* out, int* pid,
                                   void* stream) {
   if (R <= 0) return 0;
-  const dim3 grid((R + THREADS - 1) / THREADS);
+  const dim3 grid((R + THREADS * RAYS_K1 - 1) / (THREADS * RAYS_K1));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (triangle && pid)
     planar_closest_kernel<true, true><<<grid, THREADS, 0, st>>>(

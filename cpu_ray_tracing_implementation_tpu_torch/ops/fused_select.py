@@ -8,7 +8,10 @@ matrix in device memory (``csrc/cull_select.cu``).
 Phase semantics (the per-ray accelerator's exactness loop,
 ``ops/perray.py``): a phase excludes everything at or below its
 predecessor's last selected key (thr, last id), so consecutive phases
-partition the whole ordered visit list.
+partition the whole ordered visit list. A ray the loop no longer needs
+gets an exhausted key (``next_excl(..., done)``), which excludes every
+box: the kernel walks no box for it and returns exhausted slots, as the
+plain version does.
 
 Packed mode (the default, needs tmin > 0) selects on one int32 key
 (near's f32 bits with the low IDB bits cleared | chunk id): the nears it
@@ -34,6 +37,9 @@ MASKV = 0x7FFFFFFF        # above every real key
 # the kernel is instantiated for these visit-block sizes (ops/perray.py
 # takes min(V, K) with V = 16)
 V_MAX = 16
+# exact mode's exhausted last id: past every chunk id (ids travel as f32,
+# exact below 2^24), so (+inf, EXHAUSTED_ID) excludes every box
+EXHAUSTED_ID = float(1 << 24)
 
 LAUNCHES = {"cull_select": 0}
 
@@ -79,10 +85,26 @@ def first_excl(R: int, device) -> torch.Tensor:
     return excl
 
 
-def next_excl(ids, nears) -> torch.Tensor:
+def packed_mode(tmin: float, packed: bool = True) -> bool:
+    """Whether K3 selects on packed keys: asked for, and tmin > 0 (a packed
+    key's near must be non-negative)."""
+    return bool(packed) and float(tmin) > 0.0
+
+
+def next_excl(ids, nears, done=None, tmin=None, packed: bool = True) -> torch.Tensor:
     """[R, 2] exclusion key of the phase after one that returned (ids,
-    nears): its last selected (near, id)."""
-    return torch.stack([nears[:, -1], ids[:, -1].to(torch.float32)], dim=1)
+    nears): its last selected (near, id). Rows where the [R] bool ``done``
+    holds get the exhausted key, which excludes every box, so the kernel
+    walks no box for them: a NaN threshold in packed mode, +inf with last
+    id ``EXHAUSTED_ID`` in exact mode (``tmin`` and ``packed`` as given to
+    the phase's ``cull_select``, which picks the mode by ``packed_mode``)."""
+    excl = torch.stack([nears[:, -1], ids[:, -1].to(torch.float32)], dim=1)
+    if done is not None:
+        thr, last = ((float("nan"), -1.0) if packed_mode(tmin, packed)
+                     else (INF, EXHAUSTED_ID))
+        excl[:, 0].masked_fill_(done, thr)
+        excl[:, 1].masked_fill_(done, last)
+    return excl
 
 
 # -------------------------------------------------------- plain version
@@ -113,8 +135,7 @@ def cull_select_plain(rays, boxes, excl, V: int, K_real: int, tmin: float,
     """Plain PyTorch K3: the Pallas kernel's V selection rounds over the
     [R, Kp] near matrix. Returns (ids [R,V] int32, nears [R,V] f32,
     rest [R] f32)."""
-    if tmin <= 0.0:
-        packed = False
+    packed = packed_mode(tmin, packed)
     R, Kp = rays.shape[0], boxes.shape[1]
     nearm = _near_matrix(rays, boxes, K_real, tmin)
     col = torch.arange(Kp, dtype=torch.int32, device=rays.device)[None, :]
@@ -163,8 +184,7 @@ def cull_select_kernel(rays, boxes, excl, V: int, K_real: int, tmin: float,
     from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 
     tbl.check_no_grad("crt_cull_select", rays, boxes, excl)
-    if tmin <= 0.0:
-        packed = False
+    packed = packed_mode(tmin, packed)
     R, Kp = rays.shape[0], boxes.shape[1]
     tbl.check_cuda("rays", rays, torch.float32, (R, 8))
     tbl.check_cuda("boxes", boxes, torch.float32, (8, Kp))

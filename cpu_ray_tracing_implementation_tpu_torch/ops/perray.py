@@ -16,7 +16,11 @@ reference's per-ray BVH descent (src/bvh_node.h:49-58):
     the chunk-scan oracle (``ops/chunked.py``) for every ray, whatever V.
 
 The phase condition is read on the host: one synchronisation per phase.
-``PHASES`` counts the closest-hit calls and the phases they ran.
+A ray whose ``rest`` is not below its best t after a phase gains nothing
+from later phases; its exclusion key is marked exhausted, so K3 walks no
+box for it (the hits and the phase count are those of the unmarked loop).
+``PHASES`` counts the closest-hit calls, the phases they ran and the rays
+still live in each phase.
 
 Gradients (``perray.py:896-948``): when an input needs one, the drop-ins
 go through ``PlanarClosestRay`` / ``SphereClosestRay``, the JAX package's
@@ -45,12 +49,15 @@ INF = float("inf")
 # visit slots selected per phase (the JAX package's CRT_RAYV default)
 VISIT_BLOCK = 16
 
-PHASES = {"calls": 0, "phases": 0}
+# closest-hit calls, the phases they ran, and the rays each phase walked
+# boxes for, summed over calls (live[0]: every ray, in phase 1)
+PHASES = {"calls": 0, "phases": 0, "live": []}
 
 
 def reset_phases() -> None:
     PHASES["calls"] = 0
     PHASES["phases"] = 0
+    PHASES["live"] = []
 
 
 @dataclass(frozen=True)
@@ -96,15 +103,25 @@ def _phase_loop(org, dirs, cap, tabs: PerRayTables, K_real, tmin, V,
     only the (threshold, last id) exclusion key: no [R, K] matrix."""
     rays = fs.pack_rays(org, dirs, cap)
     excl = fs.first_excl(org.shape[0], org.device)
+    live = org.shape[0]
     phases = 0
     while True:
+        if len(PHASES["live"]) <= phases:
+            PHASES["live"].append(0)
+        PHASES["live"][phases] += live
         ids, nears, rest = fs.cull_select(rays, tabs.boxes, excl, V, K_real,
                                           float(tmin))
         best = sweep_fn(ids, nears, best)
         phases += 1
-        excl = fs.next_excl(ids, nears)
-        if not bool(torch.any(rest < best[:, 0])):
+        # A ray whose rest is not below its best t is done: every later
+        # near is at or above rest (the next phase starts at exactly the
+        # rest key), so K4 would skip all its slots and rest stays >= best.
+        # Its exhausted key lets K3 walk no box for it.
+        more = rest < best[:, 0]
+        live = int(more.sum())
+        if not live:
             break
+        excl = fs.next_excl(ids, nears, ~more, float(tmin))
     PHASES["calls"] += 1
     PHASES["phases"] += phases
     return best

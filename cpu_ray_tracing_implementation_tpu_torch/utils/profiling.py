@@ -9,8 +9,8 @@ for the port. Run on a machine with an NVIDIA GPU::
 ``colonnade`` renders catalog.sponza (the 258k-triangle colonnade) at
 200x200, depth 5; ``cornell_grad`` takes ``diff.loss_and_grads`` of
 cornell_box at 512x512, depth 8 (the winner-replay route), one sample.
-Each runs ``spp`` samples after a 2-sample warm-up: once on the host clock,
-then under ``torch.profiler`` with a range around each stage of a bounce
+Each runs ``spp`` samples after a 2-sample warm-up: three times on the host
+clock, then under ``torch.profiler`` with a range around each stage of a bounce
 (on the colonnade also around the per-ray accelerator's select and sweep
 calls; on the gradient, around the forward pass, the backward pass's
 re-render, the winner decision and the replay; the kernels autograd's
@@ -20,7 +20,9 @@ profiled run only, so the main path carries no instrumentation. It prints
 the wall seconds of both runs, the device time summed over kernels,
 kernels per bounce, the device busy share, the top kernels by device time,
 each stage's host and device time, the launches and device time of
-kernels K1-K4, and the per-ray selection phases per bounce.
+kernels K1-K4, and the per-ray selection phases per bounce. Last it times
+three more unprofiled runs: what the profiler leaves behind on later
+launches of these host-bound paths.
 
 ``cuda_ms`` and the card's peak rates are shared with ``chip_smoke.py``
 and ``utils/gather_probe.py``.
@@ -77,6 +79,7 @@ WORKLOADS = {
     "cornell_grad": (catalog.cornell_box, dict(width=512, max_depth=8), 1, True),
 }
 TOP = 20  # kernels listed by device time
+REPEATS = 3  # unprofiled runs before the profiled one, and after it
 # the gradient step's two top-level ranges
 PASSES = ("forward pass", "backward pass")
 KERNELS = {"planar_closest": "planar_closest_kernel",
@@ -163,13 +166,19 @@ def main(argv=None) -> int:
         else:
             integrator.render_image(scene, cam, keys.key(1), spp=n)
 
+    def timed():
+        t0 = time.perf_counter()
+        run(spp)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def walls():
+        ws = sorted(timed() for _ in range(REPEATS))
+        return ws[REPEATS // 2], ", ".join(f"{w:.4f}" for w in ws)
+
     run(2)
     torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
-    run(spp)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall, before = walls()
 
     reset_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -189,7 +198,7 @@ def main(argv=None) -> int:
     n_kern = sum(k[1] for k in kern)
     print(f"{name} {cam.width}x{cam.height} depth {cam.max_depth}, {spp} spp"
           f"{' fwd+bwd (diff.loss_and_grads)' if grad else ''}: wall "
-          f"{wall:.4f} s unprofiled, {wall_prof:.4f} s profiled")
+          f"{wall:.4f} s unprofiled (median of {before}), {wall_prof:.4f} s profiled")
     print(f"device kernel time {dev_s:.4f} s over {n_kern} kernels "
           f"({n_kern / bounces:.1f} per bounce); busy share "
           f"{dev_s / wall:.4f} of the unprofiled wall, "
@@ -221,6 +230,9 @@ def main(argv=None) -> int:
         # autograd runs the backward's kernels on its own thread, outside
         # every range of the main thread: the rest of the device time
         print(f"  autograd backward (no range): device {dev_s - passes:.4f}")
+    wall_after, after = walls()
+    print(f"wall unprofiled after the profiler: {wall_after:.4f} s (median of "
+          f"{after}), against {wall:.4f} s before it")
     return 0
 
 

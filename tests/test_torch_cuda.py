@@ -45,11 +45,17 @@ def _t(x, dev):
     return torch.as_tensor(np.ascontiguousarray(x), device=dev)
 
 
-def _planar_chunks(rng, dev, K=6, C=128, n=700):
+def _planar_chunks(rng, dev, K=6, C=128, n=700, holes=False):
+    """The first n of K*C random primitives active or, with ``holes``, a
+    random half of each chunk with lane 0 dead and lane C-1 live."""
     corner = rng.uniform(-10, 10, (K * C, 3)).astype(np.float32)
     eu = rng.normal(size=(K * C, 3)).astype(np.float32)
     ev = rng.normal(size=(K * C, 3)).astype(np.float32)
     act = np.arange(K * C) < n
+    if holes:
+        act = rng.uniform(size=(K, C)) < 0.5
+        act[:, 0], act[:, -1] = False, True
+        act = act.reshape(-1)
     pts = np.stack([corner, corner + eu, corner + ev, corner + eu + ev])
     lo = np.where(act[:, None], pts.min(0), np.inf).reshape(K, C, 3).min(1)
     hi = np.where(act[:, None], pts.max(0), -np.inf).reshape(K, C, 3).max(1)
@@ -96,10 +102,11 @@ def _check(got, ref, payload_atol):
         torch.testing.assert_close(x[valid], x_r[valid], rtol=0, atol=payload_atol)
 
 
+@pytest.mark.parametrize("holes", [False, True], ids=["prefix", "holes"])
 @pytest.mark.parametrize("triangle", [False, True], ids=["quad", "tri"])
-def test_planar_kernel_matches_plain(dev, triangle):
+def test_planar_kernel_matches_plain(dev, triangle, holes):
     rng = np.random.default_rng(6)
-    chunks = _planar_chunks(rng, dev)
+    chunks = _planar_chunks(rng, dev, holes=holes)
     org, dirs, _ = _rays(rng, dev, 20000)
     fi.reset_launches()
     got = fi.planar_closest_fused(org, dirs, chunks, TMIN, triangle)
@@ -178,11 +185,17 @@ def _boxes_and_rays(rng, dev, K=300, R=5000):
 
 @pytest.mark.parametrize("V", [1, 3, 16])
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "exact"])
-def test_cull_select_kernel_bit_equal(dev, packed, V):
+@pytest.mark.parametrize("marked", [False, True], ids=["unmarked", "done"])
+def test_cull_select_kernel_bit_equal(dev, packed, V, marked):
+    """Phase 1 and two phases after it; with ``marked``, a random third of
+    the rays get the exhausted key, and so do rays 64-95: two whole 16-ray
+    blocks (RAYS_PER_BLOCK in csrc/cull_select.cu), which return before
+    staging a box."""
     rng = np.random.default_rng(V)
     boxes, rays = _boxes_and_rays(rng, dev)
-    excl = fs.first_excl(rays.shape[0], dev)
-    for _ in range(3):                    # phase 1 and two phases after it
+    R = rays.shape[0]
+    excl = fs.first_excl(R, dev)
+    for _ in range(3):
         fs.reset_launches()
         got = fs.cull_select(rays, boxes, excl, V, 300, TMIN, packed)
         assert fs.LAUNCHES == {"cull_select": 1}
@@ -191,7 +204,11 @@ def test_cull_select_kernel_bit_equal(dev, packed, V):
         assert torch.equal(got[0], ref[0])
         for x, y in zip(got[1:], ref[1:]):
             assert torch.equal(x.view(torch.int32), y.view(torch.int32))
-        excl = fs.next_excl(got[0], got[1])
+        done = None
+        if marked:
+            done = _t(rng.uniform(size=R) < 1 / 3, dev)
+            done[64:96] = True
+        excl = fs.next_excl(got[0], got[1], done, TMIN, packed)
 
 
 def test_cull_select_refuses_other_v(dev):
@@ -283,7 +300,7 @@ def test_perray_on_card_matches_oracle(dev, kind):
     assert torch.equal(pay[-2], pay_o[-2])
 
 
-@pytest.mark.parametrize("kind", ["quad", "tri", "sphere"])
+@pytest.mark.parametrize("kind", ["quad", "tri", "sphere", "quad-holes", "tri-holes"])
 def test_pid_output_matches_plain(dev, kind):
     rng = np.random.default_rng(21)
     org, dirs, time = _rays(rng, dev, 20000)
@@ -293,9 +310,10 @@ def test_pid_output_matches_plain(dev, kind):
         t, pid = fi.sphere_winner(org, dirs, time, chunks, TMIN)
         t_r, pay_r = ch.sphere_closest(org, dirs, time, chunks, TMIN)
     else:
-        chunks = _planar_chunks(rng, dev)
-        t, pid = fi.planar_winner(org, dirs, chunks, TMIN, kind == "tri")
-        t_r, pay_r = ch.planar_closest(org, dirs, chunks, TMIN, kind == "tri")
+        chunks = _planar_chunks(rng, dev, holes=kind.endswith("holes"))
+        tri = kind.startswith("tri")
+        t, pid = fi.planar_winner(org, dirs, chunks, TMIN, tri)
+        t_r, pay_r = ch.planar_closest(org, dirs, chunks, TMIN, tri)
     assert sum(fi.LAUNCHES.values()) == 1
     hit = torch.isfinite(t_r)
     assert int(hit.sum()) > 100 and torch.equal(torch.isfinite(t), hit)

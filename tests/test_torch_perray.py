@@ -22,6 +22,7 @@ from cpu_ray_tracing_implementation_tpu.models import scene as jscene
 from cpu_ray_tracing_implementation_tpu.ops import perray as jperray
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import perray
 
 TMIN = 1e-3
@@ -160,3 +161,60 @@ def test_chunked_tables_take_the_per_ray_route():
     dead = torch.as_tensor(~alive) & hit.valid
     light_mat = int(scene.quads.mat[0])
     assert (hit.mat[dead] == light_mat).all() and light_mat != 0
+
+
+def _unmarked_loop(rays, srays, tabs, K, V, best, triangle, sphere):
+    """The phase loop as it ran before done rays were marked, on the plain
+    K3 and K4: (phases, best, rays still live after each phase)."""
+    excl = fs.first_excl(rays.shape[0], "cpu")
+    phases, live = 0, []
+    while True:
+        ids, nears, rest = fs.cull_select_plain(rays, tabs.boxes, excl, V, K, TMIN)
+        best = fsw.sweep_plain(srays, ids, nears, best, tabs.table, TMIN, triangle,
+                               sphere)
+        phases += 1
+        excl = fs.next_excl(ids, nears)
+        live.append(int((rest < best[:, 0]).sum()))
+        if not live[-1]:
+            return phases, best, live
+
+
+@pytest.mark.parametrize("kind", ["quad", "sphere"])
+def test_marking_done_rays_keeps_the_phases_and_hits(kind):
+    """The phase loop marks done rays exhausted; its phase count, the rays
+    it reports live per phase and its best hits equal the unmarked loop's,
+    which is computed here from the plain K3 and K4."""
+    jchunks = _chunks(kind)
+    org, dirs, time, cap = (torch.as_tensor(x) for x in _rays(5))
+    sphere = kind == "sphere"
+    if sphere:
+        chunks = _to_torch(jchunks, ch.SphereChunks)
+        tabs = perray.sphere_tables(chunks)
+        K = chunks.rad.shape[0]
+    else:
+        chunks = _to_torch(jchunks, ch.PlanarChunks)
+        tabs = perray.planar_tables(chunks)
+        K = chunks.corner.shape[0]
+    V = 3
+    z = torch.zeros(R)
+    best0 = (fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1, z.int(), z.int())
+             if sphere else
+             fsw.pack_best_planar(cap, torch.zeros_like(org), z, z, z.int(), z.int()))
+    srays = fsw.pack_rays(org, dirs, time if sphere else None)
+    want, best_u, live_u = _unmarked_loop(fs.pack_rays(org, dirs, cap), srays, tabs, K,
+                                          V, best0, False, sphere)
+    perray.reset_phases()
+    best = perray._phase_loop(
+        org, dirs, cap, tabs, K, TMIN, V,
+        lambda ids, nears, b: fsw.sweep(srays, ids, nears, b, tabs.table, TMIN, False,
+                                        sphere), best0)
+    assert want >= 3
+    assert perray.PHASES["calls"] == 1 and perray.PHASES["phases"] == want
+    assert perray.PHASES["live"] == [R] + live_u[:-1]
+    # the same winners (pid, mat) and hit masks; the float columns within
+    # the rtol 1e-4 of the suite's t checks (two CPU runs of the plain
+    # sweep once gave one ray's t 13 ulp apart)
+    np.testing.assert_array_equal(best[:, 6:8].numpy(), best_u[:, 6:8].numpy())
+    np.testing.assert_array_equal((best[:, 0] < cap).numpy(), (best_u[:, 0] < cap).numpy())
+    np.testing.assert_allclose(best[:, :6].numpy(), best_u[:, :6].numpy(), rtol=1e-4,
+                               atol=1e-6)

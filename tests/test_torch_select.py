@@ -132,3 +132,39 @@ def test_cpu_tensors_launch_nothing_and_kernel_refuses_them():
     assert fs.LAUNCHES == {"cull_select": 0}
     with pytest.raises(ValueError, match="CUDA"):
         fs.cull_select_kernel(rays, boxes, fs.first_excl(16, "cpu"), 4, 10, TMIN)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "exact"])
+def test_done_rows_get_the_exhausted_key(packed):
+    """``next_excl`` with ``done`` writes the exhausted key (NaN threshold
+    packed; +inf with a last id past every chunk exact), and the plain K3
+    then returns exhausted slots for exactly those rows and what it returns
+    without marking for the others."""
+    lo, hi = _random_boxes(200, 1)
+    R, V = 96, 2
+    org, d, caps = _rays(R, 2)
+    rays = fs.pack_rays(*(torch.as_tensor(x) for x in (org, d, caps)))
+    boxes = fs.pack_boxes(torch.as_tensor(lo), torch.as_tensor(hi))
+    ids, nears, _ = fs.cull_select(rays, boxes, fs.first_excl(R, "cpu"), V, 200, TMIN,
+                                   packed=packed)
+    done = torch.as_tensor(np.random.default_rng(3).uniform(size=R) < 0.4)
+    excl = fs.next_excl(ids, nears, done, TMIN, packed)
+    plain = fs.next_excl(ids, nears)
+    assert torch.equal(excl[~done], plain[~done])
+    if packed:
+        assert bool(torch.isnan(excl[done, 0]).all())
+    else:
+        assert bool((excl[done, 0] == float("inf")).all())
+        assert bool((excl[done, 1] >= boxes.shape[1] - 1).all())
+    got = fs.cull_select(rays, boxes, excl, V, 200, TMIN, packed=packed)
+    ref = fs.cull_select(rays, boxes, plain, V, 200, TMIN, packed=packed)
+    for x, y in zip(got, ref):
+        np.testing.assert_array_equal(x[~done].numpy(), y[~done].numpy())
+    ids2, nears2, rest2 = (x[done].numpy() for x in got)
+    if packed:
+        assert (ids2 == (1 << fs.id_bits(boxes.shape[1])) - 1).all()
+        assert np.isnan(nears2).all() and np.isnan(rest2).all()
+    else:
+        assert (ids2 == 0).all()
+        assert np.isposinf(nears2).all() and np.isposinf(rest2).all()
+    assert np.isfinite(ref[1][done].numpy()).any()   # marking changed them
