@@ -10,14 +10,17 @@ Phases (any failure raises and the script exits non-zero):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes:
    - K1 (planar closest hit) in quad and triangle mode and K2 (sphere
-     closest hit): 512*512 rays against the 1-chunk views of cornell_box
-     and three_material_ball, primary and secondary rays, random
-     700-primitive, 6-chunk tables, a random 6-chunk planar table whose
-     active lanes have holes (about half live, lane 0 of each chunk dead,
-     lane 127 live), and K1 on the colonnade's light view (1 live lane of
-     128, timed too). Equal hit masks and materials; t within
-     rtol 1e-4 / atol 1e-4; every other output row (K1: normal, u, v; K2:
-     center, rad) within atol 1e-3.
+     closest hit): 512*512 rays against the 1-chunk views of cornell_box,
+     three_material_ball and random_motion_ball (337 spheres in 384
+     lanes, where K2 does real work), primary and secondary rays, random
+     700-primitive, 6-chunk tables, random 6-chunk planar and sphere
+     tables whose active lanes have holes (about half live, lane 0 of each
+     chunk dead, lane 127 live), K2 at ragged ray counts (1 to 513), and
+     K1 on the colonnade's light view (1 live lane of 128, timed too).
+     Equal hit masks and materials; t within rtol 1e-4 / atol 1e-4; every
+     other output row (K1: normal, u, v; K2: center, rad) within atol
+     1e-3. K2 is timed at three_material_ball's and random_motion_ball's
+     primary rays; the kernels line takes random_motion_ball's.
    - K3 (cull + top-V select): the colonnade's 2,015 chunk boxes, 40,000
      primary camera rays and 40,000 secondary rays, packed and exact mode,
      phase 1 and the phase after it, as the unmarked loop asks it and with
@@ -30,17 +33,19 @@ Phases (any failure raises and the script exits non-zero):
      column within atol 1e-3; each column's error reported.
    - K1 and K2 with their pid output (the winner's lane, which the
      gradient path replays) against the plain versions' pid, at the same
-     Cornell and three_material_ball shapes: equal wherever hit masks and
-     materials are equal and the ray is no near-tie (counted and printed);
-     K1's time with and without pid; K1's pid on the holed table too.
+     Cornell, three_material_ball and random_motion_ball shapes: equal
+     wherever hit masks and materials are equal and the ray is no near-tie
+     (counted and printed); K1's time with and without pid; K1's and K2's
+     pid on the holed tables too.
    - K5 (gather-sum probe) against its plain version (rel err max |a - b| /
      (|b| + 1) <= 1e-5) at the probe's defaults (an 11.5 MB table, inside
      the L2) and with a 738 MB table (K 131,072: device memory), with its
      time, gathered GB/s, bound and the embedding_bag call's time.
    Kernel and plain times from CUDA events.
-3. Checks, their launches not counted: cornell_box, three_material_ball
-   and sponza (the colonnade) at the golden workload (16 px, 4 spp, depth
-   3, key 42; image mean within 2e-3 of tests/test_golden.py); the Cornell
+3. Checks, their launches not counted: cornell_box, three_material_ball,
+   random_motion_ball and sponza (the colonnade) at the golden workload
+   (16 px, 4 spp, depth 3, key 42; image mean within 2e-3 of
+   tests/test_golden.py); the Cornell
    C++ reference parity gate of tests/test_parity.py (300 px 16 spp: PSNR
    > 30 dB, mean rel err < 0.04); and the per-ray closest hit (K3 + K4)
    against the chunk-scan oracle on the full colonnade: the same winner's
@@ -51,8 +56,9 @@ Phases (any failure raises and the script exits non-zero):
    leaves; counted and printed).
 4. Main paths, full workloads: cornell_box at 512x512, 256 spp, depth 8;
    three_material_ball at its parity size (320 px, 16 spp, depth 5),
-   which must pass its parity gate (> 38 dB, mean rel err < 0.02); and
-   the colonnade at 200x200, 30 spp, depth 5. Each image must be finite;
+   which must pass its parity gate (> 38 dB, mean rel err < 0.02); the
+   colonnade at 200x200, 30 spp, depth 5; and random_motion_ball at
+   1280x720, 20 spp, depth 50 (its own size). Each image must be finite;
    prints seconds, camera rays/s, the mean and, for the colonnade, the
    selection phases per bounce and the share of rays still live in each
    phase. Then the gradient path (``diff.loss_and_grads``): cornell_box at
@@ -63,17 +69,20 @@ Phases (any failure raises and the script exits non-zero):
    above. Loss and gradients must be finite. Last, after every timed run
    (the profiler may leave per-launch costs behind on these host-bound
    paths), K3's and K4's summed device time in one more colonnade render
-   under torch.profiler.
+   under torch.profiler, and K2's in a random_motion_ball render at 2 spp
+   (its share of device time per bounce).
 5. Kernel launch counts of each phase-4 run, set to 0 just before it and
    read just after: the Cornell render must launch K1, the
-   three_material_ball render K2, and the colonnade render K1 (its light
-   quad), K3 and K4. Cornell's gradient runs launch K1 2,048 times in the
+   three_material_ball render K2, the colonnade render K1 (its light
+   quad), K3 and K4, and the random_motion_ball render K2 exactly spp x
+   depth = 1,000 times. Cornell's gradient runs launch K1 2,048 times in the
    forward pass (256 x 8) and none in the backward pass (the winners are
    replayed from the tape); the colonnade's gradient run launches K1, K3
    and K4 in both passes (no tape on chunked tables: the accelerator runs
    again). K5 is on no path: its launches are those of one probe call. The
    ``kernels`` line gives each kernel's launches in the render of its own
-   slice's scene.
+   slice's scene (K2's: random_motion_ball's; three_material_ball's 80 and
+   K2's time there go on the line before it).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -103,7 +112,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe, profiling
 from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
-    FP32_INSTR_PER_S, HBM_BYTES_PER_S, cuda_ms)
+    FP32_INSTR_PER_S, HBM_BYTES_PER_S, camera_rays, cuda_ms, secondary)
 
 TMIN = 1e-3
 INF = float("inf")
@@ -111,7 +120,7 @@ R_MAIN = 512 * 512
 COLONNADE_PX = 200
 R_COLONNADE = COLONNADE_PX * COLONNADE_PX
 GOLDEN_MEANS = {"cornell_box": 0.160999, "three_material_ball": 0.563181,
-                "sponza": 0.402695}
+                "random_motion_ball": 0.426140, "sponza": 0.402695}
 PARITY = {"cornell_box": (300, 16, 4, 30.0, 0.04),
           "three_material_ball": (320, 16, 4, 38.0, 0.02)}
 PKG = "cpu_ray_tracing_implementation_tpu_torch/csrc/"
@@ -136,14 +145,23 @@ CAMERA_TOL = dict(rtol=5e-3, atol=1e-4)
 LIVE = ("tex_color0", "tex_color1", "mat_fuzz", "mat_ior", "mat_smoothness",
         "mat_spec_prob", "pos", "lookat", "fovy_deg", "focal_length", "geo_sph_c1")
 COLONNADE_GRAD_SPP = 8
+# samples of the profiled random_motion_ball render (the timed one takes
+# the scene's 20): K2's share of device time per bounce, at a tenth of the
+# trace
+MOTION_BALL_PROFILED_SPP = 2
 # FP32 instructions (a fused multiply-add counts once, a divide, square
 # root, min, max or compare once) per (ray, primitive) or (ray, box) pair,
 # counted from each kernel's source: K1 the plane and edge tests of a live
-# quad (contracted into FMAs), K2 the expanded quadratic of a live sphere,
-# K3 one slab test and key, K4 one primitive test of a visited row
-# (planar / sphere); K2, K3 and K4 round each product and sum on its own
-OPS = {"planar_closest": 36, "sphere_closest": 50, "cull_select": 30,
-       "visit_sweep_planar": 130, "visit_sweep_sphere": 50}
+# quad (contracted into FMAs); K2 the expanded quadratic of a live sphere
+# and its discriminant's compare (12 for d.c, 12 for o.c, 4 for c.c, 2 for
+# b, 4 for c, 3 for the discriminant, 1 compare), and, only for the pairs
+# whose discriminant is positive, counted from the run's rays
+# (``sphere_roots``), the root: a square root, two sums, two divides and up
+# to four compares ("sphere_root"); K3 one slab test and key, K4 one
+# primitive test of a visited row (planar / sphere); K2, K3 and K4 round
+# each product and sum on its own
+OPS = {"planar_closest": 36, "sphere_closest": 38, "sphere_root": 9,
+       "cull_select": 30, "visit_sweep_planar": 130, "visit_sweep_sphere": 50}
 
 
 def log(*a):
@@ -180,11 +198,16 @@ def random_planar(gen, dev, K=6, C=128, n=700, holes=False):
         mat.reshape(K, C), act.reshape(K, C), lo, hi)])
 
 
-def random_spheres(gen, dev, K=6, C=128, n=700):
+def random_spheres(gen, dev, K=6, C=128, n=700, holes=False):
+    """K chunks of C random moving spheres, active as in ``random_planar``."""
     c0 = torch.rand(K * C, 3, generator=gen) * 20 - 10
     c1 = c0 + 0.3 * torch.randn(K * C, 3, generator=gen)
     rad = torch.rand(K * C, generator=gen) * 0.8 + 0.05
     act = torch.arange(K * C) < n
+    if holes:
+        act = (torch.rand(K, C, generator=gen) < 0.5)
+        act[:, 0], act[:, -1] = False, True
+        act = act.reshape(-1)
     mat = (torch.arange(K * C) % 3).to(torch.int32)
     inf = torch.tensor(float("inf"))
     lo = torch.where(act[:, None], torch.minimum(c0, c1) - rad[:, None], inf)
@@ -193,22 +216,6 @@ def random_spheres(gen, dev, K=6, C=128, n=700):
         c0.reshape(K, C, 3), c1.reshape(K, C, 3), rad.reshape(K, C),
         mat.reshape(K, C), act.reshape(K, C), lo.reshape(K, C, 3).amin(1),
         hi.reshape(K, C, 3).amax(1))])
-
-
-def camera_rays(name, gen, dev):
-    """R_MAIN primary rays of the scene's camera at width 512 (rows past
-    the image continue its ray grid), and secondary rays leaving their
-    first hits in random directions."""
-    scene, cam = catalog.SCENES[name](width=512, spp=1, device=dev)
-    ids = torch.arange(R_MAIN, dtype=torch.int32, device=dev)
-    u = torch.rand(R_MAIN, cam_mod.N_CAM_SLOTS, generator=gen).to(dev)
-    org, dirs, time = cam_mod.generate_rays(cam, ids, u)
-    return scene, org.contiguous(), dirs, time
-
-
-def secondary(org, dirs, t, gen):
-    p = org + torch.where(torch.isfinite(t), t, torch.zeros_like(t))[:, None] * dirs
-    return p, torch.randn(org.shape, generator=gen).to(org.device)
 
 
 # payload fields before mat: the kernel wrappers' (t, (*fields, mat)); the
@@ -257,11 +264,27 @@ def bound(nbytes: float, ops: float):
 RAY_ROWS = {"planar_closest": 6, "sphere_closest": 7}
 
 
-def closest_bound(name, R, pack, live):
+def closest_bound(name, R, pack, live, roots=0):
     """K1's or K2's bound: the ray rows it reads, [8,R] hit rows written,
-    the pack read once; ``live`` primitives tested per ray."""
+    the pack read once; ``live`` primitives tested per ray and, for K2,
+    the root taken for ``roots`` (ray, sphere) pairs."""
     nbytes = 4 * (RAY_ROWS[name] * R + pack.numel() + 8 * R)
-    return bound(nbytes, R * live * OPS[name])
+    return bound(nbytes, R * live * OPS[name] + roots * OPS["sphere_root"])
+
+
+def sphere_roots(org, dirs, time, view, step=65_536) -> int:
+    """(ray, live sphere) pairs whose discriminant is positive: those for
+    which K2 takes the root. The plain version's test of one chunk, with
+    [tmin, tmax] unbounded, is finite exactly there."""
+    n = 0
+    for s in range(0, org.shape[0], step):
+        o, d, tm = org[s:s + step], dirs[s:s + step], time[s:s + step]
+        tmax = torch.full((o.shape[0],), INF, device=o.device)
+        for k in range(view.rad.shape[0]):
+            ts = ch._sphere_chunk_ts(o, d, tm, view.c0[k], view.c1[k], view.rad[k],
+                                     view.active[k], -INF, tmax)
+            n += int(torch.isfinite(ts).sum())
+    return n
 
 
 def phase_kernels(dev):
@@ -287,20 +310,29 @@ def phase_kernels(dev):
                 "planar_closest", org.shape[0], pack, int(view.active.sum()))
         return ref
 
-    def sphere_case(label, org, dirs, time, view, pack, timed=False):
+    def sphere_case(label, org, dirs, time, view, pack, timed=None):
+        """``timed``: the key its times and bound go under."""
         got = fi.sphere_closest_fused(org, dirs, time, view, TMIN, pack=pack)
         ref = ch.sphere_closest(org, dirs, time, view, TMIN)
         errs["sphere_closest"] = max(errs["sphere_closest"],
                                      compare(label, got, ref, SPHERE_FIELDS))
         if timed:
             rays = fi.pack_rays(org, dirs, time)
-            times["sphere_closest"] = (
+            times[timed] = (
                 cuda_ms(lambda: fi.sphere_closest_kernel(rays, pack, TMIN)),
                 cuda_ms(lambda: ch.sphere_closest(org, dirs, time, view, TMIN)),
                 cuda_ms(lambda: fi.sphere_closest_fused(org, dirs, time, view, TMIN,
                                                         pack=pack)))
-            bounds["sphere_closest"] = closest_bound(
-                "sphere_closest", org.shape[0], pack, int(view.active.sum()))
+            live = int(view.active.sum())
+            roots = sphere_roots(org, dirs, time, view)
+            bounds[timed] = closest_bound("sphere_closest", org.shape[0], pack, live,
+                                          roots)
+            log(f"  {label}, timed ({live} live lanes of "
+                f"{view.active.numel()}, {org.shape[0]} rays, {roots} of the "
+                f"{org.shape[0] * live} (ray, sphere) pairs take the root): kernel "
+                f"{times[timed][0]:.4f} ms, plain {times[timed][1]:.4f} ms, bound "
+                f"{bounds[timed][0]:.4f} ms ({bounds[timed][1]}), bound / kernel "
+                f"{bounds[timed][0] / times[timed][0]:.3f}")
         return ref
 
     scene, org, dirs, _ = camera_rays("cornell_box", gen, dev)
@@ -314,12 +346,18 @@ def phase_kernels(dev):
     planar_case("K1 tri, cornell view as triangles, secondary", o2, d2, view,
                 pack, True)
 
-    scene, org, dirs, time = camera_rays("three_material_ball", gen, dev)
-    view, pack = scene.sphere_view
-    ref = sphere_case("K2, three_material_ball view, primary", org, dirs, time,
-                      view, pack, timed=True)
-    o2, d2 = secondary(org, dirs, ref[0], gen)
-    sphere_case("K2, three_material_ball view, secondary", o2, d2, time, view, pack)
+    # K2's slice-1 shape (4 live lanes of 128) and random_motion_ball's, where
+    # it does real work (337 of 384: three slices, the last 81 live); the
+    # kernels line takes random_motion_ball's time and bound
+    for name, key in (("three_material_ball", "sphere_closest_tmb"),
+                      ("random_motion_ball", "sphere_closest")):
+        scene, org, dirs, time = camera_rays(name, gen, dev)
+        view, pack = scene.sphere_view
+        ref = sphere_case(f"K2, {name} view, primary", org, dirs, time, view, pack,
+                          timed=key)
+        o2, d2 = secondary(org, dirs, ref[0], gen)
+        sphere_case(f"K2, {name} view, secondary", o2, d2, time, view, pack)
+    mb_view, mb_pack = view, pack
 
     org = (torch.rand(R_MAIN, 3, generator=gen) * 24 - 12).to(dev)
     dirs = torch.randn(R_MAIN, 3, generator=gen).to(dev)
@@ -337,6 +375,14 @@ def phase_kernels(dev):
     chunks = random_spheres(gen, dev)
     sphere_case("K2, random 700 in 6 chunks", org, dirs, time, chunks,
                 fi.pack_sphere_constants(chunks))
+    chunks = random_spheres(gen, dev, holes=True)
+    log(f"  holed sphere table: {int(chunks.active.sum())} of "
+        f"{chunks.active.numel()} lanes active, lane 0 of each chunk dead, lane 127 live")
+    sphere_case("K2, holed random table in 6 chunks", org, dirs, time, chunks,
+                fi.pack_sphere_constants(chunks))
+    for n in (1, 77, 129, 511, 513):   # ragged R: not a multiple of a block's rays
+        sphere_case(f"K2, random_motion_ball view, first {n} rays", org[:n] * 0.5,
+                    dirs[:n], time[:n], mb_view, mb_pack)
     torch.cuda.synchronize()
     return errs, times, bounds
 
@@ -553,8 +599,9 @@ def pid_compare(label, out, pid, ref_t, ref_pid, ref_mat, valid_row, mat_row):
 
 def phase_pid(dev):
     """K1 and K2 with their pid output against the plain versions' pid, at
-    the Cornell and three_material_ball shapes; returns K1's ms without
-    and with pid on Cornell's primary rays."""
+    the Cornell, three_material_ball and random_motion_ball shapes and on
+    holed tables; returns K1's ms without and with pid on Cornell's primary
+    rays."""
     gen = torch.Generator().manual_seed(4)
     scene, org, dirs, _ = camera_rays("cornell_box", gen, dev)
     view, pack = scene.quad_view
@@ -585,15 +632,25 @@ def phase_pid(dev):
         pid_compare(f"K1 pid {'tri' if tri else 'quad'}, holed random table", out, pid,
                     t_r, pay_r[4], pay_r[3], fi.OUT_VALID, fi.OUT_MAT)
 
-    scene, org, dirs, time_ = camera_rays("three_material_ball", gen, dev)
-    view, pack = scene.sphere_view
-    for which in ("primary", "secondary"):
-        out, pid = fi.sphere_closest_kernel(fi.pack_rays(org, dirs, time_), pack, TMIN,
-                                            with_pid=True)
-        t_r, pay_r = ch.sphere_closest(org, dirs, time_, view, TMIN)
-        pid_compare(f"K2 pid, three_material_ball view, {which}", out, pid, t_r,
-                    pay_r[3], pay_r[2], fi.SOUT_VALID, fi.SOUT_MAT)
-        org, dirs = secondary(org, dirs, t_r, gen)
+    for name in ("three_material_ball", "random_motion_ball"):
+        scene, org, dirs, time_ = camera_rays(name, gen, dev)
+        view, pack = scene.sphere_view
+        for which in ("primary", "secondary"):
+            out, pid = fi.sphere_closest_kernel(fi.pack_rays(org, dirs, time_), pack,
+                                                TMIN, with_pid=True)
+            t_r, pay_r = ch.sphere_closest(org, dirs, time_, view, TMIN)
+            pid_compare(f"K2 pid, {name} view, {which}", out, pid, t_r, pay_r[3],
+                        pay_r[2], fi.SOUT_VALID, fi.SOUT_MAT)
+            org, dirs = secondary(org, dirs, t_r, gen)
+    chunks = random_spheres(gen, dev, holes=True)
+    org = (torch.rand(R_MAIN, 3, generator=gen) * 24 - 12).to(dev)
+    dirs = torch.randn(R_MAIN, 3, generator=gen).to(dev)
+    out, pid = fi.sphere_closest_kernel(fi.pack_rays(org, dirs, time_),
+                                        fi.pack_sphere_constants(chunks), TMIN,
+                                        with_pid=True)
+    t_r, pay_r = ch.sphere_closest(org, dirs, time_, chunks, TMIN)
+    pid_compare("K2 pid, holed random sphere table", out, pid, t_r, pay_r[3], pay_r[2],
+                fi.SOUT_VALID, fi.SOUT_MAT)
     torch.cuda.synchronize()
     return ms
 
@@ -916,9 +973,9 @@ def main_path(label, scene, cam, names):
     return secs, rps, img, launches
 
 
-def colonnade_device_time(scene, cam):
-    """K3's and K4's summed device time in one more colonnade render, under
-    torch.profiler (its launches are not counted)."""
+def device_time(label, scene, cam, names):
+    """The summed device time of each kernel in ``names`` in one more render
+    of ``scene`` under torch.profiler (its launches are not counted)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -928,13 +985,13 @@ def colonnade_device_time(scene, cam):
     kern = [e for e in prof.key_averages() if e.device_type == cuda]
     total = sum(e.self_device_time_total for e in kern) / 1e3
     msg = []
-    for name in ("cull_select", "visit_sweep"):
+    for name in names:
         hits = [e for e in kern if profiling.KERNELS[name] in e.key]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         msg.append(f"{name} {sum(e.count for e in hits)} launches {ms:.4f} ms "
                    f"({ms / total:.4f} of device time)")
-    log(f"  colonnade render under the profiler: device time {total:.4f} ms; "
-        + "; ".join(msg))
+    log(f"  {label} under the profiler: device time {total:.4f} ms over "
+        f"{sum(e.count for e in kern)} kernels; " + "; ".join(msg))
 
 
 def main() -> int:
@@ -977,7 +1034,7 @@ def main() -> int:
     bounds["gather_sum"] = (r["bound_ms"], r["bound_by"])
 
     log("phase 3: checks (their launches are not counted)")
-    for name in ("cornell_box", "three_material_ball", "sponza"):
+    for name in GOLDEN_MEANS:
         golden(name, dev)
     psnr_gate("cornell_box", full_render("cornell_box parity size",
                                          *parity_scene("cornell_box", dev))[2])
@@ -1004,6 +1061,16 @@ def main() -> int:
         f"{phases} selection phases, {phases / max(calls, 1):.3f} per bounce; share "
         "of rays still live by phase: " + ", ".join(
             f"{p + 1}: {n / live[0]:.4f}" for p, n in enumerate(live)))
+    # K2 where it does real work: 337 spheres, 921,600 rays a bounce
+    mb_scene, mb_cam = catalog.random_motion_ball(device=dev)
+    mb_label = (f"random_motion_ball {mb_cam.width}x{mb_cam.height} {mb_cam.spp}spp "
+                f"depth {mb_cam.max_depth}")
+    mb_secs, mb_rps, _, launches_mb = main_path(mb_label, mb_scene, mb_cam,
+                                                ("sphere_closest",))
+    want = mb_cam.spp * mb_cam.max_depth
+    if launches_mb["sphere_closest"] != want:
+        raise AssertionError(f"{mb_label}: K2 launched {launches_mb['sphere_closest']} "
+                             f"times, want spp x depth = {want}")
 
     log("phase 4, 5: the gradient path, each run's launches counted by pass")
     grad_secs = {}
@@ -1040,10 +1107,17 @@ def main() -> int:
     launches_probe = profiling.launches()
     log(f"  launches in one gather-probe call: {launches_probe}")
     # last of the timed work: the profiler may leave per-launch costs behind
-    colonnade_device_time(col_scene, col_cam)
-    # each kernel's launches in the render of its own slice's scene
+    device_time("colonnade render", col_scene, col_cam, ("cull_select", "visit_sweep"))
+    device_time(f"random_motion_ball {MOTION_BALL_PROFILED_SPP}spp render", mb_scene,
+                mb_cam.replace(spp=MOTION_BALL_PROFILED_SPP), ("sphere_closest",))
+    # each kernel's launches in the render of its own slice's scene (K2's:
+    # random_motion_ball, where it does real work)
+    log(f"  K2 at three_material_ball: {launches_ball['sphere_closest']} launches in "
+        f"its render; kernel {times['sphere_closest_tmb'][0]:.4f} ms, plain "
+        f"{times['sphere_closest_tmb'][1]:.4f} ms, bound "
+        f"{bounds['sphere_closest_tmb'][0]:.4f} ms ({bounds['sphere_closest_tmb'][1]})")
     launches = {"planar_closest": launches_cornell["planar_closest"],
-                "sphere_closest": launches_ball["sphere_closest"],
+                "sphere_closest": launches_mb["sphere_closest"],
                 "cull_select": launches_col["cull_select"],
                 "visit_sweep": launches_col["visit_sweep"],
                 "gather_sum": launches_probe["gather_sum"]}
@@ -1064,7 +1138,8 @@ def main() -> int:
                         "library_ms": library_ms.get(name)})
     n_cornell = cam.width * cam.height * cam.spp
     log(f"full workloads: cornell_box {cornell_secs:.3f} s, {cornell_rps:.1f} camera "
-        f"rays/s; colonnade {col_secs:.3f} s, {col_rps:.1f} camera rays/s; cornell_box "
+        f"rays/s; colonnade {col_secs:.3f} s, {col_rps:.1f} camera rays/s; "
+        f"random_motion_ball {mb_secs:.3f} s, {mb_rps:.1f} camera rays/s; cornell_box "
         f"fwd+bwd {grad_secs[False]:.3f} s ({n_cornell / grad_secs[False]:.1f} camera "
         f"rays/s), with geometry {grad_secs[True]:.3f} s ({n_cornell / grad_secs[True]:.1f}"
         f"); colonnade fwd+bwd {col_grad_secs:.3f} s ({col_grad_rps:.1f} camera rays/s); "

@@ -23,20 +23,22 @@
 // running (t, payload) in registers and writes its 8 output rows once,
 // coalesced. The Pallas kernel's six depth-3 contractions per (ray,
 // primitive) become per-thread FMAs; no [R,C] intermediate exists anywhere.
-//  - K1 (redesigned for Hopper): each thread carries RAYS_K1 = 2 rays, so
-//    every staged constant feeds two tests and the two IEEE divides
-//    overlap. Per 128-lane slice of a chunk, thread c reads lane c's active
-//    flag; an active lane's 13 read rows go to shared memory as three
-//    float4s (unorm | d_plane, evw | c_a, weu | c_b) and its material, and
-//    a ballot per warp records which lanes are active. The lane loop then
-//    visits the active lanes only, lowest first (find-first-set over the
-//    ballot words): padded lanes and holes cost nothing, the walk ends at
-//    the highest active lane, and lane numbering (pid = k*C + lane) is
-//    unchanged. (The first design took one ray per thread and
-//    walked all 128 lanes: PERF.md.)
-//  - K2 keeps the first design: one thread per ray, a [16, TILE_C] slice
-//    of the pack staged in shared memory (8 KB), every thread reading the
-//    same constant at once (a broadcast), all 128 lanes walked.
+//  - K1 and K2 (both redesigned for Hopper): each thread carries several
+//    rays (RAYS_K1 = 2, RAYS_K2 = 4), so every staged constant feeds
+//    several tests and the rays' IEEE divides overlap. Per 128-lane slice of a chunk,
+//    thread c reads lane c's active flag; an active lane's read rows go to
+//    shared memory as three float4s (K1: unorm | d_plane, evw | c_a,
+//    weu | c_b, and its material apart; K2: c0 | c0.c0, dc | c0.dc,
+//    dc.dc | rad^2 | rad | mat), and a ballot per warp records which lanes
+//    are active. The lane loop then visits the active lanes only, lowest
+//    first (find-first-set over the ballot words): padded lanes and holes
+//    cost nothing, the walk ends at the highest active lane, and lane
+//    numbering (pid = k*C + lane) is unchanged. K2's ray-only terms (4a,
+//    |o|^2, d.o, 2a, 2 time, time^2) are computed once per ray. (The first
+//    designs took one ray per thread and walked all 128 lanes; K2's staged
+//    the whole [16,128] slice. K2 with 1, 2 and 4 rays per thread, timed
+//    in one call by utils/kernel_ab.py: PERF.md; four take 118 registers,
+//    no spill.)
 //
 // Bound. At Cornell's shape (R = 262144 rays, one chunk of C = 128 lanes of
 // which 18 hold the quads) K1 reads 24 B of ray rows and writes 32 B of hit
@@ -48,7 +50,14 @@
 // 0.0266 and 0.0334 in the same run) and 0.0034 ms at the colonnade's light view (40,000
 // rays, 1 live lane), so a launch costs ~3 us beyond its bytes; by a count
 // from the source, the IEEE divide and the branches put ~50 instructions
-// on each live (ray, quad), not 36 (PERF.md).
+// on each live (ray, quad), not 36 (PERF.md). K2 at three_material_ball's
+// shape (262144 rays, 4 live lanes of 128) is bound by its bytes (28 B of
+// ray rows read, 32 B written per ray: ~4.7 us); at random_motion_ball's
+// (337 live lanes of 384) by its operations: 38 FP32 instructions of the
+// quadratic and its compare per (ray, sphere), each product and sum rounded
+// on its own, and 9 more for the root only where the discriminant is
+// positive (under 1% of the pairs of its primary rays), ~0.100 ms at 262144
+// rays (chip_smoke.py's OPS; PERF.md).
 //
 // Rounding. K1 is compiled with nvcc's default multiply-add contraction. K2
 // writes its expanded quadratic (|o|^2 - 2 o.c + |c|^2 - r^2, which cancels
@@ -69,6 +78,7 @@ constexpr int NROWS = 16;
 constexpr int THREADS = 128;
 constexpr int TILE_C = 128;
 constexpr int RAYS_K1 = 2;  // rays per thread in K1
+constexpr int RAYS_K2 = 4;  // rays per thread in K2
 
 // planar pack rows
 constexpr int ROW_UNORM = 0, ROW_EVW = 3, ROW_WEU = 6, ROW_DPLANE = 9,
@@ -77,16 +87,6 @@ constexpr int ROW_UNORM = 0, ROW_EVW = 3, ROW_WEU = 6, ROW_DPLANE = 9,
 constexpr int SROW_C0 = 0, SROW_DC = 3, SROW_C0C0 = 6, SROW_C0DC = 7,
               SROW_DCDC = 8, SROW_RAD2 = 9, SROW_RAD = 10, SROW_ACTIVE = 11,
               SROW_MAT = 12;
-
-// Copy pack[k, :, c0:c0+nc] into s[16][TILE_C] (zeros past nc).
-__device__ __forceinline__ void stage(float* s, const float* __restrict__ pack,
-                                      int k, int C, int c0, int nc) {
-  const float* pk = pack + (size_t)k * NROWS * C;
-  for (int i = threadIdx.x; i < NROWS * TILE_C; i += THREADS) {
-    const int row = i / TILE_C, col = i % TILE_C;
-    s[i] = col < nc ? pk[(size_t)row * C + c0 + col] : 0.f;
-  }
-}
 
 __device__ __forceinline__ float clip_big(float x) {
   return fminf(fmaxf(x, -BIG), BIG);
@@ -216,84 +216,127 @@ planar_closest_kernel(const float* __restrict__ rays, int R,
   }
 }
 
+// One ray of K2's RAYS_K2, with its ray-only terms and its running best.
+struct SphereRay {
+  float ox, oy, oz, dx, dy, dz, tm;
+  float a4, oo, dor, two_a, tm2, tmtm;  // 4a, |o|^2, d.o, 2a, 2 time, time^2
+  float t, cx, cy, cz, r, m, valid;
+  int p;
+};
+
+// Test the staged live lane (constants c0 = (c0 xyz, c0.c0), dc = (dc xyz,
+// c0.dc), rm = (dc.dc, rad^2, rad, mat)) against one ray; keep it when
+// strictly nearer. Every product and sum rounds on its own, in the order of
+// the plain version (ops/chunked.py _sphere_chunk_ts).
+template <bool WITH_PID>
+__device__ __forceinline__ void sphere_lane(SphereRay& q, const float4& c0,
+                                            const float4& dc, const float4& rm,
+                                            float tmin, int prim) {
+  const float d_c = add(dot3(q.dx, q.dy, q.dz, c0.x, c0.y, c0.z),
+                        mul(q.tm, dot3(q.dx, q.dy, q.dz, dc.x, dc.y, dc.z)));
+  const float o_c = add(dot3(q.ox, q.oy, q.oz, c0.x, c0.y, c0.z),
+                        mul(q.tm, dot3(q.ox, q.oy, q.oz, dc.x, dc.y, dc.z)));
+  const float cc = add(add(c0.w, mul(q.tm2, dc.w)), mul(q.tmtm, rm.x));
+  const float b = mul(2.f, sub(q.dor, d_c));
+  const float c = sub(add(sub(q.oo, mul(2.f, o_c)), cc), rm.y);
+  const float disc = sub(mul(b, b), mul(q.a4, c));
+  if (!(disc > 0.f)) return;
+  const float sq = sqrtf(disc);
+  const float t0 = (-b - sq) / q.two_a;
+  const float t1 = (-b + sq) / q.two_a;
+  float t;
+  if (t0 >= tmin && t0 < q.t) t = t0;
+  else if (t1 >= tmin && t1 < q.t) t = t1;
+  else return;
+  q.t = t;
+  q.cx = add(c0.x, mul(q.tm, dc.x));
+  q.cy = add(c0.y, mul(q.tm, dc.y));
+  q.cz = add(c0.z, mul(q.tm, dc.z));
+  q.r = fmaxf(rm.z, 1e-20f);
+  q.m = rm.w;
+  q.valid = 1.f;
+  if (WITH_PID) q.p = prim;
+}
+
 template <bool WITH_PID>
 __global__ void __launch_bounds__(THREADS)
 sphere_closest_kernel(const float* __restrict__ rays, int R,
                       const float* __restrict__ pack, int K, int C,
                       float tmin, float tmax, float* __restrict__ out,
                       int* __restrict__ pid) {
-  __shared__ float s[NROWS * TILE_C];
-  const int r = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = r < R;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f, tm = 0.f;
-  if (live) {
-    ox = rays[0 * (size_t)R + r]; oy = rays[1 * (size_t)R + r];
-    oz = rays[2 * (size_t)R + r]; dx = rays[3 * (size_t)R + r];
-    dy = rays[4 * (size_t)R + r]; dz = rays[5 * (size_t)R + r];
-    tm = rays[6 * (size_t)R + r];
+  static_assert(THREADS == TILE_C, "one staging thread per lane");
+  __shared__ float4 s_c0[TILE_C], s_dc[TILE_C], s_rm[TILE_C];
+  __shared__ unsigned s_live[TILE_C / 32];  // active-lane bits by warp
+  const int r0 = blockIdx.x * THREADS * RAYS_K2 + threadIdx.x;
+  SphereRay q[RAYS_K2];
+#pragma unroll
+  for (int i = 0; i < RAYS_K2; ++i) {
+    const int r = r0 + i * THREADS;
+    SphereRay& x = q[i];
+    x.ox = x.oy = x.oz = x.dx = x.dy = x.dz = x.tm = 0.f;
+    if (r < R) {
+      x.ox = rays[0 * (size_t)R + r]; x.oy = rays[1 * (size_t)R + r];
+      x.oz = rays[2 * (size_t)R + r]; x.dx = rays[3 * (size_t)R + r];
+      x.dy = rays[4 * (size_t)R + r]; x.dz = rays[5 * (size_t)R + r];
+      x.tm = rays[6 * (size_t)R + r];
+    }
+    const float a = dot3(x.dx, x.dy, x.dz, x.dx, x.dy, x.dz);
+    x.a4 = mul(4.f, a);
+    x.oo = dot3(x.ox, x.oy, x.oz, x.ox, x.oy, x.oz);
+    x.dor = dot3(x.dx, x.dy, x.dz, x.ox, x.oy, x.oz);
+    x.two_a = 2.f * fmaxf(a, 1e-20f);
+    x.tm2 = mul(2.f, x.tm);
+    x.tmtm = mul(x.tm, x.tm);
+    x.t = fminf(BIG, tmax);
+    x.cx = x.cy = x.cz = x.m = x.valid = 0.f;
+    x.r = 1.f;
+    x.p = 0;
   }
-  // ray-only terms of the expanded quadratic
-  const float a = dot3(dx, dy, dz, dx, dy, dz);
-  const float oo = dot3(ox, oy, oz, ox, oy, oz);
-  const float dor = dot3(dx, dy, dz, ox, oy, oz);
-  const float two_a = 2.f * fmaxf(a, 1e-20f);
-  float t_best = fminf(BIG, tmax);
-  float cx = 0.f, cy = 0.f, cz = 0.f, br = 1.f, bm = 0.f, valid = 0.f;
-  int bp = 0;
 
   for (int k = 0; k < K; ++k) {
     for (int c0 = 0; c0 < C; c0 += TILE_C) {
       const int nc = min(TILE_C, C - c0);
+      __syncthreads();  // previous slice fully consumed
+      // thread c stages lane c0 + c, and only if it is active
+      const int c = threadIdx.x;
+      const float* pk = pack + (size_t)k * NROWS * C + c0 + c;
+      const bool act = c < nc && pk[(size_t)SROW_ACTIVE * C] > 0.5f;
+      if (act) {
+        s_c0[c] = make_float4(pk[(size_t)(SROW_C0 + 0) * C], pk[(size_t)(SROW_C0 + 1) * C],
+                              pk[(size_t)(SROW_C0 + 2) * C], pk[(size_t)SROW_C0C0 * C]);
+        s_dc[c] = make_float4(pk[(size_t)(SROW_DC + 0) * C], pk[(size_t)(SROW_DC + 1) * C],
+                              pk[(size_t)(SROW_DC + 2) * C], pk[(size_t)SROW_C0DC * C]);
+        s_rm[c] = make_float4(pk[(size_t)SROW_DCDC * C], pk[(size_t)SROW_RAD2 * C],
+                              pk[(size_t)SROW_RAD * C], pk[(size_t)SROW_MAT * C]);
+      }
+      const unsigned bits = __ballot_sync(0xffffffffu, act);
+      if (c % 32 == 0) s_live[c / 32] = bits;
       __syncthreads();
-      stage(s, pack, k, C, c0, nc);
-      __syncthreads();
-      for (int j = 0; j < nc; ++j) {
-        if (s[SROW_ACTIVE * TILE_C + j] <= 0.5f) continue;
-        const float c0x = s[(SROW_C0 + 0) * TILE_C + j];
-        const float c0y = s[(SROW_C0 + 1) * TILE_C + j];
-        const float c0z = s[(SROW_C0 + 2) * TILE_C + j];
-        const float dcx = s[(SROW_DC + 0) * TILE_C + j];
-        const float dcy = s[(SROW_DC + 1) * TILE_C + j];
-        const float dcz = s[(SROW_DC + 2) * TILE_C + j];
-        const float d_c = add(dot3(dx, dy, dz, c0x, c0y, c0z),
-                              mul(tm, dot3(dx, dy, dz, dcx, dcy, dcz)));
-        const float o_c = add(dot3(ox, oy, oz, c0x, c0y, c0z),
-                              mul(tm, dot3(ox, oy, oz, dcx, dcy, dcz)));
-        const float cc = add(add(s[SROW_C0C0 * TILE_C + j],
-                                 mul(mul(2.f, tm), s[SROW_C0DC * TILE_C + j])),
-                             mul(mul(tm, tm), s[SROW_DCDC * TILE_C + j]));
-        const float b = mul(2.f, sub(dor, d_c));
-        const float c = sub(add(sub(oo, mul(2.f, o_c)), cc),
-                            s[SROW_RAD2 * TILE_C + j]);
-        const float disc = sub(mul(b, b), mul(mul(4.f, a), c));
-        if (!(disc > 0.f)) continue;
-        const float sq = sqrtf(disc);
-        const float t0 = (-b - sq) / two_a;
-        const float t1 = (-b + sq) / two_a;
-        float t;
-        if (t0 >= tmin && t0 < t_best) t = t0;
-        else if (t1 >= tmin && t1 < t_best) t = t1;
-        else continue;
-        t_best = t;
-        cx = add(c0x, mul(tm, dcx));
-        cy = add(c0y, mul(tm, dcy));
-        cz = add(c0z, mul(tm, dcz));
-        br = fmaxf(s[SROW_RAD * TILE_C + j], 1e-20f);
-        bm = s[SROW_MAT * TILE_C + j];
-        valid = 1.f;
-        if (WITH_PID) bp = k * C + c0 + j;
+      // the active lanes only, in index order (the first-index tie rule)
+      for (int w = 0; w < TILE_C / 32; ++w) {
+        for (unsigned live = s_live[w]; live; live &= live - 1) {
+          const int j = w * 32 + __ffs(live) - 1;
+          const float4 sc0 = s_c0[j], sdc = s_dc[j], srm = s_rm[j];
+#pragma unroll
+          for (int i = 0; i < RAYS_K2; ++i)
+            sphere_lane<WITH_PID>(q[i], sc0, sdc, srm, tmin, k * C + c0 + j);
+        }
       }
     }
   }
-  if (live) {
-    if (WITH_PID) pid[r] = bp;
-    out[0 * (size_t)R + r] = t_best;
-    out[1 * (size_t)R + r] = cx;
-    out[2 * (size_t)R + r] = cy;
-    out[3 * (size_t)R + r] = cz;
-    out[4 * (size_t)R + r] = br;
-    out[5 * (size_t)R + r] = bm;
-    out[6 * (size_t)R + r] = valid;
+#pragma unroll
+  for (int i = 0; i < RAYS_K2; ++i) {
+    const int r = r0 + i * THREADS;
+    if (r >= R) continue;
+    const SphereRay& x = q[i];
+    if (WITH_PID) pid[r] = x.p;
+    out[0 * (size_t)R + r] = x.t;
+    out[1 * (size_t)R + r] = x.cx;
+    out[2 * (size_t)R + r] = x.cy;
+    out[3 * (size_t)R + r] = x.cz;
+    out[4 * (size_t)R + r] = x.r;
+    out[5 * (size_t)R + r] = x.m;
+    out[6 * (size_t)R + r] = x.valid;
     out[7 * (size_t)R + r] = 0.f;
   }
 }
@@ -328,7 +371,7 @@ extern "C" int crt_sphere_closest(const float* rays, int R, const float* pack,
                                   int K, int C, float tmin, float tmax,
                                   float* out, int* pid, void* stream) {
   if (R <= 0) return 0;
-  const dim3 grid((R + THREADS - 1) / THREADS);
+  const dim3 grid((R + THREADS * RAYS_K2 - 1) / (THREADS * RAYS_K2));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pid)
     sphere_closest_kernel<true><<<grid, THREADS, 0, st>>>(rays, R, pack, K, C,

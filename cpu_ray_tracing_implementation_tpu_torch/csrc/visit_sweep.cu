@@ -38,11 +38,13 @@
 //
 // Bound. Per visited (ray, slot): a 128-primitive row, F*512 B (4.6 KB
 // planar), of which the colonnade's 9.3 MB table fits the 50 MB L2, and
-// ~130 FP32 operations per planar primitive test (~50 per sphere). The
-// operations bound it: at V = 16 and ~12 visits per primary ray, 40,000
-// rays need ~0.48 M visits, 8 G operations, ~120 us at 67 TFLOP/s; the
-// bytes each input needs once (the rows visited, rays, lists, best) are
-// far less. chip_smoke.py computes the bound from the visits of its run.
+// ~130 FP32 instructions per planar primitive test (~50 per sphere; an FMA
+// counts once). The instructions bound it: at V = 16 the colonnade's
+// 40,000 primary rays visit 449,504 (ray, slot) pairs, 7.5 G instructions,
+// 0.2233 ms at 33.5e12 FP32 instructions per s (the data sheet's 67
+// TFLOP/s, which count an FMA as two operations); the bytes each input
+// needs once (the rows visited, rays, lists, best) are far less.
+// chip_smoke.py computes the bound from the visits of its run.
 
 #include <cuda_runtime.h>
 

@@ -25,7 +25,9 @@ three more unprofiled runs: what the profiler leaves behind on later
 launches of these host-bound paths.
 
 ``cuda_ms`` and the card's peak rates are shared with ``chip_smoke.py``
-and ``utils/gather_probe.py``.
+and ``utils/gather_probe.py``; ``camera_rays`` and ``secondary``, the rays
+at which K1 and K2 are timed, with ``chip_smoke.py`` and
+``utils/kernel_ab.py``.
 """
 
 from __future__ import annotations
@@ -138,6 +140,23 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def camera_rays(name, gen, dev, n=512 * 512):
+    """(scene, org, dirs, time): ``n`` primary rays of the catalog scene's
+    camera at width 512 (rows past the image continue its ray grid)."""
+    scene, cam = catalog.SCENES[name](width=512, spp=1, device=dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    u = torch.rand(n, cam_mod.N_CAM_SLOTS, generator=gen).to(dev)
+    org, dirs, time = cam_mod.generate_rays(cam, ids, u)
+    return scene, org.contiguous(), dirs, time
+
+
+def secondary(org, dirs, t, gen):
+    """Rays leaving the hits at ``t`` (the origin on a miss) in random
+    directions."""
+    p = org + torch.where(torch.isfinite(t), t, torch.zeros_like(t))[:, None] * dirs
+    return p, torch.randn(org.shape, generator=gen).to(org.device)
 
 
 def main(argv=None) -> int:

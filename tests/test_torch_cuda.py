@@ -67,11 +67,17 @@ def _planar_chunks(rng, dev, K=6, C=128, n=700, holes=False):
         hi=_t(hi.astype(np.float32), dev))
 
 
-def _sphere_chunks(rng, dev, K=6, C=128, n=700):
+def _sphere_chunks(rng, dev, K=6, C=128, n=700, holes=False):
+    """The first n of K*C random moving spheres active or, with ``holes``,
+    a random half of each chunk with lane 0 dead and lane C-1 live."""
     c0 = rng.uniform(-10, 10, (K * C, 3)).astype(np.float32)
     c1 = (c0 + 0.3 * rng.normal(size=(K * C, 3))).astype(np.float32)
     rad = rng.uniform(0.05, 0.85, K * C).astype(np.float32)
     act = np.arange(K * C) < n
+    if holes:
+        act = rng.uniform(size=(K, C)) < 0.5
+        act[:, 0], act[:, -1] = False, True
+        act = act.reshape(-1)
     lo = np.where(act[:, None], np.minimum(c0, c1) - rad[:, None], np.inf)
     hi = np.where(act[:, None], np.maximum(c0, c1) + rad[:, None], -np.inf)
     return ch.SphereChunks(
@@ -129,6 +135,65 @@ def test_sphere_kernel_matches_plain(dev):
     _check(got, (ref[0], ref[1][:3]), 1e-3)
 
 
+def _motion_ball_rays(dev, n, seed):
+    """random_motion_ball's 1-chunk sphere view (337 live lanes of 384) and
+    n rays: half from its camera, half leaving the spheres' neighbourhood
+    in random directions, with motion-blur times."""
+    scene, cam = catalog.random_motion_ball(width=64, spp=1, device=dev)
+    rng = np.random.default_rng(seed)
+    org = rng.uniform((-12, 0, -12), (12, 2, 12), (n, 3)).astype(np.float32)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    half = n // 2
+    org[:half] = cam.pos.cpu().numpy()
+    dirs[:half] = (cam.lookat.cpu().numpy() - org[:half]
+                   + rng.normal(size=(half, 3)) * 3.0)
+    time = rng.uniform(0, 1, n).astype(np.float32)
+    view, pack = scene.sphere_view
+    return view, pack, _t(org, dev), _t(dirs, dev), _t(time, dev)
+
+
+@pytest.mark.parametrize("table", ["motion_ball", "holes"])
+def test_sphere_kernel_matches_plain_on_the_redesigned_paths(dev, table):
+    """K2 on random_motion_ball's view (three 128-lane slices, the last
+    one 81 live) and on a holed table (lane 0 of each chunk dead, lane 127
+    live), without and with its pid output."""
+    if table == "motion_ball":
+        view, pack, org, dirs, time = _motion_ball_rays(dev, 20000, 8)
+        assert view.rad.shape == (1, 384) and int(view.active.sum()) == 337
+    else:
+        rng = np.random.default_rng(9)
+        view = _sphere_chunks(rng, dev, holes=True)
+        pack = None
+        org, dirs, time = _rays(rng, dev, 20000)
+    fi.reset_launches()
+    got = fi.sphere_closest_fused(org, dirs, time, view, TMIN, pack=pack)
+    t, pid = fi.sphere_winner(org, dirs, time, view, TMIN, pack=pack)
+    assert fi.LAUNCHES == {"planar_closest": 0, "sphere_closest": 2}
+    ref = ch.sphere_closest(org, dirs, time, view, TMIN)
+    torch.cuda.synchronize()
+    _check(got, (ref[0], ref[1][:3]), 1e-3)
+    assert torch.equal(t, got[0])
+    assert torch.equal(pid, ref[1][3])
+
+
+@pytest.mark.parametrize("n_rays", [1, 77, 128, 129, 255, 257, 511, 513])
+def test_sphere_kernel_ragged_ray_counts(dev, n_rays):
+    """R not a multiple of K2's block of 512 rays (128 threads, four rays
+    each): every ray's t, payload and pid equal the plain version's."""
+    view, pack, org, dirs, time = _motion_ball_rays(dev, n_rays, n_rays)
+    t, (ctr, rad, mat) = fi.sphere_closest_fused(org, dirs, time, view, TMIN,
+                                                 pack=pack)
+    _, pid = fi.sphere_winner(org, dirs, time, view, TMIN, pack=pack)
+    t_r, (ctr_r, rad_r, mat_r, pid_r) = ch.sphere_closest(org, dirs, time, view, TMIN)
+    assert t.shape == (n_rays,)
+    assert torch.equal(torch.isfinite(t), torch.isfinite(t_r))
+    hit = torch.isfinite(t_r)
+    torch.testing.assert_close(t[hit], t_r[hit], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ctr[hit], ctr_r[hit], rtol=0, atol=1e-3)
+    torch.testing.assert_close(rad[hit], rad_r[hit], rtol=0, atol=1e-3)
+    assert torch.equal(mat[hit], mat_r[hit]) and torch.equal(pid, pid_r)
+
+
 @pytest.mark.parametrize("n_rays", [1, 77, 128, 129])
 def test_ragged_ray_counts(dev, n_rays):
     """R not a multiple of the kernel's block of 128 rays."""
@@ -154,6 +219,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
 @pytest.mark.parametrize("name,golden", [("cornell_box", 0.160999),
                                          ("three_material_ball", 0.563181),
+                                         ("random_motion_ball", 0.426140),
                                          ("sponza", 0.402695)])
 def test_golden_render_on_card(dev, name, golden):
     """The main path on the card launches its kernels and gives the golden
@@ -165,7 +231,8 @@ def test_golden_render_on_card(dev, name, golden):
     img = integrator.render_image(scene, cam, keys.key(42))
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     assert abs(float(img.mean()) - golden) <= 2e-3
-    kernel = "sphere_closest" if name == "three_material_ball" else "planar_closest"
+    kernel = ("sphere_closest" if name in ("three_material_ball", "random_motion_ball")
+              else "planar_closest")
     assert fi.LAUNCHES[kernel] == cam.spp * cam.max_depth
     if name == "sponza":   # the light quad on K1, the triangles on K3 + K4
         assert fs.LAUNCHES["cull_select"] >= cam.spp * cam.max_depth

@@ -193,6 +193,34 @@ def test_sphere_three_material_ball_view():
         jo, jd, jt, jview, TMIN, interpret=True)), min_hits=500)
 
 
+def test_sphere_random_motion_ball_view():
+    """random_motion_ball's 337 spheres as one chunk of 384 (three 128-lane
+    slices for kernel K2), with motion-blur ray times: the plain version
+    against the Pallas kernel in interpret mode (hits, materials, t,
+    center) and against the JAX chunk scan (the winner's pid too)."""
+    js, org, dirs, time = _scene_rays("random_motion_ball", n=400, seed=3)
+    scene = convert.scene_from_numpy(js, device="cpu")
+    view, pack = scene.sphere_view
+    assert view.rad.shape == (1, 384) and int(view.active.sum()) == 337
+    jview = jpk.dense_sphere_view(js.spheres)
+    np.testing.assert_allclose(pack.numpy(),
+                               np.asarray(jpk.pack_sphere_constants(jview)),
+                               rtol=1e-6, atol=1e-6)
+    out = ch.sphere_closest(torch.as_tensor(org), torch.as_tensor(dirs),
+                            torch.as_tensor(time), view, TMIN)
+    got = _np_sphere(tuple(x.numpy() if torch.is_tensor(x) else
+                           tuple(y.numpy() for y in x) for x in out))
+    jo, jd, jt = jnp.asarray(org), jnp.asarray(dirs), jnp.asarray(time)
+    _check_sphere(got, _np_sphere(jpk.sphere_closest_pallas(
+        jo, jd, jt, jview, TMIN, interpret=True)), min_hits=150)
+    ref = jch.sphere_closest(jo, jd, jt, jview, TMIN)
+    _check_sphere(got, _np_sphere(ref), min_hits=150)
+    hit = np.isfinite(got[0])
+    small = hit & (got[1][1] < 1.0)   # hits on the 0.2-radius spheres
+    assert small.sum() >= 20
+    np.testing.assert_array_equal(out[1][3].numpy()[hit], np.asarray(ref[1][3])[hit])
+
+
 def test_triangle_view():
     """dense_tri_view: a small triangle table as one chunk."""
     b = JSceneBuilder()

@@ -20,6 +20,7 @@ import torch
 
 from cpu_ray_tracing_implementation_tpu.models import scene as jscene
 from cpu_ray_tracing_implementation_tpu.ops import perray as jperray
+from cpu_ray_tracing_implementation_tpu_torch.models import scene as sc
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
@@ -30,12 +31,15 @@ R = 300
 INF = float("inf")
 
 
-def _chunks(kind):
+def _chunks(kind, n=1300, builder=jscene.SceneBuilder):
+    """Chunked (BVH-ordered) random table of n primitives, built by the JAX
+    package's builder or, with ``builder=sc.SceneBuilder``, by the port's
+    (the same tables: tests/test_torch_scene.py)."""
     rng = np.random.default_rng({"tri": 8, "quad": 9, "sphere": 12}[kind])
-    b = jscene.SceneBuilder()
+    b = builder()
     mats = [b.lambertian((0.5, 0.5, 0.5)), b.metal((0.5, 0.5, 0.5)),
             b.dielectric(1.5)]
-    for i, c in enumerate(rng.normal(0, 3.0, (1300, 3))):
+    for i, c in enumerate(rng.normal(0, 3.0, (n, 3))):
         m = mats[1 + i % 2]          # material 0 never appears: miss sentinel
         if kind == "sphere":
             b.moving_sphere(c, c + rng.normal(0, 0.1, 3),
@@ -45,7 +49,7 @@ def _chunks(kind):
             b.triangle(v[0], v[1], v[2], m)
         else:
             b.quad(c, rng.normal(0, 0.3, 3), rng.normal(0, 0.3, 3), m)
-    s = b.build()
+    s = b.build() if builder is jscene.SceneBuilder else b.build("cpu")
     return {"tri": s.tri_chunks, "quad": s.quad_chunks,
             "sphere": s.sphere_chunks}[kind]
 
@@ -55,13 +59,13 @@ def _to_torch(jchunks, cls):
                  for f in dataclasses.fields(cls)])
 
 
-def _rays(seed):
+def _rays(seed, n=R):
     rng = np.random.default_rng(seed)
-    org = rng.normal(0, 3.0, (R, 3)).astype(np.float32)
-    d = rng.normal(0, 1, (R, 3))
+    org = rng.normal(0, 3.0, (n, 3)).astype(np.float32)
+    d = rng.normal(0, 1, (n, 3))
     dirs = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
-    time = rng.uniform(0, 1, R).astype(np.float32)
-    cap = np.full(R, 40.0, np.float32)
+    time = rng.uniform(0, 1, n).astype(np.float32)
+    cap = np.full(n, 40.0, np.float32)
     cap[:40] = rng.uniform(0.3, 3.0, 40)        # per-ray tmax
     cap[40:60] = TMIN                           # dead lanes
     return org, dirs, time, cap
@@ -183,20 +187,21 @@ def _unmarked_loop(rays, srays, tabs, K, V, best, triangle, sphere):
 def test_marking_done_rays_keeps_the_phases_and_hits(kind):
     """The phase loop marks done rays exhausted; its phase count, the rays
     it reports live per phase and its best hits equal the unmarked loop's,
-    which is computed here from the plain K3 and K4."""
-    jchunks = _chunks(kind)
-    org, dirs, time, cap = (torch.as_tensor(x) for x in _rays(5))
+    which is computed here from the plain K3 and K4. 120 rays against 700
+    primitives in 6 chunks (the port's own build), 2 visit slots a phase:
+    3 phases."""
+    n_rays = 120
+    chunks = _chunks(kind, 700, sc.SceneBuilder)
+    org, dirs, time, cap = (torch.as_tensor(x) for x in _rays(5, n_rays))
     sphere = kind == "sphere"
     if sphere:
-        chunks = _to_torch(jchunks, ch.SphereChunks)
         tabs = perray.sphere_tables(chunks)
         K = chunks.rad.shape[0]
     else:
-        chunks = _to_torch(jchunks, ch.PlanarChunks)
         tabs = perray.planar_tables(chunks)
         K = chunks.corner.shape[0]
-    V = 3
-    z = torch.zeros(R)
+    V = 2
+    z = torch.zeros(n_rays)
     best0 = (fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1, z.int(), z.int())
              if sphere else
              fsw.pack_best_planar(cap, torch.zeros_like(org), z, z, z.int(), z.int()))
@@ -210,7 +215,7 @@ def test_marking_done_rays_keeps_the_phases_and_hits(kind):
                                         sphere), best0)
     assert want >= 3
     assert perray.PHASES["calls"] == 1 and perray.PHASES["phases"] == want
-    assert perray.PHASES["live"] == [R] + live_u[:-1]
+    assert perray.PHASES["live"] == [n_rays] + live_u[:-1]
     # the same winners (pid, mat) and hit masks; the float columns within
     # the rtol 1e-4 of the suite's t checks (two CPU runs of the plain
     # sweep once gave one ray's t 13 ulp apart)
