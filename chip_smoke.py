@@ -25,12 +25,15 @@ Phases (any failure raises and the script exits non-zero):
      primary camera rays and 40,000 secondary rays, packed and exact mode,
      phase 1 and the phase after it, as the unmarked loop asks it and with
      the rays that phase 1 and a real K4 sweep left done marked exhausted
-     (as the phase loop asks it). ids, nears and rest bit-equal. K3's time
+     (as the phase loop asks it); and sphereflake's 58 sphere-chunk boxes
+     at its 160,000 primary rays. ids, nears and rest bit-equal. K3's time
      at phase 1 and at both phase-2 forms.
    - K4 (visit-list sweep) on the ids and nears K3 gave: triangles (the
      colonnade table) and spheres (a random 6,000-sphere table, 47
-     chunks). Equal hit masks, pid and mat; t within rtol 1e-4; every other
-     column within atol 1e-3; each column's error reported.
+     chunks, and sphereflake's 7,381 spheres in 58 chunks at its primary
+     rays, timed: the wavefront's main path). Equal hit masks, pid and
+     mat; t within rtol 1e-4; every other column within atol 1e-3; each
+     column's error reported.
    - K1 and K2 with their pid output (the winner's lane, which the
      gradient path replays) against the plain versions' pid, at the same
      Cornell, three_material_ball and random_motion_ball shapes: equal
@@ -43,9 +46,15 @@ Phases (any failure raises and the script exits non-zero):
      time, gathered GB/s, bound and the embedding_bag call's time.
    Kernel and plain times from CUDA events.
 3. Checks, their launches not counted: cornell_box, three_material_ball,
-   random_motion_ball and sponza (the colonnade) at the golden workload
-   (16 px, 4 spp, depth 3, key 42; image mean within 2e-3 of
-   tests/test_golden.py); the Cornell
+   random_motion_ball, sponza (the colonnade) and the scenes that need
+   picture textures, the other cameras or chunked spheres (sphereflake,
+   white_sphere, different_fuzz_metal, the rotated- and specular-box
+   Cornell variants, the lens camera's
+   three_material_ball_with_defocus_blur, the fisheye's
+   skybox_and_fisheye) at the golden workload (16 px, 4 spp, depth 3, key
+   42; image mean within 2e-3 of tests/test_golden.py), and the three
+   scenes that load the missing earthmap.jpg (F1) within 2e-3 of the
+   port's own CPU render of the same scene and key; the Cornell
    C++ reference parity gate of tests/test_parity.py (300 px 16 spp: PSNR
    > 30 dB, mean rel err < 0.04); and the per-ray closest hit (K3 + K4)
    against the chunk-scan oracle on the full colonnade: the same winner's
@@ -66,16 +75,31 @@ Phases (any failure raises and the script exits non-zero):
    True, and the colonnade at 200x200, depth 5, 8 spp; each prints
    seconds, fwd+bwd camera rays/s, peak device memory, each pass's seconds
    and, for Cornell, (fwd+bwd - fwd) / fwd against the forward render
-   above. Loss and gradients must be finite. Last, after every timed run
+   above. Loss and gradients must be finite. Before the gradient path,
+   the path-regeneration wavefront: the colonnade at 200x200, 30 spp,
+   depth 5 and sphereflake at 400x400, 50 spp, depth 5 (its own size), at
+   the automatic lane pool; each prints seconds, camera rays/s, loop
+   iterations and host synchronisations per iteration. The colonnade's
+   image is held against the scan's of the same key above, sphereflake's
+   at 4 spp against a 4-spp scan (rtol 1e-5, atol 1e-5: each path's
+   radiance is the scan's, only the order of the sums differs). Then the
+   pool and batch sizes on the card: the two wavefronts at the automatic
+   pool and at one lane per pixel (or 8,192 where the automatic pool is
+   the whole frame), and the colonnade scan in batches of 8,192 pixels and
+   whole; each warmed up, then timed twice in alternation; the batched and
+   whole scan images must be bitwise equal. Last, after every timed run
    (the profiler may leave per-launch costs behind on these host-bound
    paths), K3's and K4's summed device time in one more colonnade render
-   under torch.profiler, and K2's in a random_motion_ball render at 2 spp
-   (its share of device time per bounce).
+   under torch.profiler and in a 4-spp sphereflake scan render, and K2's
+   in a random_motion_ball render at 2 spp (its share of device time per
+   bounce).
 5. Kernel launch counts of each phase-4 run, set to 0 just before it and
    read just after: the Cornell render must launch K1, the
    three_material_ball render K2, the colonnade render K1 (its light
    quad), K3 and K4, and the random_motion_ball render K2 exactly spp x
-   depth = 1,000 times. Cornell's gradient runs launch K1 2,048 times in the
+   depth = 1,000 times; the colonnade wavefront K1, K3 and K4, the
+   sphereflake wavefront K3 and K4 (their launches go on a line of their
+   own). Cornell's gradient runs launch K1 2,048 times in the
    forward pass (256 x 8) and none in the backward pass (the winners are
    replayed from the tape); the colonnade's gradient run launches K1, K3
    and K4 in both passes (no tape on chunked tables: the accelerator runs
@@ -120,7 +144,26 @@ R_MAIN = 512 * 512
 COLONNADE_PX = 200
 R_COLONNADE = COLONNADE_PX * COLONNADE_PX
 GOLDEN_MEANS = {"cornell_box": 0.160999, "three_material_ball": 0.563181,
-                "random_motion_ball": 0.426140, "sponza": 0.402695}
+                "random_motion_ball": 0.426140, "sponza": 0.402695,
+                "cornell_box_with_rotated_box": 0.535078,
+                "cornell_box_with_specular_box": 0.488185,
+                "different_fuzz_metal": 0.322772, "skybox_and_fisheye": 0.633859,
+                "sphereflake": 0.592463,
+                "three_material_ball_with_defocus_blur": 0.605853,
+                "white_sphere": 1.000000}
+# scenes that load earthmap.jpg, missing here (ROADMAP F1): held to the
+# port's own CPU render of the same scene and key, which takes the same
+# magenta fallback
+F1_SCENES = ("cornell_box_with_glossy_ball", "infinite_reflection",
+             "skybox_and_motion_blur")
+# the wavefront against the scan on the same scene and key: each path's
+# radiance is the scan's, only the order of the per-pixel sums differs
+WAVEFRONT_TOL = dict(rtol=1e-5, atol=1e-5)
+# samples of the sphereflake scan and wavefront renders held against each
+# other (its timed wavefront render takes the scene's 50)
+SPHEREFLAKE_CHECK_SPP = 4
+# the scan's pixel batch timed against the whole frame
+SCAN_TILE = 8192
 PARITY = {"cornell_box": (300, 16, 4, 30.0, 0.04),
           "three_material_ball": (320, 16, 4, 38.0, 0.02)}
 PKG = "cpu_ray_tracing_implementation_tpu_torch/csrc/"
@@ -166,6 +209,14 @@ OPS = {"planar_closest": 36, "sphere_closest": 38, "sphere_root": 9,
 
 def log(*a):
     print(*a, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def phase_log(msg):
+    """A phase's heading, with the seconds since the script started."""
+    log(f"{msg} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def gpu_name_and_power() -> str:
@@ -574,6 +625,57 @@ def phase_select_sweep(scene, cam, dev):
 
 
 
+def phase_sphereflake(scene, cam, dev):
+    """K3 and K4's sphere branch at sphereflake's shape (its 160,000
+    primary camera rays against 7,381 spheres in 58 chunks, the first main
+    path on which K4's sphere branch does real work): ids, nears and rest
+    bit-equal, the sweep against its plain version; returns (errs, times,
+    bound) with K4's time and bound there."""
+    gen = torch.Generator().manual_seed(6)
+    tabs = scene.sphere_perray
+    K = scene.sphere_chunks.rad.shape[0]
+    V = min(perray.VISIT_BLOCK, K)
+    R = cam.width * cam.height
+    ids = torch.arange(R, dtype=torch.int32, device=dev)
+    u = torch.rand(R, cam_mod.N_CAM_SLOTS, generator=gen).to(dev)
+    org, dirs, time_ = cam_mod.generate_rays(cam, ids, u)
+    org = org.contiguous()
+    cap = isect._packet_cap(scene, org, dirs, None, INF, TMIN)
+    rays = fs.pack_rays(org, dirs, cap)
+    excl = fs.first_excl(R, dev)
+    got = fs.cull_select_kernel(rays, tabs.boxes, excl, V, K, TMIN)
+    ref = fs.cull_select_plain(rays, tabs.boxes, excl, V, K, TMIN)
+    errs = {"cull_select": bits_equal("K3 packed, sphereflake primary, phase 1",
+                                      got, ref)}
+    srays = fsw.pack_rays(org, dirs, time_)
+    z = torch.zeros_like(cap)
+    best = fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1, z.int(), z.int())
+    k4 = fsw.sweep_kernel(srays, got[0], got[1], best, tabs.table, TMIN, False, True)
+    stats = {}
+    k4_ref = fsw.sweep_plain(srays, got[0], got[1], best, tabs.table, TMIN, False, True,
+                             stats)
+    errs["visit_sweep"] = sweep_compare(
+        f"K4 spheres, sphereflake primary ({K} chunks), phase 1", k4, k4_ref, cap, True)
+    ms = cuda_ms(lambda: fsw.sweep_kernel(srays, got[0], got[1], best, tabs.table, TMIN,
+                                          False, True))
+    plain_ms = cuda_ms(lambda: fsw.sweep_plain(srays, got[0], got[1], best, tabs.table,
+                                               TMIN, False, True))
+    k3_ms = cuda_ms(lambda: fs.cull_select_kernel(rays, tabs.boxes, excl, V, K, TMIN))
+    F, C = tabs.table.shape[1], tabs.table.shape[2]
+    rows = int(torch.unique(got[0].clamp(0, K - 1)).numel())
+    nbytes = 4 * (8 * R + 2 * R * V + 8 * R + 8 * R + rows * F * C)
+    b = bound(nbytes, stats["visits"] * C * OPS["visit_sweep_sphere"])
+    k3_bytes = 4 * (8 * R + tabs.boxes.numel() + 2 * R + 2 * V * R + R)
+    k3_b = bound(k3_bytes, R * K * OPS["cull_select"])
+    log(f"  K4 spheres at sphereflake's primary rays ({R} rays, {stats['visits']} "
+        f"visited (ray, slot) pairs of {R * V}, {rows} distinct rows): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), bound / "
+        f"kernel {b[0] / ms:.3f}; K3 phase 1 there {k3_ms:.4f} ms, bound "
+        f"{k3_b[0]:.4f} ms ({k3_b[1]})")
+    torch.cuda.synchronize()
+    return errs, (ms, plain_ms), b
+
+
 # ----------------------------------------------- phase 2: pid and K5
 def pid_compare(label, out, pid, ref_t, ref_pid, ref_mat, valid_row, mat_row):
     """A kernel's pid output against the plain version's: equal on every
@@ -871,11 +973,21 @@ def psnr_gate(name, img):
 
 
 def golden(name, dev):
-    scene, cam = catalog.SCENES[name](width=16, spp=4, max_depth=3, device=dev)
-    img = integrator.render_image(scene, cam, keys.key(42))
+    """The golden workload (16 px, 4 spp, depth 3, key 42) on the card
+    against the recorded mean or, for an F1 scene, the port's own CPU
+    render; atol 2e-3."""
+    def render(device):
+        scene, cam = catalog.SCENES[name](width=16, spp=4, max_depth=3, device=device)
+        return integrator.render_image(scene, cam, keys.key(42))
+
+    img = render(dev)
     mean = float(img.mean())
-    log(f"  golden {name}: mean {mean:.6f} (recorded {GOLDEN_MEANS[name]}, atol 2e-3)")
-    if not (torch.isfinite(img).all() and abs(mean - GOLDEN_MEANS[name]) <= 2e-3):
+    if name in GOLDEN_MEANS:
+        want, what = GOLDEN_MEANS[name], "recorded"
+    else:
+        want, what = float(render("cpu").mean()), "the port on the CPU"
+    log(f"  golden {name}: mean {mean:.6f} ({what} {want:.6f}, atol 2e-3)")
+    if not (torch.isfinite(img).all() and abs(mean - want) <= 2e-3):
         raise AssertionError(f"{name}: golden mean off")
 
 
@@ -973,6 +1085,75 @@ def main_path(label, scene, cam, names):
     return secs, rps, img, launches
 
 
+def wavefront_path(label, scene, cam, names):
+    """One wavefront render at the automatic lane pool, key 0, its kernel
+    launches counted alone (as ``main_path``). Returns (seconds, camera
+    rays/s, image, launches, loop iterations, selection phases)."""
+    profiling.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = integrator.render_image_wavefront(scene, cam, keys.key(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = profiling.launches()
+    its, phases = integrator.WAVEFRONT["iterations"], perray.PHASES["phases"]
+    if img.shape != (cam.height, cam.width, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: wrong shape or non-finite values")
+    n_pix = cam.width * cam.height
+    rays = n_pix * cam.spp
+    log(f"  {label}: {secs:.3f} s, {rays / secs / 1e6:.3f} M camera rays/s, mean "
+        f"{float(img.mean()):.6f}; lane pool "
+        f"{integrator.wavefront_lanes(scene, n_pix) or n_pix}, {its} loop "
+        f"iterations, {phases} selection phases, "
+        f"{(its + phases) / max(its, 1):.3f} host synchronisations per iteration")
+    log(f"  launches in this render: {launches}")
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
+    return secs, rays / secs, img, launches, its, phases
+
+
+def hold_wavefront(label, img, ref):
+    """The wavefront image against the scan's of the same scene and key."""
+    err = max_abs(img, ref)
+    log(f"  {label}: wavefront against scan, max abs diff {err:.3g} (rtol "
+        f"{WAVEFRONT_TOL['rtol']}, atol {WAVEFRONT_TOL['atol']})")
+    torch.testing.assert_close(img, ref, **WAVEFRONT_TOL)
+    return err
+
+
+def time_settings(label, cam, runs):
+    """Each of ``runs`` (name -> a function rendering ``cam.spp`` samples)
+    once to warm up, then twice in alternation, on the host clock ending in
+    a synchronize. Prints each wall, camera rays/s and, for wavefront runs,
+    loop iterations and synchronisations per iteration; returns name ->
+    (walls, image of the last run)."""
+    out = {}
+    for name, fn in runs.items():
+        fn()
+    for _ in range(2):
+        for name, fn in runs.items():
+            profiling.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            walls = out.setdefault(name, ([], None))[0]
+            walls.append(secs)
+            out[name] = (walls, img)
+            its, phases = integrator.WAVEFRONT["iterations"], perray.PHASES["phases"]
+            extra = (f", {its} loop iterations, {(its + phases) / its:.3f} host "
+                     "synchronisations per iteration" if its else
+                     f", {phases} selection phases")
+            log(f"  {label}, {name}: {secs:.3f} s, "
+                f"{cam.width * cam.height * cam.spp / secs / 1e6:.3f} M camera "
+                f"rays/s{extra}")
+    best = min(out, key=lambda n: min(out[n][0]))
+    log(f"  {label}: fastest {best} ({min(out[best][0]):.3f} s)")
+    return out
+
+
 def device_time(label, scene, cam, names):
     """The summed device time of each kernel in ``names`` in one more render
     of ``scene`` under torch.profiler (its launches are not counted)."""
@@ -1005,7 +1186,7 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
 
-    log("phase 1: build kernels")
+    phase_log("phase 1: build kernels")
     t0 = time.perf_counter()
     build.load()
     log(f"  built {build.library_path().name} in {time.perf_counter() - t0:.2f} s "
@@ -1014,7 +1195,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
 
-    log("phase 2: kernels against their plain versions")
+    phase_log("phase 2: kernels against their plain versions")
     errs, times, bounds = phase_kernels(dev)
     t0 = time.perf_counter()
     col_scene, col_cam = catalog.sponza(device=dev)
@@ -1026,6 +1207,13 @@ def main() -> int:
     errs.update(e)
     times.update(t)
     bounds.update(b)
+    t0 = time.perf_counter()
+    sf_scene, sf_cam = catalog.sphereflake(device=dev)
+    log(f"  sphereflake {sf_cam.width} px built in {time.perf_counter() - t0:.2f} s: "
+        f"{sf_scene.counts[0]} spheres in {sf_scene.sphere_chunks.rad.shape[0]} chunks")
+    e, sf_k4_times, sf_k4_bound = phase_sphereflake(sf_scene, sf_cam, dev)
+    for name, err in e.items():
+        errs[name] = max(errs[name], err)
     phase_pid(dev)
     probes = phase_gather(dev)
     r = probes[0]
@@ -1033,15 +1221,15 @@ def main() -> int:
     times["gather_sum"] = (r["ms"], r["plain_ms"])
     bounds["gather_sum"] = (r["bound_ms"], r["bound_by"])
 
-    log("phase 3: checks (their launches are not counted)")
-    for name in GOLDEN_MEANS:
+    phase_log("phase 3: checks (their launches are not counted)")
+    for name in (*GOLDEN_MEANS, *F1_SCENES):
         golden(name, dev)
     psnr_gate("cornell_box", full_render("cornell_box parity size",
                                          *parity_scene("cornell_box", dev))[2])
     perray_vs_oracle(col_scene, col_cam, dev)
     phase_grad_checks(dev)
 
-    log("phase 4, 5: main paths, each render's launches counted on its own")
+    phase_log("phase 4, 5: main paths, each render's launches counted on its own")
     scene, cam = catalog.cornell_box(width=512, spp=256, max_depth=8, device=dev)
     cornell_secs, cornell_rps, _, launches_cornell = main_path(
         "cornell_box 512x512 256spp depth 8", scene, cam, ("planar_closest",))
@@ -1051,7 +1239,7 @@ def main() -> int:
         *parity_scene("three_material_ball", dev), ("sphere_closest",))
     psnr_gate("three_material_ball", img)
     perray.reset_phases()
-    col_secs, col_rps, _, launches_col = main_path(
+    col_secs, col_rps, col_img, launches_col = main_path(
         f"colonnade {COLONNADE_PX}x{COLONNADE_PX} {col_cam.spp}spp depth "
         f"{col_cam.max_depth}", col_scene, col_cam,
         ("planar_closest", "cull_select", "visit_sweep"))
@@ -1072,7 +1260,58 @@ def main() -> int:
         raise AssertionError(f"{mb_label}: K2 launched {launches_mb['sphere_closest']} "
                              f"times, want spp x depth = {want}")
 
-    log("phase 4, 5: the gradient path, each run's launches counted by pass")
+    phase_log("phase 4, 5: the path-regeneration wavefront, each render's "
+              "launches counted on its own")
+    col_wf = wavefront_path(
+        f"colonnade wavefront {COLONNADE_PX}x{COLONNADE_PX} {col_cam.spp}spp depth "
+        f"{col_cam.max_depth}", col_scene, col_cam,
+        ("planar_closest", "cull_select", "visit_sweep"))
+    wf_err = {"colonnade": hold_wavefront("colonnade", col_wf[2], col_img)}
+    sf_wf = wavefront_path(
+        f"sphereflake wavefront {sf_cam.width}x{sf_cam.height} {sf_cam.spp}spp depth "
+        f"{sf_cam.max_depth}", sf_scene, sf_cam, ("cull_select", "visit_sweep"))
+    sf_check = sf_cam.replace(spp=SPHEREFLAKE_CHECK_SPP)
+    wf_err["sphereflake"] = hold_wavefront(
+        f"sphereflake {SPHEREFLAKE_CHECK_SPP}spp",
+        integrator.render_image_wavefront(sf_scene, sf_check, keys.key(0)),
+        integrator.render_image(sf_scene, sf_check, keys.key(0)))
+    log(f"  wavefront launches per render (K1 planar_closest, K3 cull_select, K4 "
+        f"visit_sweep): colonnade {col_wf[3]}, sphereflake {sf_wf[3]}")
+
+    phase_log("phase 4: pool and batch sizes timed on the card")
+    for label, sc_, cm in (("colonnade", col_scene, col_cam),
+                           ("sphereflake", sf_scene, sf_cam)):
+        n_pix = cm.width * cm.height
+        auto = integrator.wavefront_lanes(sc_, n_pix)
+        runs = {f"wavefront, pool {auto or n_pix} (automatic)": lambda s=sc_, c=cm, a=auto: (
+                    integrator.render_wavefront(s, c, keys.key(0), c.spp, lanes=a)),
+                f"wavefront, pool {n_pix} (L)": lambda s=sc_, c=cm: (
+                    integrator.render_wavefront(s, c, keys.key(0), c.spp))}
+        if auto is None:
+            runs = {f"wavefront, pool {n_pix} (L, automatic)":
+                        runs[f"wavefront, pool {n_pix} (L)"],
+                    "wavefront, pool 8192": lambda s=sc_, c=cm: (
+                        integrator.render_wavefront(s, c, keys.key(0), c.spp,
+                                                    lanes=8192))}
+        if sc_ is sf_scene:   # the colonnade's scan is timed below
+            runs["scan, automatic batch"] = lambda s=sc_, c=cm: (
+                integrator.accumulate_samples(s, c, keys.key(0), 0, c.spp,
+                                              batch_pixels=integrator.scan_batch_pixels(s)))
+        time_settings(label, cm, runs)
+    scan_runs = {
+        f"batch {SCAN_TILE}": lambda: integrator.accumulate_samples(
+            col_scene, col_cam, keys.key(0), 0, col_cam.spp, batch_pixels=SCAN_TILE),
+        "whole frame": lambda: integrator.accumulate_samples(
+            col_scene, col_cam, keys.key(0), 0, col_cam.spp)}
+    scan_walls = time_settings("colonnade scan", col_cam, scan_runs)
+    imgs = [v[1] for v in scan_walls.values()]
+    if not torch.equal(imgs[0], imgs[1]):
+        raise AssertionError("colonnade scan: the batched image is not bitwise the "
+                             f"unbatched one (max abs diff {max_abs(*imgs):.3g})")
+    log(f"  colonnade scan: batch {SCAN_TILE} and whole frame bitwise equal; the "
+        f"render's automatic batch is {integrator.scan_batch_pixels(col_scene)}")
+
+    phase_log("phase 4, 5: the gradient path, each run's launches counted by pass")
     grad_secs = {}
     for geometry in (False, True):
         label = (f"cornell_box 512x512 256spp depth 8 loss_and_grads, geometry="
@@ -1108,6 +1347,8 @@ def main() -> int:
     log(f"  launches in one gather-probe call: {launches_probe}")
     # last of the timed work: the profiler may leave per-launch costs behind
     device_time("colonnade render", col_scene, col_cam, ("cull_select", "visit_sweep"))
+    device_time(f"sphereflake {SPHEREFLAKE_CHECK_SPP}spp scan render", sf_scene, sf_check,
+                ("cull_select", "visit_sweep"))
     device_time(f"random_motion_ball {MOTION_BALL_PROFILED_SPP}spp render", mb_scene,
                 mb_cam.replace(spp=MOTION_BALL_PROFILED_SPP), ("sphere_closest",))
     # each kernel's launches in the render of its own slice's scene (K2's:
@@ -1122,6 +1363,10 @@ def main() -> int:
                 "visit_sweep": launches_col["visit_sweep"],
                 "gather_sum": launches_probe["gather_sum"]}
     library_ms = {"gather_sum": r["library_ms"]}
+    log(f"  K4 spheres at sphereflake (the wavefront's main path): "
+        f"{sf_wf[3]['visit_sweep']} launches in its wavefront render; kernel "
+        f"{sf_k4_times[0]:.4f} ms, plain {sf_k4_times[1]:.4f} ms, bound "
+        f"{sf_k4_bound[0]:.4f} ms ({sf_k4_bound[1]})")
 
     kernels = []
     for name, (kid, source, replaces) in KERNELS.items():
@@ -1143,6 +1388,9 @@ def main() -> int:
         f"fwd+bwd {grad_secs[False]:.3f} s ({n_cornell / grad_secs[False]:.1f} camera "
         f"rays/s), with geometry {grad_secs[True]:.3f} s ({n_cornell / grad_secs[True]:.1f}"
         f"); colonnade fwd+bwd {col_grad_secs:.3f} s ({col_grad_rps:.1f} camera rays/s); "
+        f"colonnade wavefront {col_wf[0]:.3f} s ({col_wf[1]:.1f} camera rays/s); "
+        f"sphereflake wavefront {sf_wf[0]:.3f} s ({sf_wf[1]:.1f} camera rays/s); "
+        f"wavefront against scan max abs diff {wf_err}; "
         f"fwd+bwd against the render, per camera ray: cornell_box "
         f"{grad_secs[False] / cornell_secs:.3f}, with geometry "
         f"{grad_secs[True] / cornell_secs:.3f}, colonnade {col_rps / col_grad_rps:.3f}; "

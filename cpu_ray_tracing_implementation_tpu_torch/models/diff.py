@@ -4,8 +4,8 @@ Port of ``cpu_ray_tracing_implementation_tpu/models/diff.py``. Radiance is
 differentiable in the material and texture parameters (albedo and
 emission, metal fuzz, dielectric IOR, gloss smoothness and specular
 probability), in the geometry (sphere centers and radii, quad corners and
-edges, triangle vertices) and in the perspective camera (position, look-at,
-field of view, focal length).
+edges, triangle vertices) and in the camera (position, look-at, and the
+parameters of its mode: ``camera_params``).
 
 Estimator: detached sampling. Sampled directions come from explicit
 uniforms, so they carry no parameter dependence; the throughput weights
@@ -135,13 +135,23 @@ def apply_scene_params(scene, params: dict):
 
 
 def camera_params(camera) -> dict:
-    """The perspective camera's differentiable leaves: position, look-at,
-    field of view and focal length (the other modes are ROADMAP M3)."""
-    if camera.mode != cam_mod.PERSPECTIVE:
-        raise NotImplementedError("camera gradients cover the perspective "
-                                  "camera; the other modes are ROADMAP M3")
-    return {"pos": camera.pos, "lookat": camera.lookat,
-            "fovy_deg": camera.fovy_deg, "focal_length": camera.focal_length}
+    """The camera's differentiable leaves for its mode only
+    (``diff.py:166-189`` of the JAX package): a parameter outside the
+    mode's ray generation has a gradient of zero. Perspective and fisheye:
+    field of view and focal length; orthographic: the viewport height;
+    thin lens: field of view, defocus angle and focus distance (which takes
+    the focal length's place in the viewport)."""
+    p = {"pos": camera.pos, "lookat": camera.lookat}
+    if camera.mode == cam_mod.ORTHOGRAPHIC:
+        p["ortho_viewport_h"] = camera.ortho_viewport_h
+    elif camera.mode == cam_mod.LENS:
+        p["fovy_deg"] = camera.fovy_deg
+        p["defocus_angle_deg"] = camera.defocus_angle_deg
+        p["focus_dist"] = camera.focus_dist
+    else:  # perspective, fisheye
+        p["fovy_deg"] = camera.fovy_deg
+        p["focal_length"] = camera.focal_length
+    return p
 
 
 def apply_camera_params(camera, params: dict):

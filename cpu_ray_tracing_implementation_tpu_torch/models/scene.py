@@ -8,10 +8,10 @@ tensors on one device (``SceneBuilder.build(device=...)``).
 Ported so far: the dense tables, and for tables above
 ``chunked.DENSE_MAX`` rows the chunked tables (primitives in BVH order,
 cut into chunks of ``chunked.CHUNK`` with AABBs, ``utils/accel.py``) that
-the per-ray accelerator (``ops/perray.py``) reads; solid and checker
-textures, the lambertian, metal, dielectric, gloss and diffuse-light
-materials, quad lights, a solid background and the ``world_offset``
-recentering. The builder methods for other features are not here yet
+the per-ray accelerator (``ops/perray.py``) reads; solid, checker and
+picture textures, the lambertian, metal, dielectric, gloss and
+diffuse-light materials, quad lights, a textured background and the
+``world_offset`` recentering. The builder methods for other features are not here yet
 (ROADMAP queue 1).
 
 Tables are replaceable (``dataclasses.replace``, ``Scene.replace``), so the
@@ -128,10 +128,13 @@ class Scene:
     materials: Materials
     textures: Textures
     lights: torch.Tensor     # [L] int32 quad indices sampled as lights
+    images: tuple = ()       # [h,w,3] float32 picture texels in byte scale
     background: int = -1     # texture id or -1
     # static feature sets: branches for kinds the scene never uses are skipped
     tex_types_used: tuple = ()
     mat_types_used: tuple = ()
+    # some picture texture filters bilinearly
+    has_bilinear: bool = False
     # real (unpadded) row counts: (spheres, quads, tris, volumes)
     counts: tuple = (-1, -1, -1, -1)
     # static scene AABB in the traced (recentered) frame
@@ -275,6 +278,7 @@ class SceneBuilder:
         self._vols = []   # (kind, center, half, rot, density, mat)
         self._mats = []   # dict rows
         self._texs = []   # dict rows
+        self._imgs = []   # [h,w,3] float32 picture images
         self._lights = []
         self._background = -1
 
@@ -293,6 +297,17 @@ class SceneBuilder:
         """3-D position-based checker (src/texture.h:39-63)."""
         return self._tex_row(ttype=TEX_CHECKER, color0=tuple(even),
                              color1=tuple(odd), scale=scale)
+
+    def picture(self, image: np.ndarray, filter: str = "nearest") -> int:
+        """Image texture, v flipped, scaled by 1/256 (src/texture.h:65-78).
+        ``image``: [h,w,3] floats in byte scale. ``filter``: "nearest" (the
+        reference's) or "bilinear"."""
+        img = np.ascontiguousarray(np.asarray(image, np.float32))
+        if img.ndim != 3 or img.shape[-1] != 3:
+            raise ValueError(f"picture needs an [h,w,3] image, got {img.shape}")
+        self._imgs.append(img)
+        return self._tex_row(ttype=TEX_PICTURE, image_id=len(self._imgs) - 1,
+                             tfilter={"nearest": 0, "bilinear": 1}[filter])
 
     def _as_tex(self, tex_or_color) -> int:
         if isinstance(tex_or_color, (int, np.integer)):
@@ -526,12 +541,14 @@ class SceneBuilder:
             dict(spheres=sph, quads=qds, tris=tri, volumes=vols,
                  materials=mats, textures=texs,
                  lights=np.array(self._lights, np.int32),
+                 images=self._imgs or [np.zeros((1, 1, 3), f32)],
                  world_offset=(None if world_offset is None
                                else world_offset.astype(f32)), **chunks),
             device=device,
             background=self._background,
             tex_types_used=tuple(sorted({t["ttype"] for t in self._texs})),
             mat_types_used=tuple(sorted({m["mtype"] for m in self._mats})),
+            has_bilinear=any(t["tfilter"] == 1 for t in self._texs),
             counts=(len(self._sph), len(self._quads), len(self._tris),
                     len(self._vols)),
             world_lo=tuple(float(x) for x in blo) if have_bounds else None,
@@ -607,7 +624,8 @@ _CHUNKS = {"sphere_chunks": chunked_mod.SphereChunks,
 def scene_from_tables(arrays: dict, device, **static) -> Scene:
     """Scene on ``device`` from numpy arrays: ``arrays`` maps each table
     name of ``_TABLES`` to its column list (dataclass field order), plus
-    ``lights`` and ``world_offset`` (or None), and optionally, for each
+    ``lights``, ``images`` (a list of [h,w,3] arrays) and ``world_offset``
+    (or None), and optionally, for each
     name of ``_CHUNKS``, its column list and its ``*_chunk_order`` array as
     ``SceneBuilder._chunk_tables`` gives them (absent or None: the table is
     dense). ``static`` holds the non-tensor Scene fields."""
@@ -625,4 +643,5 @@ def scene_from_tables(arrays: dict, device, **static) -> Scene:
         order = name.replace("_chunks", "_chunk_order")
         tables[order] = opt(arrays.get(order))
     return Scene(**tables, lights=t(arrays["lights"]),
+                 images=tuple(t(im) for im in arrays["images"]),
                  world_offset=opt(arrays["world_offset"]), **static)

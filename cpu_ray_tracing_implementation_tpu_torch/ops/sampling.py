@@ -1,7 +1,8 @@
 """Direction samplers and pdf evaluators, driven by explicit uniforms.
 
 Port of ``cpu_ray_tracing_implementation_tpu/ops/sampling.py`` (the parts
-``materials.scatter`` and ``materials.light_sample`` call). Semantics match
+``materials.scatter``, ``materials.light_sample`` and the thin-lens
+camera call). Semantics match
 reference src/utility.h:30-69 and src/pdf.h.
 
 ``cosine_dir`` is the JAX package's default construction
@@ -27,6 +28,16 @@ def unit_sphere_dir(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     return torch.stack(
         [sin_theta * torch.cos(phi), cos_theta, sin_theta * torch.sin(phi)],
         dim=-1)
+
+
+def disk_sample(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Uniform point in the unit disk, z = 0: the closed-form sqrt/angle map
+    of the JAX package (the reference rejection-samples,
+    src/utility.h:47-53; same distribution, fixed uniform use)."""
+    r = torch.sqrt(u1)
+    phi = 2.0 * PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+                        torch.zeros_like(r)], dim=-1)
 
 
 def cosine_dir(normal: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Batched texture evaluation over flat texture tables.
 
 Port of ``cpu_ray_tracing_implementation_tpu/ops/textures.py`` for the
-solid and checker kinds. Every kind the scene uses is evaluated for all
+solid, checker and picture kinds. Every kind the scene uses is evaluated for all
 lanes and selected by type code (src/texture.h:9 virtual dispatch).
 """
 
@@ -13,7 +13,6 @@ from cpu_ray_tracing_implementation_tpu_torch.models import scene as scene_mod
 from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 
 _NOT_PORTED = {
-    scene_mod.TEX_PICTURE: "picture textures (ROADMAP M13)",
     scene_mod.TEX_PERLIN: "perlin textures (ROADMAP M2)",
     scene_mod.TEX_VALUE: "value-noise textures (ROADMAP M2)",
     scene_mod.TEX_WORLEY: "worley textures (ROADMAP M2)",
@@ -49,4 +48,33 @@ def eval_texture(scene, tex_id: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         even = (torch.remainder(total, 2) == 0)[..., None]
         checker = torch.where(even, color0, color1)
         out = torch.where((ttype == scene_mod.TEX_CHECKER)[..., None], checker, out)
+
+    if scene_mod.TEX_PICTURE in used:
+        # nearest texel, v flipped, /256 (src/texture.h:68-74), or the
+        # opt-in bilinear 4-tap (Textures.tfilter == 1)
+        image_id = tbl.take_rows(texs.image_id, tex_id)
+        pic = torch.zeros_like(color0)
+        if scene.has_bilinear:
+            tfil = tbl.take_rows(texs.tfilter, tex_id)
+        for k, img in enumerate(scene.images):
+            h, w = img.shape[0], img.shape[1]
+            i = torch.clamp((w * u).to(torch.int32), 0, w - 1).long()
+            j = torch.clamp((h * (1.0 - v)).to(torch.int32), 0, h - 1).long()
+            texel = img[j, i] * (1.0 / 256.0)
+            if scene.has_bilinear:
+                x = w * u - 0.5
+                y = h * (1.0 - v) - 0.5
+                x0 = torch.clamp(torch.floor(x).to(torch.int32), 0, w - 1)
+                y0 = torch.clamp(torch.floor(y).to(torch.int32), 0, h - 1)
+                x1 = torch.clamp(x0 + 1, max=w - 1).long()
+                y1 = torch.clamp(y0 + 1, max=h - 1).long()
+                fx = torch.clamp(x - x0, 0.0, 1.0)[..., None]
+                fy = torch.clamp(y - y0, 0.0, 1.0)[..., None]
+                x0, y0 = x0.long(), y0.long()
+                lerped = ((img[y0, x0] * (1 - fx) + img[y0, x1] * fx) * (1 - fy)
+                          + (img[y1, x0] * (1 - fx) + img[y1, x1] * fx) * fy
+                          ) * (1.0 / 256.0)
+                texel = torch.where((tfil == 1)[..., None], lerped, texel)
+            pic = torch.where((image_id == k)[..., None], texel, pic)
+        out = torch.where((ttype == scene_mod.TEX_PICTURE)[..., None], pic, out)
     return out

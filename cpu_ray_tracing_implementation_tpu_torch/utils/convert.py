@@ -34,7 +34,7 @@ def _columns(obj, cls) -> list:
 
 def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
     """The port's Scene holding the same tables as the JAX ``jscene``,
-    its chunked tables and chunk orders included."""
+    its chunked tables, chunk orders and picture images included."""
     for name, what in _UNPORTED.items():
         if getattr(jscene, name, None) is not None:
             raise NotImplementedError(f"{what} are not ported yet")
@@ -54,20 +54,22 @@ def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
         arrays[oname] = None if order is None else np.asarray(order, np.int32)
     off = jscene.world_offset
     arrays.update(lights=np.asarray(jscene.lights, np.int32),
+                  images=[np.asarray(im, np.float32) for im in jscene.images],
                   world_offset=None if off is None else np.asarray(off, np.float32))
     return sc.scene_from_tables(
         arrays, device=tbl.as_device(device), background=int(jscene.background),
         tex_types_used=tuple(jscene.tex_types_used),
         mat_types_used=tuple(jscene.mat_types_used),
+        has_bilinear=bool(jscene.has_bilinear),
         counts=tuple(jscene.counts), world_lo=jscene.world_lo,
         world_hi=jscene.world_hi)
 
 
 def camera_from_numpy(jcam, device=DEFAULT_DEVICE) -> cam_mod.Camera:
     """The port's Camera with the same parameters as the JAX ``jcam``."""
-    if int(jcam.mode) != cam_mod.PERSPECTIVE:
-        raise NotImplementedError("only the perspective camera is ported "
-                                  "(other modes: ROADMAP M3)")
+    if int(jcam.mode) not in (cam_mod.PERSPECTIVE, cam_mod.ORTHOGRAPHIC,
+                              cam_mod.FISHEYE, cam_mod.LENS):
+        raise ValueError(f"unknown camera mode {int(jcam.mode)}")
     for flag in ("qmc", "nee"):
         if getattr(jcam, flag, False):
             raise NotImplementedError(f"camera.{flag} (ROADMAP M6/M12) is not "
@@ -83,7 +85,10 @@ def camera_from_numpy(jcam, device=DEFAULT_DEVICE) -> cam_mod.Camera:
 
     return cam_mod.Camera(
         pos=f32(jcam.pos), lookat=f32(jcam.lookat), fovy_deg=f32(jcam.fovy_deg),
-        focal_length=f32(jcam.focal_length), mode=int(jcam.mode),
+        focal_length=f32(jcam.focal_length),
+        ortho_viewport_h=f32(jcam.ortho_viewport_h),
+        defocus_angle_deg=f32(jcam.defocus_angle_deg),
+        focus_dist=f32(jcam.focus_dist), mode=int(jcam.mode),
         width=int(jcam.width), height=int(jcam.height), spp=int(jcam.spp),
         max_depth=int(jcam.max_depth), stratify=bool(jcam.stratify),
         clamp=float(jcam.clamp))

@@ -3,12 +3,18 @@
 Counterpart of ``cpu_ray_tracing_implementation_tpu/utils/profiling.py``
 for the port. Run on a machine with an NVIDIA GPU::
 
-    python -m cpu_ray_tracing_implementation_tpu_torch.utils.profiling [cornell|colonnade|cornell_grad]
+    python -m cpu_ray_tracing_implementation_tpu_torch.utils.profiling [WORKLOAD]
 
 ``cornell`` (the default) renders cornell_box at 512x512, depth 8;
 ``colonnade`` renders catalog.sponza (the 258k-triangle colonnade) at
 200x200, depth 5; ``cornell_grad`` takes ``diff.loss_and_grads`` of
-cornell_box at 512x512, depth 8 (the winner-replay route), one sample.
+cornell_box at 512x512, depth 8 (the winner-replay route), one sample;
+``colonnade_wavefront`` and ``sphereflake_wavefront`` render the colonnade
+(200x200) and sphereflake (400x400, 7,381 spheres), depth 5, through the
+path-regeneration wavefront at its automatic lane pool, and also print
+the loop iterations per render, the kernels per iteration and the host
+synchronisations per iteration (the loop's condition and each per-ray
+selection phase's live count).
 Each runs ``spp`` samples after a 2-sample warm-up: three times on the host
 clock, then under ``torch.profiler`` with a range around each stage of a bounce
 (on the colonnade also around the per-ray accelerator's select and sweep
@@ -74,11 +80,17 @@ STAGES = (
     (replay, "winner_pack", "decide"),
     (replay, "replay_hit", "replay"),
 )
-# name -> (catalog scene, its arguments, samples profiled, gradient or not)
+# name -> (catalog scene, its arguments, samples profiled, gradient or not,
+# wavefront or scan)
 WORKLOADS = {
-    "cornell": (catalog.cornell_box, dict(width=512, max_depth=8), 8, False),
-    "colonnade": (catalog.sponza, dict(width=200, max_depth=5), 4, False),
-    "cornell_grad": (catalog.cornell_box, dict(width=512, max_depth=8), 1, True),
+    "cornell": (catalog.cornell_box, dict(width=512, max_depth=8), 8, False, False),
+    "colonnade": (catalog.sponza, dict(width=200, max_depth=5), 4, False, False),
+    "cornell_grad": (catalog.cornell_box, dict(width=512, max_depth=8), 1, True,
+                     False),
+    "colonnade_wavefront": (catalog.sponza, dict(width=200, max_depth=5), 4, False,
+                            True),
+    "sphereflake_wavefront": (catalog.sphereflake, dict(width=400, max_depth=5), 4,
+                              False, True),
 }
 TOP = 20  # kernels listed by device time
 REPEATS = 3  # unprofiled runs before the profiled one, and after it
@@ -120,6 +132,7 @@ def reset_counts() -> None:
     fsw.reset_launches()
     gather_probe.reset_launches()
     perray.reset_phases()
+    integrator.reset_wavefront()
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -174,7 +187,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60).stdout.strip())
     build.load()
     dev = torch.device("cuda", 0)
-    make, kwargs, spp, grad = WORKLOADS[name]
+    make, kwargs, spp, grad, wavefront = WORKLOADS[name]
     scene, cam = make(spp=spp, device=dev, **kwargs)
     bounces = spp * cam.max_depth
     target = torch.zeros((cam.height, cam.width, 3), device=dev)
@@ -182,6 +195,8 @@ def main(argv=None) -> int:
     def run(n):
         if grad:
             diff.loss_and_grads(scene, cam, keys.key(1), target, n)
+        elif wavefront:
+            integrator.render_image_wavefront(scene, cam, keys.key(1), spp=n)
         else:
             integrator.render_image(scene, cam, keys.key(1), spp=n)
 
@@ -216,10 +231,12 @@ def main(argv=None) -> int:
     dev_s = sum(k[2] for k in kern) / 1e6
     n_kern = sum(k[1] for k in kern)
     print(f"{name} {cam.width}x{cam.height} depth {cam.max_depth}, {spp} spp"
-          f"{' fwd+bwd (diff.loss_and_grads)' if grad else ''}: wall "
+          f"{' fwd+bwd (diff.loss_and_grads)' if grad else ''}"
+          f"{' wavefront' if wavefront else ''}: wall "
           f"{wall:.4f} s unprofiled (median of {before}), {wall_prof:.4f} s profiled")
-    print(f"device kernel time {dev_s:.4f} s over {n_kern} kernels "
-          f"({n_kern / bounces:.1f} per bounce); busy share "
+    print(f"device kernel time {dev_s:.4f} s over {n_kern} kernels"
+          + ("" if wavefront else f" ({n_kern / bounces:.1f} per bounce)")
+          + "; busy share "
           f"{dev_s / wall:.4f} of the unprofiled wall, "
           f"{dev_s / wall_prof:.4f} of the profiled")
     counts = launches()
@@ -234,6 +251,14 @@ def main(argv=None) -> int:
         print(f"per-ray closest-hit calls {perray.PHASES['calls']}, selection "
               f"phases {perray.PHASES['phases']}, "
               f"{perray.PHASES['phases'] / perray.PHASES['calls']:.3f} per call")
+    if wavefront:
+        its = integrator.WAVEFRONT["iterations"]
+        n_pix = cam.width * cam.height
+        print(f"wavefront: lane pool {integrator.wavefront_lanes(scene, n_pix) or n_pix}"
+              f", {its} loop iterations per render, {n_kern / its:.1f} kernels per "
+              f"iteration, {(its + perray.PHASES['phases']) / its:.3f} host "
+              "synchronisations per iteration (the loop condition and one per "
+              "selection phase)")
     print("top kernels (name, count, device us, share of device time):")
     for key, count, us in kern[:TOP]:
         print(f"  {key[:100]:100} {count:7d} {us:10.1f} {us / 1e6 / dev_s:.4f}")

@@ -480,3 +480,103 @@ def test_colonnade_gradient_on_card_matches_cpu(dev):
         lambda d: catalog.sponza(width=12, spp=2, max_depth=2, device=d), dev, 6)
     assert fs.LAUNCHES["cull_select"] >= 2 * 2 * 2   # both passes, every bounce
     _close(got, ref)
+
+
+# the golden workload's recorded means (tests/test_golden.py) of the
+# scenes that need picture textures, the other cameras or sphereflake's
+# chunked spheres; the F1 scenes (earthmap.jpg missing) are held to the
+# port's own CPU render instead
+NEW_GOLDENS = {"cornell_box_with_rotated_box": 0.535078,
+               "cornell_box_with_specular_box": 0.488185,
+               "different_fuzz_metal": 0.322772, "skybox_and_fisheye": 0.633859,
+               "sphereflake": 0.592463,
+               "three_material_ball_with_defocus_blur": 0.605853,
+               "white_sphere": 1.000000, "cornell_box_with_glossy_ball": None,
+               "infinite_reflection": None, "skybox_and_motion_blur": None}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_GOLDENS))
+def test_new_golden_renders_on_card(dev, name):
+    """The golden workload (16 px, 4 spp, depth 3, key 42) on the card: the
+    recorded mean (atol 2e-3), or the CPU port's for an F1 scene; the
+    scene's kernels launched (K2 for dense spheres, K1 for quads, K3 + K4
+    for sphereflake's chunked spheres)."""
+    scene, cam = catalog.SCENES[name](width=16, spp=4, max_depth=3, device=dev)
+    fi.reset_launches()
+    fs.reset_launches()
+    fsw.reset_launches()
+    img = integrator.render_image(scene, cam, keys.key(42))
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    want = NEW_GOLDENS[name]
+    if want is None:
+        s_cpu, c_cpu = catalog.SCENES[name](width=16, spp=4, max_depth=3, device="cpu")
+        want = float(integrator.render_image(s_cpu, c_cpu, keys.key(42)).mean())
+    assert abs(float(img.mean()) - want) <= 2e-3
+    n_sph, n_quad = scene.counts[:2]
+    bounces = cam.spp * cam.max_depth
+    if scene.sphere_chunks is not None:
+        assert fs.LAUNCHES["cull_select"] >= bounces
+        assert fsw.LAUNCHES["visit_sweep"] == fs.LAUNCHES["cull_select"]
+    elif n_sph:
+        assert fi.LAUNCHES["sphere_closest"] == bounces
+    if n_quad:
+        assert fi.LAUNCHES["planar_closest"] == bounces
+
+
+@pytest.mark.parametrize("name,lanes", [("cornell_box", 64), ("sponza", 64),
+                                        ("sphereflake", 64), ("sphereflake", None)])
+def test_wavefront_matches_scan_on_card(dev, name, lanes):
+    """Each wavefront path is the scan's path: the images agree to the
+    order of summation (rtol 1e-5, atol 1e-5), and the scan's pixel
+    batches are bitwise the whole frame's."""
+    scene, cam = catalog.SCENES[name](width=16, spp=3, max_depth=3, device=dev)
+    key = keys.key(42)
+    ids = torch.arange(cam.width * cam.height, dtype=torch.int32, device=dev)
+    scan = integrator.accumulate_samples_subset(scene, cam, key, ids, 0, 3)
+    fs.reset_launches()
+    wf = integrator.render_wavefront(scene, cam, key, 3, lanes=lanes)
+    assert wf.device.type == "cuda"
+    if scene.sphere_chunks is not None or scene.tri_chunks is not None:
+        assert fs.LAUNCHES["cull_select"] > 0
+    torch.testing.assert_close(wf, scan, rtol=1e-5, atol=1e-5)
+    batched = integrator.accumulate_samples_subset(scene, cam, key, ids, 0, 3,
+                                                   batch_pixels=37)
+    assert torch.equal(batched, scan)
+
+
+def test_sweep_kernel_on_sphereflake_matches_plain(dev):
+    """K3 and K4's sphere branch on sphereflake's table (7,381 spheres, 58
+    chunks) and its primary camera rays: K3 bit-equal, K4 with equal hit
+    masks, pid and mat, t within rtol 1e-4, the rest within atol 1e-3."""
+    from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
+    from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
+
+    scene, cam = catalog.sphereflake(width=64, spp=1, device=dev)
+    tabs = scene.sphere_perray
+    K = tabs.table.shape[0]
+    assert K == 58 and scene.counts[0] == 7381
+    n = cam.width * cam.height
+    gen = torch.Generator().manual_seed(3)
+    org, dirs, time = cam_mod.generate_rays(
+        cam, torch.arange(n, dtype=torch.int32, device=dev),
+        torch.rand(n, cam_mod.N_CAM_SLOTS, generator=gen).to(dev))
+    org = org.contiguous()
+    cap = isect._packet_cap(scene, org, dirs, None, float("inf"), TMIN)
+    rays = fs.pack_rays(org, dirs, cap)
+    excl = fs.first_excl(n, dev)
+    got = fs.cull_select_kernel(rays, tabs.boxes, excl, 16, K, TMIN)
+    ref = fs.cull_select_plain(rays, tabs.boxes, excl, 16, K, TMIN)
+    for x, y in zip(got, ref):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)) if (
+            x.dtype == torch.float32) else torch.equal(x, y)
+    srays = fsw.pack_rays(org, dirs, time)
+    z = torch.zeros_like(cap)
+    best = fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1, z.int(), z.int())
+    k4 = fsw.sweep_kernel(srays, got[0], got[1], best, tabs.table, TMIN, False, True)
+    k4_ref = fsw.sweep_plain(srays, got[0], got[1], best, tabs.table, TMIN, False, True)
+    hit = k4_ref[:, 0] < cap
+    assert int(hit.sum()) > 300
+    assert torch.equal(k4[:, 0] < cap, hit)
+    assert torch.equal(k4[:, 6:8], k4_ref[:, 6:8])
+    torch.testing.assert_close(k4[hit, 0], k4_ref[hit, 0], rtol=1e-4, atol=0)
+    torch.testing.assert_close(k4[hit, 1:6], k4_ref[hit, 1:6], rtol=0, atol=1e-3)

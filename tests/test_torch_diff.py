@@ -196,5 +196,6 @@ def test_params_round_trip_and_perspective_only():
         assert torch.equal(getattr(s2.quads, name), getattr(scene.quads, name))
     c2 = diff.apply_camera_params(cam, diff.camera_params(cam))
     assert torch.equal(c2.pos, cam.pos) and c2.width == cam.width
-    with pytest.raises(NotImplementedError, match="M3"):
-        diff.camera_params(cam.replace(mode=1))
+    # the orthographic mode's leaves (a perspective camera's otherwise)
+    assert set(diff.camera_params(cam.replace(mode=1))) == {"pos", "lookat",
+                                                            "ortho_viewport_h"}

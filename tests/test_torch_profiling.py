@@ -70,3 +70,27 @@ def test_gradient_ranges_split_the_passes():
     assert counts["forward pass"] == 1 and counts["backward pass"] == 1
     assert counts["decide"] == 2 * cam.max_depth
     assert counts["replay"] == 2 * 2 * cam.max_depth
+
+
+@pytest.mark.parametrize("name", ["colonnade_wavefront", "sphereflake_wavefront"])
+def test_wavefront_workloads_count_iterations(name):
+    """The wavefront workloads at a CPU size: one intersect range per loop
+    iteration, each iteration's per-ray phases counted, and no GPU needed
+    to refuse."""
+    make, kwargs, spp, grad, wavefront = profiling.WORKLOADS[name]
+    assert wavefront and not grad and kwargs["max_depth"] == 5
+    scene, cam = make(width=8, spp=2, max_depth=2, device="cpu")
+    profiling.reset_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with profiling.stage_ranges(), torch.profiler.profile(activities=acts) as prof:
+        img = integrator.render_image_wavefront(scene, cam, keys.key(0))
+    assert bool(torch.isfinite(img).all())
+    its = integrator.WAVEFRONT["iterations"]
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert integrator.WAVEFRONT["renders"] == 1 and its >= cam.max_depth
+    assert counts["intersect"] == its == perray.PHASES["calls"]
+    assert counts["select"] == perray.PHASES["phases"] >= its
+    # raygen once before the loop and once per iteration (the refill)
+    assert counts["raygen"] == its + 1
+    if not torch.cuda.is_available():
+        assert profiling.main([name]) == 2

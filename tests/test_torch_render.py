@@ -9,7 +9,11 @@ float rounding moves a ray across a primitive edge). At 16 px the
 colonnade (sponza) has 71 chunks: JAX takes its tile-packet route there
 and the port its per-ray route (K3 + K4); both are exact.
 random_motion_ball's 337 moving spheres stay one dense table (kernel K2's
-1-chunk view of 384 lanes in the port).
+1-chunk view of 384 lanes in the port); sphereflake's 7,381 spheres take
+58 chunks (JAX's packet route, the port's per-ray route). The F1 scenes
+load earthmap.jpg, which this checkout lacks: both packages take the same
+magenta fallback, so they are held to live JAX only, not to the golden
+means recorded with the asset.
 """
 
 import jax
@@ -25,12 +29,29 @@ from cpu_ray_tracing_implementation_tpu_torch.utils import convert
 
 # tests/test_golden.py GOLDEN_MEANS (recorded on the JAX package)
 GOLDEN_MEANS = {"cornell_box": 0.160999, "three_material_ball": 0.563181,
-                "random_motion_ball": 0.426140, "sponza": 0.402695}
+                "random_motion_ball": 0.426140, "sponza": 0.402695,
+                "cornell_box_with_rotated_box": 0.535078,
+                "cornell_box_with_specular_box": 0.488185,
+                "different_fuzz_metal": 0.322772, "skybox_and_fisheye": 0.633859,
+                "sphereflake": 0.592463,
+                "three_material_ball_with_defocus_blur": 0.605853,
+                "white_sphere": 1.000000}
+# scenes whose asset is missing here (ROADMAP F1)
+F1_SCENES = ("cornell_box_with_glossy_ball", "infinite_reflection",
+             "skybox_and_motion_blur")
+# The depth at which pixels are held to JAX's, where it is not the golden
+# workload's. sphereflake is a fractal of mirror spheres seen from 346
+# units: a grazing hit on a sphere of radius 0.39 is ill-conditioned in
+# float32, and on the same 4,096 camera rays both packages' hit t lie up to
+# 1.6e-4 (JAX) and 1e-4 (port) from a float64 solve, on 33 to 47 rays each.
+# The mirrors amplify that from the second bounce on (97% of pixels within
+# 1e-3 at depth 3), so pixels are compared where every path ends at its
+# first hit, and the golden workload by its mean.
+PIXEL_DEPTH = {"sphereflake": 1}
 
 
-@pytest.mark.parametrize("name", sorted(GOLDEN_MEANS))
-def test_golden_workload_matches_jax(name):
-    js, jc = jcat.SCENES[name](width=16, spp=4, max_depth=3)
+def _render_both(name, depth):
+    js, jc = jcat.SCENES[name](width=16, spp=4, max_depth=depth)
     jkey = jax.random.key(42)
     ref = np.asarray(jint.render_image(js, jc, jkey))
     img = integrator.render_image(
@@ -38,8 +59,17 @@ def test_golden_workload_matches_jax(name):
         convert.camera_from_numpy(jc, device="cpu"),
         convert.key_from_numpy(jax.random.key_data(jkey))).numpy()
     assert img.shape == ref.shape and np.isfinite(img).all()
+    return img, ref
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_MEANS) + list(F1_SCENES))
+def test_golden_workload_matches_jax(name):
+    img, ref = _render_both(name, 3)
     np.testing.assert_allclose(img.mean(), ref.mean(), atol=2e-3)
-    np.testing.assert_allclose(img.mean(), GOLDEN_MEANS[name], atol=2e-3)
+    if name in GOLDEN_MEANS:
+        np.testing.assert_allclose(img.mean(), GOLDEN_MEANS[name], atol=2e-3)
+    if name in PIXEL_DEPTH:
+        img, ref = _render_both(name, PIXEL_DEPTH[name])
     close = np.abs(img - ref).max(axis=-1) <= 1e-3
     assert close.mean() >= 0.98, close.mean()
 

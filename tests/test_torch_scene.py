@@ -21,7 +21,7 @@ from cpu_ray_tracing_implementation_tpu_torch.models import scene as sc
 from cpu_ray_tracing_implementation_tpu_torch.utils import convert
 
 STATIC = ("background", "tex_types_used", "mat_types_used", "counts",
-          "world_lo", "world_hi")
+          "world_lo", "world_hi", "has_bilinear")
 
 
 def _assert_scenes_equal(a: sc.Scene, b: sc.Scene):
@@ -32,6 +32,9 @@ def _assert_scenes_equal(a: sc.Scene, b: sc.Scene):
             assert xa.dtype == xb.dtype, (table, f.name)
             assert torch.equal(xa, xb), (table, f.name)
     assert torch.equal(a.lights, b.lights)
+    assert len(a.images) == len(b.images)
+    for ia, ib in zip(a.images, b.images):
+        assert ia.dtype == ib.dtype and torch.equal(ia, ib)
     for name in STATIC:
         assert getattr(a, name) == getattr(b, name), name
     assert (a.world_offset is None) == (b.world_offset is None)
@@ -194,6 +197,14 @@ def test_stratified_jitter_matches_jax():
 
 
 def test_unported_camera_modes_raise():
+    """All four modes are ported; a mode outside them, and the camera
+    features still to come, raise."""
     jc = jcam.lens(16, 1.0, (0, 0, 1), (0, 0, 0), 10.0, spp=1)
-    with pytest.raises(NotImplementedError, match="M3"):
-        convert.camera_from_numpy(jc, device="cpu")
+    with pytest.raises(ValueError, match="mode 7"):
+        convert.camera_from_numpy(jc.replace(mode=7), device="cpu")
+    with pytest.raises(NotImplementedError, match="M6/M12"):
+        convert.camera_from_numpy(jc.replace(qmc=True), device="cpu")
+    pc = convert.camera_from_numpy(jc, device="cpu")
+    with pytest.raises(ValueError, match="mode 7"):
+        cam.generate_rays(pc.replace(mode=7), torch.arange(4, dtype=torch.int32),
+                          torch.zeros((4, cam.N_CAM_SLOTS)))
