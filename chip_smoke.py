@@ -28,12 +28,16 @@ Phases (any failure raises and the script exits non-zero):
      (as the phase loop asks it); and sphereflake's 58 sphere-chunk boxes
      at its 160,000 primary rays. ids, nears and rest bit-equal. K3's time
      at phase 1 and at both phase-2 forms.
-   - K4 (visit-list sweep) on the ids and nears K3 gave: triangles (the
-     colonnade table) and spheres (a random 6,000-sphere table, 47
-     chunks, and sphereflake's 7,381 spheres in 58 chunks at its primary
-     rays, timed: the wavefront's main path). Equal hit masks, pid and
-     mat; t within rtol 1e-4; every other column within atol 1e-3; each
-     column's error reported.
+   - K4 (visit-list sweep) on the ids, nears and input best of the
+     per-ray phase loop (``profiling.sweep_phases``): triangles (the
+     colonnade table, primary rays at every phase the loop runs, each
+     timed, the kernels line taking phase 1; secondary rays at phase 1)
+     and spheres (a random 6,000-sphere table, 47 chunks, and
+     sphereflake's 7,381 spheres in 58 chunks at its primary rays, timed:
+     the wavefront's main path). All 8 columns bit for bit equal to the
+     plain version's. Each timed case prints its bound, counted from what
+     the sequential sweep needs of that run's data (``sweep_needs``), and
+     the bound at the count before K4's redesign.
    - K1 and K2 with their pid output (the winner's lane, which the
      gradient path replays) against the plain versions' pid, at the same
      Cornell, three_material_ball and random_motion_ball shapes: equal
@@ -92,7 +96,8 @@ Phases (any failure raises and the script exits non-zero):
    paths), K3's and K4's summed device time in one more colonnade render
    under torch.profiler and in a 4-spp sphereflake scan render, and K2's
    in a random_motion_ball render at 2 spp (its share of device time per
-   bounce).
+   bounce), each with its wrapper calls there and the device kernels one
+   call runs (K4: four, and a memset).
 5. Kernel launch counts of each phase-4 run, set to 0 just before it and
    read just after: the Cornell render must launch K1, the
    three_material_ball render K2, the colonnade render K1 (its light
@@ -125,7 +130,6 @@ import numpy as np
 import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.kernels import build
-from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, film, integrator
 from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
@@ -200,11 +204,21 @@ MOTION_BALL_PROFILED_SPP = 2
 # b, 4 for c, 3 for the discriminant, 1 compare), and, only for the pairs
 # whose discriminant is positive, counted from the run's rays
 # (``sphere_roots``), the root: a square root, two sums, two divides and up
-# to four compares ("sphere_root"); K3 one slab test and key, K4 one
-# primitive test of a visited row (planar / sphere); K2, K3 and K4 round
-# each product and sum on its own
+# to four compares ("sphere_root"); K3 one slab test and key; K4, per
+# (ray, primitive) of a slot the sequential sweep visits, the test's
+# ray-dependent start (planar: the plane's t and its range; sphere: up to
+# the discriminant's sign), the edge tests of a plane whose t is in [tmin,
+# running best] ("_edges"), the sphere root where the discriminant is
+# positive, and each primitive's constants once per distinct row visited
+# ("_row"), all counted from csrc/visit_sweep.cu; K2, K3 and K4 round each
+# product and sum on its own
 OPS = {"planar_closest": 36, "sphere_closest": 38, "sphere_root": 9,
-       "cull_select": 30, "visit_sweep_planar": 130, "visit_sweep_sphere": 50}
+       "cull_select": 30, "visit_sweep_planar": 16, "visit_sweep_planar_edges": 30,
+       "visit_sweep_sphere": 26, "visit_sweep_planar_row": 57,
+       "visit_sweep_sphere_row": 4}
+# K4's count before its redesign: the whole test, constants included, per
+# pair; its bound is printed beside the new one
+OPS_PER_PAIR_BEFORE = {"planar": 130, "sphere": 50}
 
 
 def log(*a):
@@ -439,13 +453,10 @@ def phase_kernels(dev):
 
 
 # ------------------------------------------------- phase 2: K3 and K4
-def colonnade_rays(scene, cam, gen, dev):
+def colonnade_rays(scene, cam, gen):
     """R_COLONNADE primary camera rays of the colonnade and their caps."""
-    ids = torch.arange(R_COLONNADE, dtype=torch.int32, device=dev)
-    u = torch.rand(R_COLONNADE, cam_mod.N_CAM_SLOTS, generator=gen).to(dev)
-    org, dirs, _ = cam_mod.generate_rays(cam, ids, u)
-    org = org.contiguous()
-    return org, dirs, isect._packet_cap(scene, org, dirs, None, INF, TMIN)
+    org, dirs, _, cap = profiling.scene_rays(scene, cam, gen)
+    return org, dirs, cap
 
 
 def colonnade_secondary(scene, org, dirs, t, gen):
@@ -475,26 +486,89 @@ def bits_equal(label, got, ref) -> float:
 
 
 def sweep_compare(label, got, ref, cap, sphere) -> float:
-    """K4 against its plain version: equal hit masks, pid and mat; t within
-    rtol 1e-4; every other column within atol 1e-3. Reports each column's
-    largest abs error and returns the largest."""
-    hit, hit_r = got[:, 0] < cap, ref[:, 0] < cap
-    if not torch.equal(hit, hit_r):
-        raise AssertionError(f"{label}: hit masks differ in {int((hit != hit_r).sum())} rays")
-    if not torch.equal(got[:, 6:8], ref[:, 6:8]):
-        raise AssertionError(f"{label}: mat or pid differ in "
-                             f"{int((got[:, 6:8] != ref[:, 6:8]).any(1).sum())} rays")
+    """K4 against its plain version: all 8 columns bit for bit (the kernel
+    rounds as the plain version does). Reports each column's largest abs
+    error over the hits (0) and returns the largest."""
+    hit = ref[:, 0] < cap
+    same = got.view(torch.int32) == ref.view(torch.int32)
+    if not bool(same.all()):
+        raise AssertionError(f"{label}: {int((~same.all(1)).sum())} rays differ from "
+                             f"the plain version's (columns {torch.nonzero(~same.all(0))[:, 0].tolist()})")
     names = (("t", "cx", "cy", "cz", "rad", "v") if sphere
              else ("t", "nx", "ny", "nz", "u", "v"))
-    torch.testing.assert_close(got[hit, 0], ref[hit, 0], rtol=1e-4, atol=0)
-    err = {}
-    for i, name in enumerate(names):
-        if i:
-            torch.testing.assert_close(got[hit, i], ref[hit, i], rtol=0, atol=1e-3,
-                                       msg=lambda m, n=name: f"{label}: {n}: {m}")
-        err[name] = max_abs(got[hit, i], ref[hit, i])
-    log(f"  {label}: rays {got.shape[0]} hits {int(hit.sum())} max abs err {err}")
+    err = {name: max_abs(got[hit, i], ref[hit, i]) for i, name in enumerate(names)}
+    log(f"  {label}: rays {got.shape[0]} hits {int(hit.sum())}, bit-equal; max abs err {err}")
     return max(err.values())
+
+
+def sweep_needs(rays, ids, nears, best, table, tri, sphere, step=16_384):
+    """What the sequential sweep needs of one call's inputs, replayed with
+    the plain version's operations: (visited (ray, slot) pairs, distinct
+    rows visited, (ray, primitive) pairs of those slots that take the rest
+    of the test: planar, a plane whose t lies in [tmin, the running best
+    t]; sphere, a positive discriminant)."""
+    K = table.shape[0]
+    cid = ids.clamp(0, K - 1)
+    org, dirs, tm = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
+    t_run = best[:, 0].clone()
+    visits, more, rows = 0, 0, []
+    for s in range(ids.shape[1]):
+        vis = torch.nonzero(nears[:, s] < t_run)[:, 0]
+        visits += vis.numel()
+        rows.append(cid[vis, s])
+        for a in range(0, vis.numel(), step):
+            r = vis[a:a + step]
+            row = table[cid[r, s]]
+            if sphere:
+                ts, _ = fsw._sphere_slot(org[r], dirs[r], tm[r], row, -INF,
+                                         torch.full_like(t_run[r], INF))
+                more += int(torch.isfinite(ts).sum())
+                ts, _ = fsw._sphere_slot(org[r], dirs[r], tm[r], row, TMIN, t_run[r])
+            else:
+                n = torch.cross(row[:, 3:6], row[:, 6:9], dim=1)
+                un = n * torch.rsqrt(torch.clamp((n * n).sum(1, keepdim=True), min=1e-30))
+                d_n = (un * dirs[r][:, :, None]).sum(1)
+                t = ((un * row[:, 0:3]).sum(1) - (un * org[r][:, :, None]).sum(1)) / d_n
+                more += int(((d_n.abs() > 1e-20) & (t >= TMIN)
+                             & (t <= t_run[r][:, None])).sum())
+                ts, _ = fsw._planar_slot(org[r], dirs[r], row, TMIN, t_run[r], tri)
+            t_run[r] = torch.minimum(t_run[r], ts.amin(1))
+    return visits, int(torch.unique(torch.cat(rows)).numel()), more
+
+
+def sweep_check(label, rays, ids, nears, best, table, tri, sphere, timed=False):
+    """K4 against its plain version on one call's inputs (bit for bit);
+    ``timed``: also the kernel's and the plain version's times, the bound
+    (what the sequential sweep needs, ``sweep_needs``, at the redesigned
+    count) and the bound at the count before the redesign. Returns (err,
+    (ms, plain_ms), bound), the last two None unless timed."""
+    got = fsw.sweep_kernel(rays, ids, nears, best, table, TMIN, tri, sphere)
+    ref = fsw.sweep_plain(rays, ids, nears, best, table, TMIN, tri, sphere)
+    err = sweep_compare(label, got, ref, best[:, 0], sphere)
+    if not timed:
+        return err, None, None
+    ms = cuda_ms(lambda: fsw.sweep_kernel(rays, ids, nears, best, table, TMIN, tri,
+                                          sphere))
+    plain_ms = cuda_ms(lambda: fsw.sweep_plain(rays, ids, nears, best, table, TMIN, tri,
+                                               sphere))
+    R, V = ids.shape
+    F, C = table.shape[1], table.shape[2]
+    kind = "sphere" if sphere else "planar"
+    visits, rows, more = sweep_needs(rays, ids, nears, best, table, tri, sphere)
+    nbytes = 4 * (8 * R + 2 * R * V + 8 * R + 8 * R + rows * F * C)
+    b = bound(nbytes, visits * C * OPS[f"visit_sweep_{kind}"]
+              + rows * C * OPS[f"visit_sweep_{kind}_row"]
+              + more * OPS["sphere_root" if sphere else "visit_sweep_planar_edges"])
+    b_old = bound(nbytes, visits * C * OPS_PER_PAIR_BEFORE[kind])
+    log(f"  {label}, timed: {R} rays, {visits} (ray, slot) pairs visited by the "
+        f"sequential sweep ({int((nears < best[:, :1]).sum())} below the input best) "
+        f"of {R * V}, {rows} distinct rows, {more} (ray, primitive) pairs "
+        + ("take the root" if sphere else "test the edges")
+        + f": kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+        f"share {b[0] / ms:.3f}; the count before the redesign "
+        f"({OPS_PER_PAIR_BEFORE[kind]} per pair, the whole test whatever the data: "
+        f"no floor) gives {b_old[0]:.4f} ms, {b_old[0] / ms:.3f} of the kernel's time")
+    return err, (ms, plain_ms), b
 
 
 def phase_select_sweep(scene, cam, dev):
@@ -507,7 +581,7 @@ def phase_select_sweep(scene, cam, dev):
     errs = {"cull_select": 0.0, "visit_sweep": 0.0}
     times, bounds = {}, {}
 
-    org, dirs, cap = colonnade_rays(scene, cam, gen, dev)
+    org, dirs, cap = colonnade_rays(scene, cam, gen)
     t, _ = perray.planar_closest_perray(org, dirs, scene.tri_chunks, TMIN, True,
                                         cap, tabs=tabs)
     o2, d2, cap2 = colonnade_secondary(scene, org, dirs, t, gen)
@@ -572,35 +646,29 @@ def phase_select_sweep(scene, cam, dev):
     log(f"  K1 at the colonnade's light view ({live} live lane of {view.active.numel()}, "
         f"{R} rays): {times['planar_closest_light']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
-    def sweep_case(label, o, d, time, c, ids, nears, table, tri, sphere, timed=False):
-        rays = fsw.pack_rays(o, d, time)
+    def sweep_case(label, o, d, time, c, ids, nears, table, tri, sphere):
         z = torch.zeros_like(c)
         best = (fsw.pack_best_sphere(c, torch.zeros_like(o), z + 1, z.int(), z.int())
                 if sphere else
                 fsw.pack_best_planar(c, torch.zeros_like(o), z, z, z.int(), z.int()))
-        got = fsw.sweep_kernel(rays, ids, nears, best, table, TMIN, tri, sphere)
-        stats = {}
-        ref = fsw.sweep_plain(rays, ids, nears, best, table, TMIN, tri, sphere, stats)
-        errs["visit_sweep"] = max(errs["visit_sweep"],
-                                  sweep_compare(label, got, ref, c, sphere))
-        if timed:
-            times["visit_sweep"] = (
-                cuda_ms(lambda: fsw.sweep_kernel(rays, ids, nears, best, table, TMIN,
-                                                 tri, sphere)),
-                cuda_ms(lambda: fsw.sweep_plain(rays, ids, nears, best, table, TMIN,
-                                                tri, sphere)))
-            R, Vs = ids.shape
-            F, C = table.shape[1], table.shape[2]
-            rows = int(torch.unique(ids.clamp(0, table.shape[0] - 1)).numel())
-            nbytes = 4 * (8 * R + 2 * R * Vs + 8 * R + 8 * R + rows * F * C)
-            kind = "visit_sweep_sphere" if sphere else "visit_sweep_planar"
-            bounds["visit_sweep"] = bound(nbytes, stats["visits"] * C * OPS[kind])
-            log(f"  K4 work at the timed shapes: {stats['visits']} visited (ray, slot) "
-                f"pairs of {R * Vs}, {rows} distinct rows")
+        err = sweep_check(label, fsw.pack_rays(o, d, time), ids, nears, best, table, tri,
+                          sphere)[0]
+        errs["visit_sweep"] = max(errs["visit_sweep"], err)
 
-    for which, (o, d, c, ids, nears) in lists.items():
-        sweep_case(f"K4 triangles, colonnade {which}, phase 1", o, d, None, c, ids,
-                   nears, tabs.table, True, False, timed=which == "primary")
+    # K4 at every phase the per-ray loop gives the colonnade's primary rays
+    # (phase 2 with the rays phase 1 left done marked exhausted), timed; the
+    # kernels line takes phase 1
+    rays4, calls = profiling.sweep_phases(org, dirs, None, cap, tabs, K, TMIN, True, False)
+    for p, (ids, nears, best) in enumerate(calls):
+        err, ms, b = sweep_check(f"K4 triangles, colonnade primary, phase {p + 1}", rays4,
+                                 ids, nears, best, tabs.table, True, False, timed=True)
+        errs["visit_sweep"] = max(errs["visit_sweep"], err)
+        times[f"visit_sweep_phase{p + 1}"], bounds[f"visit_sweep_phase{p + 1}"] = ms, b
+    times["visit_sweep"], bounds["visit_sweep"] = times.pop("visit_sweep_phase1"), \
+        bounds.pop("visit_sweep_phase1")
+    o, d, c, ids, nears = lists["secondary"]
+    sweep_case("K4 triangles, colonnade secondary, phase 1", o, d, None, c, ids, nears,
+               tabs.table, True, False)
 
     # spheres: a random table of 6,000 moving spheres (47 chunks)
     rng = np.random.default_rng(2)
@@ -636,11 +704,7 @@ def phase_sphereflake(scene, cam, dev):
     K = scene.sphere_chunks.rad.shape[0]
     V = min(perray.VISIT_BLOCK, K)
     R = cam.width * cam.height
-    ids = torch.arange(R, dtype=torch.int32, device=dev)
-    u = torch.rand(R, cam_mod.N_CAM_SLOTS, generator=gen).to(dev)
-    org, dirs, time_ = cam_mod.generate_rays(cam, ids, u)
-    org = org.contiguous()
-    cap = isect._packet_cap(scene, org, dirs, None, INF, TMIN)
+    org, dirs, time_, cap = profiling.scene_rays(scene, cam, gen)
     rays = fs.pack_rays(org, dirs, cap)
     excl = fs.first_excl(R, dev)
     got = fs.cull_select_kernel(rays, tabs.boxes, excl, V, K, TMIN)
@@ -650,30 +714,16 @@ def phase_sphereflake(scene, cam, dev):
     srays = fsw.pack_rays(org, dirs, time_)
     z = torch.zeros_like(cap)
     best = fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1, z.int(), z.int())
-    k4 = fsw.sweep_kernel(srays, got[0], got[1], best, tabs.table, TMIN, False, True)
-    stats = {}
-    k4_ref = fsw.sweep_plain(srays, got[0], got[1], best, tabs.table, TMIN, False, True,
-                             stats)
-    errs["visit_sweep"] = sweep_compare(
-        f"K4 spheres, sphereflake primary ({K} chunks), phase 1", k4, k4_ref, cap, True)
-    ms = cuda_ms(lambda: fsw.sweep_kernel(srays, got[0], got[1], best, tabs.table, TMIN,
-                                          False, True))
-    plain_ms = cuda_ms(lambda: fsw.sweep_plain(srays, got[0], got[1], best, tabs.table,
-                                               TMIN, False, True))
+    errs["visit_sweep"], ms, b = sweep_check(
+        f"K4 spheres, sphereflake primary ({K} chunks), phase 1", srays, got[0], got[1],
+        best, tabs.table, False, True, timed=True)
     k3_ms = cuda_ms(lambda: fs.cull_select_kernel(rays, tabs.boxes, excl, V, K, TMIN))
-    F, C = tabs.table.shape[1], tabs.table.shape[2]
-    rows = int(torch.unique(got[0].clamp(0, K - 1)).numel())
-    nbytes = 4 * (8 * R + 2 * R * V + 8 * R + 8 * R + rows * F * C)
-    b = bound(nbytes, stats["visits"] * C * OPS["visit_sweep_sphere"])
     k3_bytes = 4 * (8 * R + tabs.boxes.numel() + 2 * R + 2 * V * R + R)
     k3_b = bound(k3_bytes, R * K * OPS["cull_select"])
-    log(f"  K4 spheres at sphereflake's primary rays ({R} rays, {stats['visits']} "
-        f"visited (ray, slot) pairs of {R * V}, {rows} distinct rows): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), bound / "
-        f"kernel {b[0] / ms:.3f}; K3 phase 1 there {k3_ms:.4f} ms, bound "
+    log(f"  K3 phase 1 at sphereflake's primary rays: {k3_ms:.4f} ms, bound "
         f"{k3_b[0]:.4f} ms ({k3_b[1]})")
     torch.cuda.synchronize()
-    return errs, (ms, plain_ms), b
+    return errs, ms, b
 
 
 # ----------------------------------------------- phase 2: pid and K5
@@ -995,7 +1045,7 @@ def perray_vs_oracle(scene, cam, dev):
     """The per-ray closest hit (K3 + K4) against the chunk-scan oracle on
     the full colonnade, primary and secondary rays."""
     gen = torch.Generator().manual_seed(3)
-    org, dirs, cap = colonnade_rays(scene, cam, gen, dev)
+    org, dirs, cap = colonnade_rays(scene, cam, gen)
     rays = {"primary": (org, dirs, cap)}
     t, _ = perray.planar_closest_perray(org, dirs, scene.tri_chunks, TMIN, True,
                                         cap, tabs=scene.tri_perray)
@@ -1156,12 +1206,16 @@ def time_settings(label, cam, runs):
 
 def device_time(label, scene, cam, names):
     """The summed device time of each kernel in ``names`` in one more render
-    of ``scene`` under torch.profiler (its launches are not counted)."""
+    of ``scene`` under torch.profiler, its wrapper calls (counted here, not
+    on a main path) and the device kernels each call ran; and the render's
+    memsets (one per K4 call)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    profiling.reset_counts()
     with torch.profiler.profile(activities=acts) as prof:
         integrator.render_image(scene, cam, keys.key(0))
         torch.cuda.synchronize()
+    calls = profiling.launches()
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in prof.key_averages() if e.device_type == cuda]
     total = sum(e.self_device_time_total for e in kern) / 1e3
@@ -1169,10 +1223,16 @@ def device_time(label, scene, cam, names):
     for name in names:
         hits = [e for e in kern if profiling.KERNELS[name] in e.key]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
-        msg.append(f"{name} {sum(e.count for e in hits)} launches {ms:.4f} ms "
-                   f"({ms / total:.4f} of device time)")
+        n = sum(e.count for e in hits)
+        msg.append(f"{name} {calls[name]} calls, {n} kernels ({n / max(calls[name], 1):.2f} "
+                   f"per call: " + ", ".join(
+                       f"{profiling.kernel_name(e.key)} {e.count} "
+                       f"{e.self_device_time_total / 1e3:.4f} ms" for e in hits)
+                   + f") {ms:.4f} ms ({ms / total:.4f} of device time)")
+    memsets = sum(e.count for e in kern if "Memset" in e.key)
     log(f"  {label} under the profiler: device time {total:.4f} ms over "
-        f"{sum(e.count for e in kern)} kernels; " + "; ".join(msg))
+        f"{sum(e.count for e in kern)} kernels and memsets ({memsets} memsets); "
+        + "; ".join(msg))
 
 
 def main() -> int:
@@ -1367,6 +1427,10 @@ def main() -> int:
         f"{sf_wf[3]['visit_sweep']} launches in its wavefront render; kernel "
         f"{sf_k4_times[0]:.4f} ms, plain {sf_k4_times[1]:.4f} ms, bound "
         f"{sf_k4_bound[0]:.4f} ms ({sf_k4_bound[1]})")
+    log("  K4 triangles at the colonnade's later phases: " + "; ".join(
+        f"{k.replace('visit_sweep_', '')}: kernel {v[0]:.4f} ms, plain {v[1]:.4f} ms, "
+        f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
+        for k, v in times.items() if k.startswith("visit_sweep_phase")))
 
     kernels = []
     for name, (kid, source, replaces) in KERNELS.items():

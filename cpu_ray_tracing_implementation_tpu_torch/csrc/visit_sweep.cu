@@ -1,8 +1,9 @@
 // Per-ray visit-list sweep for Hopper (sm_90a): kernel K4.
 //
 // Replaces cpu_ray_tracing_implementation_tpu/ops/pallas_sweep.py:_kernel
-// (pallas_sweep.py:94-239). Plain version: ops/fused_sweep.py sweep_plain;
-// wrapper: ops/fused_sweep.py sweep.
+// (pallas_sweep.py:94-239). Plain version: ops/fused_sweep.py sweep_plain
+// (its decomposition into the stages below: sweep_fold_plain); wrapper:
+// ops/fused_sweep.py sweep.
 //
 // Layouts are the Pallas kernel's: rays [R,8] f32 (org xyz, dir xyz, time,
 // pad), ids [R,V] int32 (clipped to [0, K-1] here), nears [R,V] f32, best
@@ -13,20 +14,58 @@
 //
 // What it computes, per ray and slot s in order: the slot's chunk row is
 // intersected (the planar test of _planar_slot, quads or triangles, or the
-// sphere test of _sphere_slot), each candidate within [tmin, t_best]; the
-// first-index minimum (t_c, idx) replaces the best when t_c < t_best and
-// the slot's entry near < t_best.
+// sphere test of _sphere_slot), each candidate within [tmin, t_run], t_run
+// the running best t; the first-index minimum (t_c, lane) replaces the best
+// when t_c < t_run and the slot's entry near < t_run.
 //
-// Design. One warp per ray. The Pallas kernel DMAs each ray's row into VMEM,
-// double-buffered; here lane l owns primitives 4l..4l+3 of the row, so each
-// of the F component rows is one coalesced 512 B load (a float4 per lane).
-// The test near < t_best is uniform across the warp: a slot that fails it
-// reads and computes nothing (the Pallas kernel read the row and skipped
-// the compute; results are the same). Each lane keeps its own first-index
-// minimum over its 4 primitives with that primitive's attributes; a
-// butterfly of warp shuffles on (t, idx) in lexicographic order gives every
-// lane the row's first-index minimum, and the winning lane's attributes are
-// broadcast from it. The best hit lives in registers across the V slots.
+// Design: work per visited slot, one chunk row per block. The old kernel
+// (a warp per ray walking its V slots) left warps idle on sparse lists
+// (sphereflake: 0.62 visits per ray of 16 slots) and derived every
+// primitive's constants again for every (ray, primitive) pair, though
+// they belong to the chunk (colonnade phase 1: 449,504 visits of 385
+// rows). Four kernels and a memset, all on the caller's stream:
+//   1. count, SLOTS slots a thread: each slot with near < t_in (t_in the
+//      INPUT best t; NaN and inf nears drop out) takes its place in its
+//      chunk's bucket. A block counts in shared memory, one atomic per
+//      warp and chunk (__match_any_sync), then adds its non-zero counts to
+//      the global ones (the atomics' old values are the block's bases).
+//      The last block to finish (a ticket) scans the counts into bucket
+//      offsets and tile offsets (a tile: up to 32 visits of one chunk).
+//   2. scatter: each visited slot's index r*V+s goes to its bucket.
+//   3. tile: a persistent grid, as many blocks as fit on the card at once
+//      (sized without reading the visit count on the host); each block
+//      walks a contiguous range of tiles. Per chunk row its 128 threads
+//      read the F x 128 raw floats once and derive each primitive's
+//      ray-independent constants into shared memory (planar: unit normal
+//      and n.c, ev x w and w x eu with their dot products with the corner;
+//      sphere: c0 with rad^2, c1 - c0). Lane v of each of the four warps
+//      takes the tile's visit v; warp w tests primitives w, w+4, ..., so a
+//      warp reads one primitive's constants at a time (a shared-memory
+//      broadcast). The four partial first-index minima (t, lane), each
+//      candidate within [tmin, t_in], meet in shared memory; the slot's
+//      minimum goes out as 8 bytes. A test stops where its result is
+//      decided: a plane whose t is out of range takes no edge tests, a
+//      sphere missed no root. (A warp-uniform skip, skipping the divide
+//      for planes behind the origin, two visits a lane and other loop
+//      unrollings each measured slower: PERF.md.)
+//   4. fold: a thread per ray folds its slots in order with the sequential
+//      rule (accept when t_s < t_run and near_s < t_run) and re-derives the
+//      winner's columns from (chunk, lane) with the same operations in the
+//      same order, so every column is the sequential sweep's.
+// Scratch (counts, offsets, the visit list, (t, lane) per slot) comes from
+// the wrapper.
+//
+// Exactness. The sequential sweep limits slot s's candidates to [tmin,
+// t_run]; stage 3 limits them to [tmin, t_in], t_run <= t_in. Each
+// primitive's candidate under the smaller limit is its candidate under the
+// larger one when that is <= t_run, else none: planar t and the sphere's
+// roots do not depend on the limit, and a sphere's nearer root t0 > t_run
+// leaves t1 >= t0 > t_run too. So the sequential row minimum is stage 3's
+// minimum m whenever m <= t_run, with the same first-index lane (every
+// primitive tied at m is under both limits); when m > t_run the sequential
+// row has no candidate, and m < t_run fails in the fold: both reject the
+// slot. m == t_run is rejected by both. Ties across slots keep the earlier
+// slot (strict <), as the sequential loop does.
 //
 // Rounding. The colonnade spans +-1,200 units and recentering starts only
 // at 2,000, so the edge coefficients a = q.(ev x w) with q = o + t d - c,
@@ -34,17 +73,27 @@
 // with __fmul_rn / __fadd_rn / __fsub_rn, which nvcc never contracts into a
 // multiply-add, in the plain version's left-to-right order; divisions and
 // sqrtf are IEEE, and 1/|n| is rsqrtf, which torch.rsqrt runs on the card.
-// So kernel and plain version round alike and give the same hit masks.
+// The derived constants are the same operations on the same floats, so
+// kernel and plain version round alike and give the same bits. Tensor
+// cores do not fit: the per-pair dot products would have to round like
+// __fmul_rn/__fadd_rn left to right, and TF32 (or 3xTF32) products and
+// their wide accumulation do not.
 //
-// Bound. Per visited (ray, slot): a 128-primitive row, F*512 B (4.6 KB
-// planar), of which the colonnade's 9.3 MB table fits the 50 MB L2, and
-// ~130 FP32 instructions per planar primitive test (~50 per sphere; an FMA
-// counts once). The instructions bound it: at V = 16 the colonnade's
-// 40,000 primary rays visit 449,504 (ray, slot) pairs, 7.5 G instructions,
-// 0.2233 ms at 33.5e12 FP32 instructions per s (the data sheet's 67
-// TFLOP/s, which count an FMA as two operations); the bytes each input
-// needs once (the rows visited, rays, lists, best) are far less.
-// chip_smoke.py computes the bound from the visits of its run.
+// Bound: operations, counted from this source per (ray, primitive) of a
+// slot the sequential sweep visits (a divide, square root or compare
+// counted once, an integer op not at all). Planar: 14 for n.o, n.d, the
+// numerator, their compares and the running minimum; 3 more (the divide
+// and the range) where the plane lies ahead; 30 more (the two edge
+// coefficients and the interior test) where its t lies in [tmin, t_run].
+// Sphere: 26 up to the discriminant's sign and the running minimum; 9 more
+// for the root (a square root, two sums, two divides, up to four
+// compares) where the discriminant is positive. Per distinct row visited,
+// the constants: planar 57 per primitive, sphere 4. chip_smoke.py counts
+// these from its run (sweep_needs: the sequential sweep replayed) and
+// prints the bound beside the count before this redesign (130 and 50 per
+// pair, whatever the data). The bytes each input needs once (rays, lists,
+// best in and out, the rows visited) are ~11 MB at colonnade phase 1, ~3 us
+// at 3.35 TB/s; 36 MB at sphereflake's 160,000 rays.
 
 #include <cuda_runtime.h>
 
@@ -52,8 +101,15 @@ namespace {
 
 constexpr float BIG = 1e30f;
 constexpr int C = 128;
-constexpr int WARPS = 4;  // rays per block
+constexpr int TILE = 32;            // visits per tile: a warp's lanes
+constexpr int GROUP = 4;            // warps per tile block, each C / GROUP primitives
+constexpr int TILE_THREADS = TILE * GROUP;
+constexpr int RAY_THREADS = 256;    // threads per block of the other stages
+constexpr int SLOTS = 4;            // slots per thread of the count
+constexpr int SMEM_CHUNKS = 8192;   // up to this K a block counts in shared memory
+constexpr int SCAN_PER = 8;         // chunks per thread in a round of the scan
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(TILE_THREADS == C, "a tile block derives one primitive per thread");
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -70,18 +126,28 @@ __device__ __forceinline__ float clip_big(float x) {
   return x != x ? x : fminf(fmaxf(x, -BIG), BIG);
 }
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ int clip_id(int id, int K) { return min(max(id, 0), K - 1); }
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, tm;
 };
 
-// one planar primitive: its candidate t (inf = miss) and attributes
-template <bool TRIANGLE>
-__device__ __forceinline__ float planar_test(const Ray& q, float cx, float cy,
-                                             float cz, float eux, float euy,
-                                             float euz, float evx, float evy,
-                                             float evz, float tmin,
-                                             float t_best, float (&att)[5]) {
+__device__ __forceinline__ Ray load_ray(const float* rays, int r) {
+  const float4 a = reinterpret_cast<const float4*>(rays)[2 * r];
+  const float4 b = reinterpret_cast<const float4*>(rays)[2 * r + 1];
+  return Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z};
+}
+
+// A planar primitive's ray-independent constants: (unit normal, n.c),
+// (ev x w, (ev x w).c), (w x eu, (w x eu).c), w = n / |n|^2.
+struct Planar {
+  float4 n, ew, we;
+};
+
+__device__ __forceinline__ Planar planar_constants(const float (&x)[9]) {
+  const float cx = x[0], cy = x[1], cz = x[2];
+  const float eux = x[3], euy = x[4], euz = x[5];
+  const float evx = x[6], evy = x[7], evz = x[8];
   const float nx = sub(mul(euy, evz), mul(euz, evy));
   const float ny = sub(mul(euz, evx), mul(eux, evz));
   const float nz = sub(mul(eux, evy), mul(euy, evx));
@@ -89,7 +155,6 @@ __device__ __forceinline__ float planar_test(const Ray& q, float cx, float cy,
   const float inv_len = rsqrtf(clamp_min(nn, 1e-30f));
   const float unx = mul(nx, inv_len), uny = mul(ny, inv_len),
               unz = mul(nz, inv_len);
-  const float d_plane = dot3(unx, uny, unz, cx, cy, cz);
   const float inv_nn = 1.0f / clamp_min(nn, 1e-20f);
   const float wx = mul(nx, inv_nn), wy = mul(ny, inv_nn), wz = mul(nz, inv_nn);
   const float ewx = sub(mul(evy, wz), mul(evz, wy));   // ev x w
@@ -98,157 +163,464 @@ __device__ __forceinline__ float planar_test(const Ray& q, float cx, float cy,
   const float wex = sub(mul(wy, euz), mul(wz, euy));   // w x eu
   const float wey = sub(mul(wz, eux), mul(wx, euz));
   const float wez = sub(mul(wx, euy), mul(wy, eux));
+  return Planar{make_float4(unx, uny, unz, dot3(unx, uny, unz, cx, cy, cz)),
+                make_float4(ewx, ewy, ewz, dot3(ewx, ewy, ewz, cx, cy, cz)),
+                make_float4(wex, wey, wez, dot3(wex, wey, wez, cx, cy, cz))};
+}
 
-  const float o_n = dot3(unx, uny, unz, q.ox, q.oy, q.oz);
-  const float d_n = dot3(unx, uny, unz, q.dx, q.dy, q.dz);
-  const bool ok0 = fabsf(d_n) > 1e-20f;
-  const float t = ok0 ? sub(d_plane, o_n) / d_n : BIG;
-  const float a = clip_big(sub(
-      add(dot3(ewx, ewy, ewz, q.ox, q.oy, q.oz),
-          mul(t, dot3(ewx, ewy, ewz, q.dx, q.dy, q.dz))),
-      dot3(ewx, ewy, ewz, cx, cy, cz)));
-  const float b = clip_big(sub(
-      add(dot3(wex, wey, wez, q.ox, q.oy, q.oz),
-          mul(t, dot3(wex, wey, wez, q.dx, q.dy, q.dz))),
-      dot3(wex, wey, wez, cx, cy, cz)));
+// an edge coefficient at t: e.o + t e.d - e.c
+__device__ __forceinline__ float edge(const float4& e, const Ray& q, float t) {
+  return sub(add(dot3(e.x, e.y, e.z, q.ox, q.oy, q.oz),
+                 mul(t, dot3(e.x, e.y, e.z, q.dx, q.dy, q.dz))),
+             e.w);
+}
+
+// one planar primitive's candidate t within [tmin, t_lim] (inf = miss).
+// The edge coefficients are computed only where the plane's t is in range
+// (the result is the same), and enter only compares with 0 and 1, where
+// the plain version's clip to +-1e30 changes nothing, so they are tested
+// unclipped.
+template <bool TRIANGLE>
+__device__ __forceinline__ float planar_t(const Planar& k, const Ray& q,
+                                          float tmin, float t_lim) {
+  const float o_n = dot3(k.n.x, k.n.y, k.n.z, q.ox, q.oy, q.oz);
+  const float d_n = dot3(k.n.x, k.n.y, k.n.z, q.dx, q.dy, q.dz);
+  const float t = sub(k.n.w, o_n) / d_n;  // used only where |n.d| > 1e-20
+  if (!(fabsf(d_n) > 1e-20f && t >= tmin && t <= t_lim)) return inf();
+  const float a = edge(k.ew, q, t);
+  const float b = edge(k.we, q, t);
   const bool interior = TRIANGLE
       ? (a >= 0.f && b >= 0.f && add(a, b) <= 1.f)
       : (a >= 0.f && a <= 1.f && b >= 0.f && b <= 1.f);
-  att[0] = unx; att[1] = uny; att[2] = unz; att[3] = a; att[4] = b;
-  return (ok0 && t >= tmin && t <= t_best && interior) ? t : inf();
+  return interior ? t : inf();
 }
 
-// one moving sphere: its candidate t (inf = miss) and attributes
-__device__ __forceinline__ float sphere_test(const Ray& q, float a_q,
-                                             float c0x, float c0y, float c0z,
-                                             float c1x, float c1y, float c1z,
-                                             float rad, float tmin,
-                                             float t_best, float (&att)[5]) {
-  const float ctx = add(c0x, mul(q.tm, sub(c1x, c0x)));
-  const float cty = add(c0y, mul(q.tm, sub(c1y, c0y)));
-  const float ctz = add(c0z, mul(q.tm, sub(c1z, c0z)));
-  const float ocx = sub(q.ox, ctx), ocy = sub(q.oy, cty), ocz = sub(q.oz, ctz);
+// one moving sphere's candidate t within [tmin, t_lim] (inf = miss), from
+// (c0, rad^2) and (c1 - c0, 0); fa = 4 d.d, two_a = 2 d.d
+__device__ __forceinline__ float sphere_t(const float4& c0, const float4& dc,
+                                          const Ray& q, float fa, float two_a,
+                                          float tmin, float t_lim) {
+  const float ocx = sub(q.ox, add(c0.x, mul(q.tm, dc.x)));
+  const float ocy = sub(q.oy, add(c0.y, mul(q.tm, dc.y)));
+  const float ocz = sub(q.oz, add(c0.z, mul(q.tm, dc.z)));
   const float b_q = mul(2.f, dot3(q.dx, q.dy, q.dz, ocx, ocy, ocz));
-  const float c_q = sub(dot3(ocx, ocy, ocz, ocx, ocy, ocz), mul(rad, rad));
-  const float disc = sub(mul(b_q, b_q), mul(mul(4.f, a_q), c_q));
-  const bool has = disc > 0.f;
-  const float sq = sqrtf(has ? disc : 1.f);
-  const float two_a = mul(2.f, a_q);
+  const float c_q = sub(dot3(ocx, ocy, ocz, ocx, ocy, ocz), c0.w);
+  const float disc = sub(mul(b_q, b_q), mul(fa, c_q));
+  if (!(disc > 0.f)) return inf();
+  const float sq = sqrtf(disc);
   const float t0 = sub(-b_q, sq) / two_a;
   const float t1 = add(-b_q, sq) / two_a;
-  const bool in0 = t0 >= tmin && t0 <= t_best;
-  const bool in1 = t1 >= tmin && t1 <= t_best;
-  att[0] = ctx; att[1] = cty; att[2] = ctz; att[3] = rad; att[4] = 0.f;
-  return has ? (in0 ? t0 : (in1 ? t1 : inf())) : inf();
+  if (t0 >= tmin && t0 <= t_lim) return t0;
+  return (t1 >= tmin && t1 <= t_lim) ? t1 : inf();
 }
 
-template <bool SPHERE, bool TRIANGLE>
-__global__ void __launch_bounds__(WARPS * 32)
-visit_sweep_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
-                   const float* __restrict__ nears,
-                   const float* __restrict__ best,
-                   const float* __restrict__ table, int R, int V, int K,
-                   float tmin, float* __restrict__ out) {
-  constexpr int F = SPHERE ? 7 : 9;
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (r >= R) return;  // uniform across the warp
+// Exclusive block-wide scans of two per-thread values; every thread gets
+// its prefixes and the block's totals.
+template <int THREADS>
+__device__ __forceinline__ void block_scan2(int n, int t, int& ex_n, int& ex_t,
+                                            int& tot_n, int& tot_t) {
+  __shared__ int warp_n[THREADS / 32], warp_t[THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int in = n, it = t;  // inclusive scans within the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int a = __shfl_up_sync(FULL, in, off);
+    const int b = __shfl_up_sync(FULL, it, off);
+    if (lane >= off) {
+      in += a;
+      it += b;
+    }
+  }
+  if (lane == 31) {
+    warp_n[warp] = in;
+    warp_t[warp] = it;
+  }
+  __syncthreads();
+  ex_n = in - n;
+  ex_t = it - t;
+  tot_n = tot_t = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    if (w < warp) {
+      ex_n += warp_n[w];
+      ex_t += warp_t[w];
+    }
+    tot_n += warp_n[w];
+    tot_t += warp_t[w];
+  }
+  __syncthreads();  // the next call may overwrite warp_n
+}
 
-  const float4 ra = reinterpret_cast<const float4*>(rays)[2 * r];
-  const float4 rb = reinterpret_cast<const float4*>(rays)[2 * r + 1];
-  const Ray q{ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z};
-  const float a_q = dot3(q.dx, q.dy, q.dz, q.dx, q.dy, q.dz);
+// Stage 1, SLOTS slots a thread, and the offsets in the last block to
+// finish. A block counts its visits per chunk in shared memory (when K <=
+// SMEM_CHUNKS; above that in the global counts directly), one atomic per
+// warp and chunk; it then adds each of its non-zero counts to the global
+// ones, four atomics in flight per thread, and a visit's place in its
+// chunk's bucket is the block's base there plus its place in the block. It
+// goes to the .y of the slot's 8 bytes.
+__global__ void __launch_bounds__(RAY_THREADS)
+visit_sweep_count(const int* __restrict__ ids, const float* __restrict__ nears,
+                  const float* __restrict__ best, int RV, int V, int K,
+                  int* counts, unsigned* ticket, int* __restrict__ bucket_off,
+                  int* __restrict__ tile_off, int2* __restrict__ slots) {
+  extern __shared__ int local[];  // K block counts, then the block's bases
+  const bool priv = K <= SMEM_CHUNKS;
+  const int lane = threadIdx.x & 31;
+  if (priv) {
+    for (int k = threadIdx.x; k < K; k += RAY_THREADS) local[k] = 0;
+    __syncthreads();
+  }
+  int* cnt = priv ? local : counts;
+  int id[SLOTS], pos[SLOTS];
+  bool vis[SLOTS];
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    const int i = (blockIdx.x * SLOTS + j) * RAY_THREADS + threadIdx.x;
+    vis[j] = i < RV && nears[i] < best[(size_t)(i / V) * 8];
+    id[j] = vis[j] ? clip_id(ids[i], K) : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    const unsigned vm = __ballot_sync(FULL, vis[j]);
+    pos[j] = 0;
+    if (vis[j]) {
+      const unsigned peers = __match_any_sync(vm, id[j]);
+      const int leader = __ffs(peers) - 1;
+      if (lane == leader) pos[j] = atomicAdd(cnt + id[j], __popc(peers));
+      pos[j] = __shfl_sync(peers, pos[j], leader) + __popc(peers & ((1u << lane) - 1u));
+    }
+  }
+  if (priv) {
+    __syncthreads();
+    for (int k0 = threadIdx.x; k0 < K; k0 += 4 * RAY_THREADS) {
+      int c[4], base[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + j * RAY_THREADS;
+        c[j] = k < K ? local[k] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        base[j] = c[j] ? atomicAdd(counts + k0 + j * RAY_THREADS, c[j]) : 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c[j]) local[k0 + j * RAY_THREADS] = base[j];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j)
+    if (vis[j])
+      slots[(blockIdx.x * SLOTS + j) * RAY_THREADS + threadIdx.x].y =
+          pos[j] + (priv ? local[id[j]] : 0);
+
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // exclusive scans of the counts and of the tiles per chunk, SCAN_PER
+  // consecutive chunks a thread, RAY_THREADS * SCAN_PER a round
+  int carry_n = 0, carry_t = 0;
+  for (int first = 0; first < K; first += RAY_THREADS * SCAN_PER) {
+    const int k0 = first + threadIdx.x * SCAN_PER;
+    int c[SCAN_PER], n = 0, t = 0;
+#pragma unroll
+    for (int j = 0; j < SCAN_PER; ++j) c[j] = k0 + j < K ? __ldcg(counts + k0 + j) : 0;
+#pragma unroll
+    for (int j = 0; j < SCAN_PER; ++j) {
+      n += c[j];
+      t += (c[j] + TILE - 1) / TILE;
+    }
+    int on, ot, tot_n, tot_t;
+    block_scan2<RAY_THREADS>(n, t, on, ot, tot_n, tot_t);
+    on += carry_n;
+    ot += carry_t;
+#pragma unroll
+    for (int j = 0; j < SCAN_PER; ++j) {
+      if (k0 + j < K) {
+        bucket_off[k0 + j] = on;
+        tile_off[k0 + j] = ot;
+      }
+      on += c[j];
+      ot += (c[j] + TILE - 1) / TILE;
+    }
+    carry_n += tot_n;
+    carry_t += tot_t;
+  }
+  if (threadIdx.x == 0) {
+    bucket_off[K] = carry_n;
+    tile_off[K] = carry_t;
+  }
+}
+
+// Stage 2, a thread per slot: each visited slot's index into its chunk's
+// bucket.
+__global__ void __launch_bounds__(RAY_THREADS)
+visit_sweep_scatter(const int* __restrict__ ids, const float* __restrict__ nears,
+                    const float* __restrict__ best, int RV, int V, int K,
+                    const int* __restrict__ bucket_off,
+                    const int2* __restrict__ slots, int* __restrict__ visits) {
+  const int i = blockIdx.x * RAY_THREADS + threadIdx.x;
+  if (i < RV && nears[i] < best[(size_t)(i / V) * 8])
+    visits[bucket_off[clip_id(ids[i], K)] + slots[i].y] = i;
+}
+
+// Stage 3: each visit's row minimum (t, lane) against the input best t. A
+// tile is TILE visits of one chunk; lane v of every warp takes visit v,
+// and warp w of the block primitives w, w + GROUP, ... (so a warp's
+// threads read one primitive's constants at a time: a shared-memory
+// broadcast); the GROUP partial minima meet in shared memory and the first
+// warp takes their first-index minimum in order.
+template <bool SPHERE, bool TRIANGLE>
+__global__ void __launch_bounds__(TILE_THREADS)
+visit_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best,
+                 const float* __restrict__ table, int V, int K, float tmin,
+                 const int* __restrict__ bucket_off,
+                 const int* __restrict__ tile_off,
+                 const int* __restrict__ visits, int2* __restrict__ slots) {
+  constexpr int F = SPHERE ? 7 : 9;
+  constexpr int Q = SPHERE ? 2 : 3;  // float4 constants per primitive
+  __shared__ float4 cst[C * Q];
+  __shared__ float part_t[GROUP][TILE];
+  __shared__ int part_j[GROUP][TILE];
+  const int v = threadIdx.x & 31;
+  const int g = threadIdx.x >> 5;
+  const int total = tile_off[K];
+  const int begin = (int)((long long)total * blockIdx.x / gridDim.x);
+  const int end = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
+  if (begin >= end) return;  // uniform across the block
+  // the chunk of the first tile: the last k with tile_off[k] <= begin
+  int lo = 0, hi = K - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tile_off[mid] <= begin) lo = mid; else hi = mid - 1;
+  }
+  int k = lo;
+  int row_k = -1;
+  for (int tile = begin; tile < end; ++tile) {
+    while (tile_off[k + 1] <= tile) ++k;  // chunks without visits hold no tile
+    if (k != row_k) {  // uniform: derive the row's constants once
+      __syncthreads();  // every thread is done with the last row's
+      const float* src = table + (size_t)k * F * C + threadIdx.x;
+      float x[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) x[f] = src[f * C];
+      if constexpr (SPHERE) {
+        cst[threadIdx.x * Q] = make_float4(x[0], x[1], x[2], mul(x[6], x[6]));
+        cst[threadIdx.x * Q + 1] =
+            make_float4(sub(x[3], x[0]), sub(x[4], x[1]), sub(x[5], x[2]), 0.f);
+      } else {
+        const Planar p = planar_constants(x);
+        cst[threadIdx.x * Q] = p.n;
+        cst[threadIdx.x * Q + 1] = p.ew;
+        cst[threadIdx.x * Q + 2] = p.we;
+      }
+      __syncthreads();
+      row_k = k;
+    }
+    const int p = bucket_off[k] + (tile - tile_off[k]) * TILE + v;
+    const bool has = p < bucket_off[k + 1];  // the bucket's last tile is partial
+    float bt = inf();
+    int bj = g;
+    int i = 0;
+    if (has) {
+      i = visits[p];
+      const int r = i / V;
+      const Ray q = load_ray(rays, r);
+      const float t_in = best[(size_t)r * 8];
+      if constexpr (SPHERE) {
+        const float a_q = dot3(q.dx, q.dy, q.dz, q.dx, q.dy, q.dz);
+        const float fa = mul(4.f, a_q), two_a = mul(2.f, a_q);
+#pragma unroll 4
+        for (int j = g; j < C; j += GROUP) {
+          const float t = sphere_t(cst[j * Q], cst[j * Q + 1], q, fa, two_a, tmin, t_in);
+          if (t < bt) {
+            bt = t;
+            bj = j;
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int j = g; j < C; j += GROUP) {
+          const Planar pc{cst[j * Q], cst[j * Q + 1], cst[j * Q + 2]};
+          const float t = planar_t<TRIANGLE>(pc, q, tmin, t_in);
+          if (t < bt) {
+            bt = t;
+            bj = j;
+          }
+        }
+      }
+    }
+    part_t[g][v] = bt;
+    part_j[g][v] = bj;
+    __syncthreads();
+    if (g == 0 && has) {  // first-index minimum: lexicographic (t, lane)
+#pragma unroll
+      for (int w = 1; w < GROUP; ++w) {
+        const float ot = part_t[w][v];
+        const int oj = part_j[w][v];
+        if (ot < bt || (ot == bt && oj < bj)) {
+          bt = ot;
+          bj = oj;
+        }
+      }
+      slots[i] = make_int2(__float_as_int(bt), bj);
+    }
+    __syncthreads();  // part_t is read before the next tile writes it
+  }
+}
+
+// Stage 4: the in-order fold per ray and the winner's columns. The nears of
+// a ray come as float4s where V is a multiple of 4 and they are aligned.
+template <bool SPHERE>
+__global__ void __launch_bounds__(RAY_THREADS)
+visit_sweep_fold(const float* __restrict__ rays, const int* __restrict__ ids,
+                 const float* __restrict__ nears, const float* __restrict__ best,
+                 const float* __restrict__ table, int R, int V, int K,
+                 const int2* __restrict__ slots, float* __restrict__ out) {
+  constexpr int F = SPHERE ? 7 : 9;
+  const int r = blockIdx.x * RAY_THREADS + threadIdx.x;
+  if (r >= R) return;
   const float4 ba = reinterpret_cast<const float4*>(best)[2 * r];
   const float4 bb = reinterpret_cast<const float4*>(best)[2 * r + 1];
   float b[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
-
-  for (int s = 0; s < V; ++s) {
-    if (!(nears[(size_t)r * V + s] < b[0])) continue;  // cannot improve
-    const int id = min(max(ids[(size_t)r * V + s], 0), K - 1);
-    const float4* row = reinterpret_cast<const float4*>(table + (size_t)id * F * C);
-    float4 comp[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) comp[f] = row[f * (C / 4) + lane];
-
-    float lt = inf();
-    int lidx = 4 * lane;
-    float latt[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float x[F];
-#pragma unroll
-      for (int f = 0; f < F; ++f)
-        x[f] = j == 0 ? comp[f].x : j == 1 ? comp[f].y : j == 2 ? comp[f].z : comp[f].w;
-      float att[5];
-      float t;
-      if constexpr (SPHERE)
-        t = sphere_test(q, a_q, x[0], x[1], x[2], x[3], x[4], x[5], x[6], tmin,
-                        b[0], att);
-      else
-        t = planar_test<TRIANGLE>(q, x[0], x[1], x[2], x[3], x[4], x[5], x[6],
-                                  x[7], x[8], tmin, b[0], att);
-      if (t < lt) {
-        lt = t;
-        lidx = 4 * lane + j;
-#pragma unroll
-        for (int i = 0; i < 5; ++i) latt[i] = att[i];
-      }
+  int ws = -1, wl = 0;
+  const size_t row = (size_t)r * V;
+  auto fold = [&](int s, float near) {
+    if (!(near < b[0])) return;  // near < t_run <= t_in: visited
+    const int2 sl = slots[row + s];
+    if (__int_as_float(sl.x) < b[0]) {
+      b[0] = __int_as_float(sl.x);
+      ws = s;
+      wl = sl.y;
     }
-    // first-index minimum over the warp: lexicographic (t, idx)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ot = __shfl_xor_sync(FULL, lt, off);
-      const int oi = __shfl_xor_sync(FULL, lidx, off);
-      if (ot < lt || (ot == lt && oi < lidx)) {
-        lt = ot;
-        lidx = oi;
-      }
+  };
+  if ((V & 3) == 0 && (reinterpret_cast<size_t>(nears) & 15) == 0) {
+    const float4* n4 = reinterpret_cast<const float4*>(nears + row);
+    for (int s = 0; s < V; s += 4) {
+      const float4 n = n4[s >> 2];
+      fold(s, n.x);
+      fold(s + 1, n.y);
+      fold(s + 2, n.z);
+      fold(s + 3, n.w);
     }
-    const int src = lidx >> 2;
-    float watt[5];
-#pragma unroll
-    for (int i = 0; i < 5; ++i) watt[i] = __shfl_sync(FULL, latt[i], src);
-    if (lt < b[0]) {
-      b[0] = lt;
-      b[1] = watt[0];
-      b[2] = watt[1];
-      b[3] = watt[2];
-      if constexpr (SPHERE) {
-        b[4] = fmaxf(watt[3], 1e-20f);
-      } else {
-        b[4] = watt[3];
-        b[5] = watt[4];
-      }
-      b[7] = add(mul(static_cast<float>(id), static_cast<float>(C)),
-                 static_cast<float>(lidx));
-    }
+  } else {
+    for (int s = 0; s < V; ++s) fold(s, nears[row + s]);
   }
-  if (lane == 0) {
-    reinterpret_cast<float4*>(out)[2 * r] = make_float4(b[0], b[1], b[2], b[3]);
-    reinterpret_cast<float4*>(out)[2 * r + 1] = make_float4(b[4], b[5], b[6], b[7]);
+  if (ws >= 0) {
+    const int id = clip_id(ids[row + ws], K);
+    const float* src = table + (size_t)id * F * C + wl;
+    float x[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) x[f] = src[f * C];
+    const Ray q = load_ray(rays, r);
+    if constexpr (SPHERE) {
+      b[1] = add(x[0], mul(q.tm, sub(x[3], x[0])));
+      b[2] = add(x[1], mul(q.tm, sub(x[4], x[1])));
+      b[3] = add(x[2], mul(q.tm, sub(x[5], x[2])));
+      b[4] = fmaxf(x[6], 1e-20f);
+    } else {
+      const Planar p = planar_constants(x);
+      b[1] = p.n.x;
+      b[2] = p.n.y;
+      b[3] = p.n.z;
+      b[4] = clip_big(edge(p.ew, q, b[0]));
+      b[5] = clip_big(edge(p.we, q, b[0]));
+    }
+    b[7] = add(mul(static_cast<float>(id), static_cast<float>(C)),
+               static_cast<float>(wl));
   }
+  reinterpret_cast<float4*>(out)[2 * r] = make_float4(b[0], b[1], b[2], b[3]);
+  reinterpret_cast<float4*>(out)[2 * r + 1] = make_float4(b[4], b[5], b[6], b[7]);
+}
+
+// blocks of the persistent tile grid: as many as fit on the card at once
+template <bool SPHERE, bool TRIANGLE>
+int tile_grid(int dev) {
+  static int cached[64] = {};
+  if (dev >= 0 && dev < 64 && cached[dev]) return cached[dev];
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, visit_sweep_tile<SPHERE, TRIANGLE>, TILE_THREADS, 0);
+  const int grid = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (dev >= 0 && dev < 64) cached[dev] = grid;
+  return grid;
+}
+
+template <bool SPHERE, bool TRIANGLE>
+cudaError_t launch_tile(const float* rays, const float* best, const float* table,
+                        int V, int K, float tmin, const int* bucket_off,
+                        const int* tile_off, const int* visits, int2* slots,
+                        cudaStream_t st) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int grid = tile_grid<SPHERE, TRIANGLE>(dev);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  visit_sweep_tile<SPHERE, TRIANGLE><<<grid, TILE_THREADS, 0, st>>>(
+      rays, best, table, V, K, tmin, bucket_off, tile_off, visits, slots);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. Returns cudaGetLastError() after the launch
-// (0 = success); nothing synchronises.
+// Plain C interface for ctypes. scratch holds 3*R*V + 3*K + 3 int32 (the
+// wrapper's fused_sweep.scratch_ints): (t, lane) per slot as 2*R*V ints,
+// the visit list (R*V), the counts (K) and the last-block ticket (1), the
+// bucket offsets (K+1) and the tile offsets (K+1). Returns the first CUDA
+// error of the memset and the four launches (0 = success); nothing
+// synchronises.
 extern "C" int crt_visit_sweep(const float* rays, const int* ids,
                                const float* nears, const float* best,
                                const float* table, int R, int V, int K,
                                float tmin, int triangle, int sphere,
-                               float* out, void* stream) {
+                               int* scratch, float* out, void* stream) {
   if (R <= 0) return 0;
-  const dim3 grid((R + WARPS - 1) / WARPS), block(WARPS * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t RV = (size_t)R * V;
+  int2* slots = reinterpret_cast<int2*>(scratch);
+  int* visits = scratch + 2 * RV;
+  int* counts = visits + RV;
+  unsigned* ticket = reinterpret_cast<unsigned*>(counts + K);
+  int* bucket_off = counts + K + 1;
+  int* tile_off = bucket_off + K + 1;
+  cudaError_t err = cudaMemsetAsync(counts, 0, (K + 1) * sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ray_blocks = (R + RAY_THREADS - 1) / RAY_THREADS;
+  const int slot_blocks = (int)((RV + RAY_THREADS - 1) / RAY_THREADS);
+  const int count_blocks = (int)((RV + SLOTS * RAY_THREADS - 1) / (SLOTS * RAY_THREADS));
+  const size_t local = K <= SMEM_CHUNKS ? K * sizeof(int) : 0;
+  if (RV > 0) {
+    visit_sweep_count<<<count_blocks, RAY_THREADS, local, st>>>(
+        ids, nears, best, (int)RV, V, K, counts, ticket, bucket_off, tile_off, slots);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    visit_sweep_scatter<<<slot_blocks, RAY_THREADS, 0, st>>>(
+        ids, nears, best, (int)RV, V, K, bucket_off, slots, visits);
+    err = cudaGetLastError();
+  } else {  // no slots: no tile
+    err = cudaMemsetAsync(bucket_off, 0, 2 * (K + 1) * sizeof(int), st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (sphere)
-    visit_sweep_kernel<true, false><<<grid, block, 0, st>>>(
-        rays, ids, nears, best, table, R, V, K, tmin, out);
+    err = launch_tile<true, false>(rays, best, table, V, K, tmin, bucket_off,
+                                   tile_off, visits, slots, st);
   else if (triangle)
-    visit_sweep_kernel<false, true><<<grid, block, 0, st>>>(
-        rays, ids, nears, best, table, R, V, K, tmin, out);
+    err = launch_tile<false, true>(rays, best, table, V, K, tmin, bucket_off,
+                                   tile_off, visits, slots, st);
   else
-    visit_sweep_kernel<false, false><<<grid, block, 0, st>>>(
-        rays, ids, nears, best, table, R, V, K, tmin, out);
+    err = launch_tile<false, false>(rays, best, table, V, K, tmin, bucket_off,
+                                    tile_off, visits, slots, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sphere)
+    visit_sweep_fold<true><<<ray_blocks, RAY_THREADS, 0, st>>>(
+        rays, ids, nears, best, table, R, V, K, slots, out);
+  else
+    visit_sweep_fold<false><<<ray_blocks, RAY_THREADS, 0, st>>>(
+        rays, ids, nears, best, table, R, V, K, slots, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,12 @@ Port of ``cpu_ray_tracing_implementation_tpu/ops/pallas_sweep.py``. For
 each ray and each of its V visit slots, the chunk row that the slot names
 is read from the [K, F, C] sweep table and its C primitives are
 intersected; the first-index minimum replaces the running best hit when
-``t_c < t_best`` and the slot's entry t is below ``t_best`` too
-(``csrc/visit_sweep.cu``). The best hit travels as one [R, 8] f32 matrix:
+``t_c < t_best`` and the slot's entry t is below ``t_best`` too. The
+kernel (``csrc/visit_sweep.cu``) works per visited slot: each slot's
+minimum against the input best, one chunk row per block, then the slots
+folded in order per ray; ``sweep_fold_plain`` is that decomposition in
+plain PyTorch, bit for bit ``sweep_plain``'s result. The best hit travels
+as one [R, 8] f32 matrix:
 
 - planar (F = 9 rows: corner, eu, ev): t, unit normal xyz, u, v, mat, pid;
 - sphere (F = 7 rows: c0, c1, rad): t, center xyz at ray time, rad, 0,
@@ -204,7 +208,78 @@ def sweep_plain(rays, ids, nears, best, table, tmin: float, triangle: bool,
     return best
 
 
+def _slot_ts(org, dirs, time, row, tmin, t_lim, triangle, sphere):
+    if sphere:
+        return _sphere_slot(org, dirs, time, row, tmin, t_lim)
+    return _planar_slot(org, dirs, row, tmin, t_lim, triangle)
+
+
+def _first_min(ts):
+    """Row minimum of [n, C] candidate t and its first lane."""
+    C = ts.shape[1]
+    lane = torch.arange(C, device=ts.device)[None, :]
+    t_c = torch.amin(ts, dim=1)
+    idx = torch.amin(torch.where(ts == t_c[:, None], lane, torch.full_like(lane, C)),
+                     dim=1)
+    return t_c, idx
+
+
+def sweep_fold_plain(rays, ids, nears, best, table, tmin: float, triangle: bool,
+                     sphere: bool) -> torch.Tensor:
+    """``sweep_plain``'s result by the kernel's decomposition (for the
+    tests): every slot whose near is below the INPUT best t gets its row's
+    first-index minimum (t, lane) with candidates limited to that input t;
+    then each ray folds its slots in order (accept when t_s < t_run and
+    near_s < t_run) and the winner's columns are derived again from its
+    (chunk, lane). Equal to ``sweep_plain`` bit for bit: see the exactness
+    note in ``csrc/visit_sweep.cu``."""
+    K, _, C = table.shape
+    R, V = ids.shape
+    org, dirs, time = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
+    ids = torch.clamp(ids, 0, K - 1)
+    t_in = best[:, 0]
+    t_s = torch.full((R, V), INF, dtype=torch.float32, device=rays.device)
+    lane_s = torch.zeros((R, V), dtype=torch.int64, device=rays.device)
+    for s in range(V):
+        vis = nears[:, s] < t_in
+        ts, _ = _slot_ts(org[vis], dirs[vis], time[vis], table[ids[vis, s]], tmin,
+                         t_in[vis], triangle, sphere)
+        t_s[vis, s], lane_s[vis, s] = _first_min(ts)
+    t_run = t_in.clone()
+    win = torch.full((R,), -1, dtype=torch.int64, device=rays.device)
+    for s in range(V):
+        better = (nears[:, s] < t_run) & (t_s[:, s] < t_run)
+        t_run = torch.where(better, t_s[:, s], t_run)
+        win = torch.where(better, s, win)
+    out = best.clone()
+    r = torch.nonzero(win >= 0)[:, 0]
+    cid = ids[r, win[r]]
+    lane = lane_s[r, win[r]]
+    _, planes = _slot_ts(org[r], dirs[r], time[r], table[cid], tmin, t_run[r],
+                         triangle, sphere)
+
+    def sel(plane):
+        return plane.gather(1, lane[:, None])[:, 0]
+
+    if sphere:
+        ctx, cty, ctz, rad = planes
+        cols = [sel(ctx), sel(cty), sel(ctz), torch.clamp(sel(rad), min=1e-20),
+                best[r, 5]]
+    else:
+        cols = [sel(p) for p in planes]
+    pid = cid.to(torch.float32) * C + lane.to(torch.float32)
+    out[r] = torch.stack([t_run[r]] + cols + [best[r, 6], pid], dim=1)
+    return out
+
+
 # ---------------------------------------------------------- kernel call
+def scratch_ints(R: int, V: int, K: int) -> int:
+    """int32 scratch of one kernel call (``csrc/visit_sweep.cu``'s
+    layout): (t, lane) per slot, the visit list, the per-chunk counts and
+    a ticket, the bucket and tile offsets."""
+    return 3 * R * V + 3 * K + 3
+
+
 def sweep_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
                  sphere: bool) -> torch.Tensor:
     """Kernel K4 on CUDA tensors -> the updated [R, 8] best."""
@@ -221,10 +296,14 @@ def sweep_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
     if F != (SPHERE_ROWS if sphere else PLANAR_ROWS) or C != 128:
         raise ValueError(f"K4 takes [K, {SPHERE_ROWS if sphere else PLANAR_ROWS}, "
                          f"128] tables, got {tuple(table.shape)}")
+    if R * V >= 2**31:
+        raise ValueError(f"K4 indexes slots with int32: R*V = {R * V} is too many")
     devs = {x.device for x in (rays, ids, nears, best, table)}
     if len(devs) != 1:
         raise ValueError("the sweep's inputs lie on different devices")
     out = torch.empty((R, 8), dtype=torch.float32, device=rays.device)
+    scratch = torch.empty((scratch_ints(R, V, K),), dtype=torch.int32,
+                          device=rays.device)
     lib = build.load()
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
@@ -232,7 +311,7 @@ def sweep_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
                                   nears.data_ptr(), best.data_ptr(),
                                   table.data_ptr(), R, V, K, float(tmin),
                                   int(bool(triangle)), int(bool(sphere)),
-                                  out.data_ptr(), stream)
+                                  scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"crt_visit_sweep launch failed: "
                            f"{build.error_string(err)}")

@@ -15,7 +15,9 @@ path-regeneration wavefront at its automatic lane pool, and also print
 the loop iterations per render, the kernels per iteration and the host
 synchronisations per iteration (the loop's condition and each per-ray
 selection phase's live count).
-Each runs ``spp`` samples after a 2-sample warm-up: three times on the host
+``sweep_stages`` times kernel K4 alone on ``utils/kernel_ab.py``'s sweep
+inputs: CUDA events per call and torch.profiler's device time per stage
+kernel. Each other workload runs ``spp`` samples after a 2-sample warm-up: three times on the host
 clock, then under ``torch.profiler`` with a range around each stage of a bounce
 (on the colonnade also around the per-ray accelerator's select and sweep
 calls; on the gradient, around the forward pass, the backward pass's
@@ -25,8 +27,9 @@ apart). The stage functions are wrapped for the
 profiled run only, so the main path carries no instrumentation. It prints
 the wall seconds of both runs, the device time summed over kernels,
 kernels per bounce, the device busy share, the top kernels by device time,
-each stage's host and device time, the launches and device time of
-kernels K1-K4, and the per-ray selection phases per bounce. Last it times
+each stage's host and device time, the wrapper calls, device kernels
+and device time of kernels K1-K4 (K4 runs four kernels a call), and the
+per-ray selection phases per bounce. Last it times
 three more unprofiled runs: what the profiler leaves behind on later
 launches of these host-bound paths.
 
@@ -99,7 +102,7 @@ PASSES = ("forward pass", "backward pass")
 KERNELS = {"planar_closest": "planar_closest_kernel",
            "sphere_closest": "sphere_closest_kernel",
            "cull_select": "cull_select_kernel",
-           "visit_sweep": "visit_sweep_kernel"}
+           "visit_sweep": "visit_sweep_"}   # its four stage kernels
 
 
 @contextlib.contextmanager
@@ -165,6 +168,64 @@ def camera_rays(name, gen, dev, n=512 * 512):
     return scene, org.contiguous(), dirs, time
 
 
+def scene_rays(scene, cam, gen):
+    """(org, dirs, time, cap): one primary camera ray per pixel of ``cam``
+    and its traversal cap."""
+    n = cam.width * cam.height
+    ids = torch.arange(n, dtype=torch.int32, device=scene.device)
+    u = torch.rand(n, cam_mod.N_CAM_SLOTS, generator=gen).to(scene.device)
+    org, dirs, time = cam_mod.generate_rays(cam, ids, u)
+    org = org.contiguous()
+    return org, dirs, time, isect._packet_cap(scene, org, dirs, None, float("inf"), 1e-3)
+
+
+def sweep_phases(org, dirs, time, cap, tabs, K, tmin, triangle, sphere):
+    """(rays, [(ids, nears, best), ...]): the [R, 8] rays K4 takes and the
+    lists and input best of each of its calls in the per-ray phase loop
+    (``perray._phase_loop`` itself, its sweep recorded), phase 1 first."""
+    rays = fsw.pack_rays(org, dirs, time if sphere else None)
+    z = torch.zeros_like(cap)
+    best = (fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1, z.int(), z.int())
+            if sphere else
+            fsw.pack_best_planar(cap, torch.zeros_like(org), z, z, z.int(), z.int()))
+    calls = []
+
+    def sweep(ids, nears, b):
+        calls.append((ids, nears, b))
+        return fsw.sweep(rays, ids, nears, b, tabs.table, tmin, triangle, sphere)
+
+    perray._phase_loop(org, dirs, cap, tabs, K, tmin, min(perray.VISIT_BLOCK, K),
+                       sweep, best)
+    return rays, calls
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name, without its namespace and arguments."""
+    return key.split("(anonymous namespace)::")[-1].split("(")[0]
+
+
+def sweep_stages() -> int:
+    """K4 on each of kernel_ab's sweep inputs: the time of a call (CUDA
+    events) and each stage kernel's and the memset's device time (10 calls
+    under torch.profiler)."""
+    from cpu_ray_tracing_implementation_tpu_torch.utils import kernel_ab
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for label, args in kernel_ab.sweep_inputs(torch.device("cuda", 0)).items():
+        def call():
+            return fsw.sweep_kernel(*args[:5], kernel_ab.TMIN, *args[5:])
+
+        ms = cuda_ms(call)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        print(f"{label}: {1e3 * ms:.2f} us a call; " + ", ".join(
+            f"{kernel_name(e.key)} {e.self_device_time_total / e.count:.2f} us"
+            for e in prof.key_averages() if e.self_device_time_total > 0), flush=True)
+    return 0
+
+
 def secondary(org, dirs, t, gen):
     """Rays leaving the hits at ``t`` (the origin on a miss) in random
     directions."""
@@ -175,7 +236,7 @@ def secondary(org, dirs, t, gen):
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     name = argv[0] if argv else "cornell"
-    if name not in WORKLOADS:
+    if name not in WORKLOADS and name != "sweep_stages":
         print(f"profiling: unknown workload {name!r}; one of {sorted(WORKLOADS)}",
               file=sys.stderr)
         return 2
@@ -186,6 +247,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip())
     build.load()
+    if name == "sweep_stages":
+        return sweep_stages()
     dev = torch.device("cuda", 0)
     make, kwargs, spp, grad, wavefront = WORKLOADS[name]
     scene, cam = make(spp=spp, device=dev, **kwargs)
@@ -244,9 +307,10 @@ def main(argv=None) -> int:
         hits = [k for k in kern if symbol in k[0]]
         n = sum(k[1] for k in hits)
         us = sum(k[2] for k in hits)
-        print(f"{kname}: {counts[kname]} launches, device {us / 1e3:.4f} ms"
-              + (f", {us / n:.2f} us each, {us / 1e6 / dev_s:.4f} of device time"
-                 if n else ""))
+        calls = counts[kname]
+        print(f"{kname}: {calls} calls, {n} device kernels, device {us / 1e3:.4f} ms"
+              + (f", {us / max(calls, 1):.2f} us a call, {us / 1e6 / dev_s:.4f} of "
+                 "device time" if n else ""))
     if perray.PHASES["calls"]:
         print(f"per-ray closest-hit calls {perray.PHASES['calls']}, selection "
               f"phases {perray.PHASES['phases']}, "

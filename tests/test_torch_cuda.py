@@ -9,8 +9,7 @@ The file imports no JAX, so it also runs on a machine without it:
 Tolerances are chip_smoke.py's. K1, K2: equal hit masks and materials, t
 within rtol 1e-4 / atol 1e-4, every other payload field (normal, u, v;
 center, rad) within atol 1e-3. K3: ids, nears and rest bit-equal. K4:
-equal hit masks, pid and mat, t within rtol 1e-4, every other column
-within atol 1e-3. K1 / K2 pid output: equal to the plain versions' pid.
+all 8 columns bit for bit (the kernel rounds as its plain version does). K1 / K2 pid output: equal to the plain versions' pid.
 K5: max |a - b| / (|b| + 1) <= 1e-5. Gradients (the JAX package's
 replay-against-remat tolerances): loss rtol 1e-4, scene rtol 2e-3 / atol
 1e-5, camera rtol 5e-3 / atol 1e-4.
@@ -19,6 +18,7 @@ replay-against-remat tolerances): loss rtol 1e-4, scene rtol 2e-3 / atol
 import numpy as np
 import pytest
 import torch
+import torch_sweep_cases as cases
 
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, integrator
 from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
@@ -330,6 +330,75 @@ def test_sweep_kernel_matches_plain(dev, kind):
     assert torch.equal(got[:, 6:8], ref[:, 6:8])
     torch.testing.assert_close(got[hit, 0], ref[hit, 0], rtol=1e-4, atol=0)
     torch.testing.assert_close(got[hit, 1:6], ref[hit, 1:6], rtol=0, atol=1e-3)
+    assert torch.equal(cases.bits(got), cases.bits(ref))
+
+
+@pytest.mark.parametrize("case", cases.CASES)
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_sweep_kernel_adversarial_lists(dev, kind, case):
+    """K4 against ``sweep_plain``, all 8 columns bit for bit, on the lists
+    of tests/torch_sweep_cases.py: ties within a row and across slots,
+    nears between the running and the input best, every slot exhausted
+    (the kernel launches and returns best unchanged), duplicate and
+    out-of-range ids, R = 1, K = 1."""
+    rays, ids, nears, best, table, tri, sph = cases.make_case(kind, case, dev)
+    fsw.reset_launches()
+    got = fsw.sweep(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    assert fsw.LAUNCHES == {"visit_sweep": 1}
+    ref = fsw.sweep_plain(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    torch.cuda.synchronize()
+    cases.check_case(case, got, ref, best, nears)
+
+
+@pytest.mark.parametrize("R", [0, 1, 127, 129, 255, 257, 1000])
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_sweep_kernel_ragged_ray_counts(dev, kind, R):
+    """R = 0 and R off every block size (256 rays, 128-visit tiles)."""
+    rays, ids, nears, best, table, tri, sph = cases.make_case(kind, "clip", dev,
+                                                              R=max(R, 1), V=16)
+    rays, ids, nears, best = rays[:R], ids[:R], nears[:R], best[:R]
+    got = fsw.sweep_kernel(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    ref = fsw.sweep_plain(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    torch.cuda.synchronize()
+    assert got.shape == (R, 8)
+    assert torch.equal(cases.bits(got), cases.bits(ref))
+
+
+def test_sweep_kernel_empty_lists(dev):
+    """V = 0 slots: no visit, best unchanged."""
+    rays, ids, nears, best, table, tri, sph = cases.make_case("tri", "ties", dev)
+    got = fsw.sweep_kernel(rays, ids[:, :0].contiguous(), nears[:, :0].contiguous(),
+                           best, table, cases.TMIN, tri, sph)
+    torch.cuda.synchronize()
+    assert torch.equal(cases.bits(got), cases.bits(best))
+
+
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_sweep_kernel_many_chunks(dev, kind):
+    """K = 9,000 chunks, above the 8,192 a block counts in shared memory:
+    the counts go to global memory directly."""
+    rays, ids, nears, best, table, tri, sph = cases.make_case(kind, "clip", dev,
+                                                              R=2000, V=16, K=9000)
+    got = fsw.sweep_kernel(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    ref = fsw.sweep_plain(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    torch.cuda.synchronize()
+    assert torch.equal(cases.bits(got), cases.bits(ref))
+    assert bool((ref[:, 0] < best[:, 0]).any())
+
+
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_sweep_kernel_one_visit_in_10000_rays(dev, kind):
+    """Every slot of 10,000 rays exhausted but one: one tile, one winner."""
+    rays, ids, nears, best, table, tri, sph = cases.make_case(kind, "ties", dev,
+                                                              R=10_000, V=16)
+    nears = torch.full_like(nears, float("nan"))
+    nears[7_777, 3] = 0.0
+    got = fsw.sweep_kernel(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    ref = fsw.sweep_plain(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    torch.cuda.synchronize()
+    assert torch.equal(cases.bits(got), cases.bits(ref))
+    changed = (cases.bits(got) != cases.bits(best)).any(1)
+    assert torch.nonzero(changed)[:, 0].tolist() in ([], [7_777])
 
 
 @pytest.mark.parametrize("kind", ["tri", "sphere"])
@@ -580,3 +649,4 @@ def test_sweep_kernel_on_sphereflake_matches_plain(dev):
     assert torch.equal(k4[:, 6:8], k4_ref[:, 6:8])
     torch.testing.assert_close(k4[hit, 0], k4_ref[hit, 0], rtol=1e-4, atol=0)
     torch.testing.assert_close(k4[hit, 1:6], k4_ref[hit, 1:6], rtol=0, atol=1e-3)
+    assert torch.equal(cases.bits(k4), cases.bits(k4_ref))

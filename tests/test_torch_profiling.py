@@ -47,11 +47,18 @@ def test_colonnade_ranges_the_per_ray_accelerator():
     assert set(profiling.launches().values()) == {0}
 
 
+def test_kernel_name_strips_namespace_and_arguments():
+    key = ("void (anonymous namespace)::visit_sweep_tile<false, true>(float const*, "
+           "int2*)")
+    assert profiling.kernel_name(key) == "visit_sweep_tile<false, true>"
+
+
 def test_main_needs_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal without a GPU")
     assert profiling.main([]) == 2
     assert profiling.main(["colonnade"]) == 2
+    assert profiling.main(["sweep_stages"]) == 2
     assert profiling.main(["nope"]) == 2
 
 
@@ -94,3 +101,29 @@ def test_wavefront_workloads_count_iterations(name):
     assert counts["raygen"] == its + 1
     if not torch.cuda.is_available():
         assert profiling.main([name]) == 2
+
+
+def test_sweep_phases_records_the_phase_loop():
+    """``sweep_phases`` (the K4 inputs kernel_ab and chip_smoke.py time):
+    one recorded call per selection phase of the per-ray loop, phase 1 from
+    the caps, each later phase from the best its predecessor returned, and
+    the last sweep's result the loop's closest hit."""
+    from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
+
+    scene, cam = catalog.sponza(width=8, spp=1, max_depth=2, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    org, dirs, time, cap = profiling.scene_rays(scene, cam, gen)
+    tabs, K = scene.tri_perray, scene.tri_chunks.corner.shape[0]
+    perray.reset_phases()
+    rays, calls = profiling.sweep_phases(org, dirs, time, cap, tabs, K, 1e-3, True, False)
+    assert len(calls) == perray.PHASES["phases"] >= 1
+    assert torch.equal(calls[0][2][:, 0], cap)
+    for (ids, nears, best), (_, _, after) in zip(calls, calls[1:]):
+        assert torch.equal(after, fsw.sweep(rays, ids, nears, best, tabs.table, 1e-3,
+                                            True, False))
+    ids, nears, best = calls[-1]
+    last = fsw.sweep(rays, ids, nears, best, tabs.table, 1e-3, True, False)
+    t, _ = perray.planar_closest_perray(org, dirs, scene.tri_chunks, 1e-3, True, cap,
+                                        tabs=tabs)
+    hit = last[:, 0] < cap
+    assert torch.equal(torch.where(hit, last[:, 0], torch.full_like(cap, float("inf"))), t)

@@ -13,6 +13,11 @@ ray). At a grazing hit t = (n.c - n.o)/(d.n) cancels, so those few ulp
 become 189 ulp of t (1.3e-5 relative, still inside 2e-5) and 4.7e-5 of
 the edge coefficients, which carry t times |d.(ev x w)|. The sweep tables
 are equal exactly.
+
+The kernel's decomposition (``sweep_fold_plain``: each visited slot's
+minimum against the input best, then the in-order fold) is held to the JAX
+kernel the same way, and to ``sweep_plain`` bit for bit on adversarial
+visit lists.
 """
 
 import dataclasses
@@ -21,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_sweep_cases as cases
 
 from cpu_ray_tracing_implementation_tpu.models import scene as jscene
 from cpu_ray_tracing_implementation_tpu.ops import pallas_sweep as jpsw
@@ -56,8 +62,7 @@ def _to_torch(jchunks, cls):
                  for f in dataclasses.fields(cls)])
 
 
-@pytest.mark.parametrize("kind", ["quad", "tri", "sphere"])
-def test_plain_matches_jax_kernel(kind):
+def _against_jax(kind, sweep_fn):
     jchunks = _scene(kind)
     sphere = kind == "sphere"
     K, C = jchunks.mat.shape
@@ -98,9 +103,9 @@ def test_plain_matches_jax_kernel(kind):
         ids = jnp.clip(ids, 0, K - 1)
         ref = jpsw.sweep(jrays, ids, nears, pk, jtable, V, C, TMIN,
                          kind == "tri", sphere)
-        got = fsw.sweep(rays, torch.as_tensor(np.array(ids)),
-                        torch.as_tensor(np.array(nears)), best, tabs.table,
-                        TMIN, kind == "tri", sphere)
+        got = sweep_fn(rays, torch.as_tensor(np.array(ids)),
+                       torch.as_tensor(np.array(nears)), best, tabs.table,
+                       TMIN, kind == "tri", sphere)
         ref_np, got_np = np.asarray(ref), got.numpy()
         np.testing.assert_array_equal(got_np[:, 6:8], ref_np[:, 6:8])
         grazing = np.zeros(R, bool)
@@ -118,6 +123,39 @@ def test_plain_matches_jax_kernel(kind):
         hits = int((ref_np[:, 0] < cap).sum())
         pk, best = ref, got
     assert hits > 20
+
+
+@pytest.mark.parametrize("kind", ["quad", "tri", "sphere"])
+def test_plain_matches_jax_kernel(kind):
+    _against_jax(kind, fsw.sweep)
+
+
+@pytest.mark.parametrize("kind", ["quad", "tri", "sphere"])
+def test_fold_plain_matches_jax_kernel(kind):
+    """The kernel's decomposition (``sweep_fold_plain``) against the JAX
+    kernel as above; the JAX sweep's compile of the same shapes is reused."""
+    _against_jax(kind, fsw.sweep_fold_plain)
+
+
+@pytest.mark.parametrize("case", cases.CASES)
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_fold_plain_matches_plain_bit_for_bit(kind, case):
+    """Per-slot minima against the input best, then the in-order fold, give
+    ``sweep_plain``'s 8 columns bit for bit on the adversarial lists of
+    tests/torch_sweep_cases.py (ties within a row and across slots, nears
+    between the running and the input best, exhausted slots, duplicate and
+    out-of-range ids, R = 1, K = 1)."""
+    rays, ids, nears, best, table, tri, sph = cases.make_case(kind, case, "cpu")
+    ref = fsw.sweep_plain(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    got = fsw.sweep_fold_plain(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    cases.check_case(case, got, ref, best, nears)
+
+
+def test_scratch_layout():
+    """The kernel's int32 scratch: (t, lane) per slot (2RV), the visit list
+    (RV), counts and a ticket (K + 1), two offset arrays (K + 1 each)."""
+    assert fsw.scratch_ints(40_000, 16, 2_015) == 3 * 640_000 + 3 * 2_015 + 3
+    assert fsw.scratch_ints(0, 16, 1) == 6
 
 
 def test_best_packing_round_trips():

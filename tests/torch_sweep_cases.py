@@ -1,0 +1,107 @@
+"""Adversarial visit lists for kernel K4 (``ops/fused_sweep.py``), shared by
+tests/test_torch_sweep.py (the plain decomposition on the CPU) and
+tests/test_torch_cuda.py (the kernel on the card). Imports no JAX.
+
+Each case is a random table in the sweep layout [K, F, 128] whose chunk 1
+copies chunk 0 and whose lanes 100-115 copy lanes 0-15 of their chunk (so
+rows tie within a row and across slots), a few dead lanes (eu = ev = 0,
+rad = 0), rays aimed into the table's box, input bests with random pass-
+through columns, and a visit list built to stress one rule of the sweep:
+
+- ``ties``: every ray lists chunks 0, 1, 0, 1, ... with near 0;
+- ``between``: slot 0 at near 0, every later near anywhere below the input
+  best, unsorted (near >= the running best but < the input best);
+- ``exhausted``: every near NaN (K3's exhausted slot) or +inf;
+- ``duplicates``: each ray lists one chunk three times among others;
+- ``clip``: ids from -4 to K + 3 (the sweep clips them to [0, K-1]);
+- ``one_ray``: R = 1; ``one_chunk``: K = 1.
+"""
+
+import numpy as np
+import torch
+
+CASES = ("ties", "between", "exhausted", "duplicates", "clip", "one_ray", "one_chunk")
+KINDS = ("quad", "tri", "sphere")
+C = 128
+TMIN = 1e-3
+
+
+def _table(rng, kind, K):
+    if kind == "sphere":
+        c0 = rng.uniform(-3, 3, (K, 3, C))
+        c1 = c0 + rng.normal(0, 0.1, (K, 3, C))
+        rad = rng.uniform(0.2, 0.6, (K, 1, C))
+        rad[:, :, 50:53] = 0.0
+        t = np.concatenate([c0, c1, rad], axis=1)
+    else:
+        corner = rng.uniform(-3, 3, (K, 3, C))
+        eu, ev = rng.normal(0, 1.0, (K, 3, C)), rng.normal(0, 1.0, (K, 3, C))
+        eu[:, :, 50:53] = ev[:, :, 50:53] = 0.0
+        t = np.concatenate([corner, eu, ev], axis=1)
+    t[:, :, 100:116] = t[:, :, 0:16]
+    if K > 1:
+        t[1] = t[0]
+    return t.astype(np.float32)
+
+
+def make_case(kind: str, case: str, device, seed: int = 0, R: int = 256, V: int = 8,
+              K: int = 4):
+    """(rays, ids, nears, best, table, triangle, sphere) of one case."""
+    rng = np.random.default_rng(1000 * CASES.index(case) + 10 * KINDS.index(kind) + seed)
+    R = 1 if case == "one_ray" else R
+    K = 1 if case == "one_chunk" else K
+    table = _table(rng, kind, K)
+    d = rng.normal(size=(R, 3))
+    org = 12.0 * d / np.linalg.norm(d, axis=1, keepdims=True)
+    dirs = rng.uniform(-2.5, 2.5, (R, 3)) - org
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    rays = np.zeros((R, 8), np.float32)
+    rays[:, 0:3], rays[:, 3:6], rays[:, 6] = org, dirs, rng.uniform(0, 1, R)
+    best = rng.uniform(-1, 1, (R, 8)).astype(np.float32)
+    best[:, 0] = rng.uniform(8.0, 30.0, R)
+    best[:, 6] = rng.integers(0, 3, R)
+    best[:, 7] = rng.integers(0, K * C, R)
+    t_in = best[:, :1]
+
+    ids = rng.integers(0, K, (R, V))
+    nears = np.sort(rng.uniform(0, 1, (R, V)) * t_in, axis=1)
+    if case == "ties":
+        ids = np.tile(np.arange(V) % min(K, 2), (R, 1))
+        nears[:] = 0.0
+    elif case == "between":
+        nears = rng.uniform(0, 1, (R, V)) * t_in
+        nears[:, 0] = 0.0
+    elif case == "exhausted":
+        nears[:] = np.nan
+        nears[rng.uniform(size=(R, V)) < 0.2] = np.inf
+    elif case == "duplicates":
+        ids[:, [0, 2, 5]] = ids[:, :1]
+    elif case == "clip":
+        ids = rng.integers(-4, K + 4, (R, V))
+    t = lambda x, dt=torch.float32: torch.as_tensor(np.ascontiguousarray(x), dtype=dt,
+                                                    device=device)
+    return (t(rays), t(ids, torch.int32), t(nears), t(best), t(table), kind == "tri",
+            kind == "sphere")
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def check_case(case: str, got: torch.Tensor, ref: torch.Tensor, best: torch.Tensor,
+               nears: torch.Tensor) -> None:
+    """``got`` equal to ``ref`` (``sweep_plain``) in all 8 columns bit for
+    bit, and the case really stresses what it names."""
+    assert torch.equal(bits(got), bits(ref))
+    hit = ref[:, 0] < best[:, 0]
+    if case == "exhausted":
+        assert torch.equal(bits(ref), bits(best))
+        return
+    assert bool(hit.any())
+    lane = torch.round(ref[hit, 7]).long() % C
+    assert not bool(((lane >= 100) & (lane < 116)).any())  # first lane of a tie
+    if case == "ties" and best.shape[0] > 1:
+        assert bool((torch.round(ref[hit, 7]) < C).all())   # chunk 0, the earlier slot
+    if case == "between":
+        between = (nears >= ref[:, :1]) & (nears < best[:, :1])
+        assert int(between.sum()) > 0
