@@ -44,6 +44,14 @@ Phases (any failure raises and the script exits non-zero):
      wherever hit masks and materials are equal and the ray is no near-tie
      (counted and printed); K1's time with and without pid; K1's and K2's
      pid on the holed tables too.
+   - The traffic of next-event estimation, volumes and the noise scenes:
+     K1 and K2 on the shadow rays of cornell_box_with_sphere_light at
+     600x600 (from every lane's first hit toward a sampled light point,
+     inactive lanes included, as the render traces them), K1 on
+     cornell_box_with_volume's primary rays, and at perlin_texture_ball's
+     600x600 (2,401 quads in 19 chunks) K3 and K4 at every phase of its
+     primary rays and of shadow-like rays toward its light quad with half
+     the lanes dead, and K2 on its two spheres; the same tolerances.
    - K5 (gather-sum probe) against its plain version (rel err max |a - b| /
      (|b| + 1) <= 1e-5) at the probe's defaults (an 11.5 MB table, inside
      the L2) and with a 738 MB table (K 131,072: device memory), with its
@@ -55,10 +63,13 @@ Phases (any failure raises and the script exits non-zero):
    white_sphere, different_fuzz_metal, the rotated- and specular-box
    Cornell variants, the lens camera's
    three_material_ball_with_defocus_blur, the fisheye's
-   skybox_and_fisheye) at the golden workload (16 px, 4 spp, depth 3, key
-   42; image mean within 2e-3 of tests/test_golden.py), and the three
-   scenes that load the missing earthmap.jpg (F1) within 2e-3 of the
-   port's own CPU render of the same scene and key; the Cornell
+   skybox_and_fisheye), the noise scenes (perlin_texture_ball and the four
+   test_*_noise), cornell_box_with_sphere_light and
+   cornell_box_with_volume at the golden workload (16 px, 4 spp, depth 3,
+   key 42; image mean within 2e-3 of tests/test_golden.py), and the five
+   scenes whose asset is missing (F1: earthmap.jpg, and smoke_fox's
+   Fox.gltf) within 2e-3 of the port's own CPU render of the same scene
+   and key; the Cornell
    C++ reference parity gate of tests/test_parity.py (300 px 16 spp: PSNR
    > 30 dB, mean rel err < 0.04); and the per-ray closest hit (K3 + K4)
    against the chunk-scan oracle on the full colonnade: the same winner's
@@ -108,10 +119,17 @@ Phases (any failure raises and the script exits non-zero):
    forward pass (256 x 8) and none in the backward pass (the winners are
    replayed from the tape); the colonnade's gradient run launches K1, K3
    and K4 in both passes (no tape on chunked tables: the accelerator runs
-   again). K5 is on no path: its launches are those of one probe call. The
+   again). ``loss_and_grads`` with next-event estimation through
+   cornell_box_with_volume, cut to 256x256, 4 spp, depth 5: K1 launched
+   spp x (2 depth - 1) = 36 times in the forward pass and none in the
+   backward (the tape replays the shadow rays' and the volumes' winners
+   too), and its gradients equal plain autograd's (the closest hits'
+   plain versions on the card) under PyTorch's deterministic algorithms at
+   LOSS_RTOL, SCENE_TOL and CAMERA_TOL. K5 is on no path: its launches are those of one probe call. The
    ``kernels`` line gives each kernel's launches in the render of its own
    slice's scene (K2's: random_motion_ball's; three_material_ball's 80 and
-   K2's time there go on the line before it).
+   K2's time there go on the line before it; the sphere-light renders' K1
+   and K2 launches, plain and with NEE, on a line of their own before it).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -138,6 +156,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
+from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
 from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe, profiling
 from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
     FP32_INSTR_PER_S, HBM_BYTES_PER_S, camera_rays, cuda_ms, secondary)
@@ -154,12 +173,19 @@ GOLDEN_MEANS = {"cornell_box": 0.160999, "three_material_ball": 0.563181,
                 "different_fuzz_metal": 0.322772, "skybox_and_fisheye": 0.633859,
                 "sphereflake": 0.592463,
                 "three_material_ball_with_defocus_blur": 0.605853,
-                "white_sphere": 1.000000}
-# scenes that load earthmap.jpg, missing here (ROADMAP F1): held to the
-# port's own CPU render of the same scene and key, which takes the same
-# magenta fallback
+                "white_sphere": 1.000000,
+                # noise textures, sphere lights and volumes
+                "perlin_texture_ball": 0.418168, "test_perlin_noise": 0.507109,
+                "test_value_noise": 0.496078, "test_worley_noise": 0.322421,
+                "test_voronoi_noise": 0.462877,
+                "cornell_box_with_sphere_light": 0.427467,
+                "cornell_box_with_volume": 0.487237}
+# scenes whose asset is missing here (ROADMAP F1: earthmap.jpg, and
+# smoke_fox's Fox.gltf, for which it bounds its medium by a fallback mesh):
+# held to the port's own CPU render of the same scene and key, which takes
+# the same fallback
 F1_SCENES = ("cornell_box_with_glossy_ball", "infinite_reflection",
-             "skybox_and_motion_blur")
+             "skybox_and_motion_blur", "simple_light_earth", "smoke_fox")
 # the wavefront against the scan on the same scene and key: each path's
 # radiance is the scan's, only the order of the per-pixel sums differs
 WAVEFRONT_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -196,6 +222,22 @@ COLONNADE_GRAD_SPP = 8
 # the scene's 20): K2's share of device time per bounce, at a tenth of the
 # trace
 MOTION_BALL_PROFILED_SPP = 2
+# next-event estimation and Russian roulette as the full NEE render takes
+# them (roulette from bounce 3 of 4)
+NEE = dict(nee=True, rr_depth=3)
+# the NEE render's image mean against the plain render's: the two
+# estimators are unbiased, so they agree within Monte-Carlo distance (the
+# JAX package's tests/test_nee.py holds its specular scene to 2%)
+NEE_MEAN_RTOL = 0.02
+# samples of the wavefront-against-scan checks on the new paths
+ESTIMATOR_CHECK_SPP = 4
+# perlin_texture_ball's full render: 600x600 at depth 5, its 500 spp cut to
+# 32 for the time limit (the marble's 7 octaves run on every lane of every
+# bounce)
+PERLIN_SPP = 32
+# the NEE + volume gradient run, cut from 600x600x100 depth 5 to this
+# size (the plain-autograd reference runs the chunk scan on the card)
+VOLUME_GRAD = dict(width=256, spp=4, max_depth=5)
 # FP32 instructions (a fused multiply-add counts once, a divide, square
 # root, min, max or compare once) per (ray, primitive) or (ray, box) pair,
 # counted from each kernel's source: K1 the plane and edge tests of a live
@@ -726,6 +768,87 @@ def phase_sphereflake(scene, cam, dev):
     return errs, ms, b
 
 
+def phase_estimator_kernels(dev):
+    """The traffic of next-event estimation, volumes and the noise scenes
+    through K1-K4, against the plain versions: K1 and K2 on the shadow rays
+    of cornell_box_with_sphere_light at 600x600 (from every lane's first
+    hit toward a sampled point of the light; the render traces them with
+    the inactive lanes too); K1 on cornell_box_with_volume's primary rays;
+    at perlin_texture_ball's 600x600 (2,401 quads in 19 chunks) K3 (bit-
+    equal) and K4 (bit for bit) at every phase of its primary rays' phase
+    loop, and at phase 1 of shadow-like rays toward its light quad with half
+    the lanes dead (cap = tmin), and K2 on its two spheres. Returns the
+    largest error per kernel."""
+    gen = torch.Generator().manual_seed(7)
+    errs = {"planar_closest": 0.0, "sphere_closest": 0.0, "cull_select": 0.0,
+            "visit_sweep": 0.0}
+
+    def closest(label, org, dirs, time, scene):
+        if scene.counts[1] and scene.quad_chunks is None:
+            view, pack = scene.quad_view
+            got = fi.planar_closest_fused(org, dirs, view, TMIN, False, pack=pack)
+            ref = ch.planar_closest(org, dirs, view, TMIN, False)
+            errs["planar_closest"] = max(errs["planar_closest"], compare(
+                f"K1 quad, {label}", got, (ref[0], ref[1][:4]), PLANAR_FIELDS))
+        if scene.counts[0] and scene.sphere_chunks is None:
+            view, pack = scene.sphere_view
+            got = fi.sphere_closest_fused(org, dirs, time, view, TMIN, pack=pack)
+            ref = ch.sphere_closest(org, dirs, time, view, TMIN)
+            errs["sphere_closest"] = max(errs["sphere_closest"], compare(
+                f"K2, {label}", got, (ref[0], ref[1][:3]), SPHERE_FIELDS))
+
+    scene, cam = catalog.cornell_box_with_sphere_light(spp=1, device=dev)
+    org, dirs, time, _ = profiling.scene_rays(scene, cam, gen)
+    R = org.shape[0]
+    hit = isect.intersect_brute(scene, org, dirs, time, TMIN,
+                                torch.zeros((R, scene.n_volumes), device=dev))
+    u = torch.rand(R, 3, generator=gen).to(dev)
+    sh_dirs = mat_ops.light_sample(scene, hit.p, u[:, 0], u[:, 1], u[:, 2])
+    log(f"  cornell_box_with_sphere_light {cam.width}x{cam.height}: "
+        f"{int(hit.valid.sum())} of {R} first hits cast a live shadow ray")
+    closest("sphere-light Cornell, shadow rays", hit.p.contiguous(), sh_dirs, time,
+            scene)
+    scene, cam = catalog.cornell_box_with_volume(spp=1, device=dev)
+    org, dirs, time, _ = profiling.scene_rays(scene, cam, gen)
+    closest("volume Cornell, primary", org, dirs, time, scene)
+
+    scene, cam = catalog.perlin_texture_ball(spp=1, device=dev)
+    tabs, K = scene.quad_perray, scene.quad_chunks.corner.shape[0]
+    V = min(perray.VISIT_BLOCK, K)
+    log(f"  perlin_texture_ball {cam.width}x{cam.height}: {scene.counts[1]} quads in "
+        f"{K} chunks, {scene.counts[0]} spheres")
+    org, dirs, time, cap = profiling.scene_rays(scene, cam, gen)
+    closest("perlin_texture_ball view, primary", org, dirs, time, scene)
+    t, _ = perray.planar_closest_perray(org, dirs, scene.quad_chunks, TMIN, False,
+                                        cap, tabs=tabs)
+    p = org + torch.where(torch.isfinite(t), t, torch.zeros_like(t))[:, None] * dirs
+    light = torch.tensor([123.0, 554.0, 147.0], device=dev)
+    uv = torch.rand(org.shape[0], 2, generator=gen).to(dev)
+    target = light + uv[:, :1] * torch.tensor([300.0, 0, 0], device=dev) \
+        + uv[:, 1:] * torch.tensor([0, 0, 265.0], device=dev)
+    sh = (p.contiguous(), (target - p).contiguous())
+    live = (torch.rand(org.shape[0], generator=gen) < 0.5).to(dev) & torch.isfinite(t)
+    sh_cap = isect._packet_cap(scene, *sh, live, INF, TMIN)
+    log(f"  perlin_texture_ball shadow-like rays: {int(live.sum())} of "
+        f"{org.shape[0]} live")
+    for label, (o, d, c) in (("primary", (org, dirs, cap)),
+                             ("shadow-like, half dead", (*sh, sh_cap))):
+        excl = fs.first_excl(o.shape[0], dev)
+        rays = fs.pack_rays(o, d, c)
+        got = fs.cull_select_kernel(rays, tabs.boxes, excl, V, K, TMIN)
+        ref = fs.cull_select_plain(rays, tabs.boxes, excl, V, K, TMIN)
+        errs["cull_select"] = max(errs["cull_select"], bits_equal(
+            f"K3 packed, perlin_texture_ball {label}, phase 1", got, ref))
+        rays4, calls = profiling.sweep_phases(o, d, None, c, tabs, K, TMIN, False,
+                                              False)
+        for n, (ids, nears, best) in enumerate(calls):
+            errs["visit_sweep"] = max(errs["visit_sweep"], sweep_check(
+                f"K4 quads, perlin_texture_ball {label}, phase {n + 1}", rays4, ids,
+                nears, best, tabs.table, False, False)[0])
+    torch.cuda.synchronize()
+    return errs
+
+
 # ----------------------------------------------- phase 2: pid and K5
 def pid_compare(label, out, pid, ref_t, ref_pid, ref_mat, valid_row, mat_row):
     """A kernel's pid output against the plain version's: equal on every
@@ -1204,6 +1327,99 @@ def time_settings(label, cam, runs):
     return out
 
 
+def phase_estimators(dev):
+    """The full renders of the estimator paths, each render's launches
+    counted on its own; returns (line of results, K1 and K2 launches of the
+    plain and the NEE sphere-light renders)."""
+    out = {}
+    scene, cam = catalog.cornell_box_with_sphere_light(device=dev)
+    label = (f"cornell_box_with_sphere_light {cam.width}x{cam.height} {cam.spp}spp "
+             f"depth {cam.max_depth}")
+    secs, _, img, plain = main_path(label, scene, cam,
+                                    ("planar_closest", "sphere_closest"))
+    want = cam.spp * cam.max_depth
+    for name in ("planar_closest", "sphere_closest"):
+        if plain[name] != want:
+            raise AssertionError(f"{label}: {name} launched {plain[name]} times, "
+                                 f"want spp x depth = {want}")
+    nee_cam = cam.replace(**NEE)
+    nee_secs, _, nee_img, nee = main_path(f"{label}, nee, rr_depth {NEE['rr_depth']}",
+                                          scene, nee_cam,
+                                          ("planar_closest", "sphere_closest"))
+    # the scan skips the last bounce's shadow ray on the host
+    want_nee = cam.spp * (2 * cam.max_depth - 1)
+    for name in ("planar_closest", "sphere_closest"):
+        if nee[name] != want_nee:
+            raise AssertionError(f"{label} with NEE: {name} launched {nee[name]} "
+                                 f"times, want spp x (2 depth - 1) = {want_nee}")
+    m, m_nee = float(img.mean()), float(nee_img.mean())
+    log(f"  sphere-light means: plain {m:.6f}, NEE + RR {m_nee:.6f}, rel diff "
+        f"{abs(m_nee - m) / m:.5f} (gate {NEE_MEAN_RTOL}); walls {secs:.3f} s and "
+        f"{nee_secs:.3f} s")
+    if not abs(m_nee - m) <= NEE_MEAN_RTOL * m:
+        raise AssertionError("the NEE render's mean is off the plain render's")
+    out["sphere_light"], out["sphere_light_nee"] = secs, nee_secs
+    chk = nee_cam.replace(spp=ESTIMATOR_CHECK_SPP)
+    out["wf_err_nee"] = hold_wavefront(
+        f"sphere-light NEE + RR {ESTIMATOR_CHECK_SPP}spp",
+        integrator.render_image_wavefront(scene, chk, keys.key(0)),
+        integrator.render_image(scene, chk, keys.key(0)))
+
+    scene, cam = catalog.cornell_box_with_volume(device=dev)
+    label = (f"cornell_box_with_volume {cam.width}x{cam.height} {cam.spp}spp depth "
+             f"{cam.max_depth}")
+    out["volume"], _, _, vol = main_path(label, scene, cam, ("planar_closest",))
+    if vol["planar_closest"] != cam.spp * cam.max_depth:
+        raise AssertionError(f"{label}: K1 launched {vol['planar_closest']} times")
+    chk = cam.replace(spp=ESTIMATOR_CHECK_SPP)
+    out["wf_err_volume"] = hold_wavefront(
+        f"volume Cornell {ESTIMATOR_CHECK_SPP}spp",
+        integrator.render_image_wavefront(scene, chk, keys.key(0)),
+        integrator.render_image(scene, chk, keys.key(0)))
+
+    scene, cam = catalog.perlin_texture_ball(spp=PERLIN_SPP, device=dev)
+    perray.reset_phases()
+    out["perlin"], _, _, per = main_path(
+        f"perlin_texture_ball {cam.width}x{cam.height} {cam.spp}spp (cut from 500) "
+        f"depth {cam.max_depth}", scene, cam,
+        ("sphere_closest", "cull_select", "visit_sweep"))
+    log(f"  perlin_texture_ball render: {perray.PHASES['phases']} selection phases in "
+        f"{perray.PHASES['calls']} per-ray calls")
+    log(f"  launches per render (K1 planar_closest, K2 sphere_closest, K3, K4): "
+        f"sphere-light plain {plain}; sphere-light NEE + RR {nee}; volume {vol}; "
+        f"perlin_texture_ball {per}")
+    return out, plain, nee
+
+
+def volume_grad(dev):
+    """``loss_and_grads`` with NEE through cornell_box_with_volume (at
+    VOLUME_GRAD): the backward pass launches no closest-hit kernel, and the
+    kernel route's gradients equal plain autograd's (the closest hits' plain
+    versions in the kernels' place, on the card) under PyTorch's
+    deterministic algorithms, at the JAX tolerances."""
+    scene, cam = catalog.cornell_box_with_volume(device=dev, **VOLUME_GRAD)
+    cam = cam.replace(nee=True)
+    label = (f"cornell_box_with_volume {cam.width}x{cam.height} {cam.spp}spp depth "
+             f"{cam.max_depth} NEE loss_and_grads")
+    secs, _, (fwd, bwd) = grad_path(label, scene, cam)
+    want = cam.spp * (2 * cam.max_depth - 1)
+    if fwd["planar_closest"] != want or bwd["planar_closest"] != 0:
+        raise AssertionError(f"{label}: K1 launched {fwd['planar_closest']} times in "
+                             f"the forward pass (want {want}) and "
+                             f"{bwd['planar_closest']} in the backward (want 0)")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    on_card = fi._on_card
+    try:
+        got = grads_of(scene, cam, 0)
+        fi._on_card = lambda x: False   # the plain versions, on the card
+        ref = grads_of(scene, cam, 0)
+    finally:
+        fi._on_card = on_card
+        torch.use_deterministic_algorithms(False)
+    grads_close(f"{label}, kernel route vs plain autograd", got, ref)
+    return secs
+
+
 def device_time(label, scene, cam, names):
     """The summed device time of each kernel in ``names`` in one more render
     of ``scene`` under torch.profiler, its wrapper calls (counted here, not
@@ -1275,6 +1491,8 @@ def main() -> int:
     for name, err in e.items():
         errs[name] = max(errs[name], err)
     phase_pid(dev)
+    for name, err in phase_estimator_kernels(dev).items():
+        errs[name] = max(errs[name], err)
     probes = phase_gather(dev)
     r = probes[0]
     errs["gather_sum"] = r["max_abs_err"]
@@ -1338,6 +1556,10 @@ def main() -> int:
     log(f"  wavefront launches per render (K1 planar_closest, K3 cull_select, K4 "
         f"visit_sweep): colonnade {col_wf[3]}, sphereflake {sf_wf[3]}")
 
+    phase_log("phase 4, 5: next-event estimation, Russian roulette, volumes and "
+              "the perlin marble, each render's launches counted on its own")
+    est, launches_sl, launches_nee = phase_estimators(dev)
+
     phase_log("phase 4: pool and batch sizes timed on the card")
     for label, sc_, cm in (("colonnade", col_scene, col_cam),
                            ("sphereflake", sf_scene, sf_cam)):
@@ -1396,6 +1618,7 @@ def main() -> int:
         if not (fwd[name] > 0 and bwd[name] > 0):
             raise AssertionError(f"colonnade gradient: kernel {name} was not "
                                  "launched in both passes")
+    vol_grad_secs = volume_grad(dev)
     # K5 lies on no path: its launches are those of one probe call
     profiling.reset_counts()
     R, K, V, rowf = gather_probe.DEFAULTS
@@ -1432,6 +1655,11 @@ def main() -> int:
         f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
         for k, v in times.items() if k.startswith("visit_sweep_phase")))
 
+    log(f"  NEE launches: cornell_box_with_sphere_light {launches_sl['planar_closest']} "
+        f"K1 / {launches_sl['sphere_closest']} K2 plain, "
+        f"{launches_nee['planar_closest']} K1 / {launches_nee['sphere_closest']} K2 "
+        f"with NEE + RR (spp x (2 depth - 1): the last bounce's shadow ray is "
+        f"skipped on the host)")
     kernels = []
     for name, (kid, source, replaces) in KERNELS.items():
         ms, plain_ms = times[name][:2]
@@ -1455,6 +1683,10 @@ def main() -> int:
         f"colonnade wavefront {col_wf[0]:.3f} s ({col_wf[1]:.1f} camera rays/s); "
         f"sphereflake wavefront {sf_wf[0]:.3f} s ({sf_wf[1]:.1f} camera rays/s); "
         f"wavefront against scan max abs diff {wf_err}; "
+        f"sphere-light {est['sphere_light']:.3f} s, with NEE + RR "
+        f"{est['sphere_light_nee']:.3f} s; volume Cornell {est['volume']:.3f} s; "
+        f"perlin_texture_ball ({PERLIN_SPP} spp) {est['perlin']:.3f} s; NEE volume "
+        f"fwd+bwd {vol_grad_secs:.3f} s; "
         f"fwd+bwd against the render, per camera ray: cornell_box "
         f"{grad_secs[False] / cornell_secs:.3f}, with geometry "
         f"{grad_secs[True] / cornell_secs:.3f}, colonnade {col_rps / col_grad_rps:.3f}; "

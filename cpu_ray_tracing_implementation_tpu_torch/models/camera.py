@@ -49,6 +49,11 @@ class Camera:
     stratify: bool = False
     # per-sample radiance clamp (0 = off)
     clamp: float = 0.0
+    # Russian roulette from this bounce on (0 = off)
+    rr_depth: int = 0
+    # next-event estimation: a shadow ray to a sampled light at every
+    # diffuse vertex, power-heuristic MIS (off by default, as in JAX)
+    nee: bool = False
 
     @property
     def device(self) -> torch.device:

@@ -30,6 +30,13 @@ gigabyte):
 
 Both passes run the same operations on the same inputs, so the second
 reproduces the first and the gradients are those of the first pass's loss.
+The camera's estimator fields pass through as the render reads them
+(``render_sample``): under ``camera.nee`` a bounce intersects twice, the
+path's ray and then the shadow ray, and the tape keeps both winners in
+that order; under ``camera.rr_depth`` the roulette's survival probability
+depends on the throughput and is differentiated as the JAX package's is;
+a volume winner replays its entry and scatter distance
+(``replay._volume_t_one``).
 """
 
 from __future__ import annotations

@@ -8,11 +8,14 @@ tensors on one device (``SceneBuilder.build(device=...)``).
 Ported so far: the dense tables, and for tables above
 ``chunked.DENSE_MAX`` rows the chunked tables (primitives in BVH order,
 cut into chunks of ``chunked.CHUNK`` with AABBs, ``utils/accel.py``) that
-the per-ray accelerator (``ops/perray.py``) reads; solid, checker and
-picture textures, the lambertian, metal, dielectric, gloss and
-diffuse-light materials, quad lights, a textured background and the
-``world_offset`` recentering. The builder methods for other features are not here yet
-(ROADMAP queue 1).
+the per-ray accelerator (``ops/perray.py``) reads; solid, checker,
+picture and the four noise textures (with their ``NoiseTables``), the
+lambertian, metal, dielectric, gloss, isotropic and diffuse-light
+materials, quad and sphere lights, constant-density volumes in box,
+sphere and triangle-mesh boundaries, a textured background and the
+``world_offset`` recentering. Per-vertex triangle attributes, glTF assets,
+dispersion and the importance-sampled environment light are not here yet
+(ROADMAP queue 1, steps 8 and 10).
 
 Tables are replaceable (``dataclasses.replace``, ``Scene.replace``), so the
 gradient path (``models/diff.py``) builds a scene from parameter tensors.
@@ -33,6 +36,7 @@ import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as chunked_mod
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+from cpu_ray_tracing_implementation_tpu_torch.ops import noise as noise_ops
 from cpu_ray_tracing_implementation_tpu_torch.ops import perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 from cpu_ray_tracing_implementation_tpu_torch.utils import accel
@@ -94,8 +98,15 @@ class Volumes:
     half: torch.Tensor    # [V,3] half extents (sphere: radius in [:,0])
     rot: torch.Tensor     # [V,3,3] object->world rotation
     neg_inv_density: torch.Tensor  # [V] -1/density (src/volumne.h:36)
-    mat: torch.Tensor     # [V] int32
+    mat: torch.Tensor     # [V] int32 (an isotropic material)
     active: torch.Tensor  # [V] bool
+    # the boundary triangles of every VOL_MESH row, concatenated; None when
+    # the scene has no mesh volume (``scene.py:103-120`` of the JAX package)
+    mesh_v0: torch.Tensor | None = None      # [MT,3]
+    mesh_e1: torch.Tensor | None = None      # [MT,3] v1 - v0
+    mesh_e2: torch.Tensor | None = None      # [MT,3] v2 - v0
+    mesh_vid: torch.Tensor | None = None     # [MT] int32 owning volume row
+    mesh_active: torch.Tensor | None = None  # [MT] bool
 
 
 @dataclass(frozen=True)
@@ -120,6 +131,13 @@ class Textures:
 
 
 @dataclass(frozen=True)
+class NoiseTables:
+    perlin_grad: torch.Tensor  # [256,3]
+    perlin_perm: torch.Tensor  # [256] int32
+    value_grid: torch.Tensor   # [res,res,res]
+
+
+@dataclass(frozen=True)
 class Scene:
     spheres: Spheres
     quads: Quads
@@ -127,7 +145,11 @@ class Scene:
     volumes: Volumes
     materials: Materials
     textures: Textures
+    noise: NoiseTables
     lights: torch.Tensor     # [L] int32 quad indices sampled as lights
+    # [Ls] int32 sphere indices sampled as lights (solid-angle cone
+    # sampling, ``ops/sampling.cone_dir``); None = no sphere lights
+    sphere_lights: torch.Tensor | None = None
     images: tuple = ()       # [h,w,3] float32 picture texels in byte scale
     background: int = -1     # texture id or -1
     # static feature sets: branches for kinds the scene never uses are skipped
@@ -157,8 +179,12 @@ class Scene:
         return int(self.volumes.kind.shape[0])
 
     @property
+    def n_sphere_lights(self) -> int:
+        return 0 if self.sphere_lights is None else int(self.sphere_lights.shape[0])
+
+    @property
     def has_lights(self) -> bool:
-        return int(self.lights.shape[0]) > 0
+        return int(self.lights.shape[0]) > 0 or self.n_sphere_lights > 0
 
     @property
     def device(self) -> torch.device:
@@ -271,16 +297,23 @@ class SceneBuilder:
     # at build time (f32 catastrophic-cancellation guard)
     RECENTER_THRESHOLD = 2000.0
 
-    def __init__(self):
+    def __init__(self, seed: int = 0, value_noise_resolution: int = 10):
+        """``seed`` makes the noise tables (``ops/noise.py``);
+        ``value_noise_resolution``: the value-noise grid's side, raised by
+        ``value``."""
         self._sph = []    # (c0, c1, rad, mat)
         self._quads = []  # (corner, eu, ev, mat)
         self._tris = []   # (v0, v1, v2, mat)
         self._vols = []   # (kind, center, half, rot, density, mat)
+        self._vol_mesh = []  # (volume row, [T,3,3] boundary vertices)
         self._mats = []   # dict rows
         self._texs = []   # dict rows
         self._imgs = []   # [h,w,3] float32 picture images
         self._lights = []
+        self._sphere_lights = []
         self._background = -1
+        self._seed = seed
+        self._value_res = value_noise_resolution
 
     # ---------------- textures ----------------
     def _tex_row(self, **kw) -> int:
@@ -308,6 +341,20 @@ class SceneBuilder:
         self._imgs.append(img)
         return self._tex_row(ttype=TEX_PICTURE, image_id=len(self._imgs) - 1,
                              tfilter={"nearest": 0, "bilinear": 1}[filter])
+
+    def perlin(self, scale: float) -> int:
+        """Marble of perlin turbulence (src/texture.h:80-91)."""
+        return self._tex_row(ttype=TEX_PERLIN, scale=scale)
+
+    def value(self, resolution: int) -> int:
+        self._value_res = max(self._value_res, int(resolution))
+        return self._tex_row(ttype=TEX_VALUE)
+
+    def worley(self) -> int:
+        return self._tex_row(ttype=TEX_WORLEY)
+
+    def voronoi(self) -> int:
+        return self._tex_row(ttype=TEX_VORONOI)
 
     def _as_tex(self, tex_or_color) -> int:
         if isinstance(tex_or_color, (int, np.integer)):
@@ -339,6 +386,9 @@ class SceneBuilder:
         return self._mat_row(mtype=MAT_GLOSS, tex=self._as_tex(tex_or_color),
                              smoothness=float(np.clip(smoothness, 0.0, 1.0)),
                              spec_prob=float(spec_prob))
+
+    def isotropic(self, tex_or_color) -> int:
+        return self._mat_row(mtype=MAT_ISOTROPIC, tex=self._as_tex(tex_or_color))
 
     def diffuse_light(self, tex_or_color) -> int:
         return self._mat_row(mtype=MAT_DIFFUSE_LIGHT, tex=self._as_tex(tex_or_color))
@@ -396,9 +446,58 @@ class SceneBuilder:
         self._tris.append((pts[0], pts[1], pts[2], int(mat)))
         return len(self._tris) - 1
 
+    def volume_box(self, a, b, density: float, tex_or_color, rotate=None,
+                   translate=None) -> int:
+        """Constant-density medium in a (possibly rotated) box boundary
+        (src/volumne.h, the smoke boxes of main.cc:227-283)."""
+        a = np.asarray(a, np.float64)
+        b = np.asarray(b, np.float64)
+        center = (a + b) / 2.0
+        half = np.abs(b - a) / 2.0
+        rot = np.eye(3)
+        if rotate is not None:
+            rots = [rotate] if isinstance(rotate, tuple) else list(rotate)
+            for axis, deg in rots:
+                rot = _rot_matrix(axis, deg) @ rot
+        center = rot @ center
+        if translate is not None:
+            center = center + np.asarray(translate, np.float64)
+        mat = self.isotropic(tex_or_color)
+        self._vols.append((VOL_BOX, center, half, rot, float(density), mat))
+        return len(self._vols) - 1
+
+    def volume_sphere(self, center, radius: float, density: float, tex_or_color) -> int:
+        mat = self.isotropic(tex_or_color)
+        self._vols.append((VOL_SPHERE, np.asarray(center, np.float64),
+                           np.array([radius, radius, radius]), np.eye(3),
+                           float(density), mat))
+        return len(self._vols) - 1
+
+    def volume_mesh(self, verts, density: float, tex_or_color, rotate=None,
+                    translate=None) -> int:
+        """Constant-density medium bounded by a closed triangle mesh ([T,3,3]
+        vertices): the medium spans [first hit, last hit] of the boundary
+        along the whole line (interval::universe, src/volumne.h:21-22),
+        exact for convex meshes, as the reference's own probe."""
+        verts = _apply_instance(np.asarray(verts, np.float64).reshape(-1, 3),
+                                rotate, translate).reshape(-1, 3, 3)
+        mat = self.isotropic(tex_or_color)
+        centroid = verts.reshape(-1, 3).mean(axis=0)
+        self._vols.append((VOL_MESH, centroid, np.ones(3), np.eye(3),
+                           float(density), mat))
+        vid = len(self._vols) - 1
+        self._vol_mesh.append((vid, verts))
+        return vid
+
     def light(self, quad_id: int):
         """Register a quad as an MIS-sampled light (src/camera.h:135)."""
         self._lights.append(int(quad_id))
+
+    def sphere_light(self, sphere_id: int):
+        """Register a sphere as an MIS-sampled light (solid-angle cone
+        sampling, ``ops/sampling.cone_dir``; the reference's hook,
+        src/sphere.h:76-81, has placeholder math and no scene uses it)."""
+        self._sphere_lights.append(int(sphere_id))
 
     def set_background(self, tex_id: int):
         """Solid or position-textured background found by BSDF sampling
@@ -496,6 +595,14 @@ class SceneBuilder:
             pad(col(vol_rows, 5, np.int32), n_v),
             np.arange(n_v) < len(vol_rows),
         ]
+        if self._vol_mesh:
+            mv = np.concatenate([m[1] for m in self._vol_mesh]).astype(f32)
+            vols += [mv[:, 0], mv[:, 1] - mv[:, 0], mv[:, 2] - mv[:, 0],
+                     np.concatenate([np.full(len(m[1]), m[0], np.int32)
+                                     for m in self._vol_mesh]),
+                     np.ones(len(mv), bool)]
+        grad, perm = noise_ops.make_perlin_tables(self._seed)
+        noise = [grad, perm, noise_ops.make_value_grid(self._value_res, self._seed + 1)]
 
         if not self._mats:
             self._mat_row()
@@ -539,8 +646,10 @@ class SceneBuilder:
 
         return scene_from_tables(
             dict(spheres=sph, quads=qds, tris=tri, volumes=vols,
-                 materials=mats, textures=texs,
+                 materials=mats, textures=texs, noise=noise,
                  lights=np.array(self._lights, np.int32),
+                 sphere_lights=(np.array(self._sphere_lights, np.int32)
+                                if self._sphere_lights else None),
                  images=self._imgs or [np.zeros((1, 1, 3), f32)],
                  world_offset=(None if world_offset is None
                                else world_offset.astype(f32)), **chunks),
@@ -615,7 +724,8 @@ class SceneBuilder:
 MAX_LEAF = 8
 
 _TABLES = {"spheres": Spheres, "quads": Quads, "tris": Triangles,
-           "volumes": Volumes, "materials": Materials, "textures": Textures}
+           "volumes": Volumes, "materials": Materials, "textures": Textures,
+           "noise": NoiseTables}
 _CHUNKS = {"sphere_chunks": chunked_mod.SphereChunks,
            "quad_chunks": chunked_mod.PlanarChunks,
            "tri_chunks": chunked_mod.PlanarChunks}
@@ -623,9 +733,11 @@ _CHUNKS = {"sphere_chunks": chunked_mod.SphereChunks,
 
 def scene_from_tables(arrays: dict, device, **static) -> Scene:
     """Scene on ``device`` from numpy arrays: ``arrays`` maps each table
-    name of ``_TABLES`` to its column list (dataclass field order), plus
-    ``lights``, ``images`` (a list of [h,w,3] arrays) and ``world_offset``
-    (or None), and optionally, for each
+    name of ``_TABLES`` to its column list (dataclass field order; an
+    optional trailing column, such as the volumes' mesh tables, may be
+    None or left out), plus ``lights``, ``sphere_lights`` (or None),
+    ``images`` (a list of [h,w,3] arrays) and ``world_offset`` (or None),
+    and optionally, for each
     name of ``_CHUNKS``, its column list and its ``*_chunk_order`` array as
     ``SceneBuilder._chunk_tables`` gives them (absent or None: the table is
     dense). ``static`` holds the non-tensor Scene fields."""
@@ -635,7 +747,7 @@ def scene_from_tables(arrays: dict, device, **static) -> Scene:
     def opt(a):
         return None if a is None else t(a)
 
-    tables = {name: cls(*[t(a) for a in arrays[name]])
+    tables = {name: cls(*[opt(a) for a in arrays[name]])
               for name, cls in _TABLES.items()}
     for name, cls in _CHUNKS.items():
         cols = arrays.get(name)
@@ -643,5 +755,6 @@ def scene_from_tables(arrays: dict, device, **static) -> Scene:
         order = name.replace("_chunks", "_chunk_order")
         tables[order] = opt(arrays.get(order))
     return Scene(**tables, lights=t(arrays["lights"]),
+                 sphere_lights=opt(arrays.get("sphere_lights")),
                  images=tuple(t(im) for im in arrays["images"]),
                  world_offset=opt(arrays["world_offset"]), **static)

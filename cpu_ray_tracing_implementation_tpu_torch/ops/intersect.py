@@ -16,9 +16,13 @@ accelerator are ``torch.autograd.Function``s (chunk-scan VJP and winner
 replay). ``sphere_shading`` / ``quad_shading`` / ``tri_shading`` give the
 differentiable hit of one known winner per ray, for ``ops/replay.py``.
 
+Constant-density volumes (``volume_sample``) are sampled against the
+closest surface of every table, as the reference's ``constant_medium``
+(src/volumne.h): box, sphere and triangle-mesh boundaries.
+
 Not ported yet: the tile-packet and BVH accelerators (ROADMAP M11; the
-per-ray route takes every chunked table until then, and both are exact),
-volumes and per-vertex triangle attributes (ROADMAP M4).
+per-ray route takes every chunked table until then, and both are exact)
+and per-vertex triangle attributes (ROADMAP M4).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
 from cpu_ray_tracing_implementation_tpu_torch.ops.sampling import PI
 
 INF = float("inf")
+BIG = 1e30
 
 
 @dataclass(frozen=True)
@@ -131,6 +136,104 @@ def _finite_or_zero(t: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(t), t, torch.zeros_like(t))
 
 
+def mesh_span(org, dirs, vols):
+    """([R, V] entry, [R, V] exit): the least and the greatest t at which
+    each ray's whole line (t in [-BIG, BIG]) crosses each mesh volume's
+    boundary triangles, BIG and -BIG where it crosses none (the JAX
+    package's ``_planar_ts`` with ``triangle=True`` and its [R, V, MT]
+    ownership reduction, ``intersect.py:364-379``). Computed in slices of
+    rays, so that the [rays, V, MT] intermediate stays ~16 M elements at a
+    boundary of the Fox's size."""
+    v0, e1, e2 = vols.mesh_v0, vols.mesh_e1, vols.mesh_e2
+    n = vm.cross(e1, e2)
+    unorm = vm.normalize(n)
+    d_plane = vm.dot(unorm, v0)
+    w = n / torch.clamp(vm.dot(n, n), min=1e-20)[:, None]
+    evw = vm.cross(e2, w)
+    weu = vm.cross(w, e1)
+    c_a, c_b = vm.dot(v0, evw), vm.dot(v0, weu)
+    n_v, n_t = int(vols.kind.shape[0]), int(v0.shape[0])
+    own = vols.mesh_vid[None, :] == torch.arange(
+        n_v, device=org.device, dtype=torch.int32)[:, None]          # [V,MT]
+    step = max(1, (1 << 24) // (n_v * n_t))
+    t1s, t2s = [], []
+    for s in range(0, org.shape[0], step):
+        o, d = org[s:s + step], dirs[s:s + step]
+        d_n = vm.outer_dot(d, unorm)
+        hit_plane = torch.abs(d_n) > 1e-20
+        t = torch.where(hit_plane, (d_plane[None, :] - vm.outer_dot(o, unorm))
+                        / torch.where(hit_plane, d_n, torch.ones_like(d_n)),
+                        torch.full_like(d_n, BIG))
+        a = vm.outer_dot(o, evw) + t * vm.outer_dot(d, evw) - c_a[None, :]
+        b = vm.outer_dot(o, weu) + t * vm.outer_dot(d, weu) - c_b[None, :]
+        ok = (hit_plane & (t >= -BIG) & (t <= BIG) & (a >= 0.0) & (b >= 0.0)
+              & (a + b <= 1.0) & vols.mesh_active[None, :])
+        sel = own[None] & ok[:, None, :]                              # [r,V,MT]
+        t3 = t[:, None, :]
+        t1s.append(torch.amin(torch.where(sel, t3, torch.full_like(t3, BIG)), dim=-1))
+        t2s.append(torch.amax(torch.where(sel, t3, torch.full_like(t3, -BIG)), dim=-1))
+    return (t1s[0], t2s[0]) if len(t1s) == 1 else (torch.cat(t1s), torch.cat(t2s))
+
+
+def volume_sample(org, dirs, vols, tmin, t_surface, u_vol):
+    """Stochastic volume hits clipped by the closest surface (src/volumne.h,
+    ``intersect.py:324-400`` of the JAX package). Returns (t_v [R], vidx
+    [R], valid [R]); ``u_vol`` is [R, V] uniforms, one per volume."""
+    # the ray in each volume's object frame (row vector times object->world)
+    rel = org[:, None, :] - vols.center[None, :, :]      # [R,V,3]
+    ol = torch.einsum("rvk,vkl->rvl", rel, vols.rot)
+    dl = torch.einsum("rk,vkl->rvl", dirs, vols.rot)
+
+    # entry and exit of the whole line (negative t allowed: the reference
+    # probes with interval::universe first, src/volumne.h:21-22); box: a
+    # slab test against [-half, half]
+    half = vols.half[None]
+    ok = torch.abs(dl) > 1e-12
+    dl_safe = torch.where(ok, dl, torch.ones_like(dl))
+    inside = torch.abs(ol) <= half
+    big = torch.full_like(dl, BIG)
+    lo = torch.where(ok, (-half - ol) / dl_safe, torch.where(inside, -big, big))
+    hi = torch.where(ok, (half - ol) / dl_safe, torch.where(inside, big, -big))
+    t1 = torch.amax(torch.minimum(lo, hi), dim=-1)
+    t2 = torch.amin(torch.maximum(lo, hi), dim=-1)
+
+    # sphere: the quadratic's two roots
+    a = vm.dot(dirs, dirs)[:, None]
+    b = 2.0 * vm.dot(dirs[:, None, :], rel)
+    c = vm.dot(rel, rel) - (vols.half[..., 0] ** 2)[None, :]
+    disc = b * b - 4.0 * a * c
+    has = disc > 0.0
+    sq = torch.sqrt(torch.where(has, disc, torch.ones_like(disc)))
+    big = torch.full_like(disc, BIG)
+    t1_sph = torch.where(has, (-b - sq) / (2.0 * a), big)
+    t2_sph = torch.where(has, (-b + sq) / (2.0 * a), -big)
+    is_box = (vols.kind == 0)[None, :]
+    t1 = torch.where(is_box, t1, t1_sph)
+    t2 = torch.where(is_box, t2, t2_sph)
+
+    # mesh: [min t, max t] over the volume's boundary triangles along the
+    # whole line, exact for closed convex boundaries (the reference's own
+    # assumption)
+    if vols.mesh_v0 is not None:
+        t1_mesh, t2_mesh = mesh_span(org, dirs, vols)
+        is_mesh = (vols.kind == 2)[None, :]
+        t1 = torch.where(is_mesh, t1_mesh, t1)
+        t2 = torch.where(is_mesh, t2_mesh, t2)
+
+    # clamp to [tmin, closest surface] (src/volumne.h:25-29)
+    t1c = torch.clamp(t1, min=tmin)
+    t2c = torch.minimum(t2, t_surface[:, None])
+    span_ok = (t1c < t2c) & vols.active[None, :]
+    dlen = vm.length(dirs)[:, None]
+    dist_inside = (t2c - t1c) * dlen
+    # -log(U)/rho scatter distance (src/volumne.h:36); U == 0 gives no hit
+    hit_dist = vols.neg_inv_density[None, :] * torch.log(torch.clamp(u_vol, min=1e-38))
+    vhit = span_ok & (hit_dist <= dist_inside)
+    t_v = torch.where(vhit, t1c + hit_dist / dlen, torch.full_like(t1c, INF))
+    t_best, vidx = torch.min(t_v, dim=-1)
+    return t_best, vidx, torch.isfinite(t_best)
+
+
 def _packet_cap(scene, org, dirs, active, tmax, tmin):
     """Per-ray traversal cap of the accelerators: a ray's closest hit cannot
     lie beyond its exit from the scene AABB, so miss rays stop there
@@ -155,8 +258,8 @@ def _packet_cap(scene, org, dirs, active, tmax, tmin):
 
 def intersect_brute(scene, org, dirs, time, tmin, u_vol, tmax=INF,
                     active=None):
-    """Closest hit across all primitive tables -> Hit. ``u_vol``: [R, V]
-    volume uniforms (unused until volumes are ported). The JAX package
+    """Closest hit across all primitive tables and volumes -> Hit.
+    ``u_vol``: [R, V] volume uniforms. The JAX package
     coherence-sorts large scenes only for its tile-packet accelerator
     (``_sort_wanted`` is False on the per-ray route), so this is
     ``_intersect_core``."""
@@ -168,8 +271,6 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
     """Closest hit in the caller's lane order. ``scene.counts`` is static,
     so primitive types the scene does not contain are skipped."""
     n_sph, n_quad, n_tri, n_vol = scene.counts
-    if n_vol:
-        raise NotImplementedError("volumes (ROADMAP M4) are not ported yet")
     R = org.shape[0]
     inf_t = torch.full((R,), INF, dtype=org.dtype, device=org.device)
     # Every chunked table takes the per-ray route: the JAX package sends
@@ -206,8 +307,12 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
         t_t, tri_payload = fi.planar_closest_fused(org, dirs, view, tmin,
                                                    True, tmax, pack=pack)
 
-    t_all = torch.stack([t_s, t_q, t_t, inf_t], dim=-1)   # [R,4]
-    which = torch.argmin(t_all, dim=-1)                   # 0 sph, 1 quad, 2 tri
+    t_v = inf_t
+    if n_vol:
+        t_surface = torch.minimum(torch.minimum(t_s, t_q), t_t)
+        t_v, i_v, _ = volume_sample(org, dirs, scene.volumes, tmin, t_surface, u_vol)
+    t_all = torch.stack([t_s, t_q, t_t, t_v], dim=-1)     # [R,4]
+    which = torch.argmin(t_all, dim=-1)           # 0 sph, 1 quad, 2 tri, 3 vol
     t = torch.amin(t_all, dim=-1)
     valid = torch.isfinite(t)
 
@@ -252,6 +357,10 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
         merge(which == 1, planar_attrs(quad_payload, zero_uv=False))
     if tri_payload is not None:
         merge(which == 2, planar_attrs(tri_payload, zero_uv=True))
+    if n_vol:
+        # the volume record: an arbitrary normal and front face
+        # (src/volumne.h:42-43), the medium's material
+        mat = torch.where(which == 3, tbl.take_rows(scene.volumes.mat, i_v), mat)
 
     return Hit(valid=valid, t=t, p=p, normal=normal, front=front, u=uu,
                v=vv, mat=torch.where(valid, mat, torch.zeros_like(mat)))

@@ -25,7 +25,11 @@ no kernel: the port's counterpart of the JAX package's per-sample
 
 ``planar_chunks_winner`` / ``sphere_chunks_winner`` are the per-winner
 forms of the chunk scan that the per-ray accelerator's backward
-differentiates (``ops/perray.py``). Volumes are ROADMAP M4.
+differentiates (``ops/perray.py``). A volume winner replays its entry
+point and the -ln(U)/rho distance (``_volume_t_one``); the decision,
+which volume scattered the ray before any surface, is part of the saved
+id. Under next-event estimation a bounce intersects twice (the path's ray,
+then the shadow ray), and the tape keeps both decisions in that order.
 """
 
 from __future__ import annotations
@@ -51,18 +55,11 @@ def supported(scene) -> bool:
             and scene.tri_chunks is None)
 
 
-def _no_volumes(scene) -> None:
-    if scene.counts[3]:
-        raise NotImplementedError("the volume replay (_volume_t_one, ROADMAP "
-                                  "M4) is not ported yet")
-
-
 def winner_pack(scene, org, dirs, time, tmin, u_vol, tmax=INF) -> torch.Tensor:
     """[R] int32: (type << 28) | dense row index of the closest hit, -1 on a
-    miss. First index wins a tie, within a table and across types."""
-    del u_vol  # volumes: ROADMAP M4
-    _no_volumes(scene)
-    n_sph, n_quad, n_tri, _ = scene.counts
+    miss. First index wins a tie, within a table and across types; a
+    volume wins where its sampled scatter lies before every surface."""
+    n_sph, n_quad, n_tri, n_vol = scene.counts
     R = org.shape[0]
     with torch.no_grad():
         inf_t = torch.full((R,), INF, dtype=org.dtype, device=org.device)
@@ -78,9 +75,15 @@ def winner_pack(scene, org, dirs, time, tmin, u_vol, tmax=INF) -> torch.Tensor:
         if n_tri:
             view, pack = scene.tri_view
             t_t, i_t = fi.planar_winner(org, dirs, view, tmin, True, tmax, pack)
-        t_all = torch.stack([t_s, t_q, t_t, inf_t], dim=-1)
+        t_v, i_v = inf_t, zero_i
+        if n_vol:
+            t_surface = torch.minimum(torch.minimum(t_s, t_q), t_t)
+            t_v, i_v, _ = isect.volume_sample(org, dirs, scene.volumes, tmin,
+                                              t_surface, u_vol)
+            i_v = i_v.to(torch.int32)
+        t_all = torch.stack([t_s, t_q, t_t, t_v], dim=-1)
         which = torch.argmin(t_all, dim=-1).to(torch.int32)
-        idx = torch.stack([i_s, i_q, i_t, zero_i], dim=-1).gather(
+        idx = torch.stack([i_s, i_q, i_t, i_v], dim=-1).gather(
             1, which[:, None].long())[:, 0]
         packed = (which << _SHIFT) | idx
         hit = torch.isfinite(torch.amin(t_all, dim=-1))
@@ -123,12 +126,56 @@ def _planar_t_one(org, dirs, corner, eu, ev, idx):
                        torch.full_like(d_n, INF))
 
 
+def _volume_t_one(org, dirs, vols, idx, u_vol, tmin):
+    """[R] scatter t of ray r inside volume idx[r]: the boundary's entry,
+    then the -ln(U)/rho distance (src/volumne.h:25-36;
+    ``replay.py:148-190`` of the JAX package). Whether the exit clamp cut
+    the span is part of the saved decision; the value needs only the entry.
+    A mesh volume's entry is the least t over its own boundary triangles,
+    as ``intersect.volume_sample`` has it (``intersect.mesh_span``). The JAX
+    package's replay takes the sphere branch for a mesh row (a unit sphere
+    about the centroid, ROADMAP F6); the port does not copy that."""
+    center = tbl.take_rows(vols.center, idx)
+    half = tbl.take_rows(vols.half, idx)
+    kind = tbl.take_rows(vols.kind, idx)
+    nid = tbl.take_rows(vols.neg_inv_density, idx)
+    rot = tbl.take_rows(vols.rot.reshape(-1, 9), idx).reshape(-1, 3, 3)
+
+    rel = org - center
+    ol = torch.einsum("rk,rkl->rl", rel, rot)
+    dl = torch.einsum("rk,rkl->rl", dirs, rot)
+    ok = torch.abs(dl) > 1e-12
+    dl_safe = torch.where(ok, dl, torch.ones_like(dl))
+    inside = torch.abs(ol) <= half
+    big = torch.full_like(dl, isect.BIG)
+    lo = torch.where(ok, (-half - ol) / dl_safe, torch.where(inside, -big, big))
+    hi = torch.where(ok, (half - ol) / dl_safe, torch.where(inside, big, -big))
+    t1_box = torch.amax(torch.minimum(lo, hi), dim=-1)
+
+    a = vm.dot(dirs, dirs)
+    b = 2.0 * vm.dot(dirs, rel)
+    c = vm.dot(rel, rel) - half[:, 0] ** 2
+    disc = b * b - 4.0 * a * c
+    has = disc > 0.0
+    sq = torch.sqrt(torch.where(has, disc, torch.ones_like(disc)))
+    t1_sph = torch.where(has, (-b - sq) / (2.0 * a), torch.full_like(disc, isect.BIG))
+
+    t1 = torch.where(kind == 0, t1_box, t1_sph)
+    if vols.mesh_v0 is not None:
+        t1_mesh = isect.mesh_span(org, dirs, vols)[0].gather(1, idx[:, None].long())[:, 0]
+        t1 = torch.where(kind == 2, t1_mesh, t1)
+    t1c = torch.clamp(t1, min=tmin)
+    u_w = u_vol.gather(1, idx[:, None].long())[:, 0]
+    # the floor stays a normal float32: log(0) = -inf would make the
+    # non-volume lanes' 0 * -inf a NaN (``replay.py:189`` of the JAX package)
+    hit_dist = nid * torch.log(torch.clamp(u_w, min=1e-30))
+    return t1c + hit_dist / torch.clamp(vm.length(dirs), min=1e-20)
+
+
 def replay_hit(scene, org, dirs, time, u_vol, packed, tmin, tmax=INF) -> isect.Hit:
     """Differentiable Hit from the packed winner ids: O(R) gathers and one
     re-intersection per lane, no [R, N] intermediate."""
-    del u_vol
-    _no_volumes(scene)
-    n_sph, n_quad, n_tri, _ = scene.counts
+    n_sph, n_quad, n_tri, n_vol = scene.counts
     R = org.shape[0]
     valid = packed >= 0
     safe = torch.where(valid, packed, torch.zeros_like(packed))
@@ -185,6 +232,13 @@ def replay_hit(scene, org, dirs, time, u_vol, packed, tmin, tmax=INF) -> isect.H
         t_m = merge_t(cond, _planar_t_one(org, dirs, tr.v0, tr.v1 - tr.v0,
                                           tr.v2 - tr.v0, i_k))
         merge(cond, isect.tri_shading(org, dirs, tr, i_k, t_m))
+    if n_vol:
+        cond = valid & (which == TYPE_VOL)
+        i_k = rows(cond)
+        merge_t(cond, _volume_t_one(org, dirs, scene.volumes, i_k, u_vol, tmin))
+        # the volume record: an arbitrary normal and front face
+        # (src/volumne.h:42-43)
+        mat = torch.where(cond, tbl.take_rows(scene.volumes.mat, i_k), mat)
 
     p = org + t[:, None] * dirs
     return isect.Hit(valid=valid, t=torch.where(valid, t, torch.full_like(t, INF)),

@@ -1,7 +1,8 @@
 """Batched texture evaluation over flat texture tables.
 
-Port of ``cpu_ray_tracing_implementation_tpu/ops/textures.py`` for the
-solid, checker and picture kinds. Every kind the scene uses is evaluated for all
+Port of ``cpu_ray_tracing_implementation_tpu/ops/textures.py``: solid,
+checker, picture and the four noise kinds (perlin marble, value, worley,
+voronoi; ``ops/noise.py``). Every kind the scene uses is evaluated for all
 lanes and selected by type code (src/texture.h:9 virtual dispatch).
 """
 
@@ -10,14 +11,8 @@ from __future__ import annotations
 import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.models import scene as scene_mod
+from cpu_ray_tracing_implementation_tpu_torch.ops import noise as noise_ops
 from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
-
-_NOT_PORTED = {
-    scene_mod.TEX_PERLIN: "perlin textures (ROADMAP M2)",
-    scene_mod.TEX_VALUE: "value-noise textures (ROADMAP M2)",
-    scene_mod.TEX_WORLEY: "worley textures (ROADMAP M2)",
-    scene_mod.TEX_VORONOI: "voronoi textures (ROADMAP M2)",
-}
 
 
 def eval_texture(scene, tex_id: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -28,9 +23,6 @@ def eval_texture(scene, tex_id: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     textures evaluate in world space by adding Scene.world_offset back.
     """
     used = scene.tex_types_used or (scene_mod.TEX_SOLID,)
-    for kind in used:
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{_NOT_PORTED[kind]} are not ported yet")
     if scene.world_offset is not None:
         p = p + scene.world_offset[None, :]
     texs = scene.textures
@@ -77,4 +69,20 @@ def eval_texture(scene, tex_id: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                 texel = torch.where((tfil == 1)[..., None], lerped, texel)
             pic = torch.where((image_id == k)[..., None], texel, pic)
         out = torch.where((ttype == scene_mod.TEX_PICTURE)[..., None], pic, out)
+
+    def select(kind, val):
+        return torch.where((ttype == kind)[..., None], val[..., None], out)
+
+    if scene_mod.TEX_PERLIN in used:
+        # marble: .5*(1+sin(x + 70*turb7(p/scale))) (src/texture.h:85-88)
+        scale = tbl.take_rows(texs.scale, tex_id)
+        turb = noise_ops.perlin_turb(p / scale[..., None], scene.noise.perlin_grad,
+                                     scene.noise.perlin_perm, depth=7)
+        out = select(scene_mod.TEX_PERLIN, 0.5 * (1.0 + torch.sin(p[..., 0] + 70.0 * turb)))
+    if scene_mod.TEX_VALUE in used:
+        out = select(scene_mod.TEX_VALUE, noise_ops.value_noise(p, scene.noise.value_grid))
+    if scene_mod.TEX_WORLEY in used:
+        out = select(scene_mod.TEX_WORLEY, noise_ops.worley_noise(p))
+    if scene_mod.TEX_VORONOI in used:
+        out = select(scene_mod.TEX_VORONOI, noise_ops.voronoi_noise(p))
     return out

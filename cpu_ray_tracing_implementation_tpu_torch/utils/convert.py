@@ -23,27 +23,27 @@ from cpu_ray_tracing_implementation_tpu_torch.ops.tables import DEFAULT_DEVICE
 # them. The JAX scene's BVH trees (``*_tree``, ROADMAP M11) are not carried.
 _UNPORTED = {
     "tri_attrs": "per-vertex triangle attributes (ROADMAP M4)",
-    "sphere_lights": "sphere lights (ROADMAP M5)",
     "env_texel_p": "environment importance sampling (ROADMAP M5)",
 }
 
 
 def _columns(obj, cls) -> list:
-    return [np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(cls)]
+    """``obj``'s columns in ``cls``'s field order; an absent optional
+    column (the volumes' mesh tables of a scene without one) stays None."""
+    cols = [getattr(obj, f.name, None) for f in dataclasses.fields(cls)]
+    return [None if c is None else np.asarray(c) for c in cols]
 
 
 def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
     """The port's Scene holding the same tables as the JAX ``jscene``,
-    its chunked tables, chunk orders and picture images included."""
+    its chunked tables, chunk orders, picture images, noise tables, sphere
+    lights and mesh-volume boundaries included."""
     for name, what in _UNPORTED.items():
         if getattr(jscene, name, None) is not None:
             raise NotImplementedError(f"{what} are not ported yet")
     if getattr(jscene, "has_dispersion", False):
         raise NotImplementedError("spectral dispersion (ROADMAP M6) is not "
                                   "ported yet")
-    vols = jscene.volumes
-    if getattr(vols, "mesh_v0", None) is not None:
-        raise NotImplementedError("mesh volumes (ROADMAP M4) are not ported yet")
     arrays = {name: _columns(getattr(jscene, name), cls)
               for name, cls in sc._TABLES.items()}
     for name, cls in sc._CHUNKS.items():
@@ -53,7 +53,9 @@ def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
         order = getattr(jscene, oname)
         arrays[oname] = None if order is None else np.asarray(order, np.int32)
     off = jscene.world_offset
+    sl = getattr(jscene, "sphere_lights", None)
     arrays.update(lights=np.asarray(jscene.lights, np.int32),
+                  sphere_lights=None if sl is None else np.asarray(sl, np.int32),
                   images=[np.asarray(im, np.float32) for im in jscene.images],
                   world_offset=None if off is None else np.asarray(off, np.float32))
     return sc.scene_from_tables(
@@ -70,13 +72,9 @@ def camera_from_numpy(jcam, device=DEFAULT_DEVICE) -> cam_mod.Camera:
     if int(jcam.mode) not in (cam_mod.PERSPECTIVE, cam_mod.ORTHOGRAPHIC,
                               cam_mod.FISHEYE, cam_mod.LENS):
         raise ValueError(f"unknown camera mode {int(jcam.mode)}")
-    for flag in ("qmc", "nee"):
-        if getattr(jcam, flag, False):
-            raise NotImplementedError(f"camera.{flag} (ROADMAP M6/M12) is not "
-                                      "ported yet")
-    if getattr(jcam, "rr_depth", 0):
-        raise NotImplementedError("Russian roulette (ROADMAP M6) is not "
-                                  "ported yet")
+    if getattr(jcam, "qmc", False):
+        raise NotImplementedError("camera.qmc (ROADMAP M6/M12, queue 1 step 9) "
+                                  "is not ported yet")
 
     device = tbl.as_device(device)
 
@@ -91,7 +89,8 @@ def camera_from_numpy(jcam, device=DEFAULT_DEVICE) -> cam_mod.Camera:
         focus_dist=f32(jcam.focus_dist), mode=int(jcam.mode),
         width=int(jcam.width), height=int(jcam.height), spp=int(jcam.spp),
         max_depth=int(jcam.max_depth), stratify=bool(jcam.stratify),
-        clamp=float(jcam.clamp))
+        clamp=float(jcam.clamp), rr_depth=int(getattr(jcam, "rr_depth", 0)),
+        nee=bool(getattr(jcam, "nee", False)))
 
 
 def params_from_numpy(params: dict, device=DEFAULT_DEVICE) -> dict:

@@ -14,7 +14,10 @@ cornell_box at 512x512, depth 8 (the winner-replay route), one sample;
 path-regeneration wavefront at its automatic lane pool, and also print
 the loop iterations per render, the kernels per iteration and the host
 synchronisations per iteration (the loop's condition and each per-ray
-selection phase's live count).
+selection phase's live count); ``cornell_sphere_light_nee`` renders
+cornell_box_with_sphere_light at its own 600x600, depth 4, with
+next-event estimation and Russian roulette from bounce 3 (its shadow rays
+launch K1 and K2 a second time in every bounce but the last).
 ``sweep_stages`` times kernel K4 alone on ``utils/kernel_ab.py``'s sweep
 inputs: CUDA events per call and torch.profiler's device time per stage
 kernel. Each other workload runs ``spp`` samples after a 2-sample warm-up: three times on the host
@@ -31,7 +34,9 @@ each stage's host and device time, the wrapper calls, device kernels
 and device time of kernels K1-K4 (K4 runs four kernels a call), and the
 per-ray selection phases per bounce. Last it times
 three more unprofiled runs: what the profiler leaves behind on later
-launches of these host-bound paths.
+launches of these host-bound paths, and then one more with PyTorch's
+synchronisation debug mode on, which counts the host synchronisations
+that PyTorch's operations make (per bounce or per loop iteration).
 
 ``cuda_ms`` and the card's peak rates are shared with ``chip_smoke.py``
 and ``utils/gather_probe.py``; ``camera_rays`` and ``secondary``, the rays
@@ -74,6 +79,7 @@ STAGES = (
     (mat_ops, "mat_rows", "mat_rows"),
     (mat_ops, "emitted", "emitted"),
     (mat_ops, "scatter", "scatter"),
+    (mat_ops, "scatter_nee", "scatter_nee"),
     (integrator, "_per_ray_uniforms", "uniforms"),
     (cam_mod, "generate_rays", "raygen"),
     (fs, "cull_select", "select"),
@@ -84,16 +90,19 @@ STAGES = (
     (replay, "replay_hit", "replay"),
 )
 # name -> (catalog scene, its arguments, samples profiled, gradient or not,
-# wavefront or scan)
+# wavefront or scan, camera fields replaced)
 WORKLOADS = {
-    "cornell": (catalog.cornell_box, dict(width=512, max_depth=8), 8, False, False),
-    "colonnade": (catalog.sponza, dict(width=200, max_depth=5), 4, False, False),
+    "cornell": (catalog.cornell_box, dict(width=512, max_depth=8), 8, False, False, {}),
+    "colonnade": (catalog.sponza, dict(width=200, max_depth=5), 4, False, False, {}),
     "cornell_grad": (catalog.cornell_box, dict(width=512, max_depth=8), 1, True,
-                     False),
+                     False, {}),
     "colonnade_wavefront": (catalog.sponza, dict(width=200, max_depth=5), 4, False,
-                            True),
+                            True, {}),
     "sphereflake_wavefront": (catalog.sphereflake, dict(width=400, max_depth=5), 4,
-                              False, True),
+                              False, True, {}),
+    "cornell_sphere_light_nee": (catalog.cornell_box_with_sphere_light,
+                                 dict(width=600, max_depth=4), 8, False, False,
+                                 dict(nee=True, rr_depth=3)),
 }
 TOP = 20  # kernels listed by device time
 REPEATS = 3  # unprofiled runs before the profiled one, and after it
@@ -250,8 +259,9 @@ def main(argv=None) -> int:
     if name == "sweep_stages":
         return sweep_stages()
     dev = torch.device("cuda", 0)
-    make, kwargs, spp, grad, wavefront = WORKLOADS[name]
+    make, kwargs, spp, grad, wavefront, cam_kw = WORKLOADS[name]
     scene, cam = make(spp=spp, device=dev, **kwargs)
+    cam = cam.replace(**cam_kw)
     bounces = spp * cam.max_depth
     target = torch.zeros((cam.height, cam.width, 3), device=dev)
 
@@ -295,7 +305,8 @@ def main(argv=None) -> int:
     n_kern = sum(k[1] for k in kern)
     print(f"{name} {cam.width}x{cam.height} depth {cam.max_depth}, {spp} spp"
           f"{' fwd+bwd (diff.loss_and_grads)' if grad else ''}"
-          f"{' wavefront' if wavefront else ''}: wall "
+          f"{' wavefront' if wavefront else ''}"
+          + "".join(f", {k}={v}" for k, v in cam_kw.items()) + ": wall "
           f"{wall:.4f} s unprofiled (median of {before}), {wall_prof:.4f} s profiled")
     print(f"device kernel time {dev_s:.4f} s over {n_kern} kernels"
           + ("" if wavefront else f" ({n_kern / bounces:.1f} per bounce)")
@@ -308,7 +319,8 @@ def main(argv=None) -> int:
         n = sum(k[1] for k in hits)
         us = sum(k[2] for k in hits)
         calls = counts[kname]
-        print(f"{kname}: {calls} calls, {n} device kernels, device {us / 1e3:.4f} ms"
+        print(f"{kname}: {calls} calls ({calls / bounces:.3f} per bounce), {n} device "
+              f"kernels, device {us / 1e3:.4f} ms"
               + (f", {us / max(calls, 1):.2f} us a call, {us / 1e6 / dev_s:.4f} of "
                  "device time" if n else ""))
     if perray.PHASES["calls"]:
@@ -341,7 +353,30 @@ def main(argv=None) -> int:
     wall_after, after = walls()
     print(f"wall unprofiled after the profiler: {wall_after:.4f} s (median of "
           f"{after}), against {wall:.4f} s before it")
+    n_sync = count_syncs(lambda: run(spp))
+    its = integrator.WAVEFRONT["iterations"] if wavefront else 0
+    print(f"host synchronisations PyTorch reports in one more run: {n_sync} "
+          + (f"({n_sync / its:.3f} per loop iteration)" if its else
+             f"({n_sync / bounces:.3f} per bounce)"))
     return 0
+
+
+def count_syncs(fn) -> int:
+    """The host synchronisations that PyTorch's operations make while
+    ``fn`` runs: its synchronisation debug mode warns once for each."""
+    import warnings
+
+    reset_counts()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 if __name__ == "__main__":

@@ -84,8 +84,8 @@ def test_wavefront_workloads_count_iterations(name):
     """The wavefront workloads at a CPU size: one intersect range per loop
     iteration, each iteration's per-ray phases counted, and no GPU needed
     to refuse."""
-    make, kwargs, spp, grad, wavefront = profiling.WORKLOADS[name]
-    assert wavefront and not grad and kwargs["max_depth"] == 5
+    make, kwargs, spp, grad, wavefront, cam_kw = profiling.WORKLOADS[name]
+    assert wavefront and not grad and kwargs["max_depth"] == 5 and not cam_kw
     scene, cam = make(width=8, spp=2, max_depth=2, device="cpu")
     profiling.reset_counts()
     acts = [torch.profiler.ProfilerActivity.CPU]

@@ -25,13 +25,22 @@ STATIC = ("background", "tex_types_used", "mat_types_used", "counts",
 
 
 def _assert_scenes_equal(a: sc.Scene, b: sc.Scene):
+    """Every table (the noise tables and the volumes' optional mesh columns
+    included), the lights and sphere lights, images, static fields and
+    chunked tables equal, dtype and all."""
     for table in sc._TABLES:
         ta, tb = getattr(a, table), getattr(b, table)
         for f in dataclasses.fields(ta):
             xa, xb = getattr(ta, f.name), getattr(tb, f.name)
+            assert (xa is None) == (xb is None), (table, f.name)
+            if xa is None:
+                continue
             assert xa.dtype == xb.dtype, (table, f.name)
             assert torch.equal(xa, xb), (table, f.name)
     assert torch.equal(a.lights, b.lights)
+    assert (a.sphere_lights is None) == (b.sphere_lights is None)
+    if a.sphere_lights is not None:
+        assert torch.equal(a.sphere_lights, b.sphere_lights)
     assert len(a.images) == len(b.images)
     for ia, ib in zip(a.images, b.images):
         assert ia.dtype == ib.dtype and torch.equal(ia, ib)

@@ -155,15 +155,32 @@ def test_light_sample_and_pdf_match_jax():
 
 
 def test_unported_families_raise():
-    """Isotropic media are ROADMAP M5 (gloss is ported)."""
+    """Every material family is ported since isotropic media (ROADMAP M5):
+    an isotropic lane scatters into a uniform sphere direction with weight
+    albedo * (1/4pi) / (1/4pi) = albedo, as the JAX package's. What still
+    raises is carried across by ``scene_from_numpy``: dispersion (M6),
+    per-vertex triangle attributes (M4) and the importance-sampled
+    environment light (M5)."""
     b = sc.SceneBuilder()
     m = b.lambertian((1, 1, 1))
-    b._mat_row(mtype=sc.MAT_ISOTROPIC)
+    b._mat_row(mtype=sc.MAT_ISOTROPIC, tex=b.solid((0.3, 0.5, 0.7)))
     b.sphere((0, 0, 0), 1.0, m)
     ps = b.build("cpu")
     h = isect.Hit(valid=torch.ones(2, dtype=torch.bool), t=torch.ones(2),
                   p=torch.zeros(2, 3), normal=torch.ones(2, 3),
                   front=torch.ones(2, dtype=torch.bool), u=torch.zeros(2),
-                  v=torch.zeros(2), mat=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="M5"):
-        mat.scatter(ps, h, torch.ones(2, 3), torch.zeros(2, 10))
+                  v=torch.zeros(2), mat=torch.ones(2, dtype=torch.int32))
+    u = torch.full((2, 10), 0.25)
+    d, w, c = mat.scatter(ps, h, torch.ones(2, 3), u)
+    assert bool(c.all())
+    torch.testing.assert_close(d, smp.unit_sphere_dir(u[:, 1], u[:, 2]))
+    torch.testing.assert_close(w, torch.tensor([[0.3, 0.5, 0.7]] * 2))
+    js, _ = jcat.three_material_ball(width=16)
+    jd = js.replace(materials=js.materials.replace(
+        dispersion=js.materials.dispersion.at[1].set(0.01)), has_dispersion=True)
+    with pytest.raises(NotImplementedError, match="M6"):
+        convert.scene_from_numpy(jd, device="cpu")
+    for field, label in (("tri_attrs", "M4"), ("env_texel_p", "M5")):
+        with pytest.raises(NotImplementedError, match=label):
+            convert.scene_from_numpy(js.replace(**{field: jnp.zeros((1,))}),
+                                     device="cpu")
