@@ -52,6 +52,13 @@ Phases (any failure raises and the script exits non-zero):
      600x600 (2,401 quads in 19 chunks) K3 and K4 at every phase of its
      primary rays and of shadow-like rays toward its light quad with half
      the lanes dead, and K2 on its two spheres; the same tolerances.
+   - The traffic of spectral dispersion and the importance-sampled sky:
+     K1 and K2 on dispersion_prism's 400x400 primary rays and on the two
+     generations its hits scatter at random hero wavelengths (the rays
+     refracted into the glass sphere leave its surface inward, and K2
+     finds their exit), and K2 on sunlit_spheres' primary rays and on the
+     NEE shadow rays from its first hits toward importance-sampled sky
+     directions; the same tolerances.
    - K5 (gather-sum probe) against its plain version (rel err max |a - b| /
      (|b| + 1) <= 1e-5) at the probe's defaults (an 11.5 MB table, inside
      the L2) and with a 738 MB table (K 131,072: device memory), with its
@@ -65,8 +72,12 @@ Phases (any failure raises and the script exits non-zero):
    three_material_ball_with_defocus_blur, the fisheye's
    skybox_and_fisheye), the noise scenes (perlin_texture_ball and the four
    test_*_noise), cornell_box_with_sphere_light and
-   cornell_box_with_volume at the golden workload (16 px, 4 spp, depth 3,
-   key 42; image mean within 2e-3 of tests/test_golden.py), and the five
+   cornell_box_with_volume, dispersion_prism and sunlit_spheres at the
+   golden workload (16 px, 4 spp, depth 3, key 42; image mean within 2e-3
+   of tests/test_golden.py); the Cornell box at the golden workload under
+   ``camera.qmc`` and under ``CRT_RNG=threefry``, and the 16 px colonnade
+   under ``camera.qmc`` (through K3 and K4), within 2e-3 of the port's own
+   CPU render of the same key; the five
    scenes whose asset is missing (F1: earthmap.jpg, and smoke_fox's
    Fox.gltf) within 2e-3 of the port's own CPU render of the same scene
    and key; the Cornell
@@ -108,7 +119,17 @@ Phases (any failure raises and the script exits non-zero):
    under torch.profiler and in a 4-spp sphereflake scan render, and K2's
    in a random_motion_ball render at 2 spp (its share of device time per
    bounce), each with its wrapper calls there and the device kernels one
-   call runs (K4: four, and a memset).
+   call runs (K4: four, and a memset). The new estimator paths at their
+   scenes' own sizes: dispersion_prism at 400x400, 200 spp, depth 6, and
+   its wavefront at 4 spp against a 4-spp scan (WAVEFRONT_TOL);
+   sunlit_spheres at 400 px (aspect 1.78), 50 spp, depth 5, plain and with
+   NEE (means within NEE_MEAN_RTOL); the Cornell box at 512x512, 256 spp,
+   depth 8 under ``camera.qmc`` and under ``CRT_RNG=threefry``
+   (THREEFRY_SPP samples); ``loss_and_grads`` of dispersion_prism cut to
+   PRISM_GRAD (``mat_dispersion`` finite and nonzero, the kernel route
+   equal to plain autograd under deterministic algorithms) and of the
+   Cornell box under ``camera.qmc`` at QMC_GRAD. Each prints seconds,
+   camera rays/s and the mean.
 5. Kernel launch counts of each phase-4 run, set to 0 just before it and
    read just after: the Cornell render must launch K1, the
    three_material_ball render K2, the colonnade render K1 (its light
@@ -130,6 +151,13 @@ Phases (any failure raises and the script exits non-zero):
    slice's scene (K2's: random_motion_ball's; three_material_ball's 80 and
    K2's time there go on the line before it; the sphere-light renders' K1
    and K2 launches, plain and with NEE, on a line of their own before it).
+   The spectral, QMC and threefry runs: the prism scan launches K1 and K2
+   each spp x depth = 1,200 times; sunlit_spheres K2 250 times plain and
+   450 with NEE (spp x (2 depth - 1)) and K1 never; the QMC and threefry
+   Cornell renders K1 spp x depth times (2,048 at 256 spp); the gradient
+   runs K1 (and on the prism K2) spp x depth times in the forward pass and
+   none in the backward. Their counts go on a line of their own before the
+   ``kernels`` line.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -138,8 +166,10 @@ printing a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -157,6 +187,8 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
+from cpu_ray_tracing_implementation_tpu_torch.ops import spectrum
+from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
 from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe, profiling
 from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
     FP32_INSTR_PER_S, HBM_BYTES_PER_S, camera_rays, cuda_ms, secondary)
@@ -179,7 +211,9 @@ GOLDEN_MEANS = {"cornell_box": 0.160999, "three_material_ball": 0.563181,
                 "test_value_noise": 0.496078, "test_worley_noise": 0.322421,
                 "test_voronoi_noise": 0.462877,
                 "cornell_box_with_sphere_light": 0.427467,
-                "cornell_box_with_volume": 0.487237}
+                "cornell_box_with_volume": 0.487237,
+                # spectral dispersion and the importance-sampled sky
+                "dispersion_prism": 0.782510, "sunlit_spheres": 0.090164}
 # scenes whose asset is missing here (ROADMAP F1: earthmap.jpg, and
 # smoke_fox's Fox.gltf, for which it bounds its medium by a fallback mesh):
 # held to the port's own CPU render of the same scene and key, which takes
@@ -238,6 +272,13 @@ PERLIN_SPP = 32
 # the NEE + volume gradient run, cut from 600x600x100 depth 5 to this
 # size (the plain-autograd reference runs the chunk scan on the card)
 VOLUME_GRAD = dict(width=256, spp=4, max_depth=5)
+# the gradient runs of the spectral and QMC paths: dispersion_prism cut from
+# 400x400, 200 spp to this size, and the Cornell box under camera.qmc
+PRISM_GRAD = dict(width=128, spp=8, max_depth=6)
+QMC_GRAD = dict(width=256, spp=4, max_depth=8)
+# the Cornell render under CRT_RNG=threefry: Cornell's full 256 spp (the
+# script stays well inside its time limit with it, PERF.md section 6)
+THREEFRY_SPP = 256
 # FP32 instructions (a fused multiply-add counts once, a divide, square
 # root, min, max or compare once) per (ray, primitive) or (ray, box) pair,
 # counted from each kernel's source: K1 the plane and edge tests of a live
@@ -265,6 +306,20 @@ OPS_PER_PAIR_BEFORE = {"planar": 130, "sphere": 50}
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def rng_stream(name):
+    """Renders inside draw from the ``CRT_RNG`` stream ``name``."""
+    saved = os.environ.get("CRT_RNG")
+    os.environ["CRT_RNG"] = name
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["CRT_RNG"]
+        else:
+            os.environ["CRT_RNG"] = saved
 
 
 T_START = time.perf_counter()
@@ -783,20 +838,6 @@ def phase_estimator_kernels(dev):
     errs = {"planar_closest": 0.0, "sphere_closest": 0.0, "cull_select": 0.0,
             "visit_sweep": 0.0}
 
-    def closest(label, org, dirs, time, scene):
-        if scene.counts[1] and scene.quad_chunks is None:
-            view, pack = scene.quad_view
-            got = fi.planar_closest_fused(org, dirs, view, TMIN, False, pack=pack)
-            ref = ch.planar_closest(org, dirs, view, TMIN, False)
-            errs["planar_closest"] = max(errs["planar_closest"], compare(
-                f"K1 quad, {label}", got, (ref[0], ref[1][:4]), PLANAR_FIELDS))
-        if scene.counts[0] and scene.sphere_chunks is None:
-            view, pack = scene.sphere_view
-            got = fi.sphere_closest_fused(org, dirs, time, view, TMIN, pack=pack)
-            ref = ch.sphere_closest(org, dirs, time, view, TMIN)
-            errs["sphere_closest"] = max(errs["sphere_closest"], compare(
-                f"K2, {label}", got, (ref[0], ref[1][:3]), SPHERE_FIELDS))
-
     scene, cam = catalog.cornell_box_with_sphere_light(spp=1, device=dev)
     org, dirs, time, _ = profiling.scene_rays(scene, cam, gen)
     R = org.shape[0]
@@ -806,11 +847,11 @@ def phase_estimator_kernels(dev):
     sh_dirs = mat_ops.light_sample(scene, hit.p, u[:, 0], u[:, 1], u[:, 2])
     log(f"  cornell_box_with_sphere_light {cam.width}x{cam.height}: "
         f"{int(hit.valid.sum())} of {R} first hits cast a live shadow ray")
-    closest("sphere-light Cornell, shadow rays", hit.p.contiguous(), sh_dirs, time,
-            scene)
+    closest_check("sphere-light Cornell, shadow rays", hit.p.contiguous(), sh_dirs,
+                  time, scene, errs)
     scene, cam = catalog.cornell_box_with_volume(spp=1, device=dev)
     org, dirs, time, _ = profiling.scene_rays(scene, cam, gen)
-    closest("volume Cornell, primary", org, dirs, time, scene)
+    closest_check("volume Cornell, primary", org, dirs, time, scene, errs)
 
     scene, cam = catalog.perlin_texture_ball(spp=1, device=dev)
     tabs, K = scene.quad_perray, scene.quad_chunks.corner.shape[0]
@@ -818,7 +859,7 @@ def phase_estimator_kernels(dev):
     log(f"  perlin_texture_ball {cam.width}x{cam.height}: {scene.counts[1]} quads in "
         f"{K} chunks, {scene.counts[0]} spheres")
     org, dirs, time, cap = profiling.scene_rays(scene, cam, gen)
-    closest("perlin_texture_ball view, primary", org, dirs, time, scene)
+    closest_check("perlin_texture_ball view, primary", org, dirs, time, scene, errs)
     t, _ = perray.planar_closest_perray(org, dirs, scene.quad_chunks, TMIN, False,
                                         cap, tabs=tabs)
     p = org + torch.where(torch.isfinite(t), t, torch.zeros_like(t))[:, None] * dirs
@@ -845,6 +886,71 @@ def phase_estimator_kernels(dev):
             errs["visit_sweep"] = max(errs["visit_sweep"], sweep_check(
                 f"K4 quads, perlin_texture_ball {label}, phase {n + 1}", rays4, ids,
                 nears, best, tabs.table, False, False)[0])
+    torch.cuda.synchronize()
+    return errs
+
+
+def closest_check(label, org, dirs, time, scene, errs):
+    """K1 on a dense scene's quads and K2 on its spheres against the plain
+    versions, on the given rays; the largest errors go into ``errs``."""
+    if scene.counts[1] and scene.quad_chunks is None:
+        view, pack = scene.quad_view
+        got = fi.planar_closest_fused(org, dirs, view, TMIN, False, pack=pack)
+        ref = ch.planar_closest(org, dirs, view, TMIN, False)
+        errs["planar_closest"] = max(errs["planar_closest"], compare(
+            f"K1 quad, {label}", got, (ref[0], ref[1][:4]), PLANAR_FIELDS))
+    if scene.counts[0] and scene.sphere_chunks is None:
+        view, pack = scene.sphere_view
+        got = fi.sphere_closest_fused(org, dirs, time, view, TMIN, pack=pack)
+        ref = ch.sphere_closest(org, dirs, time, view, TMIN)
+        errs["sphere_closest"] = max(errs["sphere_closest"], compare(
+            f"K2, {label}", got, (ref[0], ref[1][:3]), SPHERE_FIELDS))
+
+
+def phase_spectral_kernels(dev):
+    """The traffic of the spectral and env-light scenes through K1 and K2,
+    against the plain versions: at dispersion_prism's 400x400 its primary
+    rays (K1 on the three light strips, K2 on the glass sphere), then the
+    rays its first hits scatter at random hero wavelengths (those refracted
+    into the sphere leave from its surface inward, and K2 finds them the
+    exit) and the third generation; at sunlit_spheres' own size (400 px
+    wide, aspect 1.78) K2 on its primary rays and on the NEE shadow rays
+    from every first hit toward an importance-sampled sky direction.
+    Returns the largest error per kernel."""
+    gen = torch.Generator().manual_seed(11)
+    errs = {"planar_closest": 0.0, "sphere_closest": 0.0}
+    scene, cam = catalog.dispersion_prism(spp=1, device=dev)
+    org, dirs, time, _ = profiling.scene_rays(scene, cam, gen)
+    R = org.shape[0]
+    wl = integrator._wavelength(torch.rand(R, generator=gen).to(dev))
+    shift = spectrum.cauchy_ior_shift(wl)
+    for gen_no in (1, 2, 3):
+        closest_check(f"dispersion_prism, generation {gen_no}", org, dirs, time, scene,
+                      errs)
+        if gen_no == 3:
+            break
+        hit = isect.intersect_brute(scene, org, dirs, time, TMIN,
+                                    torch.zeros((R, 0), device=dev))
+        u = torch.rand(R, mat_ops.NSLOT, generator=gen).to(dev)
+        new_dir, _, cont = mat_ops.scatter(scene, hit, dirs, u, shift)
+        inward = cont & (vm.dot(new_dir, hit.normal) < 0)
+        log(f"  dispersion_prism {cam.width}x{cam.height}, generation {gen_no + 1}: "
+            f"{int(cont.sum())} of {R} rays scatter, {int(inward.sum())} of them "
+            "refracted into the glass")
+        org, dirs = hit.p.contiguous(), new_dir.contiguous()
+    scene, cam = catalog.sunlit_spheres(spp=1, device=dev)
+    org, dirs, time, _ = profiling.scene_rays(scene, cam, gen)
+    R = org.shape[0]
+    closest_check(f"sunlit_spheres {cam.width}x{cam.height}, primary", org, dirs, time,
+                  scene, errs)
+    hit = isect.intersect_brute(scene, org, dirs, time, TMIN,
+                                torch.zeros((R, 0), device=dev))
+    u = torch.rand(R, 3, generator=gen).to(dev)
+    sh_dirs = mat_ops.light_sample(scene, hit.p, u[:, 0], u[:, 1], u[:, 2])
+    log(f"  sunlit_spheres: {int(hit.valid.sum())} of {R} first hits cast a live "
+        "shadow ray toward the sky")
+    closest_check("sunlit_spheres, NEE shadow rays toward the sky", hit.p.contiguous(),
+                  sh_dirs.contiguous(), time, scene, errs)
     torch.cuda.synchronize()
     return errs
 
@@ -1164,6 +1270,34 @@ def golden(name, dev):
         raise AssertionError(f"{name}: golden mean off")
 
 
+def estimator_goldens(dev):
+    """The golden workload of the Cornell box under camera.qmc and under
+    CRT_RNG=threefry, and the 16 px colonnade under camera.qmc (through K3
+    and K4), on the card against the port's own CPU render of the same key
+    (atol 2e-3)."""
+    def render(name, device, stream, qmc):
+        scene, cam = catalog.SCENES[name](width=16, spp=4, max_depth=3, device=device)
+        with rng_stream(stream):
+            return integrator.render_image(scene, cam.replace(qmc=qmc), keys.key(42))
+
+    for name, stream, qmc in (("cornell_box", "fast", True),
+                              ("cornell_box", "threefry", False),
+                              ("sponza", "fast", True)):
+        label = f"{name} 16 px, {'camera.qmc' if qmc else 'CRT_RNG=' + stream}"
+        profiling.reset_counts()
+        img = render(name, dev, stream, qmc)
+        launched = profiling.launches()
+        want = float(render(name, "cpu", stream, qmc).mean())
+        mean = float(img.mean())
+        log(f"  {label}: mean {mean:.6f} (the port on the CPU {want:.6f}, atol 2e-3); "
+            f"launches {launched}")
+        if not (torch.isfinite(img).all() and abs(mean - want) <= 2e-3):
+            raise AssertionError(f"{label}: mean off the CPU render's")
+        if name == "sponza" and not (launched["cull_select"] > 0
+                                     and launched["visit_sweep"] > 0):
+            raise AssertionError(f"{label}: K3 and K4 were not launched")
+
+
 def perray_vs_oracle(scene, cam, dev):
     """The per-ray closest hit (K3 + K4) against the chunk-scan oracle on
     the full colonnade, primary and secondary rays."""
@@ -1420,6 +1554,101 @@ def volume_grad(dev):
     return secs
 
 
+def phase_spectral(dev):
+    """The full renders of the spectral, env-light, QMC and threefry paths,
+    each render's launches counted on its own, and their gradient runs;
+    returns (walls by run, launches by run)."""
+    walls, counts = {}, {}
+
+    def exact(label, got, want):
+        for name, n in want.items():
+            if got[name] != n:
+                raise AssertionError(f"{label}: {name} launched {got[name]} times, "
+                                     f"want {n}")
+
+    scene, cam = catalog.dispersion_prism(device=dev)
+    label = (f"dispersion_prism {cam.width}x{cam.height} {cam.spp}spp depth "
+             f"{cam.max_depth}")
+    walls["prism"], _, _, counts["prism"] = main_path(
+        label, scene, cam, ("planar_closest", "sphere_closest"))
+    bounces = cam.spp * cam.max_depth
+    exact(label, counts["prism"], {"planar_closest": bounces, "sphere_closest": bounces})
+    chk = cam.replace(spp=ESTIMATOR_CHECK_SPP)
+    walls["wf_err_prism"] = hold_wavefront(
+        f"dispersion_prism {ESTIMATOR_CHECK_SPP}spp",
+        integrator.render_image_wavefront(scene, chk, keys.key(0)),
+        integrator.render_image(scene, chk, keys.key(0)))
+
+    scene, cam = catalog.sunlit_spheres(device=dev)
+    label = (f"sunlit_spheres {cam.width}x{cam.height} {cam.spp}spp depth "
+             f"{cam.max_depth}")
+    walls["sunlit"], _, img, counts["sunlit"] = main_path(label, scene, cam,
+                                                          ("sphere_closest",))
+    exact(label, counts["sunlit"], {"planar_closest": 0,
+                                    "sphere_closest": cam.spp * cam.max_depth})
+    walls["sunlit_nee"], _, nee_img, counts["sunlit_nee"] = main_path(
+        f"{label}, nee", scene, cam.replace(nee=True), ("sphere_closest",))
+    exact(f"{label}, nee", counts["sunlit_nee"],
+          {"planar_closest": 0, "sphere_closest": cam.spp * (2 * cam.max_depth - 1)})
+    m, m_nee = float(img.mean()), float(nee_img.mean())
+    log(f"  sunlit_spheres means: plain {m:.6f}, NEE {m_nee:.6f}, rel diff "
+        f"{abs(m_nee - m) / m:.5f} (gate {NEE_MEAN_RTOL})")
+    if not abs(m_nee - m) <= NEE_MEAN_RTOL * m:
+        raise AssertionError("sunlit_spheres: the NEE render's mean is off the plain one's")
+
+    scene, cam = catalog.cornell_box(width=512, spp=256, max_depth=8, device=dev)
+    imgs = {}
+    for run, c, stream in (("qmc", cam.replace(qmc=True), "fast"),
+                           ("threefry", cam.replace(spp=THREEFRY_SPP), "threefry")):
+        label = (f"cornell_box {c.width}x{c.height} {c.spp}spp depth {c.max_depth}, "
+                 + ("camera.qmc" if c.qmc else f"CRT_RNG={stream}"))
+        with rng_stream(stream):
+            walls[run], _, imgs[run], counts[run] = main_path(label, scene, c,
+                                                              ("planar_closest",))
+        exact(label, counts[run], {"planar_closest": c.spp * c.max_depth})
+    # two streams over the same pixels: near means, different images
+    log(f"  cornell_box camera.qmc mean {float(imgs['qmc'].double().mean()):.9f}, "
+        f"CRT_RNG=threefry mean {float(imgs['threefry'].double().mean()):.9f}; "
+        f"max abs pixel diff {max_abs(imgs['qmc'], imgs['threefry']):.6f}")
+    if torch.equal(imgs["qmc"], imgs["threefry"]):
+        raise AssertionError("cornell_box: the QMC and threefry images are equal")
+
+    # the gradient runs: the backward pass replays the tape (no closest hit)
+    scene, cam = catalog.dispersion_prism(device=dev, **PRISM_GRAD)
+    label = (f"dispersion_prism {cam.width}x{cam.height} {cam.spp}spp depth "
+             f"{cam.max_depth} loss_and_grads")
+    walls["prism_grad"], _, (fwd, bwd) = grad_path(label, scene, cam)
+    counts["prism_grad"] = (fwd, bwd)
+    bounces = cam.spp * cam.max_depth
+    exact(f"{label}, forward pass", fwd, {"planar_closest": bounces,
+                                         "sphere_closest": bounces})
+    exact(f"{label}, backward pass", bwd, {"planar_closest": 0, "sphere_closest": 0})
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    on_card = fi._on_card
+    try:
+        got = grads_of(scene, cam, 0)
+        fi._on_card = lambda x: False   # the plain versions, on the card
+        ref = grads_of(scene, cam, 0)
+    finally:
+        fi._on_card = on_card
+        torch.use_deterministic_algorithms(False)
+    g = got[1][0]["mat_dispersion"]
+    log(f"  {label}: mat_dispersion gradient {g.detach().cpu().tolist()}")
+    if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0):
+        raise AssertionError(f"{label}: mat_dispersion gradient not finite or zero")
+    grads_close(f"{label}, kernel route vs plain autograd", got, ref)
+
+    scene, cam = catalog.cornell_box(device=dev, **QMC_GRAD)
+    cam = cam.replace(qmc=True)
+    label = (f"cornell_box {cam.width}x{cam.height} {cam.spp}spp depth "
+             f"{cam.max_depth} camera.qmc loss_and_grads")
+    walls["qmc_grad"], _, (fwd, bwd) = grad_path(label, scene, cam)
+    counts["qmc_grad"] = (fwd, bwd)
+    exact(f"{label}, forward pass", fwd, {"planar_closest": cam.spp * cam.max_depth})
+    exact(f"{label}, backward pass", bwd, {"planar_closest": 0})
+    return walls, counts
+
+
 def device_time(label, scene, cam, names):
     """The summed device time of each kernel in ``names`` in one more render
     of ``scene`` under torch.profiler, its wrapper calls (counted here, not
@@ -1493,6 +1722,8 @@ def main() -> int:
     phase_pid(dev)
     for name, err in phase_estimator_kernels(dev).items():
         errs[name] = max(errs[name], err)
+    for name, err in phase_spectral_kernels(dev).items():
+        errs[name] = max(errs[name], err)
     probes = phase_gather(dev)
     r = probes[0]
     errs["gather_sum"] = r["max_abs_err"]
@@ -1504,6 +1735,7 @@ def main() -> int:
         golden(name, dev)
     psnr_gate("cornell_box", full_render("cornell_box parity size",
                                          *parity_scene("cornell_box", dev))[2])
+    estimator_goldens(dev)
     perray_vs_oracle(col_scene, col_cam, dev)
     phase_grad_checks(dev)
 
@@ -1559,6 +1791,11 @@ def main() -> int:
     phase_log("phase 4, 5: next-event estimation, Russian roulette, volumes and "
               "the perlin marble, each render's launches counted on its own")
     est, launches_sl, launches_nee = phase_estimators(dev)
+
+    phase_log("phase 4, 5: spectral dispersion, the importance-sampled sky, "
+              "Owen-Sobol QMC and the threefry stream, each run's launches "
+              "counted on its own")
+    spec, spec_counts = phase_spectral(dev)
 
     phase_log("phase 4: pool and batch sizes timed on the card")
     for label, sc_, cm in (("colonnade", col_scene, col_cam),
@@ -1660,6 +1897,15 @@ def main() -> int:
         f"{launches_nee['planar_closest']} K1 / {launches_nee['sphere_closest']} K2 "
         f"with NEE + RR (spp x (2 depth - 1): the last bounce's shadow ray is "
         f"skipped on the host)")
+    k12 = lambda c: f"{c['planar_closest']} K1 / {c['sphere_closest']} K2"
+    log(f"  spectral, QMC and threefry launches: dispersion_prism scan "
+        f"{k12(spec_counts['prism'])}; sunlit_spheres {k12(spec_counts['sunlit'])} "
+        f"plain, {k12(spec_counts['sunlit_nee'])} with NEE; Cornell camera.qmc "
+        f"{k12(spec_counts['qmc'])}; Cornell threefry {k12(spec_counts['threefry'])}; "
+        f"dispersion_prism loss_and_grads {k12(spec_counts['prism_grad'][0])} forward, "
+        f"{k12(spec_counts['prism_grad'][1])} backward; Cornell camera.qmc "
+        f"loss_and_grads {k12(spec_counts['qmc_grad'][0])} forward, "
+        f"{k12(spec_counts['qmc_grad'][1])} backward")
     kernels = []
     for name, (kid, source, replaces) in KERNELS.items():
         ms, plain_ms = times[name][:2]
@@ -1686,7 +1932,12 @@ def main() -> int:
         f"sphere-light {est['sphere_light']:.3f} s, with NEE + RR "
         f"{est['sphere_light_nee']:.3f} s; volume Cornell {est['volume']:.3f} s; "
         f"perlin_texture_ball ({PERLIN_SPP} spp) {est['perlin']:.3f} s; NEE volume "
-        f"fwd+bwd {vol_grad_secs:.3f} s; "
+        f"fwd+bwd {vol_grad_secs:.3f} s; dispersion_prism {spec['prism']:.3f} s "
+        f"(wavefront against scan {spec['wf_err_prism']:.3g}); sunlit_spheres "
+        f"{spec['sunlit']:.3f} s, with NEE {spec['sunlit_nee']:.3f} s; Cornell "
+        f"camera.qmc {spec['qmc']:.3f} s, CRT_RNG=threefry ({THREEFRY_SPP} spp) "
+        f"{spec['threefry']:.3f} s; dispersion_prism fwd+bwd {spec['prism_grad']:.3f} s; "
+        f"Cornell camera.qmc fwd+bwd {spec['qmc_grad']:.3f} s; "
         f"fwd+bwd against the render, per camera ray: cornell_box "
         f"{grad_secs[False] / cornell_secs:.3f}, with geometry "
         f"{grad_secs[True] / cornell_secs:.3f}, colonnade {col_rps / col_grad_rps:.3f}; "

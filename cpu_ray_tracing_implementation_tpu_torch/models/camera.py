@@ -54,6 +54,10 @@ class Camera:
     # next-event estimation: a shadow ray to a sampled light at every
     # diffuse vertex, power-heuristic MIS (off by default, as in JAX)
     nee: bool = False
+    # Owen-scrambled Sobol sampling (``ops/qmc.py``): every dimension pair
+    # of a path draws from a scrambled (0,2)-sequence indexed by the sample,
+    # instead of the hash stream; ``stratify``'s grid is then skipped
+    qmc: bool = False
 
     @property
     def device(self) -> torch.device:

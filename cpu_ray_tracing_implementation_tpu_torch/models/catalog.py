@@ -5,9 +5,9 @@ function mirrors one scene of reference src/main.cc and returns ``(scene,
 camera)`` on ``device``, the card unless the caller asks for the CPU.
 ``width``/``spp``/``max_depth`` overrides run scaled-down versions of the
 same geometry. Scene-build randomness uses seeded numpy generators that
-draw as the JAX package's do. The four scenes not here yet wait on the
-features ROADMAP queue 1 names (dispersion and the environment light,
-glTF and per-vertex attributes).
+draw as the JAX package's do. The two scenes not here yet, glass_fox and
+textured_fox, and sponza's mesh branch wait on the glTF loader and
+per-vertex attributes (ROADMAP queue 1, step 10).
 """
 
 from __future__ import annotations
@@ -422,7 +422,7 @@ def sponza(width=None, spp=None, max_depth=None, device=DEFAULT_DEVICE):
     absent from the reference snapshot, so a procedural colonnade hall of
     matching triangle count stands in (``utils/procgen.py``): 257,916
     triangles in 2,015 chunks at the default 200 px. The glTF loader is
-    ROADMAP M13: wherever ``image_io.reference_asset`` finds
+    ROADMAP M13 (queue 1, step 10): wherever ``image_io.reference_asset`` finds
     ``Sponza/glTF/Sponza.gltf`` (where the JAX package would load it),
     this raises."""
     w, s, d = _cam_args(width, spp, max_depth, 200, 30, 5)
@@ -430,7 +430,8 @@ def sponza(width=None, spp=None, max_depth=None, device=DEFAULT_DEVICE):
     gltf = image_io.reference_asset("Sponza/glTF/Sponza.gltf")
     if os.path.exists(gltf):
         raise NotImplementedError(f"{gltf} is present: the glTF loader "
-                                  "(ROADMAP M13) is not ported yet")
+                                  "(ROADMAP M13, queue 1 step 10) is not "
+                                  "ported yet")
     b = SceneBuilder()
     white = b.lambertian((1.0, 1.0, 1.0))
     # scaled-down runs (tests) get a proportionally smaller hall
@@ -449,15 +450,16 @@ def smoke_fox(width=None, spp=None, max_depth=None, device=DEFAULT_DEVICE):
     JAX package's extension scene). Fox.gltf is absent from the reference
     snapshot, and then the JAX package bounds the medium by a fallback
     mesh of 16 triangles (an octagonal double cone), which this builds.
-    The glTF loader is ROADMAP M13: wherever ``image_io.reference_asset``
-    finds ``Fox/glTF/Fox.gltf`` (where the JAX package would load it),
+    The glTF loader is ROADMAP M13 (queue 1, step 10): wherever
+    ``image_io.reference_asset`` finds ``Fox/glTF/Fox.gltf`` (where the JAX package would load it),
     this raises."""
     w, s, d = _cam_args(width, spp, max_depth, 400, 60, 5)
     device = as_device(device)
     gltf = image_io.reference_asset("Fox/glTF/Fox.gltf")
     if os.path.exists(gltf):
         raise NotImplementedError(f"{gltf} is present: the glTF loader "
-                                  "(ROADMAP M13) is not ported yet")
+                                  "(ROADMAP M13, queue 1 step 10) is not "
+                                  "ported yet")
     th = np.linspace(0, 2 * np.pi, 9)[:-1]
     ring = np.stack([40 * np.cos(th), 40 + 0 * th, 40 * np.sin(th)], -1)
     apex_t = np.array([0.0, 90.0, 0.0])
@@ -491,6 +493,46 @@ def cornell_box_with_sphere_light(width=None, spp=None, max_depth=None,
     b.sphere_light(b.sphere((278, 500, 279), 54.0, b.diffuse_light((15, 15, 15))))
     return b.build(device), cam.perspective(w, 1.0, (278, 278, -800), (278, 278, 0),
                                             1, 40.0, s, d, device=device)
+
+
+def dispersion_prism(width=None, spp=None, max_depth=None, device=DEFAULT_DEVICE):
+    """Spectral dispersion (the JAX package's extension scene): a
+    dense-flint glass sphere (Cauchy B exaggerated to 0.08 um^2) in front
+    of three thin white light strips on a black background. Every path
+    carries a hero wavelength, refracts at the Cauchy-shifted IOR and is
+    weighted by the normalized wavelength response (``ops/spectrum.py``),
+    the render layer that the reference's spectrum.h only scaffolds."""
+    w, s, d = _cam_args(width, spp, max_depth, 400, 200, 6)
+    b = SceneBuilder()
+    glass = b.dielectric(1.5, dispersion=0.08)
+    white = b.diffuse_light((8.0, 8.0, 8.0))
+    b.sphere((0, 0, -3), 1.0, glass)
+    for y in (-0.8, 0.0, 0.8):
+        b.quad((-2.0, y - 0.05, -6.5), (4.0, 0, 0), (0, 0.1, 0), white)
+    b.set_background(b.solid((0.0, 0.0, 0.0)))
+    return b.build(device), cam.perspective(w, 1.0, (0, 0, 0), (0, 0, -3), 1, 40.0,
+                                            s, d, device=device)
+
+
+def sunlit_spheres(width=None, spp=None, max_depth=None, device=DEFAULT_DEVICE):
+    """The importance-sampled environment light (the JAX package's
+    extension scene, ``ops/envlight.py``): a small bright sun patch on a
+    dim sky picture lights four spheres; ``importance_sample=True`` puts
+    the background in the MIS mixture, so diffuse surfaces find the sun by
+    construction."""
+    w, s, d = _cam_args(width, spp, max_depth, 400, 50, 5)
+    sky = np.full((64, 128, 3), 8.0, np.float32)
+    for j in range(64):  # soft vertical gradient, byte scale
+        sky[j] += 30.0 * (1.0 - abs(j - 20) / 44.0)
+    sky[14:18, 30:35] = 255.0  # the sun
+    b = SceneBuilder()
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian((0.7, 0.7, 0.7)))
+    b.sphere((-1.6, 0.8, 0), 0.8, b.lambertian((0.7, 0.3, 0.2)))
+    b.sphere((0.0, 0.8, 0), 0.8, b.metal((0.8, 0.8, 0.9), 0.05))
+    b.sphere((1.6, 0.8, 0), 0.8, b.gloss((0.2, 0.5, 0.3), 0.8, 0.3))
+    b.set_background(b.picture(sky), importance_sample=True)
+    return b.build(device), cam.perspective(w, 1.78, (0, 1.4, 5.5), (0, 0.8, 0),
+                                            1, 35.0, s, d, device=device)
 
 
 def all_materials_fixture(width=None, spp=None, max_depth=None,
@@ -538,4 +580,6 @@ SCENES = {
     "test_voronoi_noise": test_voronoi_noise,
     "smoke_fox": smoke_fox,
     "cornell_box_with_sphere_light": cornell_box_with_sphere_light,
+    "dispersion_prism": dispersion_prism,
+    "sunlit_spheres": sunlit_spheres,
 }

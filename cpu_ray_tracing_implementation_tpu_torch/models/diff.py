@@ -2,8 +2,9 @@
 
 Port of ``cpu_ray_tracing_implementation_tpu/models/diff.py``. Radiance is
 differentiable in the material and texture parameters (albedo and
-emission, metal fuzz, dielectric IOR, gloss smoothness and specular
-probability), in the geometry (sphere centers and radii, quad corners and
+emission, metal fuzz, dielectric IOR and, on a dispersive scene, its
+Cauchy coefficient, gloss smoothness and specular probability), in the
+geometry (sphere centers and radii, quad corners and
 edges, triangle vertices) and in the camera (position, look-at, and the
 parameters of its mode: ``camera_params``).
 
@@ -36,7 +37,10 @@ path's ray and then the shadow ray, and the tape keeps both winners in
 that order; under ``camera.rr_depth`` the roulette's survival probability
 depends on the throughput and is differentiated as the JAX package's is;
 a volume winner replays its entry and scatter distance
-(``replay._volume_t_one``).
+(``replay._volume_t_one``). Under ``camera.qmc`` both passes draw from the
+base key's session words (``qmc.seed_words``), and a dispersive scene's
+hero wavelength comes from each sample's key, so the replayed sample is the
+recorded one.
 """
 
 from __future__ import annotations
@@ -50,13 +54,13 @@ import torch
 from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
 from cpu_ray_tracing_implementation_tpu_torch.models import integrator
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
-from cpu_ray_tracing_implementation_tpu_torch.ops import keys, replay
+from cpu_ray_tracing_implementation_tpu_torch.ops import keys, qmc, replay
 
 # Families that fit_scene projects onto [0, inf); geometry coordinates are
-# free-sign. (mat_dispersion: spectral rendering is ROADMAP M6.)
+# free-sign.
 NONNEG_PARAMS = frozenset({
     "tex_color0", "tex_color1", "mat_fuzz", "mat_ior", "mat_smoothness",
-    "mat_spec_prob", "geo_sph_rad",
+    "mat_spec_prob", "mat_dispersion", "geo_sph_rad",
 })
 
 
@@ -77,7 +81,9 @@ def scene_params(scene, geometry: bool = True) -> dict:
     """The differentiable leaves of a scene, as a flat dict of its tensors.
 
     ``geometry=False`` exposes the texture and material families only.
-    Geometry parameters (``geo_*``) are the dense tables of each family
+    ``mat_dispersion`` is there only when ``scene.has_dispersion``: on any
+    other scene the render never reads the table, and its gradient would
+    be zero. Geometry parameters (``geo_*``) are the dense tables of each family
     present; on a chunked scene ``apply_scene_params`` re-derives the chunk
     tables from them through the build's BVH order."""
     p = {
@@ -88,6 +94,8 @@ def scene_params(scene, geometry: bool = True) -> dict:
         "mat_smoothness": scene.materials.smoothness,
         "mat_spec_prob": scene.materials.spec_prob,
     }
+    if scene.has_dispersion:
+        p["mat_dispersion"] = scene.materials.dispersion
     if not geometry:
         return p
     n_sph, n_quad, n_tri, _ = scene.counts
@@ -111,12 +119,15 @@ def apply_scene_params(scene, params: dict):
     place; chunked tables are re-derived from the dense ones
     (``ops/chunked.rechunk_*``), so their gradients reach the dense rows."""
     replace = dataclasses.replace
+    mats = replace(scene.materials, fuzz=params["mat_fuzz"],
+                   ior=params["mat_ior"], smoothness=params["mat_smoothness"],
+                   spec_prob=params["mat_spec_prob"])
+    if "mat_dispersion" in params:
+        mats = replace(mats, dispersion=params["mat_dispersion"])
     scene = scene.replace(
         textures=replace(scene.textures, color0=params["tex_color0"],
                          color1=params["tex_color1"]),
-        materials=replace(scene.materials, fuzz=params["mat_fuzz"],
-                          ior=params["mat_ior"], smoothness=params["mat_smoothness"],
-                          spec_prob=params["mat_spec_prob"]))
+        materials=mats)
     if "geo_sph_c0" in params:
         c0, c1, rad = (params[k] for k in ("geo_sph_c0", "geo_sph_c1", "geo_sph_rad"))
         scene = scene.replace(spheres=replace(scene.spheres, c0=c0, c1=c1, rad=rad))
@@ -197,13 +208,14 @@ def _backward_pass(scene, camera, key, spp: int, sp: dict, cp: dict,
     pixel_ids = torch.arange(camera.width * camera.height, dtype=torch.int32,
                              device=scene.device)
     grad_rad = (grad_img / spp).reshape(-1, 3)
+    qmc_words = qmc.seed_words(key) if camera.qmc else None
     for s in range(spp):
         with torch.enable_grad():
             s_scene = apply_scene_params(scene, sp)
             s_cam = apply_camera_params(camera, cp)
             rad = integrator.render_sample(
                 s_scene, s_cam, keys.fold_in(key, s), pixel_ids, sample_idx=s,
-                isect_fn=None if tape is None else tape.play)
+                isect_fn=None if tape is None else tape.play, qmc_words=qmc_words)
         torch.autograd.backward(rad, grad_rad)
 
 

@@ -10,10 +10,17 @@ a pixel batch, ``scan_batch_pixels``) at a time; the wavefront keeps a
 pool of lanes full, refilling a lane with the next (pixel, sample) path as
 soon as its path ends (``render_wavefront``).
 
-Randomness is the JAX package's ``fast`` stream, bit for bit: the session
-key is folded per sample, split into camera and path keys, and folded per
-bounce on the host (``ops/keys.py``); each fold's two seed words drive the
-counter hash of ``ops/fastrng.py`` keyed by pixel id and slot.
+Randomness is the JAX package's, bit for bit: the session key is folded
+per sample, split into camera and path keys, and folded per bounce on the
+host (``ops/keys.py``). In the default ``fast`` stream each fold's two seed
+words drive the counter hash of ``ops/fastrng.py`` keyed by pixel id and
+slot; under ``CRT_RNG=threefry`` (read where the stream is drawn, as the
+JAX package reads it where it traces) each lane folds the key by its pixel id
+and draws ``jax.random.uniform``'s numbers from its own key
+(``keys.fold_in_lanes``, ``keys.uniform``). Under ``camera.qmc`` the
+camera and bounce uniforms come from the Owen-scrambled Sobol sequence of
+``ops/qmc.py`` at the sample's index, its scrambles seeded by the base
+key's words, never a per-sample fold.
 
 Gradients: every step is differentiable, and the intersector is a
 parameter (``isect_fn``): ``intersect_brute`` by default, the winner replay
@@ -27,11 +34,14 @@ gradient path: Russian roulette (``camera.rr_depth``, its uniforms from a
 second fold of the path key, ``0x5252``) and next-event estimation
 (``camera.nee``: a shadow ray to a sampled light at every diffuse vertex,
 through the same intersector, and the power-heuristic weight ``emis_w``
-carried from vertex to vertex).
+carried from vertex to vertex; where the environment is a light, a shadow
+ray that escapes collects the background).
 
-Not ported yet: QMC, spectral dispersion (ROADMAP M6, M12), and the
-wavefront's threefry stream (``path_keys``, ``_lane_uniforms``: ROADMAP
-step 9).
+Spectral dispersion (``Scene.has_dispersion``): every (pixel, sample) path
+draws a hero wavelength from ``fold_in(key, 0x5ec7)`` of its sample key,
+dielectrics refract at its Cauchy-shifted IOR, and the path's radiance is
+weighted by the normalized wavelength response (``ops/spectrum.py``); the
+wavefront carries each lane's wavelength through the refill.
 """
 
 from __future__ import annotations
@@ -46,7 +56,9 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import fastrng
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
+from cpu_ray_tracing_implementation_tpu_torch.ops import qmc
 from cpu_ray_tracing_implementation_tpu_torch.ops import replay
+from cpu_ray_tracing_implementation_tpu_torch.ops import spectrum
 from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
 from cpu_ray_tracing_implementation_tpu_torch.ops.textures import eval_texture
 
@@ -56,6 +68,9 @@ T_MIN = 1e-3  # shadow-acne bias, interval(0.001, inf) (src/camera.h:198)
 RR_FOLD = 0x5252
 # the Weyl shift that gives the shadow ray volume uniforms of its own
 SHADOW_U_SHIFT = 0.61803398875
+# the fold of the sample key that seeds the hero-wavelength stream
+# (``integrator.py:320-329`` of the JAX package)
+WL_FOLD = 0x5EC7
 
 
 def background_color(scene, dirs: torch.Tensor) -> torch.Tensor:
@@ -70,16 +85,33 @@ def background_color(scene, dirs: torch.Tensor) -> torch.Tensor:
     return eval_texture(scene, tex_id, u, v, unit_d)
 
 
+def _rng_impl() -> str:
+    """The path-sampling stream, ``CRT_RNG``: "fast" (the default, the
+    counter hash of ``ops/fastrng.py``) or "threefry" (per-lane
+    ``jax.random`` folds, ``integrator.py:59-67`` of the JAX package)."""
+    return os.environ.get("CRT_RNG", "fast")
+
+
 def _per_ray_uniforms(key: np.ndarray, ray_ids: torch.Tensor, nslot: int) -> torch.Tensor:
-    """[R, nslot] uniforms of the ``fast`` stream: two seed words from
-    ``key`` (``jax.random.bits(key, (2,), uint32)``) hashed with (ray id,
-    slot). Keyed by ray id, so invariant to how the batch is split."""
-    w = keys.bits2(key)
-    return fastrng.uniforms(w[0], w[1], ray_ids, nslot)
+    """[R, nslot] uniforms keyed by ray id, so invariant to how the batch is
+    split. ``fast``: two seed words from ``key`` (``jax.random.bits(key,
+    (2,), uint32)``) hashed with (ray id, slot); ``threefry``:
+    ``jax.random.uniform(fold_in(key, id), (nslot,))`` per ray."""
+    if _rng_impl() == "fast":
+        w = keys.bits2(key)
+        return fastrng.uniforms(w[0], w[1], ray_ids, nslot)
+    return keys.uniform(keys.fold_in_lanes(key, ray_ids), nslot)
+
+
+def _wavelength(u: torch.Tensor) -> torch.Tensor:
+    """Hero wavelength (nm) of a uniform: U(WAVELENGTH_MIN, WAVELENGTH_MAX)."""
+    return (spectrum.WAVELENGTH_MIN
+            + u * (spectrum.WAVELENGTH_MAX - spectrum.WAVELENGTH_MIN))
 
 
 def _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
-                isect_fn=None, rr_u=None, emis_w=None, nee_shadow=True):
+                isect_fn=None, rr_u=None, emis_w=None, nee_shadow=True,
+                ior_shift=None):
     """One path segment for every lane: intersect, add miss-background and
     emission, scatter (estimator: src/camera.h:193-241;
     ``integrator.py:86-182`` of the JAX package). ``isect_fn``: the
@@ -93,7 +125,10 @@ def _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
     collects direct light, and the next segment's weight is returned too.
     ``nee_shadow``: a bool or [R] bool tensor; the final segment skips the
     shadow ray (it would collect light one vertex past the depth budget), a
-    Python False skips its intersection altogether."""
+    Python False skips its intersection altogether; where the environment
+    is a light, a shadow ray that hits nothing collects the background.
+    ``ior_shift``: [R] Cauchy term of each path's hero wavelength (None:
+    the RGB render)."""
     nee = emis_w is not None
     isect_fn = isect.intersect_brute if isect_fn is None else isect_fn
     u_vol = u[:, mat_ops.SLOT_VOLUME0:]
@@ -119,7 +154,7 @@ def _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
 
     if nee:
         (new_dir, weight, continues, emis_w_next, nee_dir,
-         nee_w) = mat_ops.scatter_nee(scene, hit, dirs, u, pre=pre)
+         nee_w) = mat_ops.scatter_nee(scene, hit, dirs, u, ior_shift, pre=pre)
         if scene.has_lights and nee_shadow is not False:
             # the shadow ray: occluders are non-emissive, so the emission of
             # its nearest hit is visibility x L_e; a volume on the way
@@ -130,11 +165,15 @@ def _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
             sh = isect_fn(scene, hit.p, nee_dir, time, T_MIN, u_vol_sh,
                           active=sh_active)
             sh_le = mat_ops.emitted(scene, sh)
+            if scene.has_env_light:
+                sh_le = sh_le + torch.where(sh.valid[:, None], torch.zeros_like(sh_le),
+                                            background_color(scene, nee_dir))
             radiance = radiance + torch.where(sh_active[:, None],
                                               throughput * nee_w * sh_le,
                                               torch.zeros_like(sh_le))
     else:
-        new_dir, weight, continues = mat_ops.scatter(scene, hit, dirs, u, pre=pre)
+        new_dir, weight, continues = mat_ops.scatter(scene, hit, dirs, u, ior_shift,
+                                                     pre=pre)
     alive = lit & continues
     throughput = torch.where(alive[:, None], throughput * weight,
                              torch.zeros_like(weight))
@@ -155,13 +194,18 @@ def _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
 
 def render_rays(scene, org, dirs, time, key: np.ndarray, max_depth: int,
                 ray_ids=None, isect_fn=None, rr_depth: int = 0,
-                nee: bool = False) -> torch.Tensor:
+                nee: bool = False, wavelength=None, qmc_words=None,
+                sample_idx=None) -> torch.Tensor:
     """Radiance [R,3] for a batch of rays. ``ray_ids``: per-ray ids keying
     the RNG (defaults to batch position); ``isect_fn``: see _shade_step.
     ``rr_depth``: Russian roulette from that bounce on (0 = off), its
     uniforms ``_per_ray_uniforms(fold_in(fold_in(key, RR_FOLD), bounce))``;
     ``nee``: next-event estimation (the last bounce's shadow ray is
-    skipped, and so is its intersection)."""
+    skipped, and so is its intersection). ``wavelength``: [R] hero
+    wavelengths (nm) of a dispersive scene: dielectrics refract at the
+    Cauchy-shifted IOR and the radiance is weighted by
+    ``spectrum.spectral_path_weight``. ``qmc_words`` (with ``sample_idx``):
+    the bounce uniforms come from ``qmc.uniforms`` at that sample index."""
     n_rays = org.shape[0]
     nslot = mat_ops.NSLOT + scene.n_volumes
     if ray_ids is None:
@@ -169,6 +213,9 @@ def render_rays(scene, org, dirs, time, key: np.ndarray, max_depth: int,
     if scene.world_offset is not None:
         # recentered scene: trace in the shifted frame
         org = org - scene.world_offset[None, :]
+    ior_shift = None if wavelength is None else spectrum.cauchy_ior_shift(wavelength)
+    if qmc_words is not None:
+        groups, dims, n_groups = qmc.bounce_layout(nslot)
     throughput = torch.ones((n_rays, 3), dtype=org.dtype, device=org.device)
     radiance = torch.zeros((n_rays, 3), dtype=org.dtype, device=org.device)
     alive = torch.ones((n_rays,), dtype=torch.bool, device=org.device)
@@ -176,31 +223,58 @@ def render_rays(scene, org, dirs, time, key: np.ndarray, max_depth: int,
               if nee else None)
     k_rr = keys.fold_in(key, RR_FOLD) if rr_depth else None
     for bounce in range(max_depth):
-        u = _per_ray_uniforms(keys.fold_in(key, bounce), ray_ids, nslot)
+        if qmc_words is not None:
+            u = qmc.uniforms(qmc_words, ray_ids, sample_idx,
+                             qmc.N_CAM_GROUPS + bounce * n_groups, groups, dims)
+        else:
+            u = _per_ray_uniforms(keys.fold_in(key, bounce), ray_ids, nslot)
         # below rr_depth every lane is exempt (p = 1, a no-op), so no draw
         rr_u = (_per_ray_uniforms(keys.fold_in(k_rr, bounce), ray_ids, 1)[:, 0]
                 if rr_depth and bounce >= rr_depth else None)
         out = _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
                           isect_fn, rr_u=rr_u, emis_w=emis_w,
-                          nee_shadow=bounce < max_depth - 1)
+                          nee_shadow=bounce < max_depth - 1, ior_shift=ior_shift)
         org, dirs, time, throughput, radiance, alive = out[:6]
         if nee:
             emis_w = out[6]
+    if wavelength is not None:
+        # radiance is linear in the initial throughput: weighting it after
+        # the bounces equals starting the path at that weight
+        radiance = radiance * spectrum.spectral_path_weight(wavelength)
     return radiance
 
 
 def render_sample(scene, camera, key: np.ndarray, pixel_ids: torch.Tensor,
-                  sample_idx=None, isect_fn=None) -> torch.Tensor:
+                  sample_idx=None, isect_fn=None, qmc_words=None) -> torch.Tensor:
     """One sample of every pixel in ``pixel_ids``: raygen + integrate.
     Randomness is keyed by pixel id, so any partition of the pixel set
-    gives identical samples."""
+    gives identical samples. ``qmc_words``: the session words
+    (``qmc.seed_words`` of the render's base key, not of this sample's key)
+    that ``camera.qmc`` needs, with ``sample_idx``."""
     k_cam, k_path = keys.split(key)
-    u_cam = _per_ray_uniforms(k_cam, pixel_ids, cam_mod.N_CAM_SLOTS)
-    u_cam = cam_mod.stratify_pixel_jitter(camera, u_cam, sample_idx)
+    if camera.qmc:
+        if qmc_words is None or sample_idx is None:
+            raise ValueError("a camera.qmc render needs qmc_words and "
+                             "sample_idx (qmc.seed_words of the base key)")
+        # the Sobol jitter is stratified already; stratify's grid would
+        # break the (0,2) progression, so it is skipped
+        u_cam = qmc.uniforms(qmc_words, pixel_ids, sample_idx, 0,
+                             qmc.CAM_GROUP, qmc.CAM_DIM)
+    else:
+        u_cam = _per_ray_uniforms(k_cam, pixel_ids, cam_mod.N_CAM_SLOTS)
+        u_cam = cam_mod.stratify_pixel_jitter(camera, u_cam, sample_idx)
     org, dirs, time = cam_mod.generate_rays(camera, pixel_ids, u_cam)
+    wavelength = None
+    if scene.has_dispersion:
+        # a fold of its own keeps the RGB render's streams untouched
+        wavelength = _wavelength(_per_ray_uniforms(keys.fold_in(key, WL_FOLD),
+                                                   pixel_ids, 1)[:, 0])
     rad = render_rays(scene, org, dirs, time, k_path, camera.max_depth,
                       ray_ids=pixel_ids, isect_fn=isect_fn,
-                      rr_depth=camera.rr_depth, nee=camera.nee)
+                      rr_depth=camera.rr_depth, nee=camera.nee,
+                      wavelength=wavelength,
+                      qmc_words=qmc_words if camera.qmc else None,
+                      sample_idx=sample_idx)
     if camera.clamp > 0.0:
         rad = torch.clamp(rad, max=camera.clamp)  # firefly clamp
     return rad
@@ -278,6 +352,7 @@ def accumulate_samples_subset(scene, camera, key: np.ndarray,
     n = pixel_ids.shape[0]
     step = n if not batch_pixels or batch_pixels >= n else int(batch_pixels)
     sample_keys = [keys.fold_in(key, sample_offset + s) for s in range(spp)]
+    qmc_words = qmc.seed_words(key) if camera.qmc else None
     parts = []
     for start in range(0, n, max(step, 1)):
         ids = pixel_ids[start:start + step]
@@ -286,7 +361,7 @@ def accumulate_samples_subset(scene, camera, key: np.ndarray,
         for s, k in enumerate(sample_keys):
             accum = accum + render_sample(scene, camera, k, ids,
                                           sample_idx=sample_offset + s,
-                                          isect_fn=isect_fn)
+                                          isect_fn=isect_fn, qmc_words=qmc_words)
         parts.append(accum)
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
@@ -332,37 +407,39 @@ def reset_wavefront() -> None:
     WAVEFRONT["iterations"] = 0
 
 
-def wavefront_rr_words(key: np.ndarray, spp: int, max_depth: int,
-                       sample_offset: int = 0) -> np.ndarray:
-    """The Russian-roulette stream's seed words, [spp, max_depth, 2] uint32:
-    row (s, b) holds ``bits(fold_in(fold_in(split(fold_in(key, s))[1],
-    RR_FOLD), b))``, the words the scan draws for sample s, bounce b
-    (``_rr_words``, ``integrator.py:592-603`` of the JAX package)."""
-    words = np.zeros((spp, max_depth, 2), np.uint32)
+def wavefront_keys(key: np.ndarray, spp: int, max_depth: int,
+                   sample_offset: int = 0, rr: bool = False) -> dict:
+    """The keys that samples [sample_offset, sample_offset+spp) of the scan
+    fold its lanes' streams from, built on the host, uint32 numpy arrays:
+    ``cam`` [spp, 2], ``split(fold_in(key, s))[0]``; ``path`` [spp,
+    max_depth, 2], ``fold_in(split(fold_in(key, s))[1], b)``; ``wl`` [spp,
+    2], ``fold_in(fold_in(key, s), WL_FOLD)``; with ``rr``, ``rr`` [spp,
+    max_depth, 2], ``fold_in(fold_in(split(fold_in(key, s))[1], RR_FOLD),
+    b)`` (``integrator.py:567-633`` of the JAX package)."""
+    out = {"cam": np.zeros((spp, 2), np.uint32),
+           "path": np.zeros((spp, max_depth, 2), np.uint32),
+           "wl": np.zeros((spp, 2), np.uint32)}
+    if rr:
+        out["rr"] = np.zeros((spp, max_depth, 2), np.uint32)
     for s in range(spp):
-        _, k_path = keys.split(keys.fold_in(key, sample_offset + s))
-        k_rr = keys.fold_in(k_path, RR_FOLD)
+        k_s = keys.fold_in(key, sample_offset + s)
+        k_cam, k_path = keys.split(k_s)
+        out["cam"][s] = k_cam
+        out["wl"][s] = keys.fold_in(k_s, WL_FOLD)
         for b in range(max_depth):
-            words[s, b] = keys.bits2(keys.fold_in(k_rr, b))
-    return words
+            out["path"][s, b] = keys.fold_in(k_path, b)
+        if rr:
+            k_rr = keys.fold_in(k_path, RR_FOLD)
+            for b in range(max_depth):
+                out["rr"][s, b] = keys.fold_in(k_rr, b)
+    return out
 
 
-def wavefront_words(key: np.ndarray, spp: int, max_depth: int,
-                    sample_offset: int = 0):
-    """The ``fast`` stream's seed words of samples [sample_offset,
-    sample_offset+spp), built on the host: ``cam_words`` [spp, 2] holds
-    ``bits(split(fold_in(key, s))[0])`` and ``path_words`` [spp, max_depth,
-    2] holds ``bits(fold_in(split(fold_in(key, s))[1], b))``, the words the
-    scan draws for sample s, bounce b (``integrator.py:569-585`` of the
-    JAX package). Both uint32 numpy arrays."""
-    cam_words = np.zeros((spp, 2), np.uint32)
-    path_words = np.zeros((spp, max_depth, 2), np.uint32)
-    for s in range(spp):
-        k_cam, k_path = keys.split(keys.fold_in(key, sample_offset + s))
-        cam_words[s] = keys.bits2(k_cam)
-        for b in range(max_depth):
-            path_words[s, b] = keys.bits2(keys.fold_in(k_path, b))
-    return cam_words, path_words
+def _bits_table(table: np.ndarray) -> np.ndarray:
+    """``bits2`` of every key of a [..., 2] key table: the ``fast`` stream's
+    seed words."""
+    flat = table.reshape(-1, 2)
+    return np.stack([keys.bits2(k) for k in flat]).reshape(table.shape)
 
 
 @torch.no_grad()
@@ -378,11 +455,14 @@ def render_wavefront(scene, camera, key: np.ndarray, spp: int,
     lane adds its radiance to the image and starts the next unissued
     (pixel, sample) path, so the work is the number of path segments
     actually traced, not spp x max_depth per pixel. Every path draws the
-    scan's uniforms (its seed words from ``wavefront_words``, keyed by its
-    global pixel id), so each path's radiance is bitwise the scan's; only
-    the order in which a pixel's samples are summed differs (the flush is
-    an ``index_add_``, atomic on the card), so the image is allclose to the
-    scan's, not bitwise, whatever the pool size.
+    scan's uniforms keyed by its global pixel id, from host tables of the
+    keys the scan folds (``wavefront_keys``: their seed words in the
+    ``fast`` stream, the keys themselves under ``CRT_RNG=threefry``, the
+    base key's words under ``camera.qmc``), so each path's radiance is
+    bitwise the scan's; only the order in which a pixel's samples are
+    summed differs (the flush is an ``index_add_``, atomic on the card),
+    so the image is allclose to the scan's, not bitwise, whatever the pool
+    size.
 
     The loop runs on the host until no lane is alive: one synchronisation
     per iteration (``WAVEFRONT`` counts them). Forward only, under
@@ -391,23 +471,35 @@ def render_wavefront(scene, camera, key: np.ndarray, spp: int,
 
     Under ``camera.nee`` each lane carries its power-heuristic weight
     (reset to 1 on refill) and skips the shadow ray on its own last bounce;
-    under ``camera.rr_depth`` each lane draws the scan's roulette uniform
-    from a host table of its seed words (``wavefront_rr_words``)."""
+    under ``camera.rr_depth`` each lane draws the scan's roulette uniform;
+    on a dispersive scene each lane carries its path's hero wavelength,
+    drawn again at every refill (``spawn_wavelength``)."""
     dev = scene.device
     L = camera.width * camera.height if pixel_ids is None else int(pixel_ids.shape[0])
     total = L * spp
     R = L if lanes is None else max(1, min(int(lanes), total))
     max_depth = camera.max_depth
     nslot = mat_ops.NSLOT + scene.n_volumes
-    cam_np, path_np = wavefront_words(key, spp, max_depth, sample_offset)
-    cam_words = torch.as_tensor(cam_np.astype(np.int64), device=dev)
-    path_words = torch.as_tensor(path_np.astype(np.int64).reshape(-1, 2),
-                                 device=dev)
     nee, rr_depth = camera.nee, camera.rr_depth
-    if rr_depth:
-        rr_words = torch.as_tensor(
-            wavefront_rr_words(key, spp, max_depth, sample_offset)
-            .astype(np.int64).reshape(-1, 2), device=dev)
+    dispersive = scene.has_dispersion
+    use_qmc = camera.qmc
+    fast = _rng_impl() == "fast"
+    tables = wavefront_keys(key, spp, max_depth, sample_offset, rr=bool(rr_depth))
+    # the fast stream's lanes hash with their table row's seed words; the
+    # threefry stream's fold their row's key by their pixel id
+    dev_tables = {name: torch.as_tensor(
+        (_bits_table(t) if fast else t).astype(np.int64).reshape(-1, 2), device=dev)
+        for name, t in tables.items()}
+    if use_qmc:
+        q_words = qmc.seed_words(key)
+        qb_groups, qb_dims, qb_ngroups = qmc.bounce_layout(nslot)
+
+    def draw(name, row, pix, n):
+        """[R, n] uniforms of each lane from row ``row`` of a table."""
+        t = dev_tables[name][row]
+        if fast:
+            return fastrng.uniforms(t[:, 0], t[:, 1], pix, n)
+        return keys.uniform(keys.fold_in_lanes(t, pix), n)
 
     def gpix(lane):
         return lane if pixel_ids is None else pixel_ids[lane.long()]
@@ -419,15 +511,23 @@ def render_wavefront(scene, camera, key: np.ndarray, spp: int,
         """Camera rays of the given paths; a path id >= total is a lane
         with nothing left to render (inactive)."""
         pix = gpix(torch.remainder(path_id, L))
-        w = cam_words[sample_of(path_id).long()]
-        u_cam = fastrng.uniforms(w[:, 0], w[:, 1], pix, cam_mod.N_CAM_SLOTS)
-        u_cam = cam_mod.stratify_pixel_jitter(
-            camera, u_cam,
-            sample_offset + torch.div(path_id, L, rounding_mode="floor"))
+        if use_qmc:
+            u_cam = qmc.uniforms(q_words, pix, sample_offset + sample_of(path_id),
+                                 0, qmc.CAM_GROUP, qmc.CAM_DIM)
+        else:
+            u_cam = draw("cam", sample_of(path_id).long(), pix, cam_mod.N_CAM_SLOTS)
+            u_cam = cam_mod.stratify_pixel_jitter(
+                camera, u_cam,
+                sample_offset + torch.div(path_id, L, rounding_mode="floor"))
         org, dirs, time = cam_mod.generate_rays(camera, pix, u_cam)
         if scene.world_offset is not None:
             org = org - scene.world_offset[None, :]
         return org, dirs, time, path_id < total
+
+    def spawn_wavelength(path_id):
+        """Each lane's hero wavelength, the scan's draw for its path."""
+        pix = gpix(torch.remainder(path_id, L))
+        return _wavelength(draw("wl", sample_of(path_id).long(), pix, 1)[:, 0])
 
     path_id = torch.arange(R, dtype=torch.int32, device=dev)
     bounce = torch.zeros((R,), dtype=torch.int32, device=dev)
@@ -437,30 +537,36 @@ def render_wavefront(scene, camera, key: np.ndarray, spp: int,
     issued = torch.tensor(R, dtype=torch.int32, device=dev)
     image = torch.zeros((L, 3), dtype=torch.float32, device=dev)
     emis_w = torch.ones((R,), dtype=torch.float32, device=dev) if nee else None
+    wl = spawn_wavelength(path_id) if dispersive else None
     iterations = 0
     while bool(alive.any()):
         iterations += 1
         lane = torch.remainder(path_id, L)
         pix = gpix(lane)
-        row = (sample_of(path_id) * max_depth
-               + torch.clamp(bounce, 0, max_depth - 1)).long()
-        w = path_words[row]
-        u = fastrng.uniforms(w[:, 0], w[:, 1], pix, nslot)
+        b = torch.clamp(bounce, 0, max_depth - 1)
+        row = (sample_of(path_id) * max_depth + b).long()
+        if use_qmc:
+            u = qmc.uniforms(q_words, pix, sample_offset + sample_of(path_id),
+                             qmc.N_CAM_GROUPS + b * qb_ngroups, qb_groups, qb_dims)
+        else:
+            u = draw("path", row, pix, nslot)
         rr_u = None
         if rr_depth:
-            w = rr_words[row]
-            rr_u = torch.where(bounce >= rr_depth,
-                               fastrng.uniforms(w[:, 0], w[:, 1], pix, 1)[:, 0],
+            rr_u = torch.where(bounce >= rr_depth, draw("rr", row, pix, 1)[:, 0],
                                torch.full((R,), -1.0, device=dev))
         out = _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
                           rr_u=rr_u, emis_w=emis_w,
-                          nee_shadow=bounce < max_depth - 1)
+                          nee_shadow=bounce < max_depth - 1,
+                          ior_shift=spectrum.cauchy_ior_shift(wl) if dispersive else None)
         org, dirs, time, throughput, radiance, alive2 = out[:6]
         bounce = bounce + 1
         alive2 = alive2 & (bounce < max_depth)
 
         done = alive & ~alive2              # the path just ended
         flush = radiance
+        if dispersive:
+            # the scan's weighting: radiance is linear in the initial throughput
+            flush = radiance * spectrum.spectral_path_weight(wl)
         if camera.clamp > 0.0:
             flush = torch.clamp(flush, max=camera.clamp)  # firefly clamp
         image.index_add_(0, lane.long(),
@@ -484,6 +590,8 @@ def render_wavefront(scene, camera, key: np.ndarray, spp: int,
         radiance = torch.where(fresh, torch.zeros_like(radiance), radiance)
         bounce = torch.where(done, torch.zeros_like(bounce), bounce)
         alive = torch.where(done, s_active, alive2)
+        if dispersive:
+            wl = torch.where(done, spawn_wavelength(path_id), wl)
         if nee:
             emis_w = torch.where(done, torch.ones_like(out[6]), out[6])
     WAVEFRONT["renders"] += 1

@@ -5,13 +5,17 @@ Port of ``cpu_ray_tracing_implementation_tpu/ops/sampling.py`` (the parts
 the thin-lens camera call). Semantics match reference src/utility.h:30-69
 and src/pdf.h.
 
-``cosine_dir`` is the JAX package's default construction
-(``CRT_COSINE=sphere``): normalize(n + a uniform point on the unit sphere).
-Its opt-in ``onb`` construction (``CRT_COSINE=onb``, ``sampling.py:48-78``
-of the JAX package) waits in ROADMAP queue 1.
+``cosine_dir`` has the JAX package's two constructions, chosen by
+``CRT_COSINE`` when it is called (the JAX package reads it when it
+traces): ``sphere`` (the default), normalize(n + a uniform point on the
+unit sphere), and ``onb``, the reference's local cosine direction
+(src/utility.h:62-69) in an orthonormal basis about the normal
+(src/pdf.h:34-45).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -42,9 +46,30 @@ def disk_sample(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
                         torch.zeros_like(r)], dim=-1)
 
 
+def cosine_local_dir(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted hemisphere direction in the basis' local frame, y up
+    (src/utility.h:62-69 ``random_cosine_direction`` with y = sqrt(1-r2))."""
+    phi = 2.0 * PI * u1
+    sq_r2 = torch.sqrt(u2)
+    return torch.stack([torch.cos(phi) * sq_r2,
+                        torch.sqrt(torch.clamp(1.0 - u2, min=0.0)),
+                        torch.sin(phi) * sq_r2], dim=-1)
+
+
+def _cosine_impl() -> str:
+    """``CRT_COSINE``: "sphere" (the default) or "onb"."""
+    return os.environ.get("CRT_COSINE", "sphere")
+
+
 def cosine_dir(normal: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
-    """Cosine-weighted direction about unit ``normal``: a uniform point on
-    the unit sphere about the normal tip (RTiOW §9.4)."""
+    """Cosine-weighted direction about unit ``normal``: by default a
+    uniform point on the unit sphere about the normal tip (RTiOW §9.4);
+    under ``CRT_COSINE=onb`` the local cosine direction in the normal's
+    basis. Both sample cos(theta)/pi; they map (u1, u2) to different
+    directions."""
+    if _cosine_impl() == "onb":
+        x, y, z = vm.onb_from_normal(normal)
+        return vm.onb_transform(cosine_local_dir(u1, u2), x, y, z)
     s = unit_sphere_dir(u1, u2)
     d = normal + s
     # s == -normal (measure zero): fall back to the normal itself, like the

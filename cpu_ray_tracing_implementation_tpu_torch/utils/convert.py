@@ -23,8 +23,8 @@ from cpu_ray_tracing_implementation_tpu_torch.ops.tables import DEFAULT_DEVICE
 # them. The JAX scene's BVH trees (``*_tree``, ROADMAP M11) are not carried.
 _UNPORTED = {
     "tri_attrs": "per-vertex triangle attributes (ROADMAP M4)",
-    "env_texel_p": "environment importance sampling (ROADMAP M5)",
 }
+_ENV_TABLES = ("env_texel_p", "env_row_cdf", "env_col_cdf")
 
 
 def _columns(obj, cls) -> list:
@@ -37,13 +37,10 @@ def _columns(obj, cls) -> list:
 def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
     """The port's Scene holding the same tables as the JAX ``jscene``,
     its chunked tables, chunk orders, picture images, noise tables, sphere
-    lights and mesh-volume boundaries included."""
+    lights, mesh-volume boundaries and environment-light tables included."""
     for name, what in _UNPORTED.items():
         if getattr(jscene, name, None) is not None:
             raise NotImplementedError(f"{what} are not ported yet")
-    if getattr(jscene, "has_dispersion", False):
-        raise NotImplementedError("spectral dispersion (ROADMAP M6) is not "
-                                  "ported yet")
     arrays = {name: _columns(getattr(jscene, name), cls)
               for name, cls in sc._TABLES.items()}
     for name, cls in sc._CHUNKS.items():
@@ -58,11 +55,15 @@ def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
                   sphere_lights=None if sl is None else np.asarray(sl, np.int32),
                   images=[np.asarray(im, np.float32) for im in jscene.images],
                   world_offset=None if off is None else np.asarray(off, np.float32))
+    for name in _ENV_TABLES:
+        table = getattr(jscene, name, None)
+        arrays[name] = None if table is None else np.asarray(table, np.float32)
     return sc.scene_from_tables(
         arrays, device=tbl.as_device(device), background=int(jscene.background),
         tex_types_used=tuple(jscene.tex_types_used),
         mat_types_used=tuple(jscene.mat_types_used),
         has_bilinear=bool(jscene.has_bilinear),
+        has_dispersion=bool(getattr(jscene, "has_dispersion", False)),
         counts=tuple(jscene.counts), world_lo=jscene.world_lo,
         world_hi=jscene.world_hi)
 
@@ -72,9 +73,6 @@ def camera_from_numpy(jcam, device=DEFAULT_DEVICE) -> cam_mod.Camera:
     if int(jcam.mode) not in (cam_mod.PERSPECTIVE, cam_mod.ORTHOGRAPHIC,
                               cam_mod.FISHEYE, cam_mod.LENS):
         raise ValueError(f"unknown camera mode {int(jcam.mode)}")
-    if getattr(jcam, "qmc", False):
-        raise NotImplementedError("camera.qmc (ROADMAP M6/M12, queue 1 step 9) "
-                                  "is not ported yet")
 
     device = tbl.as_device(device)
 
@@ -90,7 +88,8 @@ def camera_from_numpy(jcam, device=DEFAULT_DEVICE) -> cam_mod.Camera:
         width=int(jcam.width), height=int(jcam.height), spp=int(jcam.spp),
         max_depth=int(jcam.max_depth), stratify=bool(jcam.stratify),
         clamp=float(jcam.clamp), rr_depth=int(getattr(jcam, "rr_depth", 0)),
-        nee=bool(getattr(jcam, "nee", False)))
+        nee=bool(getattr(jcam, "nee", False)),
+        qmc=bool(getattr(jcam, "qmc", False)))
 
 
 def params_from_numpy(params: dict, device=DEFAULT_DEVICE) -> dict:

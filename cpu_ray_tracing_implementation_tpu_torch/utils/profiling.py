@@ -17,7 +17,14 @@ synchronisations per iteration (the loop's condition and each per-ray
 selection phase's live count); ``cornell_sphere_light_nee`` renders
 cornell_box_with_sphere_light at its own 600x600, depth 4, with
 next-event estimation and Russian roulette from bounce 3 (its shadow rays
-launch K1 and K2 a second time in every bounce but the last).
+launch K1 and K2 a second time in every bounce but the last);
+``dispersion_prism`` renders that scene at its own 400x400, depth 6 (a
+hero wavelength per path, K1 for the three light strips and K2 for the
+glass sphere every bounce); ``sunlit_spheres_nee`` renders sunlit_spheres
+at its own 400 px wide (aspect 1.78), depth 5, with next-event estimation
+(the importance-sampled sky as the only light: K2 twice in every bounce
+but the last, no K1); ``cornell_qmc`` is ``cornell`` under ``camera.qmc``
+(Owen-scrambled Sobol uniforms in place of the hash stream).
 ``sweep_stages`` times kernel K4 alone on ``utils/kernel_ab.py``'s sweep
 inputs: CUDA events per call and torch.profiler's device time per stage
 kernel. Each other workload runs ``spp`` samples after a 2-sample warm-up: three times on the host
@@ -56,13 +63,14 @@ import torch
 from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, integrator
+from cpu_ray_tracing_implementation_tpu_torch.ops import envlight
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
-from cpu_ray_tracing_implementation_tpu_torch.ops import replay
+from cpu_ray_tracing_implementation_tpu_torch.ops import qmc, replay
 from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe
 
 # the card's peak rates (H100 SXM data sheet): 3.35 TB/s of HBM and 67
@@ -81,6 +89,9 @@ STAGES = (
     (mat_ops, "scatter", "scatter"),
     (mat_ops, "scatter_nee", "scatter_nee"),
     (integrator, "_per_ray_uniforms", "uniforms"),
+    (qmc, "uniforms", "qmc uniforms"),
+    (envlight, "sample", "env sample"),
+    (envlight, "pdf", "env pdf"),
     (cam_mod, "generate_rays", "raygen"),
     (fs, "cull_select", "select"),
     (fsw, "sweep", "sweep"),
@@ -103,6 +114,12 @@ WORKLOADS = {
     "cornell_sphere_light_nee": (catalog.cornell_box_with_sphere_light,
                                  dict(width=600, max_depth=4), 8, False, False,
                                  dict(nee=True, rr_depth=3)),
+    "dispersion_prism": (catalog.dispersion_prism, dict(width=400, max_depth=6), 8,
+                         False, False, {}),
+    "sunlit_spheres_nee": (catalog.sunlit_spheres, dict(width=400, max_depth=5), 8,
+                           False, False, dict(nee=True)),
+    "cornell_qmc": (catalog.cornell_box, dict(width=512, max_depth=8), 8, False,
+                    False, dict(qmc=True)),
 }
 TOP = 20  # kernels listed by device time
 REPEATS = 3  # unprofiled runs before the profiled one, and after it

@@ -808,3 +808,76 @@ def test_estimator_golden_renders_on_card(dev, name):
         assert fi.LAUNCHES["planar_closest"] == bounces
     if scene.counts[0]:
         assert fi.LAUNCHES["sphere_closest"] == bounces
+
+
+# the golden workload's recorded means of the spectral and env-light scenes,
+# and the Cornell box under QMC and the threefry stream, held to the port's
+# own CPU render
+SPECTRAL_GOLDENS = {"dispersion_prism": 0.782510, "sunlit_spheres": 0.090164}
+
+
+@pytest.mark.parametrize("name,variant", [("dispersion_prism", None),
+                                          ("sunlit_spheres", None),
+                                          ("sunlit_spheres", "nee"),
+                                          ("cornell_box", "qmc"),
+                                          ("cornell_box", "threefry")])
+def test_spectral_qmc_threefry_renders_on_card(dev, monkeypatch, name, variant):
+    if variant == "threefry":
+        monkeypatch.setenv("CRT_RNG", "threefry")
+
+    def build(d):
+        s, c = catalog.SCENES[name](width=16, spp=4, max_depth=3, device=d)
+        return s, c.replace(nee=variant == "nee", qmc=variant == "qmc")
+
+    scene, cam = build(dev)
+    fi.reset_launches()
+    img = integrator.render_image(scene, cam, keys.key(42))
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    s_cpu, c_cpu = build("cpu")
+    want = float(integrator.render_image(s_cpu, c_cpu, keys.key(42)).mean())
+    assert abs(float(img.mean()) - want) <= 2e-3
+    if variant is None:
+        assert abs(float(img.mean()) - SPECTRAL_GOLDENS[name]) <= 2e-3
+    bounces = cam.spp * cam.max_depth
+    if scene.counts[1]:
+        assert fi.LAUNCHES["planar_closest"] == bounces
+    if scene.counts[0]:
+        assert fi.LAUNCHES["sphere_closest"] == (
+            cam.spp * (2 * cam.max_depth - 1) if variant == "nee" else bounces)
+
+
+def test_qmc_threefry_envlight_on_card_equal_cpu(dev):
+    """The int64 word arithmetic and the env-light tables on the card:
+    QMC and threefry uniforms bit-equal to the CPU's, sample and pdf on the
+    same tables equal, the card's own tables within rtol 1e-5."""
+    from cpu_ray_tracing_implementation_tpu_torch.ops import envlight, qmc
+
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 1 << 20, 5000).astype(np.int32)
+    sidx = rng.integers(0, 256, 5000).astype(np.int32)
+    words = qmc.seed_words(keys.key(3))
+    groups, dims, ng = qmc.bounce_layout(10)
+    args = (torch.as_tensor(sidx), qmc.N_CAM_GROUPS + torch.as_tensor(sidx % 8) * ng,
+            groups, dims)
+    cpu = qmc.uniforms(words, torch.as_tensor(ids), *args)
+    card = qmc.uniforms(words, _t(ids, dev), *[a.to(dev) if torch.is_tensor(a) else a
+                                               for a in args])
+    assert torch.equal(card.cpu(), cpu)
+    k_cpu = keys.fold_in_lanes(keys.key(9), torch.as_tensor(ids))
+    k_card = keys.fold_in_lanes(keys.key(9), _t(ids, dev))
+    assert torch.equal(k_card.cpu(), k_cpu)
+    assert torch.equal(keys.uniform(k_card, 9).cpu(), keys.uniform(k_cpu, 9))
+    s_card, _ = catalog.sunlit_spheres(width=16, spp=1, max_depth=2, device=dev)
+    s_cpu, _ = catalog.sunlit_spheres(width=16, spp=1, max_depth=2, device="cpu")
+    for a, b in zip((s_card.env_texel_p, s_card.env_row_cdf, s_card.env_col_cdf),
+                    (s_cpu.env_texel_p, s_cpu.env_row_cdf, s_cpu.env_col_cdf)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-9)
+    s_same = s_card.replace(env_texel_p=s_cpu.env_texel_p.to(dev),
+                            env_row_cdf=s_cpu.env_row_cdf.to(dev),
+                            env_col_cdf=s_cpu.env_col_cdf.to(dev))
+    u1, u2 = rng.uniform(0, 1, (2, 5000)).astype(np.float32)
+    d_card = envlight.sample(s_same, _t(u1, dev), _t(u2, dev))
+    d_cpu = envlight.sample(s_cpu, torch.as_tensor(u1), torch.as_tensor(u2))
+    np.testing.assert_allclose(d_card.cpu().numpy(), d_cpu.numpy(), atol=1e-5)
+    np.testing.assert_allclose(envlight.pdf(s_same, d_card).cpu().numpy(),
+                               envlight.pdf(s_cpu, d_cpu).numpy(), rtol=1e-4)

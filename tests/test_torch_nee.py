@@ -190,8 +190,9 @@ def test_rr_words_match_jax():
     """The host table of roulette seed words equals the words the JAX
     package's scan draws: bits(fold_in(fold_in(k_path, 0x5252), b))."""
     key = jax.random.key(9)
-    words = integrator.wavefront_rr_words(convert.key_from_numpy(
-        jax.random.key_data(key)), 3, 4, sample_offset=2)
+    words = integrator._bits_table(integrator.wavefront_keys(
+        convert.key_from_numpy(jax.random.key_data(key)), 3, 4, sample_offset=2,
+        rr=True)["rr"])
     for s in range(3):
         _, k_path = jax.random.split(jax.random.fold_in(key, 2 + s))
         k_rr = jax.random.fold_in(k_path, 0x5252)

@@ -13,7 +13,10 @@ random_motion_ball's 337 moving spheres stay one dense table (kernel K2's
 58 chunks (JAX's packet route, the port's per-ray route). The F1 scenes
 load earthmap.jpg, which this checkout lacks: both packages take the same
 magenta fallback, so they are held to live JAX only, not to the golden
-means recorded with the asset.
+means recorded with the asset. dispersion_prism (hero wavelengths) and
+sunlit_spheres (the importance-sampled sky) are held to both; the Cornell
+box under ``camera.qmc`` and under ``CRT_RNG=threefry`` to live JAX, the
+same contract.
 """
 
 import jax
@@ -35,7 +38,8 @@ GOLDEN_MEANS = {"cornell_box": 0.160999, "three_material_ball": 0.563181,
                 "different_fuzz_metal": 0.322772, "skybox_and_fisheye": 0.633859,
                 "sphereflake": 0.592463,
                 "three_material_ball_with_defocus_blur": 0.605853,
-                "white_sphere": 1.000000}
+                "white_sphere": 1.000000, "dispersion_prism": 0.782510,
+                "sunlit_spheres": 0.090164}
 # scenes whose asset is missing here (ROADMAP F1)
 F1_SCENES = ("cornell_box_with_glossy_ball", "infinite_reflection",
              "skybox_and_motion_blur")
@@ -50,8 +54,9 @@ F1_SCENES = ("cornell_box_with_glossy_ball", "infinite_reflection",
 PIXEL_DEPTH = {"sphereflake": 1}
 
 
-def _render_both(name, depth):
+def _render_both(name, depth, **cam_kw):
     js, jc = jcat.SCENES[name](width=16, spp=4, max_depth=depth)
+    jc = jc.replace(**cam_kw)
     jkey = jax.random.key(42)
     ref = np.asarray(jint.render_image(js, jc, jkey))
     img = integrator.render_image(
@@ -70,6 +75,24 @@ def test_golden_workload_matches_jax(name):
         np.testing.assert_allclose(img.mean(), GOLDEN_MEANS[name], atol=2e-3)
     if name in PIXEL_DEPTH:
         img, ref = _render_both(name, PIXEL_DEPTH[name])
+    close = np.abs(img - ref).max(axis=-1) <= 1e-3
+    assert close.mean() >= 0.98, close.mean()
+
+
+@pytest.mark.parametrize("variant", ["qmc", "threefry"])
+def test_cornell_estimator_variant_matches_jax(monkeypatch, variant):
+    """Owen-Sobol QMC (``camera.qmc``) and the per-lane threefry stream,
+    which the JAX package reads when it traces (hence the cleared caches)."""
+    cam_kw = {"qmc": True} if variant == "qmc" else {}
+    if variant == "threefry":
+        monkeypatch.setenv("CRT_RNG", "threefry")
+    jax.clear_caches()
+    try:
+        img, ref = _render_both("cornell_box", 3, **cam_kw)
+    finally:
+        monkeypatch.undo()
+        jax.clear_caches()
+    np.testing.assert_allclose(img.mean(), ref.mean(), atol=2e-3)
     close = np.abs(img - ref).max(axis=-1) <= 1e-3
     assert close.mean() >= 0.98, close.mean()
 

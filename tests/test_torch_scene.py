@@ -206,13 +206,13 @@ def test_stratified_jitter_matches_jax():
 
 
 def test_unported_camera_modes_raise():
-    """All four modes are ported; a mode outside them, and the camera
-    features still to come, raise."""
+    """All four modes are ported; a mode outside them raises. ``camera.qmc``
+    is ported too and carried across."""
     jc = jcam.lens(16, 1.0, (0, 0, 1), (0, 0, 0), 10.0, spp=1)
     with pytest.raises(ValueError, match="mode 7"):
         convert.camera_from_numpy(jc.replace(mode=7), device="cpu")
-    with pytest.raises(NotImplementedError, match="M6/M12"):
-        convert.camera_from_numpy(jc.replace(qmc=True), device="cpu")
+    assert convert.camera_from_numpy(jc.replace(qmc=True), device="cpu").qmc
+    assert not convert.camera_from_numpy(jc, device="cpu").qmc
     pc = convert.camera_from_numpy(jc, device="cpu")
     with pytest.raises(ValueError, match="mode 7"):
         cam.generate_rays(pc.replace(mode=7), torch.arange(4, dtype=torch.int32),

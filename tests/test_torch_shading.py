@@ -157,10 +157,10 @@ def test_light_sample_and_pdf_match_jax():
 def test_unported_families_raise():
     """Every material family is ported since isotropic media (ROADMAP M5):
     an isotropic lane scatters into a uniform sphere direction with weight
-    albedo * (1/4pi) / (1/4pi) = albedo, as the JAX package's. What still
-    raises is carried across by ``scene_from_numpy``: dispersion (M6),
-    per-vertex triangle attributes (M4) and the importance-sampled
-    environment light (M5)."""
+    albedo * (1/4pi) / (1/4pi) = albedo, as the JAX package's. Dispersion
+    (M6) and the importance-sampled environment light (M5) are ported and
+    carried across by ``scene_from_numpy``; what still raises there is
+    per-vertex triangle attributes (M4)."""
     b = sc.SceneBuilder()
     m = b.lambertian((1, 1, 1))
     b._mat_row(mtype=sc.MAT_ISOTROPIC, tex=b.solid((0.3, 0.5, 0.7)))
@@ -178,9 +178,14 @@ def test_unported_families_raise():
     js, _ = jcat.three_material_ball(width=16)
     jd = js.replace(materials=js.materials.replace(
         dispersion=js.materials.dispersion.at[1].set(0.01)), has_dispersion=True)
-    with pytest.raises(NotImplementedError, match="M6"):
-        convert.scene_from_numpy(jd, device="cpu")
-    for field, label in (("tri_attrs", "M4"), ("env_texel_p", "M5")):
-        with pytest.raises(NotImplementedError, match=label):
-            convert.scene_from_numpy(js.replace(**{field: jnp.zeros((1,))}),
-                                     device="cpu")
+    pd = convert.scene_from_numpy(jd, device="cpu")
+    assert pd.has_dispersion and not convert.scene_from_numpy(js, device="cpu").has_dispersion
+    np.testing.assert_array_equal(pd.materials.dispersion.numpy(),
+                                  np.asarray(jd.materials.dispersion))
+    env = jnp.full((2, 4), 0.125)
+    pe = convert.scene_from_numpy(js.replace(env_texel_p=env, env_row_cdf=env[:, 0],
+                                             env_col_cdf=env), device="cpu")
+    assert pe.has_env_light and pe.has_lights
+    np.testing.assert_array_equal(pe.env_texel_p.numpy(), np.asarray(env))
+    with pytest.raises(NotImplementedError, match="M4"):
+        convert.scene_from_numpy(js.replace(tri_attrs=jnp.zeros((1,))), device="cpu")

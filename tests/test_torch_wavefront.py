@@ -49,8 +49,10 @@ def test_seed_tables_match_jax():
     """cam_words and path_words equal jax.random.bits of the scan's folds."""
     spp, depth, offset = 3, 4, 5
     jkey = jax.random.key(9)
-    cam_w, path_w = integrator.wavefront_words(
+    tables = integrator.wavefront_keys(
         convert.key_from_numpy(jax.random.key_data(jkey)), spp, depth, offset)
+    cam_w = integrator._bits_table(tables["cam"])
+    path_w = integrator._bits_table(tables["path"])
     assert cam_w.shape == (spp, 2) and path_w.shape == (spp, depth, 2)
     for s in range(spp):
         k_cam, k_path = jax.random.split(jax.random.fold_in(jkey, offset + s))
