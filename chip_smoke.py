@@ -6,7 +6,14 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Build the CUDA kernels from ``cpu_ray_tracing_implementation_tpu_torch/csrc``
-   (one nvcc per source, in parallel).
+   (one nvcc per source, in parallel). Then write the stand-in glTF assets
+   into a temporary directory with the port's ``utils/procgen.py`` (the
+   reference's Fox and Sponza are absent): an ellipsoid Fox of 576
+   triangles (the real Fox's count: 5 chunks, the per-ray route) and one
+   of 480 (one dense table), each with u32 indices, NORMAL, TEXCOORD_0, a
+   node transform and a PNG baseColorTexture, and Sponza.gltf + .bin
+   holding the colonnade's 257,916 triangles. ``$CRT_ASSETS`` points at
+   one of them only while a glTF scene is built.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes:
    - K1 (planar closest hit) in quad and triangle mode and K2 (sphere
@@ -59,6 +66,15 @@ Phases (any failure raises and the script exits non-zero):
      finds their exit), and K2 on sunlit_spheres' primary rays and on the
      NEE shadow rays from its first hits toward importance-sampled sky
      directions; the same tolerances.
+   - The glTF scenes' traffic: K1 with its pid output on the 480-triangle
+     stand-in's dense view at textured_fox's 600x600 primary rays and
+     first secondary rays (hit masks equal except on rays within 1e-4 of a
+     triangle edge, counted; materials equal; pids equal except counted
+     near-ties; t within rtol 1e-4; the raw and the interpolated normal and
+     (u, v) within atol 1e-3), with K1's time there; K3 (bit-equal) and K4
+     (all 8 columns bit for bit, the pid column that indexes the attribute
+     table included) at every phase of the 576-triangle stand-in's primary
+     and secondary rays.
    - K5 (gather-sum probe) against its plain version (rel err max |a - b| /
      (|b| + 1) <= 1e-5) at the probe's defaults (an 11.5 MB table, inside
      the L2) and with a 738 MB table (K 131,072: device memory), with its
@@ -77,10 +93,17 @@ Phases (any failure raises and the script exits non-zero):
    of tests/test_golden.py); the Cornell box at the golden workload under
    ``camera.qmc`` and under ``CRT_RNG=threefry``, and the 16 px colonnade
    under ``camera.qmc`` (through K3 and K4), within 2e-3 of the port's own
-   CPU render of the same key; the five
-   scenes whose asset is missing (F1: earthmap.jpg, and smoke_fox's
-   Fox.gltf) within 2e-3 of the port's own CPU render of the same scene
-   and key; the Cornell
+   CPU render of the same key; the seven
+   scenes whose asset is missing (F1: earthmap.jpg, and the fallbacks of
+   smoke_fox, glass_fox and textured_fox without Fox.gltf) within 2e-3 of
+   the port's own CPU render of the same scene and key; with the stand-in
+   assets, glass_fox, textured_fox (both stand-ins) and smoke_fox at the
+   golden workload, and sponza from Sponza.gltf (built once on the card at
+   200 px, its chunk tables against the procedural colonnade's, max abs
+   difference printed, and rendered with the 16 px golden camera), each
+   within 2e-3 of the port's own CPU render of the same scene and key;
+   ``render_image_adaptive`` at rel_tol=0 bitwise the uniform render on
+   the Cornell box at 64x64, 16 spp; the Cornell
    C++ reference parity gate of tests/test_parity.py (300 px 16 spp: PSNR
    > 30 dB, mean rel err < 0.04); and the per-ray closest hit (K3 + K4)
    against the chunk-scan oracle on the full colonnade: the same winner's
@@ -129,7 +152,19 @@ Phases (any failure raises and the script exits non-zero):
    PRISM_GRAD (``mat_dispersion`` finite and nonzero, the kernel route
    equal to plain autograd under deterministic algorithms) and of the
    Cornell box under ``camera.qmc`` at QMC_GRAD. Each prints seconds,
-   camera rays/s and the mean.
+   camera rays/s and the mean. The glTF scenes at their own sizes:
+   textured_fox 600x600, 100 spp, depth 5 with the 576-triangle stand-in
+   (K3 + K4 with pid) and with the 480-triangle one (K1 with pid);
+   glass_fox 600x600, 200 spp, depth 5 (576); sponza from Sponza.gltf at
+   200x200, 30 spp, depth 5, its load-and-build seconds, its image against
+   the procedural colonnade's (max abs difference, means within 2e-3);
+   ``render_image_adaptive`` on the Cornell box at 512x512, depth 8
+   (ADAPTIVE), its samples against 256 x 512^2 and its mean against the
+   uniform 256-spp render's (within ADAPTIVE_MEAN_RTOL); ``render_aovs``
+   (AOV_SPP) and ``denoise`` of the 256-spp Cornell image, each timed;
+   ``loss_and_grads`` of textured_fox at FOX_GRAD (576), finite, the kernel
+   route equal to plain autograd (every closest hit's plain version on the
+   card) under deterministic algorithms.
 5. Kernel launch counts of each phase-4 run, set to 0 just before it and
    read just after: the Cornell render must launch K1, the
    three_material_ball render K2, the colonnade render K1 (its light
@@ -157,7 +192,12 @@ Phases (any failure raises and the script exits non-zero):
    Cornell renders K1 spp x depth times (2,048 at 256 spp); the gradient
    runs K1 (and on the prism K2) spp x depth times in the forward pass and
    none in the backward. Their counts go on a line of their own before the
-   ``kernels`` line.
+   ``kernels`` line. The glTF runs: the 576-triangle textured_fox and
+   glass_fox renders launch K3 and K4 and no K1, the 480-triangle one K1
+   and no K3 or K4, the glTF sponza K1 (its light), K3 and K4; the
+   adaptive render K1 depth x the largest per-pixel spp times, the AOV
+   pass K1 once per sample; textured_fox's gradient run K3 and K4 in both
+   passes (on a line of their own before the ``kernels`` line).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -172,13 +212,15 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.kernels import build
-from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, film, integrator
+from cpu_ray_tracing_implementation_tpu_torch.models import (adaptive, aov, catalog, diff, film,
+                                                             integrator)
 from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
@@ -189,7 +231,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
 from cpu_ray_tracing_implementation_tpu_torch.ops import spectrum
 from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
-from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe, profiling
+from cpu_ray_tracing_implementation_tpu_torch.utils import denoise, gather_probe, procgen, profiling
 from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
     FP32_INSTR_PER_S, HBM_BYTES_PER_S, camera_rays, cuda_ms, secondary)
 
@@ -219,7 +261,8 @@ GOLDEN_MEANS = {"cornell_box": 0.160999, "three_material_ball": 0.563181,
 # held to the port's own CPU render of the same scene and key, which takes
 # the same fallback
 F1_SCENES = ("cornell_box_with_glossy_ball", "infinite_reflection",
-             "skybox_and_motion_blur", "simple_light_earth", "smoke_fox")
+             "skybox_and_motion_blur", "simple_light_earth", "smoke_fox",
+             "glass_fox", "textured_fox")
 # the wavefront against the scan on the same scene and key: each path's
 # radiance is the scan's, only the order of the per-pixel sums differs
 WAVEFRONT_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -1525,6 +1568,18 @@ def phase_estimators(dev):
     return out, plain, nee
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Every closest-hit wrapper takes its plain version, on the card."""
+    saved = fi._on_card, fs.cull_select, fsw.sweep
+    fi._on_card = lambda x: False
+    fs.cull_select, fsw.sweep = fs.cull_select_plain, fsw.sweep_plain
+    try:
+        yield
+    finally:
+        fi._on_card, fs.cull_select, fsw.sweep = saved
+
+
 def volume_grad(dev):
     """``loss_and_grads`` with NEE through cornell_box_with_volume (at
     VOLUME_GRAD): the backward pass launches no closest-hit kernel, and the
@@ -1542,13 +1597,11 @@ def volume_grad(dev):
                              f"the forward pass (want {want}) and "
                              f"{bwd['planar_closest']} in the backward (want 0)")
     torch.use_deterministic_algorithms(True, warn_only=True)
-    on_card = fi._on_card
     try:
         got = grads_of(scene, cam, 0)
-        fi._on_card = lambda x: False   # the plain versions, on the card
-        ref = grads_of(scene, cam, 0)
+        with plain_versions():
+            ref = grads_of(scene, cam, 0)
     finally:
-        fi._on_card = on_card
         torch.use_deterministic_algorithms(False)
     grads_close(f"{label}, kernel route vs plain autograd", got, ref)
     return secs
@@ -1624,13 +1677,11 @@ def phase_spectral(dev):
                                          "sphere_closest": bounces})
     exact(f"{label}, backward pass", bwd, {"planar_closest": 0, "sphere_closest": 0})
     torch.use_deterministic_algorithms(True, warn_only=True)
-    on_card = fi._on_card
     try:
         got = grads_of(scene, cam, 0)
-        fi._on_card = lambda x: False   # the plain versions, on the card
-        ref = grads_of(scene, cam, 0)
+        with plain_versions():
+            ref = grads_of(scene, cam, 0)
     finally:
-        fi._on_card = on_card
         torch.use_deterministic_algorithms(False)
     g = got[1][0]["mat_dispersion"]
     log(f"  {label}: mat_dispersion gradient {g.detach().cpu().tolist()}")
@@ -1680,6 +1731,369 @@ def device_time(label, scene, cam, names):
         + "; ".join(msg))
 
 
+# ---------------------------------- the glTF scenes, adaptive sampling, AOVs
+# the stand-in assets this script writes for the glTF scenes (the
+# reference's Fox and Sponza are absent, ROADMAP F1): ellipsoids of 24
+# segments, 13 rings (576 triangles, the Fox's count: 5 chunks, the per-ray
+# route) and 11 rings (480: one dense table, K1's 1-chunk view), and the
+# colonnade's 257,916 triangles as Sponza.gltf + .bin
+FOX_STANDINS = {"fox576": (24, 13), "fox480": (24, 11)}
+# the stand-in Fox's node transform (translation, quaternion, scale)
+FOX_NODE = {"mesh": 0, "translation": [0.0, 45.0, 0.0],
+            "rotation": [0.0, 0.38268343, 0.0, 0.92387953], "scale": [1.2, 1.0, 1.2]}
+# a ray whose hit lies within EDGE_EPS of a triangle edge (barycentric), or
+# on the surface it leaves (within OWN_EPS of its origin along the normal:
+# a secondary ray starts where the primary's float32 t put it, ~1e-4 off
+# the surface at the stand-ins' ~300-unit camera distance), may hit in K1
+# and miss in its plain version, or the reverse: counted, not failed
+EDGE_EPS = 1e-4
+OWN_EPS = 1e-3
+# the adaptive render on the Cornell box at 512x512 (depth 8, its main
+# path's camera), its samples spent against the uniform 256-spp render's
+ADAPTIVE = dict(rel_tol=0.05, min_spp=8, max_spp=256, chunk_spp=8)
+# the adaptive image's mean against the uniform render's: both estimate the
+# same image, the adaptive one with a stopping bias that min_spp bounds, so
+# they agree within Monte-Carlo distance (as NEE_MEAN_RTOL)
+ADAPTIVE_MEAN_RTOL = 0.02
+AOV_SPP = 16
+# textured_fox's gradient run (the 576-triangle stand-in), cut from 600x600,
+# 100 spp to this size
+FOX_GRAD = dict(width=128, spp=4, max_depth=5)
+
+
+def write_assets(root: str) -> dict:
+    """Write the stand-in assets under ``root`` with ``utils/procgen.py``;
+    returns {"fox576", "fox480", "sponza": the directory to point
+    $CRT_ASSETS at}. Each Fox has u32 indices, NORMAL, TEXCOORD_0, a node
+    transform and a PNG baseColorTexture (the 576's in a data URI, the
+    480's in a bufferView)."""
+    roots = {}
+    for name, (segments, rings) in FOX_STANDINS.items():
+        pos, nrm, uv, idx = procgen.ellipsoid_mesh(segments, rings)
+        roots[name] = os.path.join(root, name)
+        procgen.write_gltf(os.path.join(roots[name], "Fox", "glTF", "Fox.gltf"), pos, idx,
+                           nrm, uv, png=procgen.checker_png(),
+                           image_in="data" if name == "fox576" else "bufferView",
+                           nodes=[FOX_NODE])
+    verts = procgen.colonnade_hall(target_tris=catalog.SUBSTITUTE_TRIS)
+    roots["sponza"] = os.path.join(root, "sponza")
+    procgen.write_gltf(os.path.join(roots["sponza"], "Sponza", "glTF", "Sponza.gltf"),
+                       verts.reshape(-1, 3), np.arange(verts.shape[0] * 3))
+    log(f"  stand-in assets: Fox {', '.join(f'{n} ({s * 2 * (r - 1)} triangles)' for n, (s, r) in FOX_STANDINS.items())}, "
+        f"Sponza.gltf + .bin ({len(verts)} triangles, "
+        f"{os.path.getsize(os.path.join(roots['sponza'], 'Sponza', 'glTF', 'Sponza.bin')) / 2**20:.1f} MiB)")
+    return roots
+
+
+@contextlib.contextmanager
+def assets(root):
+    """Scenes built inside load their glTF from ``root`` ($CRT_ASSETS)."""
+    saved = os.environ.get("CRT_ASSETS")
+    os.environ["CRT_ASSETS"] = root
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["CRT_ASSETS"]
+        else:
+            os.environ["CRT_ASSETS"] = saved
+
+
+def attr_compare(label, scene, dirs, out, pid, t_r, pay_r) -> float:
+    """K1 with its pid on an attributed mesh against the plain version:
+    hit masks equal except on rays whose hit lies within EDGE_EPS of a
+    triangle edge or on the surface the ray leaves (OWN_EPS), materials
+    equal, pids equal except near-ties (t within rtol 1e-4) and those
+    marginal rays, and where the pids agree t within rtol 1e-4 (unless the
+    hit is on the surface left) and the raw and interpolated normal and
+    (u, v) within atol 1e-3. Returns the largest abs error."""
+    hit, hit_r = out[fi.OUT_VALID] > 0.5, torch.isfinite(t_r)
+    n_k, u_k, v_k = out[fi.OUT_NX:fi.OUT_NZ + 1].T, out[fi.OUT_U], out[fi.OUT_V]
+    n_r, u_r, v_r, mat_r, pid_r = pay_r
+
+    def own(h, t, n):
+        return h & ((torch.where(h, t, torch.zeros_like(t)) * vm.dot(n, dirs)).abs()
+                    <= OWN_EPS)
+
+    def edge(h, u, v):
+        return h & (torch.minimum(torch.minimum(u, v), 1.0 - u - v) < EDGE_EPS)
+
+    own_k, own_r = own(hit, out[fi.OUT_T], n_k), own(hit_r, t_r, n_r)
+    mask = hit != hit_r
+    explained = own_k | own_r | edge(hit, u_k, v_k) | edge(hit_r, u_r, v_r)
+    if bool((mask & ~explained).any()):
+        i = int(torch.nonzero(mask & ~explained)[0, 0])
+        raise AssertionError(
+            f"{label}: hit masks differ in {int((mask & ~explained).sum())} rays away "
+            f"from a triangle edge and the surface they leave; e.g. ray {i}: t "
+            f"{float(out[fi.OUT_T][i])} / {float(t_r[i])}, u v {float(u_k[i])} "
+            f"{float(v_k[i])} / {float(u_r[i])} {float(v_r[i])}")
+    both = hit & hit_r
+    mat = torch.round(out[fi.OUT_MAT]).to(torch.int32)
+    if not torch.equal(mat[both], mat_r[both]):
+        raise AssertionError(f"{label}: materials differ")
+    differ = both & (pid != pid_r)
+    near = differ & ((out[fi.OUT_T] - t_r).abs() <= 1e-4 * t_r.abs())
+    if bool((differ & ~(near | explained)).any()):
+        raise AssertionError(f"{label}: pid differs in "
+                             f"{int((differ & ~(near | explained)).sum())} rays that are "
+                             "no near-tie, at no edge and not on the surface left")
+    if bool((~hit & (pid != 0)).any()):
+        raise AssertionError(f"{label}: pid is not 0 on a miss")
+    same = both & (pid == pid_r)
+    # a ray that meets the surface it leaves has for t the rounding of its
+    # own origin: t is held where the hit is away from the origin
+    away = same & ~(own_k | own_r)
+    torch.testing.assert_close(out[fi.OUT_T][away], t_r[away], rtol=1e-4, atol=1e-4)
+
+    def shade(n, u, v, p):
+        geo = torch.where((vm.dot(dirs, n) < 0.0)[:, None], n, -n)
+        return isect.interpolate_tri_attrs(scene.tri_attrs, p, u, v, geo)
+
+    err = {}
+    pairs = {"normal": (n_k, n_r), "u": (u_k, u_r), "v": (v_k, v_r)}
+    for name, g, r in zip(("smooth normal", "texture u", "texture v"),
+                          shade(n_k, u_k, v_k, pid), shade(n_r, u_r, v_r, pid_r)):
+        pairs[name] = (g, r)
+    for name, (g, r) in pairs.items():
+        torch.testing.assert_close(g[same], r[same], rtol=0, atol=1e-3,
+                                   msg=lambda m, n=name: f"{label}: {n}: {m}")
+        err[name] = max_abs(g[same], r[same])
+    log(f"  {label}: rays {pid.shape[0]} hits {int(hit_r.sum())}; masks differ at an "
+        f"edge or on the surface left in {int(mask.sum())}; pid differs in "
+        f"{int(differ.sum())} (near-ties {int(near.sum())}); hits on the surface left "
+        f"{int((same & ~away).sum())}; max abs err {err}")
+    return max(err.values())
+
+
+def phase_gltf_kernels(dev, roots):
+    """K1 with its pid on the 480-triangle stand-in's dense view at
+    textured_fox's 600x600 primary rays and first secondary rays (its time
+    with pid too), and K3 (bit-equal) and K4 (bit for bit, the pid column
+    included) at every phase of the per-ray loop on the 576-triangle
+    stand-in, primary and secondary rays. Returns errs by kernel."""
+    gen = torch.Generator().manual_seed(11)
+    errs = {"planar_closest": 0.0, "cull_select": 0.0, "visit_sweep": 0.0}
+    with assets(roots["fox480"]):
+        scene, cam = catalog.textured_fox(device=dev)
+    if scene.tri_chunks is not None or scene.counts[2] != 480 or scene.tri_attrs is None:
+        raise AssertionError("the 480-triangle stand-in is not a dense attributed table")
+    view, pack = scene.tri_view
+    org, dirs, _, _ = profiling.scene_rays(scene, cam, gen)
+    rays0 = fi.pack_rays(org, dirs)
+    for which in ("primary", "secondary"):
+        out, pid = fi.planar_closest_kernel(fi.pack_rays(org, dirs), pack, TMIN,
+                                            triangle=True, with_pid=True)
+        t_r, pay_r = ch.planar_closest(org, dirs, view, TMIN, True)
+        errs["planar_closest"] = max(errs["planar_closest"], attr_compare(
+            f"K1 pid, textured_fox 480-triangle stand-in {cam.width}x{cam.height}, {which}",
+            scene, dirs, out, pid, t_r, pay_r))
+        org, dirs = secondary(org, dirs, t_r, gen)
+    R = rays0.shape[1]
+    ms = cuda_ms(lambda: fi.planar_closest_kernel(rays0, pack, TMIN, triangle=True,
+                                                  with_pid=True))
+    plain_ms = cuda_ms(lambda: ch.planar_closest(rays0[0:3].T, rays0[3:6].T, view, TMIN,
+                                                 True))
+    b_ms, b_by = closest_bound("planar_closest", R, pack, 480)
+    log(f"  K1 with pid at textured_fox's primary rays (480 live lanes of "
+        f"{view.active.numel()}, {R} rays): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), share {b_ms / ms:.3f}")
+
+    with assets(roots["fox576"]):
+        scene, cam = catalog.textured_fox(device=dev)
+    if scene.tri_chunks is None or scene.counts[2] != 576:
+        raise AssertionError("the 576-triangle stand-in is not chunked")
+    tabs = scene.tri_perray
+    K = scene.tri_chunks.corner.shape[0]
+    V = min(perray.VISIT_BLOCK, K)
+    org, dirs, _, cap = profiling.scene_rays(scene, cam, gen)
+    for which in ("primary", "secondary"):
+        rays = fs.pack_rays(org, dirs, cap)
+        excl = fs.first_excl(org.shape[0], dev)
+        errs["cull_select"] = max(errs["cull_select"], bits_equal(
+            f"K3 packed, textured_fox 576-triangle stand-in ({K} chunks), {which}, phase 1",
+            fs.cull_select_kernel(rays, tabs.boxes, excl, V, K, TMIN, True),
+            fs.cull_select_plain(rays, tabs.boxes, excl, V, K, TMIN, True)))
+        rays4, calls = profiling.sweep_phases(org, dirs, None, cap, tabs, K, TMIN, True,
+                                              False)
+        for p, (ids, nears, best) in enumerate(calls):
+            err = sweep_check(f"K4 triangles with pid, textured_fox 576-triangle stand-in, "
+                              f"{which}, phase {p + 1}", rays4, ids, nears, best, tabs.table,
+                              True, False)[0]
+            errs["visit_sweep"] = max(errs["visit_sweep"], err)
+        t, _ = perray.planar_closest_perray(org, dirs, scene.tri_chunks, TMIN, True, cap,
+                                            tabs=tabs)
+        org, dirs = secondary(org, dirs, t, gen)
+        cap = isect._packet_cap(scene, org, dirs, None, INF, TMIN)
+    torch.cuda.synchronize()
+    return errs
+
+
+def gltf_goldens(dev, roots, col_scene):
+    """The glTF scenes at the golden workload (16 px, 4 spp, depth 3, key
+    42) against the port's own CPU render of the same scene and key (atol
+    2e-3); the adaptive render at rel_tol=0 bitwise the uniform one on the
+    Cornell box at 64x64, 16 spp. Returns the glTF sponza on the card (at
+    the colonnade's 200 px) and its load-and-build seconds."""
+    for name, root in (("glass_fox", "fox576"), ("textured_fox", "fox576"),
+                       ("textured_fox", "fox480"), ("smoke_fox", "fox576")):
+        with assets(roots[root]):
+            def render(device):
+                scene, cam = catalog.SCENES[name](width=16, spp=4, max_depth=3,
+                                                  device=device)
+                return scene, integrator.render_image(scene, cam, keys.key(42))
+
+            scene, img = render(dev)
+            want = float(render("cpu")[1].mean())
+        mean = float(img.mean())
+        log(f"  golden {name} ({root} stand-in, {scene.counts[2]} triangles, "
+            f"{scene.volumes.mesh_v0.shape[0] if scene.volumes.mesh_v0 is not None else 0} "
+            f"boundary triangles): mean {mean:.6f} (the port on the CPU {want:.6f}, "
+            "atol 2e-3)")
+        if not (torch.isfinite(img).all() and abs(mean - want) <= 2e-3):
+            raise AssertionError(f"{name} ({root}): golden mean off")
+    # sponza from the glTF: built once on the card at 200 px (the main path
+    # renders it) and once on the CPU; the golden camera at 16 px
+    with assets(roots["sponza"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_scene, g_cam = catalog.sponza(device=dev)
+        torch.cuda.synchronize()
+        build_secs = time.perf_counter() - t0
+        c_scene, c_cam = catalog.sponza(width=16, spp=4, max_depth=3, device="cpu")
+    log(f"  sponza from Sponza.gltf: loaded and built on the card in {build_secs:.2f} s, "
+        f"{g_scene.counts[2]} triangles in {g_scene.tri_chunks.corner.shape[0]} chunks")
+    if g_scene.counts != col_scene.counts:
+        raise AssertionError(f"sponza glTF counts {g_scene.counts} against the "
+                             f"colonnade's {col_scene.counts}")
+    diff_v = max(max_abs(getattr(g_scene.tri_chunks, f), getattr(col_scene.tri_chunks, f))
+                 for f in ("corner", "eu", "ev"))
+    log(f"  sponza glTF branch against the procedural branch: chunk tables max abs "
+        f"difference {diff_v:.3g}")
+    golden_cam = g_cam.replace(width=16, height=16, spp=4, max_depth=3)
+    img = integrator.render_image(g_scene, golden_cam, keys.key(42))
+    want = float(integrator.render_image(c_scene, c_cam, keys.key(42)).mean())
+    mean = float(img.mean())
+    log(f"  golden sponza (glTF, {g_scene.counts[2]} triangles): mean {mean:.6f} (the "
+        f"port on the CPU {want:.6f}, atol 2e-3)")
+    if not (torch.isfinite(img).all() and abs(mean - want) <= 2e-3):
+        raise AssertionError("sponza (glTF): golden mean off")
+    scene, cam = catalog.cornell_box(width=64, spp=16, max_depth=8, device=dev)
+    a = adaptive.render_image_adaptive(scene, cam, keys.key(0), rel_tol=0.0, min_spp=8,
+                                       max_spp=16, chunk_spp=8)
+    if not torch.equal(a, integrator.render_image(scene, cam, keys.key(0), spp=16)):
+        raise AssertionError("adaptive at rel_tol=0 is not bitwise the uniform render")
+    log("  adaptive, Cornell 64x64 16 spp, rel_tol=0: bitwise the uniform render")
+    return g_scene, g_cam, build_secs
+
+
+def gltf_path(label, scene, cam, want, refuse=()):
+    """``main_path`` of a glTF scene, which must launch each kernel of
+    ``want`` and none of ``refuse``."""
+    out = main_path(label, scene, cam, want)
+    for name in refuse:
+        if out[3][name]:
+            raise AssertionError(f"{label}: kernel {name} launched {out[3][name]} times")
+    return out
+
+
+def phase_gltf(dev, roots, g_scene, g_cam, build_secs, col_img, cornell, cornell_img):
+    """The glTF scenes at their own sizes, the adaptive render, AOVs and
+    the denoiser on the Cornell box, and textured_fox's gradients; each
+    run's launches counted on its own. Returns (seconds by run, launches by
+    run)."""
+    secs, counts = {}, {}
+    for name, root, want, refuse in (
+            ("textured_fox", "fox576", ("cull_select", "visit_sweep"), ("planar_closest",)),
+            ("textured_fox", "fox480", ("planar_closest",), ("cull_select", "visit_sweep")),
+            ("glass_fox", "fox576", ("cull_select", "visit_sweep"), ("planar_closest",))):
+        with assets(roots[root]):
+            scene, cam = catalog.SCENES[name](device=dev)
+        key = f"{name} {root}"
+        s, _, _, counts[key] = gltf_path(
+            f"{name} ({root} stand-in) {cam.width}x{cam.height} {cam.spp}spp depth "
+            f"{cam.max_depth}", scene, cam, want, refuse)
+        secs[key] = s
+    s, _, img, counts["sponza glTF"] = gltf_path(
+        f"sponza (Sponza.gltf, loaded and built in {build_secs:.2f} s) "
+        f"{g_cam.width}x{g_cam.height} {g_cam.spp}spp depth {g_cam.max_depth}",
+        g_scene, g_cam, ("planar_closest", "cull_select", "visit_sweep"))
+    secs["sponza glTF"] = s
+    d = max_abs(img, col_img)
+    log(f"  sponza glTF against the procedural colonnade's render (key 0): max abs "
+        f"difference {d:.3g}, means {float(img.mean()):.6f} / {float(col_img.mean()):.6f}")
+    if abs(float(img.mean()) - float(col_img.mean())) > 2e-3:
+        raise AssertionError("sponza glTF: mean off the procedural branch's")
+
+    scene, cam = cornell
+    profiling.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, spp_map = adaptive.render_image_adaptive(scene, cam, keys.key(0),
+                                                  return_spp_map=True, **ADAPTIVE)
+    torch.cuda.synchronize()
+    secs["adaptive"] = time.perf_counter() - t0
+    counts["adaptive"] = profiling.launches()
+    spent = int(spp_map.sum())
+    full = ADAPTIVE["max_spp"] * cam.width * cam.height
+    log(f"  adaptive Cornell {cam.width}x{cam.height} rel_tol {ADAPTIVE['rel_tol']} spp "
+        f"{ADAPTIVE['min_spp']}..{ADAPTIVE['max_spp']} (rounds of {ADAPTIVE['chunk_spp']}): "
+        f"{secs['adaptive']:.3f} s, {spent} samples of {full} ({spent / full:.4f}), "
+        f"{spent / secs['adaptive'] / 1e6:.3f} M camera rays/s; mean {float(img.mean()):.6f} "
+        f"against the uniform 256-spp render's {float(cornell_img.mean()):.6f}; spp per "
+        f"pixel min {spp_map.min()} median {int(np.median(spp_map))} max {spp_map.max()}; "
+        f"launches {counts['adaptive']}")
+    if not bool(torch.isfinite(img).all()) or abs(float(img.mean()) - float(
+            cornell_img.mean())) > ADAPTIVE_MEAN_RTOL * float(cornell_img.mean()):
+        raise AssertionError("adaptive Cornell: non-finite or mean off the uniform render")
+    if counts["adaptive"]["planar_closest"] != cam.max_depth * int(spp_map.max()):
+        raise AssertionError("adaptive Cornell: K1 not launched depth x spp rounds times")
+
+    profiling.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bufs = aov.render_aovs(scene, cam, keys.key(0), spp=AOV_SPP)
+    torch.cuda.synchronize()
+    secs["aovs"] = time.perf_counter() - t0
+    counts["aovs"] = profiling.launches()
+    t0 = time.perf_counter()
+    out = denoise.denoise(cornell_img, bufs)
+    torch.cuda.synchronize()
+    secs["denoise"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    denoise.denoise(cornell_img, bufs)
+    torch.cuda.synchronize()
+    secs["denoise again"] = time.perf_counter() - t0
+    bad = [k for k, v in bufs.items() if not bool(torch.isfinite(v).all())]
+    if bad or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"AOVs or denoise not finite: {bad}")
+    if counts["aovs"]["planar_closest"] != AOV_SPP:
+        raise AssertionError("render_aovs: K1 not launched once per sample")
+    log(f"  render_aovs Cornell {cam.width}x{cam.height} {AOV_SPP}spp: {secs['aovs']:.3f} s, "
+        f"coverage {float(bufs['coverage'].mean()):.4f}; launches {counts['aovs']}; "
+        f"denoise of the 256-spp image: {secs['denoise']:.3f} s, again "
+        f"{secs['denoise again']:.3f} s, mean {float(out.mean()):.6f} against "
+        f"{float(cornell_img.mean()):.6f}")
+
+    with assets(roots["fox576"]):
+        scene, cam = catalog.textured_fox(device=dev, **FOX_GRAD)
+    label = (f"textured_fox (fox576 stand-in) {cam.width}x{cam.height} {cam.spp}spp depth "
+             f"{cam.max_depth} loss_and_grads")
+    secs["textured_fox grad"], _, counts["textured_fox grad"] = grad_path(label, scene, cam)
+    fwd, bwd = counts["textured_fox grad"]
+    if not all(fwd[n] > 0 and bwd[n] > 0 for n in ("cull_select", "visit_sweep")):
+        raise AssertionError(f"{label}: K3 and K4 not launched in both passes")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got = grads_of(scene, cam, 0)
+        with plain_versions():
+            ref = grads_of(scene, cam, 0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    grads_close(f"{label}, kernel route vs plain autograd", got, ref)
+    return secs, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1701,6 +2115,8 @@ def main() -> int:
             log("  " + line.strip())
 
     phase_log("phase 2: kernels against their plain versions")
+    asset_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_assets_")
+    roots = write_assets(asset_dir.name)
     errs, times, bounds = phase_kernels(dev)
     t0 = time.perf_counter()
     col_scene, col_cam = catalog.sponza(device=dev)
@@ -1724,6 +2140,8 @@ def main() -> int:
         errs[name] = max(errs[name], err)
     for name, err in phase_spectral_kernels(dev).items():
         errs[name] = max(errs[name], err)
+    for name, err in phase_gltf_kernels(dev, roots).items():
+        errs[name] = max(errs[name], err)
     probes = phase_gather(dev)
     r = probes[0]
     errs["gather_sum"] = r["max_abs_err"]
@@ -1736,12 +2154,13 @@ def main() -> int:
     psnr_gate("cornell_box", full_render("cornell_box parity size",
                                          *parity_scene("cornell_box", dev))[2])
     estimator_goldens(dev)
+    g_scene, g_cam, g_build_secs = gltf_goldens(dev, roots, col_scene)
     perray_vs_oracle(col_scene, col_cam, dev)
     phase_grad_checks(dev)
 
     phase_log("phase 4, 5: main paths, each render's launches counted on its own")
     scene, cam = catalog.cornell_box(width=512, spp=256, max_depth=8, device=dev)
-    cornell_secs, cornell_rps, _, launches_cornell = main_path(
+    cornell_secs, cornell_rps, cornell_img, launches_cornell = main_path(
         "cornell_box 512x512 256spp depth 8", scene, cam, ("planar_closest",))
     # the slice-1 path's sphere scene at its parity size, which the gate reads
     _, _, img, launches_ball = main_path(
@@ -1796,6 +2215,12 @@ def main() -> int:
               "Owen-Sobol QMC and the threefry stream, each run's launches "
               "counted on its own")
     spec, spec_counts = phase_spectral(dev)
+
+    phase_log("phase 4, 5: the glTF scenes, adaptive sampling, AOVs and the denoiser, "
+              "each run's launches counted on its own")
+    gl, gl_counts = phase_gltf(dev, roots, g_scene, g_cam, g_build_secs, col_img,
+                               (scene, cam), cornell_img)
+    del g_scene
 
     phase_log("phase 4: pool and batch sizes timed on the card")
     for label, sc_, cm in (("colonnade", col_scene, col_cam),
@@ -1906,6 +2331,12 @@ def main() -> int:
         f"{k12(spec_counts['prism_grad'][1])} backward; Cornell camera.qmc "
         f"loss_and_grads {k12(spec_counts['qmc_grad'][0])} forward, "
         f"{k12(spec_counts['qmc_grad'][1])} backward")
+    k134 = lambda c: (f"{c['planar_closest']} K1 / {c['cull_select']} K3 / "
+                      f"{c['visit_sweep']} K4")
+    log("  glTF, adaptive and AOV launches: " + "; ".join(
+        f"{k} {k134(c)}" for k, c in gl_counts.items() if k != "textured_fox grad")
+        + f"; textured_fox loss_and_grads {k134(gl_counts['textured_fox grad'][0])} "
+        f"forward, {k134(gl_counts['textured_fox grad'][1])} backward")
     kernels = []
     for name, (kid, source, replaces) in KERNELS.items():
         ms, plain_ms = times[name][:2]
@@ -1938,10 +2369,12 @@ def main() -> int:
         f"camera.qmc {spec['qmc']:.3f} s, CRT_RNG=threefry ({THREEFRY_SPP} spp) "
         f"{spec['threefry']:.3f} s; dispersion_prism fwd+bwd {spec['prism_grad']:.3f} s; "
         f"Cornell camera.qmc fwd+bwd {spec['qmc_grad']:.3f} s; "
+        + "; ".join(f"{k} {v:.3f} s" for k, v in gl.items()) + "; "
         f"fwd+bwd against the render, per camera ray: cornell_box "
         f"{grad_secs[False] / cornell_secs:.3f}, with geometry "
         f"{grad_secs[True] / cornell_secs:.3f}, colonnade {col_rps / col_grad_rps:.3f}; "
         f"total {time.perf_counter() - t_start:.1f} s")
+    asset_dir.cleanup()
     log(gpu_name_and_power())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -340,7 +340,9 @@ def wavefront_lanes(scene, L: int) -> int | None:
 def accumulate_samples_subset(scene, camera, key: np.ndarray,
                               pixel_ids: torch.Tensor, sample_offset: int,
                               spp: int, isect_fn=None,
-                              batch_pixels: int | None = None) -> torch.Tensor:
+                              batch_pixels: int | None = None,
+                              accum: torch.Tensor | None = None,
+                              moments: bool = False):
     """Radiance SUM [N,3] over samples [sample_offset, sample_offset+spp)
     for a pixel-id subset. The sample index keys the RNG, so any partition
     of the sample range accumulates to the same image.
@@ -348,22 +350,35 @@ def accumulate_samples_subset(scene, camera, key: np.ndarray,
     ``batch_pixels`` (see ``scan_batch_pixels``): render the subset in
     batches of that many pixels (the last one shorter). The RNG is keyed by
     pixel id and each pixel sums its samples in the same order, so the
-    result is bitwise the unbatched one."""
+    result is bitwise the unbatched one. ``accum`` [N,3]: a running sum to
+    continue, so that calls over consecutive sample ranges sum bitwise as
+    one call over their union does. ``moments``: return (sum, sum of
+    squares [N,3]) instead, the second moments per channel that adaptive
+    sampling's stopping rule reads (``adaptive.py:44-67`` of the JAX
+    package)."""
     n = pixel_ids.shape[0]
     step = n if not batch_pixels or batch_pixels >= n else int(batch_pixels)
     sample_keys = [keys.fold_in(key, sample_offset + s) for s in range(spp)]
     qmc_words = qmc.seed_words(key) if camera.qmc else None
-    parts = []
+    sums, squares = [], []
     for start in range(0, n, max(step, 1)):
         ids = pixel_ids[start:start + step]
-        accum = torch.zeros((ids.shape[0], 3), dtype=torch.float32,
-                            device=pixel_ids.device)
+        total = (torch.zeros((ids.shape[0], 3), dtype=torch.float32,
+                             device=pixel_ids.device)
+                 if accum is None else accum[start:start + step])
+        sq = torch.zeros_like(total) if moments else None
         for s, k in enumerate(sample_keys):
-            accum = accum + render_sample(scene, camera, k, ids,
-                                          sample_idx=sample_offset + s,
-                                          isect_fn=isect_fn, qmc_words=qmc_words)
-        parts.append(accum)
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+            rad = render_sample(scene, camera, k, ids, sample_idx=sample_offset + s,
+                                isect_fn=isect_fn, qmc_words=qmc_words)
+            total = total + rad
+            if moments:
+                sq = sq + rad * rad
+        sums.append(total)
+        squares.append(sq)
+    total = sums[0] if len(sums) == 1 else torch.cat(sums)
+    if not moments:
+        return total
+    return total, squares[0] if len(squares) == 1 else torch.cat(squares)
 
 
 def accumulate_samples(scene, camera, key: np.ndarray, sample_offset: int,

@@ -247,17 +247,20 @@ class _PlanarClosest(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, org, dirs, corner, eu, ev, chunks, tmin, triangle, tmax,
-                pack):
-        t, (n, u, v, mat), _ = _planar_hit(org, dirs, chunks, tmin, triangle,
-                                           tmax, pack, False)
+                pack, with_pid):
+        t, (n, u, v, mat), pid = _planar_hit(org, dirs, chunks, tmin, triangle,
+                                             tmax, pack, with_pid)
         ctx.save_for_backward(org, dirs, corner, eu, ev)
         ctx.args = (chunks.mat, chunks.active, chunks.lo, chunks.hi, tmin,
                     triangle, tmax)
-        ctx.mark_non_differentiable(mat)
-        return t, n, u, v, mat
+        if not with_pid:
+            ctx.mark_non_differentiable(mat)
+            return t, n, u, v, mat
+        ctx.mark_non_differentiable(mat, pid)
+        return t, n, u, v, mat, pid
 
     @staticmethod
-    def backward(ctx, g_t, g_n, g_u, g_v, _g_mat):
+    def backward(ctx, g_t, g_n, g_u, g_v, _g_mat, _g_pid=None):
         mat, active, lo, hi, tmin, triangle, tmax = ctx.args
         with torch.enable_grad():
             xs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
@@ -266,7 +269,7 @@ class _PlanarClosest(torch.autograd.Function):
             t, (n, u, v, _, _) = ch.planar_closest(xs[0], xs[1], chunks, tmin,
                                                    triangle, tmax=tmax)
             grads = tbl.vjp((t, n, u, v), xs, (g_t, g_n, g_u, g_v))
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 class _SphereClosest(torch.autograd.Function):
@@ -296,21 +299,27 @@ class _SphereClosest(torch.autograd.Function):
 
 
 def planar_closest_fused(org, dirs, chunks: ch.PlanarChunks, tmin,
-                         triangle: bool, tmax=BIG, pack=None):
+                         triangle: bool, tmax=BIG, pack=None,
+                         with_pid: bool = False):
     """Drop-in for ``chunked.planar_closest``: kernel K1 on CUDA tensors,
     the plain chunk scan on CPU tensors. Differentiable: when an input
     needs a gradient the call goes through ``_PlanarClosest`` (chunk-scan
     VJP), so the card and the CPU give the same gradients.
 
-    Returns (t [R], (unorm [R,3], u [R], v [R], mat [R])): like the Pallas
-    kernel, no primitive id (``planar_winner`` gives it). ``pack``: the
+    Returns (t [R], (unorm [R,3], u [R], v [R], mat [R])), and with
+    ``with_pid`` (t, (unorm, u, v, mat, pid [R] int32)): the winner's
+    chunk-order index k*C + lane from K1's pid output (0 on a miss; the
+    dense row on a 1-chunk view), which per-vertex triangle attributes
+    read; under autograd a non-differentiable output. ``pack``: the
     precomputed ``pack_prim_constants(chunks)``."""
     if tbl.needs_grad(org, dirs, chunks.corner, chunks.eu, chunks.ev):
-        t, n, u, v, mat = _PlanarClosest.apply(
+        t, *rest = _PlanarClosest.apply(
             org, dirs, chunks.corner, chunks.eu, chunks.ev, chunks, tmin,
-            triangle, tmax, pack)
-        return t, (n, u, v, mat)
-    return _planar_hit(org, dirs, chunks, tmin, triangle, tmax, pack, False)[:2]
+            triangle, tmax, pack, with_pid)
+        return t, tuple(rest)
+    t, payload, pid = _planar_hit(org, dirs, chunks, tmin, triangle, tmax, pack,
+                                  with_pid)
+    return t, (*payload, pid) if with_pid else payload
 
 
 def sphere_closest_fused(org, dirs, time, chunks: ch.SphereChunks, tmin,

@@ -15,14 +15,16 @@ Both routes are differentiable: the fused wrappers and the per-ray
 accelerator are ``torch.autograd.Function``s (chunk-scan VJP and winner
 replay). ``sphere_shading`` / ``quad_shading`` / ``tri_shading`` give the
 differentiable hit of one known winner per ray, for ``ops/replay.py``.
+Per-vertex triangle attributes (``scene.tri_attrs``) are interpolated at
+the payload's barycentric (a, b) through the winner's pid: K1's pid
+output on a dense table, the per-ray route's (K4's) on a chunked one.
 
 Constant-density volumes (``volume_sample``) are sampled against the
 closest surface of every table, as the reference's ``constant_medium``
 (src/volumne.h): box, sphere and triangle-mesh boundaries.
 
 Not ported yet: the tile-packet and BVH accelerators (ROADMAP M11; the
-per-ray route takes every chunked table until then, and both are exact)
-and per-vertex triangle attributes (ROADMAP M4).
+per-ray route takes every chunked table until then, and both are exact).
 """
 
 from __future__ import annotations
@@ -115,12 +117,11 @@ def quad_shading(org, dirs, qds, idx, t):
 
 
 def tri_shading(org, dirs, tri, idx, t, attrs=None):
-    """(p, normal, front, u, v, mat) of triangle ``idx[r]`` at ``t[r]``:
-    the flat geometric normal and no UV, as the reference
-    (``intersect.py:271-288``), differentiable."""
-    if attrs is not None:
-        raise NotImplementedError("per-vertex triangle attributes (ROADMAP M4) "
-                                  "are not ported yet")
+    """(p, normal, front, u, v, mat) of triangle ``idx[r]`` at ``t[r]``,
+    differentiable (``intersect.py:271-298``). Without ``attrs``: the flat
+    geometric normal and no UV, as the reference (src/triangle.h:27-40);
+    with ``attrs`` (``scene.TriAttrs``, rows indexed by ``idx``): the
+    attributes interpolated at the hit's barycentric (a, b)."""
     v0 = tbl.take_rows(tri.v0, idx)
     e1 = tbl.take_rows(tri.v1, idx) - v0
     e2 = tbl.take_rows(tri.v2, idx) - v0
@@ -128,8 +129,38 @@ def tri_shading(org, dirs, tri, idx, t, attrs=None):
     p = org + t[:, None] * dirs
     front = vm.dot(dirs, outward) < 0.0
     normal = torch.where(front[:, None], outward, -outward)
-    zero = torch.zeros_like(t)
-    return p, normal, front, zero, zero, tbl.take_rows(tri.mat, idx)
+    mat = tbl.take_rows(tri.mat, idx)
+    if attrs is None:
+        zero = torch.zeros_like(t)
+        return p, normal, front, zero, zero, mat
+    # (a, b) by the edge-coefficient construction of the plane test:
+    # a = q.(ev x w), b = q.(w x eu), q = p - v0
+    n = vm.cross(e1, e2)
+    w = n / torch.clamp(vm.dot(n, n), min=1e-20)[:, None]
+    q = p - v0
+    a = vm.dot(q, vm.cross(e2, w))
+    b = vm.dot(q, vm.cross(w, e1))
+    normal, u, v = interpolate_tri_attrs(attrs, idx, a, b, normal)
+    return p, normal, front, u, v, mat
+
+
+def interpolate_tri_attrs(attrs, pid, a, b, geo_normal):
+    """(normal, u, v) from per-vertex attributes at barycentric (a, b)
+    (``intersect.py:300-320``). The smooth normal is flipped into the
+    hemisphere of the face-forwarded geometric normal, so back faces shade
+    consistently; a triangle without normals keeps the geometric one.
+    ``normalize`` is safe at zero, so a degenerate blend (or a row of
+    zeros under a lane another type won) gives no NaN to a gradient."""
+    w0 = (1.0 - a - b)[:, None]
+    ns = vm.normalize(w0 * tbl.take_rows(attrs.n0, pid)
+                      + a[:, None] * tbl.take_rows(attrs.n1, pid)
+                      + b[:, None] * tbl.take_rows(attrs.n2, pid))
+    ns = torch.where(vm.dot(ns, geo_normal)[:, None] < 0.0, -ns, ns)
+    normal = torch.where(tbl.take_rows(attrs.smooth, pid)[:, None], ns, geo_normal)
+    uv = (w0 * tbl.take_rows(attrs.uv0, pid)
+          + a[:, None] * tbl.take_rows(attrs.uv1, pid)
+          + b[:, None] * tbl.take_rows(attrs.uv2, pid))
+    return normal, uv[:, 0], uv[:, 1]
 
 
 def _finite_or_zero(t: torch.Tensor) -> torch.Tensor:
@@ -303,9 +334,11 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
             org, dirs, scene.tri_chunks, tmin, True, cap,
             tabs=scene.tri_perray)
     elif n_tri:
+        # with attributes, K1's pid output names the row to interpolate
         view, pack = scene.fused_view("tri")
-        t_t, tri_payload = fi.planar_closest_fused(org, dirs, view, tmin,
-                                                   True, tmax, pack=pack)
+        t_t, tri_payload = fi.planar_closest_fused(
+            org, dirs, view, tmin, True, tmax, pack=pack,
+            with_pid=scene.tri_attrs is not None)
 
     t_v = inf_t
     if n_vol:
@@ -332,15 +365,19 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
         vv = torch.where(cond, v_k, vv)
         mat = torch.where(cond, m_k, mat)
 
-    def planar_attrs(payload, zero_uv):
+    def planar_attrs(payload, zero_uv, tri_attrs=None):
         """(normal, front, u, v, mat) from a planar payload; triangles
-        carry no UV in the reference (src/triangle.h). The per-ray route's
-        payload also carries the winner's pid, which only per-vertex
-        triangle attributes read (ROADMAP M4)."""
+        carry no UV in the reference (src/triangle.h). ``tri_attrs``: the
+        per-vertex attribute table, interpolated at the payload's
+        barycentric (u, v) through the winner's pid (its last field); a
+        miss's pid 0 is merged away below."""
         unorm, u_k, v_k, m_k = payload[:4]
         front_k = vm.dot(dirs, unorm) < 0.0
         normal_k = torch.where(front_k[:, None], unorm, -unorm)
-        if zero_uv:
+        if tri_attrs is not None:
+            normal_k, u_k, v_k = interpolate_tri_attrs(tri_attrs, payload[4], u_k,
+                                                       v_k, normal_k)
+        elif zero_uv:
             u_k = torch.zeros_like(u_k)
             v_k = torch.zeros_like(v_k)
         return normal_k, front_k, u_k, v_k, m_k
@@ -356,7 +393,8 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
     if quad_payload is not None:
         merge(which == 1, planar_attrs(quad_payload, zero_uv=False))
     if tri_payload is not None:
-        merge(which == 2, planar_attrs(tri_payload, zero_uv=True))
+        merge(which == 2, planar_attrs(tri_payload, zero_uv=True,
+                                       tri_attrs=scene.tri_attrs))
     if n_vol:
         # the volume record: an arbitrary normal and front face
         # (src/volumne.h:42-43), the medium's material

@@ -25,7 +25,10 @@ no kernel: the port's counterpart of the JAX package's per-sample
 
 ``planar_chunks_winner`` / ``sphere_chunks_winner`` are the per-winner
 forms of the chunk scan that the per-ray accelerator's backward
-differentiates (``ops/perray.py``). A volume winner replays its entry
+differentiates (``ops/perray.py``); a chunked table's per-vertex
+attributes are interpolated at the replayed (a, b) through the same pid
+(``intersect._intersect_core``), so their gradient reaches the geometry
+through it. A volume winner replays its entry
 point and the -ln(U)/rho distance (``_volume_t_one``); the decision,
 which volume scattered the ray before any surface, is part of the saved
 id. Under next-event estimation a bounce intersects twice (the path's ray,
@@ -231,7 +234,8 @@ def replay_hit(scene, org, dirs, time, u_vol, packed, tmin, tmax=INF) -> isect.H
         tr = scene.tris
         t_m = merge_t(cond, _planar_t_one(org, dirs, tr.v0, tr.v1 - tr.v0,
                                           tr.v2 - tr.v0, i_k))
-        merge(cond, isect.tri_shading(org, dirs, tr, i_k, t_m))
+        merge(cond, isect.tri_shading(org, dirs, tr, i_k, t_m,
+                                      attrs=scene.tri_attrs))
     if n_vol:
         cond = valid & (which == TYPE_VOL)
         i_k = rows(cond)

@@ -19,11 +19,7 @@ from cpu_ray_tracing_implementation_tpu_torch.models import scene as sc
 from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 from cpu_ray_tracing_implementation_tpu_torch.ops.tables import DEFAULT_DEVICE
 
-# Scene features outside the port so far, with the ROADMAP item that ports
-# them. The JAX scene's BVH trees (``*_tree``, ROADMAP M11) are not carried.
-_UNPORTED = {
-    "tri_attrs": "per-vertex triangle attributes (ROADMAP M4)",
-}
+# The JAX scene's BVH trees (``*_tree``, ROADMAP M11) are not carried.
 _ENV_TABLES = ("env_texel_p", "env_row_cdf", "env_col_cdf")
 
 
@@ -37,10 +33,9 @@ def _columns(obj, cls) -> list:
 def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
     """The port's Scene holding the same tables as the JAX ``jscene``,
     its chunked tables, chunk orders, picture images, noise tables, sphere
-    lights, mesh-volume boundaries and environment-light tables included."""
-    for name, what in _UNPORTED.items():
-        if getattr(jscene, name, None) is not None:
-            raise NotImplementedError(f"{what} are not ported yet")
+    lights, mesh-volume boundaries, environment-light tables and per-vertex
+    triangle attributes included (the attribute rows already lie in the
+    JAX scene's pid space, which its chunk tables carry across too)."""
     arrays = {name: _columns(getattr(jscene, name), cls)
               for name, cls in sc._TABLES.items()}
     for name, cls in sc._CHUNKS.items():
@@ -55,6 +50,8 @@ def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
                   sphere_lights=None if sl is None else np.asarray(sl, np.int32),
                   images=[np.asarray(im, np.float32) for im in jscene.images],
                   world_offset=None if off is None else np.asarray(off, np.float32))
+    attrs = getattr(jscene, "tri_attrs", None)
+    arrays["tri_attrs"] = None if attrs is None else _columns(attrs, sc.TriAttrs)
     for name in _ENV_TABLES:
         table = getattr(jscene, name, None)
         arrays[name] = None if table is None else np.asarray(table, np.float32)

@@ -5,7 +5,9 @@ it imports nothing of the JAX package). The reference decodes JPEG/PNG
 with stb_image into 8-bit bytes (src/image.h:33-67,107-117), which its
 picture texture scales by 1/256 (src/texture.h:72). ``load_image`` keeps
 that pipeline on the host: a float32 [h,w,3] array in byte scale (0..255),
-which ``ops/textures.py`` scales on the device. EXR input is ROADMAP M13.
+which ``ops/textures.py`` scales on the device. EXR input goes through the
+port's own codec (``utils/exr.py``), HDR values clamped to [0, 1] before
+the byte scale, as the reference's ``src/image.h:107-117`` converts them.
 
 Asset note: ``bathroom.exr`` is absent from the reference snapshot, so the
 skybox scenes use ``procedural_sky`` instead, as the JAX package does.
@@ -14,6 +16,7 @@ skybox scenes use ``procedural_sky`` instead, as the JAX package does.
 from __future__ import annotations
 
 import os
+import struct
 
 import numpy as np
 
@@ -30,16 +33,29 @@ def load_image(path: str) -> np.ndarray:
     """Decode to float32 [h,w,3] in byte scale. A missing or undecodable
     file gives a 1x1 magenta image, as the reference degrades
     (src/image.h:75); so does a host without PIL, where the JAX package
-    falls back the same way."""
-    if path.lower().endswith(".exr"):
-        raise NotImplementedError(f"{path}: EXR input (ROADMAP M13) is not "
-                                  "ported yet")
+    falls back the same way. An ``.exr`` is read by ``exr.read_exr``;
+    a compressed or tiled one, which that codec refuses, by imageio where
+    the host has a backend for it."""
     try:
+        if path.lower().endswith(".exr"):
+            from cpu_ray_tracing_implementation_tpu_torch.utils import exr
+
+            try:
+                arr = exr.read_exr(path)
+            except ValueError:
+                import imageio.v3 as iio
+
+                arr = np.asarray(iio.imread(path), np.float32)
+            if arr.ndim == 2:
+                arr = arr[..., None].repeat(3, axis=-1)
+            # float HDR -> clamped bytes, as src/image.h:107-117 does
+            return np.clip(arr[..., :3], 0.0, 1.0) * 255.0
         from PIL import Image
 
         with Image.open(path) as img:
             return np.asarray(img.convert("RGB"), np.float32)
-    except (ImportError, OSError, ValueError) as e:
+    except (ImportError, OSError, ValueError, KeyError, IndexError, struct.error) as e:
+        # a truncated or foreign EXR fails inside the codec's unpacking
         print(f"[image_io] failed to load {path!r}: {e}; using magenta fallback")
         return np.broadcast_to(MAGENTA, (1, 1, 3)).copy()
 

@@ -6,9 +6,20 @@ Port of ``cpu_ray_tracing_implementation_tpu/utils/procgen.py:16-98``
 reference's 262k-triangle BVH scale test (``catalog.sponza``) renders a
 colonnade hall of comparable triangle count instead. The same seed gives
 the same triangles as the JAX package.
+
+The port adds a writer of stand-in glTF assets (``write_gltf``, with an
+indexed ellipsoid, ``ellipsoid_mesh``, and a PNG checker, ``checker_png``),
+so that the glTF scenes can be driven where the reference's Fox and
+Sponza files are absent: point ``$CRT_ASSETS`` at a directory holding
+``Fox/glTF/Fox.gltf`` or ``Sponza/glTF/Sponza.gltf`` written by it.
 """
 
 from __future__ import annotations
+
+import base64
+import json
+import os
+import struct
 
 import numpy as np
 
@@ -97,3 +108,147 @@ def colonnade_hall(target_tris: int = 260_000, seed: int = 14) -> np.ndarray:
             parts.append(_sphere_tris(np.array([c[0], 580.0, c[1]]), 45.0,
                                       lat, 2 * lat))
     return np.concatenate(parts, axis=0).astype(np.float32)
+
+
+def ellipsoid_mesh(segments: int = 24, rings: int = 13, radii=(30.0, 45.0, 20.0)):
+    """An indexed UV ellipsoid about the origin, a stand-in for a glTF
+    mesh such as the Fox: (positions [V,3] float32, normals [V,3] float32,
+    uvs [V,2] float32, indices [3T] uint32). ``rings`` latitude bands, the
+    two at the poles fans of ``segments`` triangles each and the other
+    ``rings - 2`` of ``2 * segments``: at 24 x 13, the Fox's 576 triangles;
+    at 24 x 11, 480. The seam column is duplicated so that u runs 0..1, and
+    each pole has a vertex per segment."""
+    a = np.asarray(radii, np.float64)
+    th = np.linspace(0.0, np.pi, rings + 1)                 # latitude lines
+    ph = np.linspace(0.0, 2.0 * np.pi, segments + 1)        # seam duplicated
+    t, p = np.meshgrid(th, ph, indexing="ij")               # [rings+1, segments+1]
+    unit = np.stack([np.sin(t) * np.cos(p), np.cos(t), np.sin(t) * np.sin(p)], -1)
+    pos = unit * a
+    nrm = unit / a                                           # the surface gradient
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    uv = np.stack([p / (2.0 * np.pi), t / np.pi], -1)
+    vid = np.arange((rings + 1) * (segments + 1)).reshape(rings + 1, segments + 1)
+    i, j = np.meshgrid(np.arange(rings), np.arange(segments), indexing="ij")
+    v00, v01 = vid[i, j], vid[i, j + 1]
+    v10, v11 = vid[i + 1, j], vid[i + 1, j + 1]
+    # counter-clockwise seen from outside; the triangle whose two corners
+    # share a pole is left out of each pole's band
+    upper = np.stack([v00, v11, v10], -1)[:-1]
+    lower = np.stack([v00, v01, v11], -1)[1:]
+    idx = np.concatenate([upper.reshape(-1, 3), lower.reshape(-1, 3)])
+    return (pos.reshape(-1, 3).astype(np.float32), nrm.reshape(-1, 3).astype(np.float32),
+            uv.reshape(-1, 2).astype(np.float32), idx.reshape(-1).astype(np.uint32))
+
+
+def checker_png(size: int = 16, cells: int = 4) -> bytes:
+    """PNG bytes of a colourful [size, size] checker (PIL), a texture for
+    stand-in glTF materials."""
+    import io
+
+    from PIL import Image
+
+    y, x = np.mgrid[0:size, 0:size] * cells // size
+    img = np.stack([(x * 255) // max(cells - 1, 1), ((x + y) % 2) * 200 + 40,
+                    (y * 255) // max(cells - 1, 1)], -1).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def write_gltf(path: str, positions, indices=None, normals=None, uvs=None,
+               png: bytes | None = None, base_color=None, nodes=None,
+               index_type=np.uint32, stride: bool = False, image_in: str = "data",
+               buffer_in: str = "file") -> str:
+    """Write one mesh as glTF 2.0 (``.gltf`` with its buffer in a ``.bin``
+    beside it or a data URI, or ``.glb`` with a BIN chunk), for stand-in
+    assets and tests.
+
+    ``indices``: a flat index list stored as ``index_type`` (uint8, uint16
+    or uint32), or None for a non-indexed primitive. ``normals`` [V,3] /
+    ``uvs`` [V,2]: NORMAL / TEXCOORD_0; with ``stride`` POSITION and NORMAL
+    are interleaved in one bufferView with a byteStride. ``png`` (bytes):
+    the material's baseColorTexture, in a data URI (``image_in="data"``) or
+    a bufferView (``"bufferView"``); ``base_color``: its baseColorFactor.
+    ``nodes``: the node list (default one node holding the mesh); a node
+    with ``"mesh": 0`` places the mesh. ``buffer_in``: "file", "data", or
+    "glb" (then ``path`` should end in .glb)."""
+    pos = np.ascontiguousarray(positions, np.float32)
+    views, accessors, chunks = [], [], []
+    offset = 0
+
+    def add_view(data: bytes, byte_stride: int = 0) -> int:
+        nonlocal offset
+        view = {"buffer": 0, "byteOffset": offset, "byteLength": len(data)}
+        if byte_stride:
+            view["byteStride"] = byte_stride
+        views.append(view)
+        pad = (-len(data)) % 4
+        chunks.append(data + b"\0" * pad)
+        offset += len(data) + pad
+        return len(views) - 1
+
+    def add_accessor(view: int, ctype: int, count: int, typ: str, byte_offset=0) -> int:
+        accessors.append({"bufferView": view, "byteOffset": byte_offset,
+                          "componentType": ctype, "count": int(count), "type": typ})
+        return len(accessors) - 1
+
+    attrs = {}
+    if stride and normals is not None:
+        inter = np.concatenate([pos, np.asarray(normals, np.float32)], axis=1)
+        v = add_view(np.ascontiguousarray(inter).tobytes(), byte_stride=24)
+        attrs["POSITION"] = add_accessor(v, 5126, len(pos), "VEC3")
+        attrs["NORMAL"] = add_accessor(v, 5126, len(pos), "VEC3", byte_offset=12)
+    else:
+        attrs["POSITION"] = add_accessor(add_view(pos.tobytes()), 5126, len(pos), "VEC3")
+        if normals is not None:
+            attrs["NORMAL"] = add_accessor(
+                add_view(np.asarray(normals, np.float32).tobytes()), 5126, len(pos), "VEC3")
+    accessors[attrs["POSITION"]].update(min=pos.min(0).tolist(), max=pos.max(0).tolist())
+    if uvs is not None:
+        attrs["TEXCOORD_0"] = add_accessor(
+            add_view(np.asarray(uvs, np.float32).tobytes()), 5126, len(pos), "VEC2")
+    prim = {"attributes": attrs, "mode": 4}
+    if indices is not None:
+        idx = np.asarray(indices).astype(index_type)
+        ctype = {np.dtype(np.uint8): 5121, np.dtype(np.uint16): 5123,
+                 np.dtype(np.uint32): 5125}[idx.dtype]
+        prim["indices"] = add_accessor(add_view(idx.tobytes()), ctype, len(idx), "SCALAR")
+    doc = {"asset": {"version": "2.0", "generator": "procgen.write_gltf"},
+           "scene": 0, "scenes": [{"nodes": [0]}],
+           "nodes": nodes if nodes is not None else [{"mesh": 0}],
+           "meshes": [{"primitives": [prim]}]}
+    if png is not None or base_color is not None:
+        pbr = {}
+        if base_color is not None:
+            pbr["baseColorFactor"] = [float(c) for c in base_color]
+        if png is not None:
+            if image_in == "bufferView":
+                image = {"bufferView": add_view(png), "mimeType": "image/png"}
+            else:
+                image = {"uri": "data:image/png;base64," + base64.b64encode(png).decode()}
+            doc.update(images=[image], textures=[{"source": 0}])
+            pbr["baseColorTexture"] = {"index": 0}
+        doc["materials"] = [{"name": "standin", "pbrMetallicRoughness": pbr}]
+        prim["material"] = 0
+    blob = b"".join(chunks)
+    doc.update(accessors=accessors, bufferViews=views)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if buffer_in == "glb":
+        doc["buffers"] = [{"byteLength": len(blob)}]
+        js = json.dumps(doc).encode()
+        js += b" " * ((-len(js)) % 4)
+        body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+                + struct.pack("<II", len(blob), 0x004E4942) + blob)
+        with open(path, "wb") as f:
+            f.write(struct.pack("<4sII", b"glTF", 2, 12 + len(body)) + body)
+        return path
+    if buffer_in == "data":
+        uri = "data:application/octet-stream;base64," + base64.b64encode(blob).decode()
+    else:
+        uri = os.path.splitext(os.path.basename(path))[0] + ".bin"
+        with open(os.path.join(os.path.dirname(os.path.abspath(path)), uri), "wb") as f:
+            f.write(blob)
+    doc["buffers"] = [{"uri": uri, "byteLength": len(blob)}]
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path

@@ -881,3 +881,77 @@ def test_qmc_threefry_envlight_on_card_equal_cpu(dev):
     np.testing.assert_allclose(d_card.cpu().numpy(), d_cpu.numpy(), atol=1e-5)
     np.testing.assert_allclose(envlight.pdf(s_same, d_card).cpu().numpy(),
                                envlight.pdf(s_cpu, d_cpu).numpy(), rtol=1e-4)
+
+
+def _fox_scene(dev, rings):
+    """An attributed, textured ellipsoid of 24 segments (576 triangles at
+    13 rings: chunked; 480 at 11: dense) on the card and on the CPU."""
+    from cpu_ray_tracing_implementation_tpu_torch.utils import procgen
+
+    pos, nrm, uv, idx = procgen.ellipsoid_mesh(24, rings)
+    c = idx.reshape(-1, 3)
+
+    def build(device):
+        b = SceneBuilder()
+        pic = b.picture(np.random.default_rng(0).uniform(0, 255, (8, 8, 3)))
+        b.triangles(pos[c] + np.array([0.0, 40.0, 0.0]), b.lambertian(pic),
+                    normals=nrm[c], uvs=uv[c])
+        b.set_background(b.solid((0.6, 0.7, 0.9)))
+        return b.build(device)
+
+    cam = cam_mod.perspective(64, 1.0, (120, 120, 120), (0, 40, 0), 1, 45.0, 4, 3,
+                              device=dev)
+    return build(dev), build("cpu"), cam
+
+
+def test_pid_with_attributes_matches_plain(dev):
+    """K1 with its pid on a dense attributed mesh, and K3 + K4 on a chunked
+    one: the interpolated normal and (u, v) of each first hit within atol
+    1e-3 of the plain versions' on the same scene, hit masks equal."""
+    for rings, names in ((11, ("planar_closest",)), (13, ("cull_select", "visit_sweep"))):
+        scene, scene_cpu, cam = _fox_scene(dev, rings)
+        assert (scene.tri_chunks is not None) == (rings == 13)
+        ids = torch.arange(cam.width * cam.height, dtype=torch.int32, device=dev)
+        u = torch.full((ids.shape[0], cam_mod.N_CAM_SLOTS), 0.5, device=dev)
+        org, dirs, time = cam_mod.generate_rays(cam, ids, u)
+        fi.reset_launches()
+        fs.reset_launches()
+        fsw.reset_launches()
+        u_vol = torch.zeros((ids.shape[0], 1), device=dev)
+        got = isect.intersect_brute(scene, org, dirs, time, TMIN, u_vol)
+        launched = {**fi.LAUNCHES, **fs.LAUNCHES, **fsw.LAUNCHES}
+        assert all(launched[n] > 0 for n in names), launched
+        ref = isect.intersect_brute(scene_cpu, org.cpu(), dirs.cpu(), time.cpu(), TMIN,
+                                    u_vol.cpu())
+        assert torch.equal(got.valid.cpu(), ref.valid) and 0.1 < ref.valid.float().mean() < 0.9
+        for f in ("normal", "u", "v"):
+            np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                       getattr(ref, f).numpy(), rtol=0, atol=1e-3,
+                                       err_msg=f)
+
+
+def test_adaptive_tol_zero_is_the_uniform_render_on_card(dev):
+    from cpu_ray_tracing_implementation_tpu_torch.models import adaptive
+
+    scene, cam = catalog.cornell_box(width=64, spp=16, max_depth=4, device=dev)
+    fi.reset_launches()
+    img = adaptive.render_image_adaptive(scene, cam, keys.key(0), rel_tol=0.0,
+                                         min_spp=8, max_spp=16, chunk_spp=8)
+    assert fi.LAUNCHES["planar_closest"] == 16 * 4
+    assert torch.equal(img, integrator.render_image(scene, cam, keys.key(0)))
+
+
+def test_aovs_and_denoise_on_card_stay_finite(dev):
+    from cpu_ray_tracing_implementation_tpu_torch.models import aov
+    from cpu_ray_tracing_implementation_tpu_torch.utils import denoise
+
+    scene, cam = catalog.cornell_box(width=96, spp=4, max_depth=4, device=dev)
+    fi.reset_launches()
+    bufs = aov.render_aovs(scene, cam, keys.key(1))
+    assert fi.LAUNCHES["planar_closest"] == 4
+    img = integrator.render_image(scene, cam, keys.key(1))
+    out = denoise.denoise(img, bufs)
+    assert out.device.type == "cuda" and torch.isfinite(out).all()
+    cpu = aov.render_aovs(*catalog.cornell_box(width=96, spp=4, max_depth=4, device="cpu"),
+                          keys.key(1))
+    np.testing.assert_array_equal(bufs["coverage"].cpu().numpy(), cpu["coverage"].numpy())

@@ -1,13 +1,13 @@
 """The port's image IO and asset lookup against the JAX package's, its
-picture texture against JAX's ``eval_texture``, and the catalog's refusal
-of an asset whose loader is not ported.
+picture texture against JAX's ``eval_texture``, and the catalog's handling
+of an asset file its glTF loader refuses.
 
 ``utils/image_io.reference_asset`` searches ``$CRT_ASSETS``, the reference
 snapshot's mount, then ``assets`` under the working directory, as
 ``cpu_ray_tracing_implementation_tpu/utils/image_io.py:78-85`` does; where
-it finds ``Sponza/glTF/Sponza.gltf`` the JAX package would load the glTF,
-so the port's ``catalog.sponza`` raises (ROADMAP M13) before it builds
-the colonnade.
+it finds ``Sponza/glTF/Sponza.gltf`` both packages load the glTF, and a
+file the loader cannot parse comes back empty, so ``catalog.sponza``
+builds the colonnade as the JAX package does.
 """
 
 import jax.numpy as jnp
@@ -49,14 +49,20 @@ def test_reference_asset_matches_jax(tmp_path, monkeypatch, where):
                        "working_directory": "assets/" + GLTF}[where]
 
 
-def test_sponza_refuses_a_present_gltf(tmp_path, monkeypatch):
-    """With the asset under $CRT_ASSETS, where the JAX package would load
-    it, the port raises naming M13 instead of rendering the colonnade."""
+def test_sponza_refuses_a_present_gltf(tmp_path, monkeypatch, capsys):
+    """With an empty Sponza.gltf under $CRT_ASSETS, the port's loader
+    refuses the file (it does not parse) and returns no triangles, as the
+    JAX package's does, so the scene falls back to the colonnade: the same
+    tables as with no file at all."""
     path = _write_asset(tmp_path)
     monkeypatch.setenv("CRT_ASSETS", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="M13") as err:
-        catalog.sponza(width=16, spp=1, max_depth=1, device="cpu")
-    assert str(path) in str(err.value)
+    scene, _ = catalog.sponza(width=16, spp=1, max_depth=1, device="cpu")
+    assert f"[gltf] failed to parse {str(path)!r}" in capsys.readouterr().out
+    monkeypatch.setenv("CRT_ASSETS", str(tmp_path / "nothing_here"))
+    monkeypatch.chdir(tmp_path)
+    ref, _ = catalog.sponza(width=16, spp=1, max_depth=1, device="cpu")
+    assert scene.counts == ref.counts and scene.counts[2] > 2000
+    assert torch.equal(scene.tri_chunks.corner, ref.tri_chunks.corner)
 
 
 def test_load_image_of_a_png_matches_jax(tmp_path):
@@ -90,8 +96,18 @@ def test_procedural_sky_is_bit_equal():
 
 
 def test_exr_input_raises_naming_m13(tmp_path):
-    with pytest.raises(NotImplementedError, match="M13"):
-        image_io.load_image(str(tmp_path / "bathroom.exr"))
+    """EXR input is ported (it raised naming M13 before): a missing .exr
+    gives the magenta fallback and a present one its clamped byte-scale
+    texels, both equal to the JAX package's."""
+    from cpu_ray_tracing_implementation_tpu_torch.utils import exr
+
+    path = str(tmp_path / "bathroom.exr")
+    np.testing.assert_array_equal(image_io.load_image(path), jio.load_image(path))
+    np.testing.assert_array_equal(image_io.load_image(path), image_io.MAGENTA.reshape(1, 1, 3))
+    exr.write_exr(path, np.random.default_rng(3).uniform(0, 2, (4, 5, 3)))
+    got = image_io.load_image(path)
+    assert got.shape == (4, 5, 3) and got.max() == 255.0
+    np.testing.assert_array_equal(got, jio.load_image(path))
 
 
 @pytest.mark.parametrize("filt", ["nearest", "bilinear"])

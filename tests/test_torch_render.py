@@ -11,8 +11,8 @@ and the port its per-ray route (K3 + K4); both are exact.
 random_motion_ball's 337 moving spheres stay one dense table (kernel K2's
 1-chunk view of 384 lanes in the port); sphereflake's 7,381 spheres take
 58 chunks (JAX's packet route, the port's per-ray route). The F1 scenes
-load earthmap.jpg, which this checkout lacks: both packages take the same
-magenta fallback, so they are held to live JAX only, not to the golden
+load earthmap.jpg or Fox.gltf, which this checkout lacks: both packages
+take the same fallback, so they are held to live JAX only, not to the golden
 means recorded with the asset. dispersion_prism (hero wavelengths) and
 sunlit_spheres (the importance-sampled sky) are held to both; the Cornell
 box under ``camera.qmc`` and under ``CRT_RNG=threefry`` to live JAX, the
@@ -40,9 +40,11 @@ GOLDEN_MEANS = {"cornell_box": 0.160999, "three_material_ball": 0.563181,
                 "three_material_ball_with_defocus_blur": 0.605853,
                 "white_sphere": 1.000000, "dispersion_prism": 0.782510,
                 "sunlit_spheres": 0.090164}
-# scenes whose asset is missing here (ROADMAP F1)
+# scenes whose asset is missing here (ROADMAP F1): earthmap.jpg, and the
+# Fox, whose absence gives glass_fox an empty mesh and textured_fox a
+# magenta sphere in both packages
 F1_SCENES = ("cornell_box_with_glossy_ball", "infinite_reflection",
-             "skybox_and_motion_blur")
+             "skybox_and_motion_blur", "glass_fox", "textured_fox")
 # The depth at which pixels are held to JAX's, where it is not the golden
 # workload's. sphereflake is a fractal of mirror spheres seen from 346
 # units: a grazing hit on a sphere of radius 0.39 is ill-conditioned in

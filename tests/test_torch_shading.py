@@ -159,8 +159,8 @@ def test_unported_families_raise():
     an isotropic lane scatters into a uniform sphere direction with weight
     albedo * (1/4pi) / (1/4pi) = albedo, as the JAX package's. Dispersion
     (M6) and the importance-sampled environment light (M5) are ported and
-    carried across by ``scene_from_numpy``; what still raises there is
-    per-vertex triangle attributes (M4)."""
+    carried across by ``scene_from_numpy``, and so are per-vertex triangle
+    attributes (M4), which raised there before."""
     b = sc.SceneBuilder()
     m = b.lambertian((1, 1, 1))
     b._mat_row(mtype=sc.MAT_ISOTROPIC, tex=b.solid((0.3, 0.5, 0.7)))
@@ -187,5 +187,13 @@ def test_unported_families_raise():
                                              env_col_cdf=env), device="cpu")
     assert pe.has_env_light and pe.has_lights
     np.testing.assert_array_equal(pe.env_texel_p.numpy(), np.asarray(env))
-    with pytest.raises(NotImplementedError, match="M4"):
-        convert.scene_from_numpy(js.replace(tri_attrs=jnp.zeros((1,))), device="cpu")
+    from cpu_ray_tracing_implementation_tpu.models.scene import TriAttrs as JTriAttrs
+
+    cols = {f: jnp.zeros((2, 3)) for f in ("n0", "n1", "n2")}
+    cols.update({f: jnp.full((2, 2), 0.5) for f in ("uv0", "uv1", "uv2")})
+    pa = convert.scene_from_numpy(
+        js.replace(tri_attrs=JTriAttrs(**cols, smooth=jnp.array([True, False]))),
+        device="cpu")
+    assert pa.tri_attrs.smooth.tolist() == [True, False]
+    np.testing.assert_array_equal(pa.tri_attrs.uv1.numpy(), np.full((2, 2), 0.5))
+    assert convert.scene_from_numpy(js, device="cpu").tri_attrs is None
