@@ -9,7 +9,7 @@ Phases (any failure raises and the script exits non-zero):
    (one nvcc per source, in parallel). Then write the stand-in glTF assets
    into a temporary directory with the port's ``utils/procgen.py`` (the
    reference's Fox and Sponza are absent): an ellipsoid Fox of 576
-   triangles (the real Fox's count: 5 chunks, the per-ray route) and one
+   triangles (the real Fox's count: 5 chunks, the packet route) and one
    of 480 (one dense table), each with u32 indices, NORMAL, TEXCOORD_0, a
    node transform and a PNG baseColorTexture, and Sponza.gltf + .bin
    holding the colonnade's 257,916 triangles. ``$CRT_ASSETS`` points at
@@ -75,6 +75,23 @@ Phases (any failure raises and the script exits non-zero):
      (all 8 columns bit for bit, the pid column that indexes the attribute
      table included) at every phase of the 576-triangle stand-in's primary
      and secondary rays.
+   - K6 (the tile-packet closest hit, planar and sphere entries) against
+     its plain version (the per-tile loop of ``ops/packet.py``):
+     sphereflake's 160,000 primary rays on its 58 chunks (timed at tiles of
+     2,048, 512 and 256) and the same rays after one bounce,
+     coherence-sorted (timed, no plain time); its table doubled, each chunk
+     followed by a copy with the same entry t (the tie rule, on every 4th
+     primary ray: each keeps the first copy's sphere); perlin_texture_ball's 600x600 primary rays on its 19
+     quad chunks (timed); the 16 px colonnade's 71 triangle chunks and the
+     576-triangle Fox stand-in's 5, primary and secondary rays. Spheres:
+     masks, pids, materials and each tile's visit count equal, t within
+     rtol 1e-4; planar: masks equal but at an edge, pids equal but for
+     near-ties (both counted), materials, t and payload at K1's
+     tolerances where the pids agree, visit counts equal in all but 1% of
+     the tiles. Each timed case prints its bound, counted from the run's
+     visit lists (a slab test per tile lane and chunk, a ray test per tile
+     lane and live primitive of each visited chunk), and the plain
+     version's time.
    - K5 (gather-sum probe) against its plain version (rel err max |a - b| /
      (|b| + 1) <= 1e-5) at the probe's defaults (an 11.5 MB table, inside
      the L2) and with a 738 MB table (K 131,072: device memory), with its
@@ -92,7 +109,7 @@ Phases (any failure raises and the script exits non-zero):
    golden workload (16 px, 4 spp, depth 3, key 42; image mean within 2e-3
    of tests/test_golden.py); the Cornell box at the golden workload under
    ``camera.qmc`` and under ``CRT_RNG=threefry``, and the 16 px colonnade
-   under ``camera.qmc`` (through K3 and K4), within 2e-3 of the port's own
+   under ``camera.qmc`` (through K6), within 2e-3 of the port's own
    CPU render of the same key; the seven
    scenes whose asset is missing (F1: earthmap.jpg, and the fallbacks of
    smoke_fox, glass_fox and textured_fox without Fox.gltf) within 2e-3 of
@@ -132,14 +149,15 @@ Phases (any failure raises and the script exits non-zero):
    image is held against the scan's of the same key above, sphereflake's
    at 4 spp against a 4-spp scan (rtol 1e-5, atol 1e-5: each path's
    radiance is the scan's, only the order of the sums differs). Then the
-   pool and batch sizes on the card: the two wavefronts at the automatic
-   pool and at one lane per pixel (or 8,192 where the automatic pool is
-   the whole frame), and the colonnade scan in batches of 8,192 pixels and
+   per-ray route's pool and batch sizes on the card: the colonnade's
+   wavefront at the automatic pool and at 8,192 lanes (the automatic pool
+   is the whole frame), and its scan in batches of 8,192 pixels and
    whole; each warmed up, then timed twice in alternation; the batched and
-   whole scan images must be bitwise equal. Last, after every timed run
+   whole scan images must be bitwise equal (sphereflake, packet routed,
+   is cut from this comparison). Last, after every timed run
    (the profiler may leave per-launch costs behind on these host-bound
    paths), K3's and K4's summed device time in one more colonnade render
-   under torch.profiler and in a 4-spp sphereflake scan render, and K2's
+   under torch.profiler, K6's in a 4-spp sphereflake scan render, and K2's
    in a random_motion_ball render at 2 spp (its share of device time per
    bounce), each with its wrapper calls there and the device kernels one
    call runs (K4: four, and a memset). The new estimator paths at their
@@ -154,7 +172,7 @@ Phases (any failure raises and the script exits non-zero):
    Cornell box under ``camera.qmc`` at QMC_GRAD. Each prints seconds,
    camera rays/s and the mean. The glTF scenes at their own sizes:
    textured_fox 600x600, 100 spp, depth 5 with the 576-triangle stand-in
-   (K3 + K4 with pid) and with the 480-triangle one (K1 with pid);
+   (K6 with pid) and with the 480-triangle one (K1 with pid);
    glass_fox 600x600, 200 spp, depth 5 (576); sponza from Sponza.gltf at
    200x200, 30 spp, depth 5, its load-and-build seconds, its image against
    the procedural colonnade's (max abs difference, means within 2e-3);
@@ -170,8 +188,7 @@ Phases (any failure raises and the script exits non-zero):
    three_material_ball render K2, the colonnade render K1 (its light
    quad), K3 and K4, and the random_motion_ball render K2 exactly spp x
    depth = 1,000 times; the colonnade wavefront K1, K3 and K4, the
-   sphereflake wavefront K3 and K4 (their launches go on a line of their
-   own). Cornell's gradient runs launch K1 2,048 times in the
+   sphereflake wavefront K6 (their launches go on a line of their own). Cornell's gradient runs launch K1 2,048 times in the
    forward pass (256 x 8) and none in the backward pass (the winners are
    replayed from the tape); the colonnade's gradient run launches K1, K3
    and K4 in both passes (no tape on chunked tables: the accelerator runs
@@ -193,11 +210,29 @@ Phases (any failure raises and the script exits non-zero):
    runs K1 (and on the prism K2) spp x depth times in the forward pass and
    none in the backward. Their counts go on a line of their own before the
    ``kernels`` line. The glTF runs: the 576-triangle textured_fox and
-   glass_fox renders launch K3 and K4 and no K1, the 480-triangle one K1
-   and no K3 or K4, the glTF sponza K1 (its light), K3 and K4; the
+   glass_fox renders launch K6 and no K1, K3 or K4, the 480-triangle one K1
+   and no K3, K4 or K6, the glTF sponza K1 (its light), K3 and K4; the
    adaptive render K1 depth x the largest per-pixel spp times, the AOV
-   pass K1 once per sample; textured_fox's gradient run K3 and K4 in both
+   pass K1 once per sample; textured_fox's gradient run K6 in both
    passes (on a line of their own before the ``kernels`` line).
+6. The packet route (``CRT_ACCEL`` unset: tables under 256 chunks take
+   K6, as in the JAX package): sphereflake 400x400x50 depth 5 through the
+   wavefront and the scan, perlin_texture_ball 600x600 at 32 spp depth 5,
+   textured_fox (600x600x100) and glass_fox (600x600x200) on the
+   576-triangle stand-in, each rendered on the packet route and under
+   CRT_ACCEL=ray, then timed again in turns (ray, packet); the packet
+   render launches K6 and neither K3 nor K4, the per-ray render K3 and K4
+   and no K6, and the two images' means agree within 2e-3 (the share of
+   pixels within 1e-3 printed). The BVH oracle (``CRT_ACCEL=bvh``) on
+   sphereflake cut to 64x64, 1 spp, depth 2: its hits on primary and
+   secondary rays against the chunk route's (equal masks and pids), its
+   image's mean against the chunk route's. ``render_with_checkpoint`` on
+   the Cornell box 512x512x256 depth 8 in chunks of 64 spp and on the
+   sphereflake wavefront in chunks of 16, stopped after two chunks and
+   resumed: the scan bitwise the uninterrupted render, the wavefront
+   within rtol 1e-5 (its flush is an atomic float ``index_add_`` on the
+   card). The ``kernels`` line takes K6's planar launches from the
+   perlin render, its sphere launches from the sphereflake wavefront.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -227,11 +262,12 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
-from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
+from cpu_ray_tracing_implementation_tpu_torch.ops import bvh, keys, packet, perray, raysort
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
 from cpu_ray_tracing_implementation_tpu_torch.ops import spectrum
 from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
-from cpu_ray_tracing_implementation_tpu_torch.utils import denoise, gather_probe, procgen, profiling
+from cpu_ray_tracing_implementation_tpu_torch.utils import (checkpoint, denoise, gather_probe,
+                                                            procgen, profiling)
 from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
     FP32_INSTR_PER_S, HBM_BYTES_PER_S, camera_rays, cuda_ms, secondary)
 
@@ -282,6 +318,10 @@ KERNELS = {
     "cull_select": ("K3", PKG + "cull_select.cu", JAX + "ops/pallas_select.py:48"),
     "visit_sweep": ("K4", PKG + "visit_sweep.cu", JAX + "ops/pallas_sweep.py:175"),
     "gather_sum": ("K5", PKG + "gather_sum.cu", "tools/dma_gather_probe.py:40"),
+    # K6 has no Pallas counterpart: it replaces the XLA packet route's
+    # per-tile loops (lax.map over _planar_tile / _sphere_tile)
+    "packet_planar": ("K6", PKG + "packet_closest.cu", JAX + "ops/packet.py:110"),
+    "packet_sphere": ("K6", PKG + "packet_closest.cu", JAX + "ops/packet.py:158"),
 }
 # K5's two tables: the probe's default (11.5 MB, inside the 50 MB L2) and
 # one of 738 MB, whose random rows come mostly from device memory
@@ -998,6 +1038,449 @@ def phase_spectral_kernels(dev):
     return errs
 
 
+# ------------------------------------------- phase 2: K6 (the packet route)
+# the tiles K6 is timed at on sphereflake's primary rays: JAX's 2,048 gives
+# 79 blocks on 132 SMs
+PACKET_TILES = (2048, 512, 256)
+# a tile's visit count may differ from the plain version's where the two
+# round a planar hit apart and a chunk's entry t falls between their bests:
+# at most this share of the tiles (spheres: none, K2's rounding is the
+# plain version's); dropping the early exit changes nearly every tile's
+PACKET_VISIT_SHARE = 0.01
+# the share of sphereflake's primary rays that hold K6's tie rule on its
+# doubled table (every 4th: the plain version's host loop is slow)
+DOUBLED_STRIDE = 4
+
+
+def packet_compare(label, got, ref, sphere, tri, dirs):
+    """K6 against its plain version: hit masks equal (planar: except rays
+    whose hit lies within EDGE_EPS of an edge or on the surface the ray
+    leaves, within OWN_EPS of its origin along the normal, counted), pids
+    and materials equal (planar: except near-ties, t within rtol 1e-4, and
+    those marginal rays, counted; spheres: all), t within rtol 1e-4 / atol
+    1e-4 and the payload within atol 1e-3 where the pids agree (a grazing
+    planar hit whose t is off by more is held by its hit point along the
+    normal, within 1e-3, counted), each tile's visit count equal (planar:
+    all but PACKET_VISIT_SHARE of the tiles).
+    Returns the largest abs error."""
+    t, pay, visits = got
+    t_r, pay_r, visited = ref
+    nf = 2 if sphere else 3
+    hit, hit_r = torch.isfinite(t), torch.isfinite(t_r)
+    mat, pid, mat_r, pid_r = pay[nf], pay[nf + 1], pay_r[nf], pay_r[nf + 1]
+
+    def edge(h, u, v):
+        far = torch.minimum(u, v)
+        far = torch.minimum(far, 1.0 - u - v) if tri else torch.minimum(
+            far, torch.minimum(1.0 - u, 1.0 - v))
+        return h & (far < EDGE_EPS)
+
+    def own(h, t_, n):
+        return h & ((torch.where(h, t_, torch.zeros_like(t_))
+                     * vm.dot(n, dirs)).abs() <= OWN_EPS)
+
+    explained = torch.zeros_like(hit) if sphere else (
+        edge(hit, pay[1], pay[2]) | edge(hit_r, pay_r[1], pay_r[2])
+        | own(hit, t, pay[0]) | own(hit_r, t_r, pay_r[0]))
+    mask = hit != hit_r
+    if bool((mask & ~explained).any()):
+        raise AssertionError(f"{label}: hit masks differ in "
+                             f"{int((mask & ~explained).sum())} rays away from an edge "
+                             "and from the surface they leave")
+    both = hit & hit_r
+    differ = both & (pid != pid_r)
+    near = differ & ((t - t_r).abs() <= 1e-4 * t_r.abs())
+    if sphere and bool(differ.any()):
+        raise AssertionError(f"{label}: pid differs in {int(differ.sum())} rays")
+    if bool((differ & ~(near | explained)).any()):
+        raise AssertionError(f"{label}: pid differs in "
+                             f"{int((differ & ~(near | explained)).sum())} rays that are "
+                             "no near-tie and at no edge")
+    if bool((~hit & (pid != 0)).any()):
+        raise AssertionError(f"{label}: pid is not 0 on a miss")
+    same = both & (pid == pid_r)
+    if not torch.equal(mat[same], mat_r[same]):
+        raise AssertionError(f"{label}: materials differ")
+    # a ray that meets the surface it leaves has for t the rounding of its
+    # own origin: t is held where the hit is away from the origin
+    same = same & ~explained if not sphere else same
+    grazing = torch.zeros_like(same)
+    if not sphere:
+        # the plane's t rounds n.c - n.o apart by a few ulp of the
+        # coordinates, which a grazing ray divides by a small n.d: such a
+        # ray is held by its hit point along the normal, within 1e-3, as
+        # the per-ray route is held to its oracle (perray_vs_oracle)
+        d_err = (t - t_r).abs()
+        grazing = same & (d_err > 1e-4 + 1e-4 * t_r.abs()) & (
+            d_err * vm.dot(pay_r[0], dirs).abs() <= 1e-3)
+        same = same & ~grazing
+    torch.testing.assert_close(t[same], t_r[same], rtol=1e-4, atol=1e-4)
+    err = {"t": max_abs(t[same], t_r[same])}
+    for i, name in enumerate(SPHERE_FIELDS if sphere else PLANAR_FIELDS):
+        torch.testing.assert_close(pay[i][same], pay_r[i][same], rtol=0, atol=1e-3,
+                                   msg=lambda m, n=name: f"{label}: {n}: {m}")
+        err[name] = max_abs(pay[i][same], pay_r[i][same])
+    v_r = torch.tensor([len(v) for v in visited], dtype=torch.int32, device=visits.device)
+    off = int((visits != v_r).sum())
+    if off > (0 if sphere else PACKET_VISIT_SHARE * v_r.numel()):
+        raise AssertionError(f"{label}: visit counts differ in {off} of {v_r.numel()} "
+                             f"tiles ({int(visits.sum())} against {int(v_r.sum())} visits)")
+    log(f"  {label}: rays {t.shape[0]} hits {int(hit_r.sum())}; masks differ at an edge "
+        f"or on the surface left in {int(mask.sum())}; pid differs in {int(differ.sum())} (near-ties "
+        f"{int(near.sum())}); grazing hits held along the normal {int(grazing.sum())}; "
+        f"tiles {v_r.numel()}, visits {int(v_r.sum())} (per tile "
+        f"{float(v_r.float().mean()):.2f}, max {int(v_r.max()) if v_r.numel() else 0}), "
+        f"tiles whose count differs {off}; max abs err {err}")
+    return max(err.values())
+
+
+# FP32 instructions of one (ray, chunk) slab test in K6's cull, counted from
+# csrc/packet_closest.cu: 6 subtractions, 6 products, 6 min/max of the
+# pairs, 4 min/max for near and far, 3 compares, a max with tmin and a
+# select; the per-ray reciprocals and the warp reduction are not counted
+OPS["packet_cull"] = 27
+
+
+def packet_bound(sphere, R, T, K, pack, visited, live):
+    """K6's bound: bytes, its ray rows (6, or 7 with the time) and cap read,
+    8 hit rows and pid written per ray, the pack and boxes read once; ops,
+    a slab test for every (tile lane, chunk) pair of the cull and, for each
+    tile, a test for every (lane, live primitive) pair of the chunks it
+    visited, counted from this run's visit lists (the sphere roots are not
+    counted)."""
+    nbytes = 4 * ((7 if sphere else 6) * R + R + 9 * R + pack.numel() + 6 * K)
+    tests = sum(T * sum(live[k] for k in vis) for vis in visited)
+    ops = len(visited) * T * K * OPS["packet_cull"] + tests * OPS[
+        "sphere_closest" if sphere else "planar_closest"]
+    return bound(nbytes, ops)
+
+
+def packet_case(label, kind, org, dirs, time_, cap, chunks, pack, errs, tile=None,
+                timed=None, times=None, bounds=None, plain_timed=True):
+    """K6 (``kind`` "sphere", "quad" or "tri") on these rays against its
+    plain version; ``timed``: the key its kernel and plain times and bound
+    go under, at ``tile`` and, for sphereflake's primary rays, at every
+    PACKET_TILES; the plain version's time too unless ``plain_timed`` is
+    False."""
+    sphere, tri = kind == "sphere", kind == "tri"
+    name = "packet_sphere" if sphere else "packet_planar"
+    tile = tile or packet.AUTO_TILE
+    if sphere:
+        got = packet.sphere_packet_hit(org, dirs, time_, chunks, TMIN, cap, tile, pack)
+        ref = packet.sphere_packet_plain(org, dirs, time_, chunks, TMIN, cap, tile)
+    else:
+        got = packet.planar_packet_hit(org, dirs, chunks, TMIN, tri, cap, tile, pack)
+        ref = packet.planar_packet_plain(org, dirs, chunks, TMIN, tri, cap, tile)
+    errs[name] = max(errs.get(name, 0.0), packet_compare(label, got, ref, sphere, tri, dirs))
+    if not timed:
+        return got
+    R, K = org.shape[0], int(chunks.mat.shape[0])
+    live = chunks.active.sum(dim=1).tolist()
+    rays = fi.pack_rays(org, dirs, time_ if sphere else None)
+    lo, hi = chunks.lo.contiguous(), chunks.hi.contiguous()
+
+    def kernel(t):
+        if sphere:
+            return packet.packet_sphere_kernel(rays, cap, pack, lo, hi, TMIN, t)
+        return packet.packet_planar_kernel(rays, cap, pack, lo, hi, TMIN, t, tri)
+
+    for t in (PACKET_TILES if timed == "packet_sphere" else (tile,)):
+        T = min(t, R)
+        ms = cuda_ms(lambda: kernel(T))
+        vis = (ref[2] if T == tile else
+               (packet.sphere_packet_plain(org, dirs, time_, chunks, TMIN, cap, T)
+                if sphere else packet.planar_packet_plain(org, dirs, chunks, TMIN, tri,
+                                                          cap, T))[2])
+        b = packet_bound(sphere, R, T, K, pack, vis, live)
+        key = timed if T == tile else f"{timed}_tile{T}"
+        times[key] = (ms,)
+        bounds[key] = b
+        log(f"  K6 {kind}, {label}, tile {T} ({len(vis)} blocks): kernel {ms:.4f} ms, "
+            f"visits {sum(len(v) for v in vis)}, bound {b[0]:.4f} ms ({b[1]}), "
+            f"bound / kernel {b[0] / ms:.3f}")
+    if not plain_timed:
+        return got
+    plain = (lambda: packet.sphere_packet_plain(org, dirs, time_, chunks, TMIN, cap, tile)
+             ) if sphere else (lambda: packet.planar_packet_plain(org, dirs, chunks, TMIN,
+                                                                  tri, cap, tile))
+    # one call: the plain loop synchronises at every chunk a tile visits
+    times[timed] = (times[timed][0], cuda_ms(plain, iters=1, warmup=0))
+    log(f"  K6 {kind}, {label}: plain version {times[timed][1]:.4f} ms a call")
+    return got
+
+
+def duplicated_spheres(chunks):
+    """The table twice over: chunk k + K holds chunk k's spheres, so the
+    two give every ray the same t and the same entry t, and the tie rule
+    (entry t, then chunk id; a hit kept only where strictly nearer) must
+    keep chunk k's."""
+    cat = lambda a: torch.cat([a, a]).contiguous()
+    return ch.SphereChunks(*[cat(getattr(chunks, f.name))
+                             for f in dataclasses.fields(chunks)])
+
+
+def phase_packet(dev, sf_scene, sf_cam, roots):
+    """K6 against its plain version at the packet route's shapes:
+    sphereflake's 160,000 primary rays on its 58 chunks (timed at each
+    PACKET_TILES) and the same rays after one bounce, coherence-sorted; its
+    table doubled (the tie rule); perlin_texture_ball's 600x600 primary rays
+    on its 19 quad chunks; the 16 px colonnade's 71 triangle chunks and the
+    576-triangle Fox stand-in's 5, primary and secondary rays. Returns
+    (errs, times, bounds)."""
+    gen = torch.Generator().manual_seed(12)
+    errs, times, bounds = {}, {}, {}
+    chunks, pack = sf_scene.sphere_chunks, sf_scene.sphere_pack
+    org, dirs, time_, cap = profiling.scene_rays(sf_scene, sf_cam, gen)
+    t, _, _ = packet_case(f"sphereflake {sf_cam.width}x{sf_cam.height} primary "
+                          f"({chunks.rad.shape[0]} chunks)", "sphere", org, dirs, time_,
+                          cap, chunks, pack, errs, timed="packet_sphere", times=times,
+                          bounds=bounds)
+    o2, d2 = secondary(org, dirs, t, gen)
+    lo, hi = org.new_tensor(sf_scene.world_lo), org.new_tensor(sf_scene.world_hi)
+    (o2, d2, t2), _ = raysort.sort_rays(raysort.coherence_keys(o2, d2, lo, hi),
+                                        [o2, d2, time_])
+    cap2 = isect._packet_cap(sf_scene, o2, d2, None, INF, TMIN)
+    packet_case("sphereflake secondary, coherence-sorted", "sphere", o2, d2, t2, cap2,
+                chunks, pack, errs, timed="packet_sphere_secondary", times=times,
+                bounds=bounds, plain_timed=False)
+    # the tie rule on every DOUBLED_STRIDE-th primary ray
+    dup = duplicated_spheres(chunks)
+    k = DOUBLED_STRIDE
+    got = packet_case(f"sphereflake primary, every {k}th ray, its table doubled "
+                      f"({dup.rad.shape[0]} chunks)", "sphere", org[::k].contiguous(),
+                      dirs[::k].contiguous(), time_[::k].contiguous(), cap[::k].contiguous(),
+                      dup, fi.pack_sphere_constants(dup), errs)
+    n_first = chunks.rad.numel()
+    if bool((got[1][3] >= n_first).any()):
+        raise AssertionError("K6 doubled table: a ray kept the copy's sphere")
+
+    scene, cam = catalog.perlin_texture_ball(spp=1, device=dev)
+    org, dirs, time_, cap = profiling.scene_rays(scene, cam, gen)
+    packet_case(f"perlin_texture_ball {cam.width}x{cam.height} primary "
+                f"({scene.quad_chunks.corner.shape[0]} quad chunks)", "quad", org, dirs,
+                time_, cap, scene.quad_chunks, scene.quad_pack, errs,
+                timed="packet_planar", times=times, bounds=bounds)
+    with assets(roots["fox576"]):
+        fox = catalog.textured_fox(device=dev)
+    for label, (scene, cam) in (
+            ("16 px colonnade", catalog.sponza(width=16, spp=1, device=dev)),
+            ("576-triangle Fox stand-in", fox)):
+        org, dirs, time_, cap = profiling.scene_rays(scene, cam, gen)
+        K = scene.tri_chunks.corner.shape[0]
+        for which in ("primary", "secondary"):
+            t, _, _ = packet_case(f"{label} {cam.width}x{cam.height} {which} ({K} triangle "
+                                  "chunks)", "tri", org, dirs, time_, cap,
+                                  scene.tri_chunks, scene.tri_pack, errs)
+            org, dirs = secondary(org, dirs, t, gen)
+            cap = isect._packet_cap(scene, org, dirs, None, INF, TMIN)
+    torch.cuda.synchronize()
+    return errs, times, bounds
+
+
+
+# --------------------------- phases 4, 5: the packet route and checkpoints
+# the packet-routed renders, each against CRT_ACCEL=ray: the images agree
+# as two exact routes do, by their means (golden atol); the share of
+# pixels within 1e-3 is printed (paths that graze a primitive can branch
+# apart, and the mirrors of sphereflake amplify that)
+ROUTE_MEAN_ATOL = 2e-3
+# the BVH oracle's run on sphereflake, cut from 400x400x50 depth 5
+BVH_CUT = dict(width=64, spp=1, max_depth=2)
+# two float32 solves of a grazing hit on a sphereflake sphere, each up to
+# 1.6e-4 of t from the float64 root (ROADMAP section 3)
+SPHERE_GRAZING_RTOL = 3.2e-4
+# checkpoint runs: Cornell 512x512x256 depth 8 in chunks of 64 spp, and the
+# sphereflake wavefront 400x400x50 depth 5 in chunks of 16; each
+# interrupted after two chunks and resumed
+CKPT_CHUNKS = {"cornell": 64, "sphereflake": 16}
+# the card's wavefront flushes with an atomic float index_add_: resumed and
+# uninterrupted agree to float32 summation order there, not bitwise
+CKPT_WF_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@contextlib.contextmanager
+def accel(mode):
+    """``CRT_ACCEL`` set to ``mode`` (None: unset) inside the block."""
+    saved = os.environ.get("CRT_ACCEL")
+    os.environ.pop("CRT_ACCEL", None)
+    if mode is not None:
+        os.environ["CRT_ACCEL"] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop("CRT_ACCEL", None)
+        if saved is not None:
+            os.environ["CRT_ACCEL"] = saved
+
+
+def packet_route(label, render, cam, want, refuse=()):
+    """One render on the default (packet) route and one under
+    CRT_ACCEL=ray, each with its launches counted alone (the packet route:
+    ``want``, which is K6's entry, and no K3 or K4; the per-ray route: K3
+    and K4 and no K6), then the two timed again in turns (ray, packet).
+    Their means must agree within ROUTE_MEAN_ATOL. Returns (packet walls,
+    ray walls, packet launches, packet image). ``refuse``: kernels neither
+    route may launch."""
+    walls, counts, imgs = {"packet": [], "ray": []}, {}, {}
+    for route in ("packet", "ray", "ray", "packet"):
+        with accel(None if route == "packet" else "ray"):
+            profiling.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = render()
+            torch.cuda.synchronize()
+            walls[route].append(time.perf_counter() - t0)
+            counts.setdefault(route, profiling.launches())
+        imgs.setdefault(route, img)
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{label} ({route}): non-finite values")
+    pk, ry = counts["packet"], counts["ray"]
+    if pk[want] <= 0 or pk["cull_select"] or pk["visit_sweep"]:
+        raise AssertionError(f"{label}: the packet route launched {pk}")
+    if ry["cull_select"] <= 0 or ry["visit_sweep"] <= 0 or ry[want]:
+        raise AssertionError(f"{label}: the per-ray route launched {ry}")
+    if any(pk[n] or ry[n] for n in refuse):
+        raise AssertionError(f"{label}: a route launched one of {refuse}")
+    a, b = imgs["packet"], imgs["ray"]
+    close = float(((a - b).abs().amax(-1) <= 1e-3).float().mean())
+    rays = cam.width * cam.height * cam.spp
+    log(f"  {label}: packet route {', '.join(f'{w:.3f}' for w in walls['packet'])} s "
+        f"({rays / min(walls['packet']) / 1e6:.3f} M camera rays/s), per-ray route "
+        f"{', '.join(f'{w:.3f}' for w in walls['ray'])} s; means {float(a.mean()):.6f} / "
+        f"{float(b.mean()):.6f}, pixels within 1e-3 {close:.4f}; launches packet {pk}, "
+        f"ray {ry}")
+    if abs(float(a.mean()) - float(b.mean())) > ROUTE_MEAN_ATOL:
+        raise AssertionError(f"{label}: the packet and per-ray images' means differ")
+    return walls["packet"], walls["ray"], pk, a
+
+
+def bvh_oracle(dev):
+    """The BVH oracle on sphereflake cut to BVH_CUT: its hits on the
+    primary rays and on their mirror reflections against the chunk route's
+    (K2 over the whole table): masks and pids equal but on marginal rays,
+    whose hit in either route grazes its sphere (|cos| < 0.05 against the
+    normal) or lies within 1e-2 of the origin (the surface the ray leaves),
+    or near-ties (two spheres within SPHERE_GRAZING_RTOL of one t), counted; t within rtol 1e-4 / atol 2e-4 (the expanded quadratic rounded
+    in two orders) or, for an ill-conditioned hit, SPHERE_GRAZING_RTOL. Its
+    render against the chunk route's: means within ROUTE_MEAN_ATOL."""
+    scene, cam = catalog.sphereflake(device=dev, **BVH_CUT)
+    gen = torch.Generator().manual_seed(13)
+    org, dirs, time_, _ = profiling.scene_rays(scene, cam, gen)
+    for which in ("primary", "mirror-reflected"):
+        t, pay = bvh.sphere_closest_bvh(org, dirs, time_, scene.sphere_chunks,
+                                        scene.sphere_tree, TMIN)
+        t_r, pay_r = fi.sphere_closest_fused(org, dirs, time_, scene.sphere_chunks, TMIN,
+                                             pack=scene.sphere_pack)
+        _, (_, _, _, pid_c) = ch.sphere_closest(org, dirs, time_, scene.sphere_chunks, TMIN)
+        hit, hit_r = torch.isfinite(t), torch.isfinite(t_r)
+
+        def normal_of(tt, ctr, rad):
+            fin = torch.where(torch.isfinite(tt), tt, torch.zeros_like(tt))
+            return (org + fin[:, None] * dirs - ctr) / rad[:, None], fin
+
+        def marginal(tt, ctr, rad):
+            n, fin = normal_of(tt, ctr, rad)
+            cos = vm.dot(n, dirs).abs() / vm.length(dirs)
+            return torch.isfinite(tt) & ((cos < 0.05) | (fin * vm.length(dirs) < 1e-2))
+
+        both = hit & hit_r
+        differ = (hit != hit_r) | (both & (pay[3] != pid_c))
+        # a near-tie: two spheres at one depth (sphereflake's children touch
+        # their parent), within the solves' rounding
+        tie = both & ((t - t_r).abs() <= SPHERE_GRAZING_RTOL * t_r.abs())
+        explained = tie | marginal(t, pay[0], pay[1]) | marginal(t_r, pay_r[0], pay_r[1])
+        if bool((differ & ~explained).any()):
+            i = int(torch.nonzero(differ & ~explained)[0, 0])
+            raise AssertionError(
+                f"BVH oracle, sphereflake {which}: hits differ in "
+                f"{int((differ & ~explained).sum())} rays that are not marginal; e.g. ray "
+                f"{i}: t {float(t[i])} / {float(t_r[i])}, pid {int(pay[3][i])} / "
+                f"{int(pid_c[i])}")
+        same = both & ~differ
+        # the two round the expanded quadratic (|o|^2 ~ 1.2e5 against rad^2
+        # ~ 0.15) in other orders: a grazing hit on sphereflake's small
+        # spheres lies up to 1.6e-4 from a float64 solve in either (ROADMAP
+        # section 3), so two solves may differ by 3.2e-4 of t there
+        err = (t - t_r).abs()
+        grazing = same & (err > 2e-4 + 1e-4 * t_r.abs())
+        if bool((grazing & (err > SPHERE_GRAZING_RTOL * t_r.abs())).any()):
+            raise AssertionError(f"BVH oracle, sphereflake {which}: t off the chunk "
+                                 "route's beyond a grazing hit's rounding")
+        log(f"  BVH oracle, sphereflake {cam.width}x{cam.height} {which}: {int(hit_r.sum())} "
+            f"hits of {hit.numel()}; masks or pids differ on {int(differ.sum())} marginal "
+            f"rays; t max abs err {max_abs(t[same & ~grazing], t_r[same & ~grazing]):.3g} "
+            f"(rtol 1e-4, atol 2e-4); {int(grazing.sum())} ill-conditioned hits within "
+            f"rtol {SPHERE_GRAZING_RTOL}")
+        n, fin = normal_of(t_r, pay_r[0], pay_r[1])
+        org = org + fin[:, None] * dirs
+        dirs = dirs - 2.0 * vm.dot(dirs, n)[:, None] * n
+    imgs = {}
+    for mode in ("bvh", "chunked"):
+        with accel(mode):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs[mode] = integrator.render_image(scene, cam, keys.key(0))
+            torch.cuda.synchronize()
+            log(f"  sphereflake {cam.width}x{cam.height} {cam.spp}spp depth "
+                f"{cam.max_depth} (cut from 400x400x50 depth 5), CRT_ACCEL={mode}: "
+                f"{time.perf_counter() - t0:.3f} s, mean {float(imgs[mode].mean()):.6f}")
+    if abs(float(imgs["bvh"].mean()) - float(imgs["chunked"].mean())) > ROUTE_MEAN_ATOL:
+        raise AssertionError("BVH oracle: the image's mean is off the chunk route's")
+
+
+def checkpoint_runs(dev, sf_scene, sf_cam):
+    """``render_with_checkpoint`` interrupted after two chunks and resumed,
+    against the uninterrupted run: the Cornell scan bitwise, the
+    sphereflake wavefront within CKPT_WF_TOL. Returns seconds by run."""
+    secs = {}
+    scene, cam = catalog.cornell_box(width=512, spp=256, max_depth=8, device=dev)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    for label, sc_, cm, wf in (("cornell", scene, cam, False),
+                               ("sphereflake", sf_scene, sf_cam, True)):
+        kw = dict(seed=0, chunk_spp=CKPT_CHUNKS[label], use_wavefront=wf)
+        path = os.path.join(work.name, f"{label}.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = checkpoint.render_with_checkpoint(sc_, cm, log=lambda *_: None, **kw)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        chunks = []
+
+        def stop(msg):
+            if msg.startswith("[render]"):
+                chunks.append(msg)
+                if len(chunks) == 3:
+                    raise KeyboardInterrupt
+
+        try:
+            checkpoint.render_with_checkpoint(sc_, cm, ckpt_path=path, log=stop, **kw)
+            raise AssertionError(f"checkpoint {label}: the render was not interrupted")
+        except KeyboardInterrupt:
+            pass
+        logs = []
+        t0 = time.perf_counter()
+        img = checkpoint.render_with_checkpoint(sc_, cm, ckpt_path=path, log=logs.append,
+                                                **kw)
+        torch.cuda.synchronize()
+        secs[f"{label} resumed"] = time.perf_counter() - t0
+        if not any("resuming at" in m for m in logs) or os.path.exists(path):
+            raise AssertionError(f"checkpoint {label}: not resumed, or not removed")
+        err = max_abs(img, whole)
+        if wf:
+            torch.testing.assert_close(img, whole, **CKPT_WF_TOL)
+        elif not torch.equal(img, whole):
+            raise AssertionError(f"checkpoint {label}: resumed scan not bitwise the "
+                                 f"uninterrupted one (max abs diff {err:.3g})")
+        log(f"  render_with_checkpoint {label} {cm.width}x{cm.height} {cm.spp}spp depth "
+            f"{cm.max_depth} ({'wavefront' if wf else 'scan'}, chunks of "
+            f"{CKPT_CHUNKS[label]} spp): uninterrupted {secs[label]:.3f} s; stopped after "
+            f"two chunks and resumed ({logs[0]}): {secs[label + ' resumed']:.3f} s for the "
+            f"rest; resumed against uninterrupted max abs diff {err:.3g} "
+            f"({'within rtol 1e-5' if wf else 'bitwise'})")
+    work.cleanup()
+    return secs
+
+
 # ----------------------------------------------- phase 2: pid and K5
 def pid_compare(label, out, pid, ref_t, ref_pid, ref_mat, valid_row, mat_row):
     """A kernel's pid output against the plain version's: equal on every
@@ -1315,8 +1798,8 @@ def golden(name, dev):
 
 def estimator_goldens(dev):
     """The golden workload of the Cornell box under camera.qmc and under
-    CRT_RNG=threefry, and the 16 px colonnade under camera.qmc (through K3
-    and K4), on the card against the port's own CPU render of the same key
+    CRT_RNG=threefry, and the 16 px colonnade under camera.qmc (71 chunks:
+    through K6), on the card against the port's own CPU render of the same key
     (atol 2e-3)."""
     def render(name, device, stream, qmc):
         scene, cam = catalog.SCENES[name](width=16, spp=4, max_depth=3, device=device)
@@ -1336,9 +1819,8 @@ def estimator_goldens(dev):
             f"launches {launched}")
         if not (torch.isfinite(img).all() and abs(mean - want) <= 2e-3):
             raise AssertionError(f"{label}: mean off the CPU render's")
-        if name == "sponza" and not (launched["cull_select"] > 0
-                                     and launched["visit_sweep"] > 0):
-            raise AssertionError(f"{label}: K3 and K4 were not launched")
+        if name == "sponza" and not launched["packet_planar"] > 0:
+            raise AssertionError(f"{label}: K6 was not launched")
 
 
 def perray_vs_oracle(scene, cam, dev):
@@ -1555,22 +2037,23 @@ def phase_estimators(dev):
         integrator.render_image(scene, chk, keys.key(0)))
 
     scene, cam = catalog.perlin_texture_ball(spp=PERLIN_SPP, device=dev)
-    perray.reset_phases()
-    out["perlin"], _, _, per = main_path(
+    walls, ray_walls, per, _ = packet_route(
         f"perlin_texture_ball {cam.width}x{cam.height} {cam.spp}spp (cut from 500) "
-        f"depth {cam.max_depth}", scene, cam,
-        ("sphere_closest", "cull_select", "visit_sweep"))
-    log(f"  perlin_texture_ball render: {perray.PHASES['phases']} selection phases in "
-        f"{perray.PHASES['calls']} per-ray calls")
+        f"depth {cam.max_depth}",
+        lambda: integrator.render_image(scene, cam, keys.key(0)), cam, "packet_planar")
+    out["perlin"], out["perlin ray"] = walls[0], ray_walls[0]
+    if not per["sphere_closest"]:
+        raise AssertionError("perlin_texture_ball: K2 (its two spheres) not launched")
     log(f"  launches per render (K1 planar_closest, K2 sphere_closest, K3, K4): "
         f"sphere-light plain {plain}; sphere-light NEE + RR {nee}; volume {vol}; "
         f"perlin_texture_ball {per}")
-    return out, plain, nee
+    return out, plain, nee, per
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Every closest-hit wrapper takes its plain version, on the card."""
+    """Every closest-hit wrapper takes its plain version, on the card (K6's
+    wrappers follow ``fused_intersect._on_card`` too)."""
     saved = fi._on_card, fs.cull_select, fsw.sweep
     fi._on_card = lambda x: False
     fs.cull_select, fsw.sweep = fs.cull_select_plain, fsw.sweep_plain
@@ -2004,15 +2487,25 @@ def phase_gltf(dev, roots, g_scene, g_cam, build_secs, col_img, cornell, cornell
     run)."""
     secs, counts = {}, {}
     for name, root, want, refuse in (
-            ("textured_fox", "fox576", ("cull_select", "visit_sweep"), ("planar_closest",)),
-            ("textured_fox", "fox480", ("planar_closest",), ("cull_select", "visit_sweep")),
-            ("glass_fox", "fox576", ("cull_select", "visit_sweep"), ("planar_closest",))):
+            ("textured_fox", "fox576", ("packet_planar",),
+             ("planar_closest", "cull_select", "visit_sweep")),
+            ("textured_fox", "fox480", ("planar_closest",),
+             ("cull_select", "visit_sweep", "packet_planar")),
+            ("glass_fox", "fox576", ("packet_planar",),
+             ("planar_closest", "cull_select", "visit_sweep"))):
         with assets(roots[root]):
             scene, cam = catalog.SCENES[name](device=dev)
         key = f"{name} {root}"
-        s, _, _, counts[key] = gltf_path(
-            f"{name} ({root} stand-in) {cam.width}x{cam.height} {cam.spp}spp depth "
-            f"{cam.max_depth}", scene, cam, want, refuse)
+        label = (f"{name} ({root} stand-in) {cam.width}x{cam.height} {cam.spp}spp depth "
+                 f"{cam.max_depth}")
+        if root == "fox576":   # the packet route, timed against the per-ray route
+            # packet_route holds K3 and K4 off the packet route itself
+            walls, ray_walls, counts[key], _ = packet_route(
+                label, lambda s=scene, c=cam: integrator.render_image(s, c, keys.key(0)),
+                cam, want[0], ("planar_closest",))
+            secs[key], secs[key + " ray"] = walls[0], ray_walls[0]
+            continue
+        s, _, _, counts[key] = gltf_path(label, scene, cam, want, refuse)
         secs[key] = s
     s, _, img, counts["sponza glTF"] = gltf_path(
         f"sponza (Sponza.gltf, loaded and built in {build_secs:.2f} s) "
@@ -2081,8 +2574,8 @@ def phase_gltf(dev, roots, g_scene, g_cam, build_secs, col_img, cornell, cornell
              f"{cam.max_depth} loss_and_grads")
     secs["textured_fox grad"], _, counts["textured_fox grad"] = grad_path(label, scene, cam)
     fwd, bwd = counts["textured_fox grad"]
-    if not all(fwd[n] > 0 and bwd[n] > 0 for n in ("cull_select", "visit_sweep")):
-        raise AssertionError(f"{label}: K3 and K4 not launched in both passes")
+    if not (fwd["packet_planar"] > 0 and bwd["packet_planar"] > 0):
+        raise AssertionError(f"{label}: K6 not launched in both passes")
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         got = grads_of(scene, cam, 0)
@@ -2142,6 +2635,10 @@ def main() -> int:
         errs[name] = max(errs[name], err)
     for name, err in phase_gltf_kernels(dev, roots).items():
         errs[name] = max(errs[name], err)
+    e, t, b = phase_packet(dev, sf_scene, sf_cam, roots)
+    errs.update(e)
+    times.update(t)
+    bounds.update(b)
     probes = phase_gather(dev)
     r = probes[0]
     errs["gather_sum"] = r["max_abs_err"]
@@ -2196,20 +2693,36 @@ def main() -> int:
         f"{col_cam.max_depth}", col_scene, col_cam,
         ("planar_closest", "cull_select", "visit_sweep"))
     wf_err = {"colonnade": hold_wavefront("colonnade", col_wf[2], col_img)}
-    sf_wf = wavefront_path(
-        f"sphereflake wavefront {sf_cam.width}x{sf_cam.height} {sf_cam.spp}spp depth "
-        f"{sf_cam.max_depth}", sf_scene, sf_cam, ("cull_select", "visit_sweep"))
+    sf_label = (f"sphereflake {sf_cam.width}x{sf_cam.height} {sf_cam.spp}spp depth "
+                f"{sf_cam.max_depth}")
+    sf_wf = wavefront_path(f"{sf_label} wavefront", sf_scene, sf_cam, ("packet_sphere",))
     sf_check = sf_cam.replace(spp=SPHEREFLAKE_CHECK_SPP)
     wf_err["sphereflake"] = hold_wavefront(
         f"sphereflake {SPHEREFLAKE_CHECK_SPP}spp",
         integrator.render_image_wavefront(sf_scene, sf_check, keys.key(0)),
         integrator.render_image(sf_scene, sf_check, keys.key(0)))
     log(f"  wavefront launches per render (K1 planar_closest, K3 cull_select, K4 "
-        f"visit_sweep): colonnade {col_wf[3]}, sphereflake {sf_wf[3]}")
+        f"visit_sweep, K6 packet_*): colonnade {col_wf[3]}, sphereflake {sf_wf[3]}")
+
+    phase_log("phase 4, 5: the packet route (K6) against the per-ray route (K3 + "
+              "K4), each render's launches counted on its own")
+    sf_walls = {}
+    sf_walls["wavefront"], sf_walls["wavefront ray"], _, _ = packet_route(
+        f"{sf_label} wavefront",
+        lambda: integrator.render_image_wavefront(sf_scene, sf_cam, keys.key(0)), sf_cam,
+        "packet_sphere")
+    sf_walls["scan"], sf_walls["scan ray"], _, _ = packet_route(
+        f"{sf_label} scan", lambda: integrator.render_image(sf_scene, sf_cam, keys.key(0)),
+        sf_cam, "packet_sphere")
+    with accel("ray"):
+        sf_ray = wavefront_path(f"{sf_label} wavefront, CRT_ACCEL=ray", sf_scene, sf_cam,
+                                ("cull_select", "visit_sweep"))
+    bvh_oracle(dev)
+    ckpt_secs = checkpoint_runs(dev, sf_scene, sf_cam)
 
     phase_log("phase 4, 5: next-event estimation, Russian roulette, volumes and "
               "the perlin marble, each render's launches counted on its own")
-    est, launches_sl, launches_nee = phase_estimators(dev)
+    est, launches_sl, launches_nee, launches_perlin = phase_estimators(dev)
 
     phase_log("phase 4, 5: spectral dispersion, the importance-sampled sky, "
               "Owen-Sobol QMC and the threefry stream, each run's launches "
@@ -2222,26 +2735,24 @@ def main() -> int:
                                (scene, cam), cornell_img)
     del g_scene
 
+    # the per-ray route's pool and batch sizes (sphereflake, now packet
+    # routed and so whole-frame as in the JAX package, is cut from this
+    # phase: its walls against the per-ray route are the packet phase's)
     phase_log("phase 4: pool and batch sizes timed on the card")
-    for label, sc_, cm in (("colonnade", col_scene, col_cam),
-                           ("sphereflake", sf_scene, sf_cam)):
-        n_pix = cm.width * cm.height
-        auto = integrator.wavefront_lanes(sc_, n_pix)
-        runs = {f"wavefront, pool {auto or n_pix} (automatic)": lambda s=sc_, c=cm, a=auto: (
-                    integrator.render_wavefront(s, c, keys.key(0), c.spp, lanes=a)),
-                f"wavefront, pool {n_pix} (L)": lambda s=sc_, c=cm: (
-                    integrator.render_wavefront(s, c, keys.key(0), c.spp))}
-        if auto is None:
-            runs = {f"wavefront, pool {n_pix} (L, automatic)":
-                        runs[f"wavefront, pool {n_pix} (L)"],
-                    "wavefront, pool 8192": lambda s=sc_, c=cm: (
-                        integrator.render_wavefront(s, c, keys.key(0), c.spp,
-                                                    lanes=8192))}
-        if sc_ is sf_scene:   # the colonnade's scan is timed below
-            runs["scan, automatic batch"] = lambda s=sc_, c=cm: (
-                integrator.accumulate_samples(s, c, keys.key(0), 0, c.spp,
-                                              batch_pixels=integrator.scan_batch_pixels(s)))
-        time_settings(label, cm, runs)
+    n_pix = col_cam.width * col_cam.height
+    auto = integrator.wavefront_lanes(col_scene, n_pix)
+    runs = {f"wavefront, pool {auto or n_pix} (automatic)": lambda: (
+                integrator.render_wavefront(col_scene, col_cam, keys.key(0), col_cam.spp,
+                                            lanes=auto)),
+            f"wavefront, pool {n_pix} (L)": lambda: (
+                integrator.render_wavefront(col_scene, col_cam, keys.key(0), col_cam.spp))}
+    if auto is None:
+        runs = {f"wavefront, pool {n_pix} (L, automatic)":
+                    runs[f"wavefront, pool {n_pix} (L)"],
+                "wavefront, pool 8192": lambda: (
+                    integrator.render_wavefront(col_scene, col_cam, keys.key(0),
+                                                col_cam.spp, lanes=8192))}
+    time_settings("colonnade", col_cam, runs)
     scan_runs = {
         f"batch {SCAN_TILE}": lambda: integrator.accumulate_samples(
             col_scene, col_cam, keys.key(0), 0, col_cam.spp, batch_pixels=SCAN_TILE),
@@ -2293,7 +2804,7 @@ def main() -> int:
     # last of the timed work: the profiler may leave per-launch costs behind
     device_time("colonnade render", col_scene, col_cam, ("cull_select", "visit_sweep"))
     device_time(f"sphereflake {SPHEREFLAKE_CHECK_SPP}spp scan render", sf_scene, sf_check,
-                ("cull_select", "visit_sweep"))
+                ("packet_sphere",))
     device_time(f"random_motion_ball {MOTION_BALL_PROFILED_SPP}spp render", mb_scene,
                 mb_cam.replace(spp=MOTION_BALL_PROFILED_SPP), ("sphere_closest",))
     # each kernel's launches in the render of its own slice's scene (K2's:
@@ -2306,10 +2817,12 @@ def main() -> int:
                 "sphere_closest": launches_mb["sphere_closest"],
                 "cull_select": launches_col["cull_select"],
                 "visit_sweep": launches_col["visit_sweep"],
-                "gather_sum": launches_probe["gather_sum"]}
+                "gather_sum": launches_probe["gather_sum"],
+                "packet_planar": launches_perlin["packet_planar"],
+                "packet_sphere": sf_wf[3]["packet_sphere"]}
     library_ms = {"gather_sum": r["library_ms"]}
-    log(f"  K4 spheres at sphereflake (the wavefront's main path): "
-        f"{sf_wf[3]['visit_sweep']} launches in its wavefront render; kernel "
+    log(f"  K4 spheres at sphereflake (its wavefront under CRT_ACCEL=ray): "
+        f"{sf_ray[3]['visit_sweep']} launches in that render; kernel "
         f"{sf_k4_times[0]:.4f} ms, plain {sf_k4_times[1]:.4f} ms, bound "
         f"{sf_k4_bound[0]:.4f} ms ({sf_k4_bound[1]})")
     log("  K4 triangles at the colonnade's later phases: " + "; ".join(
@@ -2332,7 +2845,7 @@ def main() -> int:
         f"loss_and_grads {k12(spec_counts['qmc_grad'][0])} forward, "
         f"{k12(spec_counts['qmc_grad'][1])} backward")
     k134 = lambda c: (f"{c['planar_closest']} K1 / {c['cull_select']} K3 / "
-                      f"{c['visit_sweep']} K4")
+                      f"{c['visit_sweep']} K4 / {c['packet_planar']} K6")
     log("  glTF, adaptive and AOV launches: " + "; ".join(
         f"{k} {k134(c)}" for k, c in gl_counts.items() if k != "textured_fox grad")
         + f"; textured_fox loss_and_grads {k134(gl_counts['textured_fox grad'][0])} "
@@ -2359,6 +2872,12 @@ def main() -> int:
         f"); colonnade fwd+bwd {col_grad_secs:.3f} s ({col_grad_rps:.1f} camera rays/s); "
         f"colonnade wavefront {col_wf[0]:.3f} s ({col_wf[1]:.1f} camera rays/s); "
         f"sphereflake wavefront {sf_wf[0]:.3f} s ({sf_wf[1]:.1f} camera rays/s); "
+        f"packet route against the per-ray route (first timed run each): sphereflake "
+        f"wavefront {sf_walls['wavefront'][0]:.3f} / {sf_walls['wavefront ray'][0]:.3f} s, "
+        f"scan {sf_walls['scan'][0]:.3f} / {sf_walls['scan ray'][0]:.3f} s, "
+        f"perlin_texture_ball {est['perlin']:.3f} / {est['perlin ray']:.3f} s; "
+        f"render_with_checkpoint " + ", ".join(f"{k} {v:.3f} s" for k, v in ckpt_secs.items())
+        + "; "
         f"wavefront against scan max abs diff {wf_err}; "
         f"sphere-light {est['sphere_light']:.3f} s, with NEE + RR "
         f"{est['sphere_light_nee']:.3f} s; volume Cornell {est['volume']:.3f} s; "

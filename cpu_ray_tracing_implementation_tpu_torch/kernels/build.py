@@ -29,7 +29,9 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 SOURCES = ("closest_hit.cu", "cull_select.cu", "visit_sweep.cu",
-           "gather_sum.cu")
+           "gather_sum.cu", "packet_closest.cu")
+# headers the sources include: part of the library's hash
+HEADERS = ("hit_tests.cuh",)
 # multiply-add contraction stays on; a kernel that must round like its plain
 # version says so in its source (K2's sphere quadratic, csrc/closest_hit.cu;
 # K4, csrc/visit_sweep.cu)
@@ -54,7 +56,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -120,6 +122,12 @@ def load() -> ctypes.CDLL:
             lib.crt_gather_sum.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr,
                                            ptr]
             lib.crt_gather_sum.restype = i32
+            lib.crt_packet_planar.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i32, i32,
+                                              f32, i32, i32, ptr, ptr, ptr, ptr]
+            lib.crt_packet_planar.restype = i32
+            lib.crt_packet_sphere.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i32, i32,
+                                              f32, i32, ptr, ptr, ptr, ptr]
+            lib.crt_packet_sphere.restype = i32
             lib.crt_error_string.argtypes = [i32]
             lib.crt_error_string.restype = ctypes.c_char_p
             _lib = lib

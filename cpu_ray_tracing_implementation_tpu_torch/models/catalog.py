@@ -251,7 +251,7 @@ def cornell_box_with_specular_box(width=None, spp=None, max_depth=None,
 def perlin_texture_ball(width=None, spp=None, max_depth=None, seed=12,
                         device=DEFAULT_DEVICE):
     """main.cc:402-437 (a field of 400 boxes, 2,401 quads in all, chunked
-    and per-ray routed; a perlin sphere and a dielectric). As in the JAX
+    into 19 chunks and packet routed; a perlin sphere and a dielectric). As in the JAX
     package the perlin sphere is translated, not rotated (a rotation of a
     sphere turns only its texture space), and the light quad is geometry
     only: the reference renders this scene without light sampling
@@ -275,7 +275,7 @@ def perlin_texture_ball(width=None, spp=None, max_depth=None, seed=12,
 def sphereflake(width=None, spp=None, max_depth=None, depth_levels=4,
                 device=DEFAULT_DEVICE):
     """main.cc:23-67, the recursive fractal: 7,381 metal spheres at depth 4
-    (58 chunks, per-ray routed), the reference's only timed benchmark."""
+    (58 chunks, packet routed), the reference's only timed benchmark."""
     w, s, d = _cam_args(width, spp, max_depth, 400, 50, 5)
     b = SceneBuilder()
     metal = b.metal((0.5, 0.5, 0.5))

@@ -53,7 +53,9 @@ import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
 from cpu_ray_tracing_implementation_tpu_torch.models import integrator
+from cpu_ray_tracing_implementation_tpu_torch.ops import bvh
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, qmc, replay
 
 # Families that fit_scene projects onto [0, inf); geometry coordinates are
@@ -117,7 +119,11 @@ def scene_params(scene, geometry: bool = True) -> dict:
 def apply_scene_params(scene, params: dict):
     """``scene`` with the tables of ``params`` (``scene_params``' keys) in
     place; chunked tables are re-derived from the dense ones
-    (``ops/chunked.rechunk_*``), so their gradients reach the dense rows."""
+    (``ops/chunked.rechunk_*``), so their gradients reach the dense rows,
+    and each BVH tree's primitive rows are rebuilt from the re-derived
+    chunks (the JAX package leaves them stale, ROADMAP F3), so the
+    traversal oracle's forward and its chunk-scan backward see the same
+    geometry."""
     replace = dataclasses.replace
     mats = replace(scene.materials, fuzz=params["mat_fuzz"],
                    ior=params["mat_ior"], smoothness=params["mat_smoothness"],
@@ -134,6 +140,7 @@ def apply_scene_params(scene, params: dict):
         if scene.sphere_chunks is not None:
             scene = scene.replace(sphere_chunks=ch.rechunk_sphere(
                 scene.sphere_chunks, c0, c1, rad, scene.sphere_chunk_order))
+            scene = _refresh_tree(scene, "sphere", fi.pack_sphere_constants)
     if "geo_quad_corner" in params:
         corner, eu, ev = (params[k] for k in ("geo_quad_corner", "geo_quad_eu",
                                               "geo_quad_ev"))
@@ -141,6 +148,7 @@ def apply_scene_params(scene, params: dict):
         if scene.quad_chunks is not None:
             scene = scene.replace(quad_chunks=ch.rechunk_planar(
                 scene.quad_chunks, corner, eu, ev, scene.quad_chunk_order))
+            scene = _refresh_tree(scene, "quad", fi.pack_prim_constants)
     if "geo_tri_v0" in params:
         v0, v1, v2 = (params[k] for k in ("geo_tri_v0", "geo_tri_v1", "geo_tri_v2"))
         scene = scene.replace(tris=replace(scene.tris, v0=v0, v1=v1, v2=v2))
@@ -149,7 +157,19 @@ def apply_scene_params(scene, params: dict):
             # the build derives them
             scene = scene.replace(tri_chunks=ch.rechunk_planar(
                 scene.tri_chunks, v0, v1 - v0, v2 - v0, scene.tri_chunk_order))
+            scene = _refresh_tree(scene, "tri", fi.pack_prim_constants)
     return scene
+
+
+def _refresh_tree(scene, fam: str, pack_fn):
+    """``scene`` with its ``fam`` tree's primitive rows rebuilt from its
+    (re-derived) ``fam`` chunks; no tree, no change."""
+    tree = getattr(scene, f"{fam}_tree")
+    if tree is None:
+        return scene
+    with torch.no_grad():
+        pack = pack_fn(getattr(scene, f"{fam}_chunks"))
+    return scene.replace(**{f"{fam}_tree": bvh.refresh_tree(tree, bvh.flatten_chunk_pack(pack))})
 
 
 def camera_params(camera) -> dict:

@@ -283,14 +283,13 @@ def render_sample(scene, camera, key: np.ndarray, pixel_ids: torch.Tensor,
 def _perray_routed(scene) -> bool:
     """True when ``intersect_brute`` routes some table of this scene to the
     per-ray visit-list accelerator (``ops/perray.py``), the batch-coupled
-    route the pool and batch sizes below are chosen for. In the port that
-    is every chunked table: the JAX package sends tables under
-    ``RAY_MIN_CHUNKS`` = 256 chunks to its tile-packet accelerator, which
-    comes with ROADMAP M11, so sphereflake (58 chunks) and the 16 px
-    colonnade are per-ray routed here and packet routed there (both
-    exact; ``integrator.py:472-482`` of the JAX package)."""
-    return any(c is not None for c in (scene.sphere_chunks, scene.quad_chunks,
-                                       scene.tri_chunks))
+    route the pool and batch sizes below are chosen for: ``CRT_ACCEL=ray``,
+    or ``auto`` with a table of at least ``RAY_MIN_CHUNKS`` chunks
+    (``integrator.py:472-482`` of the JAX package). Packet-routed scenes
+    (sphereflake, the 16 px colonnade) keep the whole frame, as there."""
+    mode = isect.accel_mode()
+    n_chunks = max(isect._chunk_counts(scene), default=0)
+    return mode == "ray" or (mode == "auto" and n_chunks >= isect.RAY_MIN_CHUNKS)
 
 
 # The automatic pixel batch of the scan and lane pool of the wavefront on

@@ -8,7 +8,9 @@ tensors on one device (``SceneBuilder.build(device=...)``).
 Ported so far: the dense tables, and for tables above
 ``chunked.DENSE_MAX`` rows the chunked tables (primitives in BVH order,
 cut into chunks of ``chunked.CHUNK`` with AABBs, ``utils/accel.py``) that
-the per-ray accelerator (``ops/perray.py``) reads; solid, checker,
+the accelerators read (``ops/packet.py``, ``ops/perray.py``), and the
+threaded BVH of the same primitives for the traversal oracle
+(``ops/bvh.py``, the ``*_tree`` fields); solid, checker,
 picture and the four noise textures (with their ``NoiseTables``), the
 lambertian, metal, dielectric, gloss, isotropic and diffuse-light
 materials (the dielectric with a Cauchy dispersion coefficient, which
@@ -38,6 +40,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from cpu_ray_tracing_implementation_tpu_torch.ops import bvh as bvh_mod
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as chunked_mod
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
 from cpu_ray_tracing_implementation_tpu_torch.ops import noise as noise_ops
@@ -200,6 +203,11 @@ class Scene:
     sphere_chunks: chunked_mod.SphereChunks | None = None
     quad_chunks: chunked_mod.PlanarChunks | None = None
     tri_chunks: chunked_mod.PlanarChunks | None = None
+    # threaded BVH trees of the same tables (``ops/bvh.py``, CRT_ACCEL=bvh);
+    # None for dense tables and under the builder's Morton fallback
+    sphere_tree: bvh_mod.BVHTree | None = None
+    quad_tree: bvh_mod.BVHTree | None = None
+    tri_tree: bvh_mod.BVHTree | None = None
     # build-time BVH permutation (dense row -> chunk-major position)
     sphere_chunk_order: torch.Tensor | None = None  # [S] int32
     quad_chunk_order: torch.Tensor | None = None    # [Q] int32
@@ -266,6 +274,19 @@ class Scene:
             view = _VIEWS[kind](table)
         return view, pack
 
+    # the kernel constant packs of the chunked tables (K6, ``ops/packet.py``)
+    @functools.cached_property
+    def quad_pack(self) -> torch.Tensor:
+        return fi.pack_prim_constants(_detached(self.quad_chunks))
+
+    @functools.cached_property
+    def tri_pack(self) -> torch.Tensor:
+        return fi.pack_prim_constants(_detached(self.tri_chunks))
+
+    @functools.cached_property
+    def sphere_pack(self) -> torch.Tensor:
+        return fi.pack_sphere_constants(_detached(self.sphere_chunks))
+
     @functools.cached_property
     def quad_perray(self) -> perray.PerRayTables:
         return perray.planar_tables(_detached(self.quad_chunks))
@@ -297,7 +318,7 @@ def _dense_only(kind: str, chunks) -> None:
     if chunks is not None:
         raise ValueError(f"the {kind} table is chunked (above "
                          f"{chunked_mod.DENSE_MAX} rows): it has no 1-chunk "
-                         "view, the per-ray accelerator reads it")
+                         "view, the accelerators read it")
 
 
 def _rot_matrix(axis: str, degrees: float) -> np.ndarray:
@@ -690,6 +711,7 @@ class SceneBuilder:
         tri = table(self._tris, vec4)
 
         chunks = self._chunk_tables()
+        nodes = {fam: chunks.pop(f"{fam}_nodes") for fam in ("sphere", "quad", "tri")}
         tri_attrs = self._tri_attr_table(chunks["tri_chunk_order"])
 
         vol_rows = self._vols
@@ -773,6 +795,13 @@ class SceneBuilder:
                     len(self._vols)),
             world_lo=tuple(float(x) for x in blo) if have_bounds else None,
             world_hi=tuple(float(x) for x in bhi) if have_bounds else None)
+        # the traversal trees over the chunk tables' kernel constant packs,
+        # built on the scene's device, so a leaf's constants are bitwise the
+        # kernels' (K1, K2, K6)
+        scene = scene.replace(**{
+            f"{fam}_tree": bvh_mod.build_tree(
+                n, bvh_mod.flatten_chunk_pack(getattr(scene, f"{fam}_pack")), MAX_LEAF)
+            for fam, n in nodes.items() if n is not None})
         if self._env_importance and self._background >= 0:
             # the tables rasterize the built scene's background texture
             # (imported here: envlight reads ops/textures, which reads this)
@@ -819,15 +848,18 @@ class SceneBuilder:
     def _chunk_tables(self) -> dict:
         """Chunked tables of the families above ``chunked.DENSE_MAX`` rows:
         ``{"<family>_chunks": column list | None, "<family>_chunk_order":
-        [n] int32 | None}`` with the columns in dataclass field order."""
+        [n] int32 | None, "<family>_nodes": the builder's node array | None}``
+        with the columns in dataclass field order; no nodes under the
+        builder's Morton fallback (``scene.py:671-735`` of the JAX
+        package)."""
         f32 = np.float32
         C = chunked_mod.CHUNK
 
         def chunkify(cols, lo, hi, mats):
             """BVH order, pad to a CHUNK multiple, reshape chunk-major."""
             n = len(lo)
-            order, _ = accel.build_bvh((lo + hi) / 2.0, lo, hi,
-                                       max_leaf=MAX_LEAF)
+            order, nodes = accel.build_bvh((lo + hi) / 2.0, lo, hi,
+                                           max_leaf=MAX_LEAF)
             k = (n + C - 1) // C
             pad_n = k * C - n
             out = []
@@ -840,7 +872,7 @@ class SceneBuilder:
             act = np.concatenate([np.ones(n, bool), np.zeros(pad_n, bool)])
             clo, chi = accel.chunk_bounds(lo[order], hi[order], C)
             return (out + [m.reshape(k, C), act.reshape(k, C), clo, chi],
-                    np.asarray(order, np.int32))
+                    np.asarray(order, np.int32), nodes)
 
         def planar(corner, eu, ev, mats):
             pts = np.stack([corner, corner + eu, corner + ev, corner + eu + ev])
@@ -852,21 +884,21 @@ class SceneBuilder:
             return np.stack([np.asarray(r[idx], f32) for r in rows])
 
         out = {f"{fam}_{what}": None for fam in ("sphere", "quad", "tri")
-               for what in ("chunks", "chunk_order")}
+               for what in ("chunks", "chunk_order", "nodes")}
         big = chunked_mod.DENSE_MAX
         if len(self._sph) > big:
             c0, c1 = stack(self._sph, 0), stack(self._sph, 1)
             rad = np.array([r[2] for r in self._sph], f32)
-            out["sphere_chunks"], out["sphere_chunk_order"] = chunkify(
+            out["sphere_chunks"], out["sphere_chunk_order"], out["sphere_nodes"] = chunkify(
                 [c0, c1, rad], np.minimum(c0, c1) - rad[:, None],
                 np.maximum(c0, c1) + rad[:, None], [r[3] for r in self._sph])
         if len(self._quads) > big:
-            out["quad_chunks"], out["quad_chunk_order"] = planar(
+            out["quad_chunks"], out["quad_chunk_order"], out["quad_nodes"] = planar(
                 stack(self._quads, 0), stack(self._quads, 1),
                 stack(self._quads, 2), [r[3] for r in self._quads])
         if len(self._tris) > big:
             v0 = stack(self._tris, 0)
-            out["tri_chunks"], out["tri_chunk_order"] = planar(
+            out["tri_chunks"], out["tri_chunk_order"], out["tri_nodes"] = planar(
                 v0, stack(self._tris, 1) - v0, stack(self._tris, 2) - v0,
                 [r[3] for r in self._tris])
         return out
@@ -893,9 +925,10 @@ def scene_from_tables(arrays: dict, device, **static) -> Scene:
     and ``env_col_cdf`` (absent or None: no environment light), optionally
     ``tri_attrs``, the ``TriAttrs`` columns in field order (absent or None:
     no per-vertex attributes), and optionally, for each
-    name of ``_CHUNKS``, its column list and its ``*_chunk_order`` array as
+    name of ``_CHUNKS``, its column list, its ``*_chunk_order`` array and
+    its ``*_tree`` (node_pack, prim_pack, max_leaf) as
     ``SceneBuilder._chunk_tables`` gives them (absent or None: the table is
-    dense). ``static`` holds the non-tensor Scene fields."""
+    dense, or has no tree). ``static`` holds the non-tensor Scene fields."""
     def t(a):
         return torch.as_tensor(np.array(a), device=device)  # own, writable copy
 
@@ -909,6 +942,9 @@ def scene_from_tables(arrays: dict, device, **static) -> Scene:
         tables[name] = None if cols is None else cls(*[t(a) for a in cols])
         order = name.replace("_chunks", "_chunk_order")
         tables[order] = opt(arrays.get(order))
+        tree = arrays.get(name.replace("_chunks", "_tree"))
+        tables[name.replace("_chunks", "_tree")] = None if tree is None else bvh_mod.BVHTree(
+            node_pack=t(tree[0]), prim_pack=t(tree[1]), max_leaf=int(tree[2]))
     return Scene(**tables, lights=t(arrays["lights"]),
                  sphere_lights=opt(arrays.get("sphere_lights")),
                  images=tuple(t(im) for im in arrays["images"]),

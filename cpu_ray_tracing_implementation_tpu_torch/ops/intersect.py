@@ -8,39 +8,74 @@ merged into one ``Hit``:
 - a dense table (at most ``chunked.DENSE_MAX`` rows) by one fused call on
   its 1-chunk view (``ops/fused_intersect.py``: kernel K1 for quads and
   triangles, K2 for spheres; the plain chunk scan on CPU tensors);
-- a chunked table by the per-ray accelerator (``ops/perray.py``: kernels
-  K3 and K4), each ray capped at its exit from the scene's AABB.
+- a chunked table by the accelerator ``CRT_ACCEL`` names (``accel_mode``,
+  default ``auto``: a table of at least ``RAY_MIN_CHUNKS`` chunks takes
+  ``ray``, a smaller one ``packet``, ``intersect.py:45-64`` of the JAX
+  package), each ray capped at its exit from the scene's AABB:
+  ``ray`` the per-ray visit lists (``ops/perray.py``: kernels K3 and K4),
+  ``packet`` the tile-packet cull (``ops/packet.py``: kernel K6), ``bvh``
+  the per-ray BVH traversal oracle (``ops/bvh.py``, plain PyTorch, where
+  the scene has a tree), and ``pallas`` / ``chunked`` the chunk scan over
+  the whole table (K1 / K2 on the card, the plain scan on CPU tensors).
 
-Both routes are differentiable: the fused wrappers and the per-ray
-accelerator are ``torch.autograd.Function``s (chunk-scan VJP and winner
-replay). ``sphere_shading`` / ``quad_shading`` / ``tri_shading`` give the
-differentiable hit of one known winner per ray, for ``ops/replay.py``.
+On the packet route a large batch is coherence-sorted first
+(``_sort_wanted``, ``ops/raysort.py``) and its results scattered back to
+the caller's lane order. Every route is differentiable: the fused
+wrappers and the accelerators are ``torch.autograd.Function``s (chunk-scan
+VJP and winner replay). ``sphere_shading`` / ``quad_shading`` /
+``tri_shading`` give the differentiable hit of one known winner per ray,
+for ``ops/replay.py``.
 Per-vertex triangle attributes (``scene.tri_attrs``) are interpolated at
 the payload's barycentric (a, b) through the winner's pid: K1's pid
-output on a dense table, the per-ray route's (K4's) on a chunked one.
+output on a dense table, the accelerator's (K4's, K6's) on a chunked one.
 
 Constant-density volumes (``volume_sample``) are sampled against the
 closest surface of every table, as the reference's ``constant_medium``
 (src/volumne.h): box, sphere and triangle-mesh boundaries.
-
-Not ported yet: the tile-packet and BVH accelerators (ROADMAP M11; the
-per-ray route takes every chunked table until then, and both are exact).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
 
+from cpu_ray_tracing_implementation_tpu_torch.ops import bvh
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
-from cpu_ray_tracing_implementation_tpu_torch.ops import perray
+from cpu_ray_tracing_implementation_tpu_torch.ops import packet, perray, raysort
 from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
 from cpu_ray_tracing_implementation_tpu_torch.ops.sampling import PI
 
 INF = float("inf")
 BIG = 1e30
+
+# auto: tables with at least this many chunks take the per-ray accelerator,
+# smaller ones the tile-packet cull (the JAX package's threshold, measured
+# on its chip: intersect.py:57-61)
+RAY_MIN_CHUNKS = 256
+
+
+def accel_mode() -> str:
+    """The chunked tables' accelerator (``CRT_ACCEL``, read per call):
+    ``auto`` (by table size, ``_auto_mode``), ``ray``, ``packet``, ``bvh``,
+    ``pallas`` or ``chunked``."""
+    return os.environ.get("CRT_ACCEL", "auto")
+
+
+def _auto_mode(n_chunks: int) -> str:
+    return "ray" if n_chunks >= RAY_MIN_CHUNKS else "packet"
+
+
+def _chunk_counts(scene) -> list:
+    return [int(c.mat.shape[0]) for c in
+            (scene.sphere_chunks, scene.quad_chunks, scene.tri_chunks) if c is not None]
+
+
+def _mode(n_chunks: int) -> str:
+    mode = accel_mode()
+    return _auto_mode(n_chunks) if mode == "auto" else mode
 
 
 @dataclass(frozen=True)
@@ -287,14 +322,52 @@ def _packet_cap(scene, org, dirs, active, tmax, tmin):
     return cap.detach()
 
 
+def _sort_wanted(scene, n_rays: int) -> bool:
+    """Coherence-sort the batch before intersecting? (``intersect.py:403-431``
+    of the JAX package.) ``CRT_SORT=off`` never, ``on`` for any chunked
+    scene; ``auto``: not on the per-ray route (its visit lists share nothing
+    across a tile), else once the scene has ``raysort.MIN_CHUNKS`` chunks
+    and the batch ``raysort.MIN_RAYS`` rays."""
+    mode = os.environ.get("CRT_SORT", "auto")
+    if mode == "off" or scene.world_lo is None:
+        return False
+    kmax = max(_chunk_counts(scene), default=0)
+    if mode == "on":
+        return kmax > 0
+    if _mode(kmax) == "ray":
+        return False
+    return kmax >= raysort.MIN_CHUNKS and n_rays >= raysort.MIN_RAYS
+
+
 def intersect_brute(scene, org, dirs, time, tmin, u_vol, tmax=INF,
                     active=None):
     """Closest hit across all primitive tables and volumes -> Hit.
-    ``u_vol``: [R, V] volume uniforms. The JAX package
-    coherence-sorts large scenes only for its tile-packet accelerator
-    (``_sort_wanted`` is False on the per-ray route), so this is
-    ``_intersect_core``."""
-    return _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax, active)
+    ``u_vol``: [R, V] volume uniforms; ``active``: optional [R] mask of the
+    lanes whose result matters (the accelerators cap the others at tmin).
+
+    Where ``_sort_wanted``, the lanes are intersected in coherence-sorted
+    order (dead lanes last, whose tiles then visit nothing) and the results
+    scattered back to the caller's order (``intersect.py:454-503`` of the
+    JAX package)."""
+    if not _sort_wanted(scene, org.shape[0]):
+        return _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax, active)
+    keys = raysort.coherence_keys(org, dirs, org.new_tensor(scene.world_lo),
+                                  org.new_tensor(scene.world_hi))
+    if active is not None:
+        keys = torch.where(active, keys, torch.full_like(keys, 0x40000000))
+    tmax_arr = torch.is_tensor(tmax) and tmax.dim() == 1
+    ins = [org, dirs, time, u_vol]
+    if tmax_arr:
+        ins.append(tmax)
+    if active is not None:
+        ins.append(active)
+    s, lane_ids = raysort.sort_rays(keys, ins)
+    h = _intersect_core(scene, s[0], s[1], s[2], tmin, s[3],
+                        s[4] if tmax_arr else tmax,
+                        s[-1] if active is not None else None)
+    valid, t, p, normal, front, u, v, mat = raysort.unsort(
+        lane_ids, [h.valid, h.t, h.p, h.normal, h.front, h.u, h.v, h.mat])
+    return Hit(valid=valid, t=t, p=p, normal=normal, front=front, u=u, v=v, mat=mat)
 
 
 def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
@@ -304,35 +377,60 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
     n_sph, n_quad, n_tri, n_vol = scene.counts
     R = org.shape[0]
     inf_t = torch.full((R,), INF, dtype=org.dtype, device=org.device)
-    # Every chunked table takes the per-ray route: the JAX package sends
-    # tables under 256 chunks to its tile-packet accelerator, which is not
-    # ported yet (ROADMAP M11); both are exact.
-    chunked = (scene.sphere_chunks, scene.quad_chunks, scene.tri_chunks)
-    cap = (None if all(c is None for c in chunked)
-           else _packet_cap(scene, org, dirs, active, tmax, tmin))
+
+    def capped():
+        return _packet_cap(scene, org, dirs, active, tmax, tmin)
+
+    def planar_path(fam: str, tri_flag: bool, with_pid: bool = False):
+        """A chunked planar table through its accelerator
+        (``intersect.py:526-600`` of the JAX package): (t, (unorm, u, v,
+        mat, pid)); the chunk scan's pid only ``with_pid``."""
+        chs = getattr(scene, f"{fam}_chunks")
+        mode = _mode(int(chs.mat.shape[0]))
+        if mode == "ray":
+            return perray.planar_closest_perray(org, dirs, chs, tmin, tri_flag, capped(),
+                                                tabs=getattr(scene, f"{fam}_perray"))
+        if mode == "packet":
+            return packet.planar_closest_packet(org, dirs, chs, tmin, tri_flag, capped(),
+                                                pack=getattr(scene, f"{fam}_pack"))
+        tree = getattr(scene, f"{fam}_tree")
+        if mode == "bvh" and tree is not None:
+            return bvh.planar_closest_bvh(org, dirs, chs, tree, tmin, tri_flag, tmax)
+        return fi.planar_closest_fused(org, dirs, chs, tmin, tri_flag, tmax,
+                                       pack=getattr(scene, f"{fam}_pack"),
+                                       with_pid=with_pid)
 
     t_s = t_q = t_t = inf_t
     sph_payload = quad_payload = tri_payload = None
     if scene.sphere_chunks is not None:
-        t_s, sph_payload = perray.sphere_closest_perray(
-            org, dirs, time, scene.sphere_chunks, tmin, cap,
-            tabs=scene.sphere_perray)
+        chs = scene.sphere_chunks
+        mode = _mode(int(chs.mat.shape[0]))
+        if mode == "ray":
+            t_s, sph_payload = perray.sphere_closest_perray(
+                org, dirs, time, chs, tmin, capped(), tabs=scene.sphere_perray)
+        elif mode == "packet":
+            t_s, sph_payload = packet.sphere_closest_packet(
+                org, dirs, time, chs, tmin, capped(), pack=scene.sphere_pack)
+        elif mode == "bvh" and scene.sphere_tree is not None:
+            t_s, sph_payload = bvh.sphere_closest_bvh(org, dirs, time, chs,
+                                                      scene.sphere_tree, tmin, tmax)
+        else:
+            t_s, sph_payload = fi.sphere_closest_fused(org, dirs, time, chs, tmin, tmax,
+                                                       pack=scene.sphere_pack)
     elif n_sph:
         view, pack = scene.fused_view("sphere")
         t_s, sph_payload = fi.sphere_closest_fused(org, dirs, time, view,
                                                    tmin, tmax, pack=pack)
     if scene.quad_chunks is not None:
-        t_q, quad_payload = perray.planar_closest_perray(
-            org, dirs, scene.quad_chunks, tmin, False, cap,
-            tabs=scene.quad_perray)
+        t_q, quad_payload = planar_path("quad", False)
     elif n_quad:
         view, pack = scene.fused_view("quad")
         t_q, quad_payload = fi.planar_closest_fused(org, dirs, view, tmin,
                                                     False, tmax, pack=pack)
     if scene.tri_chunks is not None:
-        t_t, tri_payload = perray.planar_closest_perray(
-            org, dirs, scene.tri_chunks, tmin, True, cap,
-            tabs=scene.tri_perray)
+        # with attributes, the winner's pid names the row to interpolate
+        t_t, tri_payload = planar_path("tri", True,
+                                       with_pid=scene.tri_attrs is not None)
     elif n_tri:
         # with attributes, K1's pid output names the row to interpolate
         view, pack = scene.fused_view("tri")

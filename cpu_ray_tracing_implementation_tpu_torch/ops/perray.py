@@ -29,8 +29,9 @@ loop above, which keeps each ray's winning primitive id; their backward is
 the VJP of ``replay.planar_chunks_winner`` / ``sphere_chunks_winner`` at
 that id, O(R) gathers whose backward scatter-adds into the chunk tables.
 Left out on purpose: the XLA near-matrix route (``_near_matrix``,
-``_select_block``), the sub-tile and quantized-row experiments (ROADMAP
-M16), the packet and BVH accelerators (ROADMAP M11).
+``_select_block``) and the sub-tile and quantized-row experiments (ROADMAP
+M16). The other accelerators are ``ops/packet.py`` and ``ops/bvh.py``
+(``intersect.accel_mode``).
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ written next to the source), under a name that carries a hash of the
 source and flags. Without a compiler, a numpy Morton order stands in
 (looser chunk bounds, the same rendered result).
 
-The flattened node array and the threaded links of the JAX package
-(``threaded_links``) serve the BVH traversal accelerator, ROADMAP M11.
+The builder's node array and its threaded links (``threaded_links``)
+give the BVH traversal oracle its tree (``ops/bvh.py``, the scene's
+``*_tree`` fields).
 """
 
 from __future__ import annotations
@@ -130,6 +131,41 @@ def build_bvh(centroids: np.ndarray, lo: np.ndarray, hi: np.ndarray,
     if count < 0:
         return _morton_order(centroids), None
     return order, nodes[:count].copy()
+
+
+def threaded_links(nodes: np.ndarray):
+    """Hit and miss links for stackless ("threaded") BVH traversal
+    (``accel.py:106-153`` of the JAX package).
+
+    The builder emits nodes in depth-first order (left child = i+1, right
+    child = nodes[i,6] for internal nodes). The skip link of a node is the
+    node visited after its whole subtree: skip(root) = sentinel n,
+    skip(left) = right sibling, skip(right) = skip(parent). Traversal then
+    keeps one int per ray:
+
+        next = aabb_hit ? hit_link[node] : miss_link[node]
+
+    with hit_link = node+1 (descend) for internal nodes and skip for leaves
+    (the reference's recursive descent, src/bvh_node.h:49-58).
+
+    Returns (hit_link [n] int32, miss_link [n] int32, leaf_first [n] int32,
+    leaf_count [n] int32); the sentinel n ends a traversal.
+    """
+    n = len(nodes)
+    skip = np.full(n, n, np.int32)
+    stack = [(0, n)]
+    while stack:
+        i, sk = stack.pop()
+        skip[i] = sk
+        if nodes[i, 7] == 0:  # internal
+            right = int(nodes[i, 6])
+            stack.append((i + 1, right))
+            stack.append((right, sk))
+    is_leaf = nodes[:, 7] > 0
+    hit_link = np.where(is_leaf, skip, np.arange(n, dtype=np.int32) + 1)
+    leaf_first = np.where(is_leaf, nodes[:, 6], 0).astype(np.int32)
+    leaf_count = nodes[:, 7].astype(np.int32)
+    return hit_link.astype(np.int32), skip, leaf_first, leaf_count
 
 
 def chunk_bounds(lo: np.ndarray, hi: np.ndarray, chunk: int):

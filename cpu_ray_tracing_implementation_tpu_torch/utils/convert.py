@@ -19,7 +19,6 @@ from cpu_ray_tracing_implementation_tpu_torch.models import scene as sc
 from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 from cpu_ray_tracing_implementation_tpu_torch.ops.tables import DEFAULT_DEVICE
 
-# The JAX scene's BVH trees (``*_tree``, ROADMAP M11) are not carried.
 _ENV_TABLES = ("env_texel_p", "env_row_cdf", "env_col_cdf")
 
 
@@ -32,7 +31,7 @@ def _columns(obj, cls) -> list:
 
 def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
     """The port's Scene holding the same tables as the JAX ``jscene``,
-    its chunked tables, chunk orders, picture images, noise tables, sphere
+    its chunked tables, chunk orders, BVH trees, picture images, noise tables, sphere
     lights, mesh-volume boundaries, environment-light tables and per-vertex
     triangle attributes included (the attribute rows already lie in the
     JAX scene's pid space, which its chunk tables carry across too)."""
@@ -44,6 +43,10 @@ def scene_from_numpy(jscene, device=DEFAULT_DEVICE) -> sc.Scene:
         oname = name.replace("_chunks", "_chunk_order")
         order = getattr(jscene, oname)
         arrays[oname] = None if order is None else np.asarray(order, np.int32)
+        tree = getattr(jscene, name.replace("_chunks", "_tree"), None)
+        arrays[name.replace("_chunks", "_tree")] = None if tree is None else (
+            np.asarray(tree.node_pack, np.float32), np.asarray(tree.prim_pack, np.float32),
+            int(tree.max_leaf))
     off = jscene.world_offset
     sl = getattr(jscene, "sphere_lights", None)
     arrays.update(lights=np.asarray(jscene.lights, np.int32),

@@ -70,7 +70,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
-from cpu_ray_tracing_implementation_tpu_torch.ops import qmc, replay
+from cpu_ray_tracing_implementation_tpu_torch.ops import packet, qmc, replay
 from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe
 
 # the card's peak rates (H100 SXM data sheet): 3.35 TB/s of HBM and 67
@@ -128,7 +128,9 @@ PASSES = ("forward pass", "backward pass")
 KERNELS = {"planar_closest": "planar_closest_kernel",
            "sphere_closest": "sphere_closest_kernel",
            "cull_select": "cull_select_kernel",
-           "visit_sweep": "visit_sweep_"}   # its four stage kernels
+           "visit_sweep": "visit_sweep_",   # its four stage kernels
+           "packet_planar": "packet_planar_kernel",
+           "packet_sphere": "packet_sphere_kernel"}
 
 
 @contextlib.contextmanager
@@ -152,13 +154,15 @@ def stage_ranges():
 
 
 def launches() -> dict:
-    return {**fi.LAUNCHES, **fs.LAUNCHES, **fsw.LAUNCHES, **gather_probe.LAUNCHES}
+    return {**fi.LAUNCHES, **fs.LAUNCHES, **fsw.LAUNCHES, **packet.LAUNCHES,
+            **gather_probe.LAUNCHES}
 
 
 def reset_counts() -> None:
     fi.reset_launches()
     fs.reset_launches()
     fsw.reset_launches()
+    packet.reset_launches()
     gather_probe.reset_launches()
     perray.reset_phases()
     integrator.reset_wavefront()

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K5 on the card, against their plain versions, and
+"""The CUDA kernels K1-K6 on the card, against their plain versions, and
 the gradient path through them.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
@@ -10,7 +10,11 @@ Tolerances are chip_smoke.py's. K1, K2: equal hit masks and materials, t
 within rtol 1e-4 / atol 1e-4, every other payload field (normal, u, v;
 center, rad) within atol 1e-3. K3: ids, nears and rest bit-equal. K4:
 all 8 columns bit for bit (the kernel rounds as its plain version does). K1 / K2 pid output: equal to the plain versions' pid.
-K5: max |a - b| / (|b| + 1) <= 1e-5. Gradients (the JAX package's
+K5: max |a - b| / (|b| + 1) <= 1e-5. K6 (the tile-packet closest hit):
+K2's rounding on spheres, so masks, pids, materials and each tile's visit
+count equal the plain version's and t is within rtol 1e-4; planar, K1's
+tolerances on rays whose pid agrees, pids equal but for near-ties.
+Gradients (the JAX package's
 replay-against-remat tolerances): loss rtol 1e-4, scene rtol 2e-3 / atol
 1e-5, camera rtol 5e-3 / atol 1e-4.
 """
@@ -28,7 +32,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
-from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
+from cpu_ray_tracing_implementation_tpu_torch.ops import keys, packet, perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
 from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe
 
@@ -231,15 +235,16 @@ def test_golden_render_on_card(dev, name, golden):
     fi.reset_launches()
     fs.reset_launches()
     fsw.reset_launches()
+    packet.reset_launches()
     img = integrator.render_image(scene, cam, keys.key(42))
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     assert abs(float(img.mean()) - golden) <= 2e-3
     kernel = ("sphere_closest" if name in ("three_material_ball", "random_motion_ball")
               else "planar_closest")
     assert fi.LAUNCHES[kernel] == cam.spp * cam.max_depth
-    if name == "sponza":   # the light quad on K1, the triangles on K3 + K4
-        assert fs.LAUNCHES["cull_select"] >= cam.spp * cam.max_depth
-        assert fsw.LAUNCHES["visit_sweep"] == fs.LAUNCHES["cull_select"]
+    if name == "sponza":   # the light quad on K1, the 71 triangle chunks on K6
+        assert packet.LAUNCHES["packet_planar"] == cam.spp * cam.max_depth
+        assert fs.LAUNCHES["cull_select"] == 0 and fsw.LAUNCHES["visit_sweep"] == 0
 
 
 def _boxes_and_rays(rng, dev, K=300, R=5000):
@@ -547,10 +552,11 @@ def test_dense_backward_pass_launches_no_kernel(dev):
 
 
 def test_colonnade_gradient_on_card_matches_cpu(dev):
-    fs.reset_launches()
+    packet.reset_launches()
     ref, got = _cpu_and_card(
         lambda d: catalog.sponza(width=12, spp=2, max_depth=2, device=d), dev, 6)
-    assert fs.LAUNCHES["cull_select"] >= 2 * 2 * 2   # both passes, every bounce
+    # its chunks take K6: both passes, every bounce
+    assert packet.LAUNCHES["packet_planar"] >= 2 * 2 * 2
     _close(got, ref)
 
 
@@ -571,12 +577,13 @@ NEW_GOLDENS = {"cornell_box_with_rotated_box": 0.535078,
 def test_new_golden_renders_on_card(dev, name):
     """The golden workload (16 px, 4 spp, depth 3, key 42) on the card: the
     recorded mean (atol 2e-3), or the CPU port's for an F1 scene; the
-    scene's kernels launched (K2 for dense spheres, K1 for quads, K3 + K4
-    for sphereflake's chunked spheres)."""
+    scene's kernels launched (K2 for dense spheres, K1 for quads, K6 for
+    sphereflake's chunked spheres)."""
     scene, cam = catalog.SCENES[name](width=16, spp=4, max_depth=3, device=dev)
     fi.reset_launches()
     fs.reset_launches()
     fsw.reset_launches()
+    packet.reset_launches()
     img = integrator.render_image(scene, cam, keys.key(42))
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     want = NEW_GOLDENS[name]
@@ -587,8 +594,8 @@ def test_new_golden_renders_on_card(dev, name):
     n_sph, n_quad = scene.counts[:2]
     bounces = cam.spp * cam.max_depth
     if scene.sphere_chunks is not None:
-        assert fs.LAUNCHES["cull_select"] >= bounces
-        assert fsw.LAUNCHES["visit_sweep"] == fs.LAUNCHES["cull_select"]
+        assert packet.LAUNCHES["packet_sphere"] == bounces
+        assert fs.LAUNCHES["cull_select"] == 0
     elif n_sph:
         assert fi.LAUNCHES["sphere_closest"] == bounces
     if n_quad:
@@ -605,11 +612,11 @@ def test_wavefront_matches_scan_on_card(dev, name, lanes):
     key = keys.key(42)
     ids = torch.arange(cam.width * cam.height, dtype=torch.int32, device=dev)
     scan = integrator.accumulate_samples_subset(scene, cam, key, ids, 0, 3)
-    fs.reset_launches()
+    packet.reset_launches()
     wf = integrator.render_wavefront(scene, cam, key, 3, lanes=lanes)
     assert wf.device.type == "cuda"
     if scene.sphere_chunks is not None or scene.tri_chunks is not None:
-        assert fs.LAUNCHES["cull_select"] > 0
+        assert sum(packet.LAUNCHES.values()) > 0   # 16 px: the packet route
     torch.testing.assert_close(wf, scan, rtol=1e-5, atol=1e-5)
     batched = integrator.accumulate_samples_subset(scene, cam, key, ids, 0, 3,
                                                    batch_pixels=37)
@@ -793,7 +800,7 @@ ESTIMATOR_GOLDENS = {"perlin_texture_ball": 0.418168, "test_perlin_noise": 0.507
 def test_estimator_golden_renders_on_card(dev, name):
     scene, cam = catalog.SCENES[name](width=16, spp=4, max_depth=3, device=dev)
     fi.reset_launches()
-    fs.reset_launches()
+    packet.reset_launches()
     img = integrator.render_image(scene, cam, keys.key(42))
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     want = ESTIMATOR_GOLDENS[name]
@@ -802,8 +809,8 @@ def test_estimator_golden_renders_on_card(dev, name):
         want = float(integrator.render_image(s_cpu, c_cpu, keys.key(42)).mean())
     assert abs(float(img.mean()) - want) <= 2e-3
     bounces = cam.spp * cam.max_depth
-    if scene.quad_chunks is not None:
-        assert fs.LAUNCHES["cull_select"] >= bounces
+    if scene.quad_chunks is not None:     # 19 chunks: the packet route
+        assert packet.LAUNCHES["packet_planar"] == bounces
     elif scene.counts[1]:
         assert fi.LAUNCHES["planar_closest"] == bounces
     if scene.counts[0]:
@@ -905,21 +912,21 @@ def _fox_scene(dev, rings):
 
 
 def test_pid_with_attributes_matches_plain(dev):
-    """K1 with its pid on a dense attributed mesh, and K3 + K4 on a chunked
-    one: the interpolated normal and (u, v) of each first hit within atol
-    1e-3 of the plain versions' on the same scene, hit masks equal."""
-    for rings, names in ((11, ("planar_closest",)), (13, ("cull_select", "visit_sweep"))):
+    """K1 with its pid on a dense attributed mesh, and K6 on a chunked one
+    (5 chunks: the packet route): the interpolated normal and (u, v) of each
+    first hit within atol 1e-3 of the plain versions' on the same scene,
+    hit masks equal."""
+    for rings, names in ((11, ("planar_closest",)), (13, ("packet_planar",))):
         scene, scene_cpu, cam = _fox_scene(dev, rings)
         assert (scene.tri_chunks is not None) == (rings == 13)
         ids = torch.arange(cam.width * cam.height, dtype=torch.int32, device=dev)
         u = torch.full((ids.shape[0], cam_mod.N_CAM_SLOTS), 0.5, device=dev)
         org, dirs, time = cam_mod.generate_rays(cam, ids, u)
         fi.reset_launches()
-        fs.reset_launches()
-        fsw.reset_launches()
+        packet.reset_launches()
         u_vol = torch.zeros((ids.shape[0], 1), device=dev)
         got = isect.intersect_brute(scene, org, dirs, time, TMIN, u_vol)
-        launched = {**fi.LAUNCHES, **fs.LAUNCHES, **fsw.LAUNCHES}
+        launched = {**fi.LAUNCHES, **packet.LAUNCHES}
         assert all(launched[n] > 0 for n in names), launched
         ref = isect.intersect_brute(scene_cpu, org.cpu(), dirs.cpu(), time.cpu(), TMIN,
                                     u_vol.cpu())
@@ -955,3 +962,74 @@ def test_aovs_and_denoise_on_card_stay_finite(dev):
     cpu = aov.render_aovs(*catalog.cornell_box(width=96, spp=4, max_depth=4, device="cpu"),
                           keys.key(1))
     np.testing.assert_array_equal(bufs["coverage"].cpu().numpy(), cpu["coverage"].numpy())
+
+
+@pytest.mark.parametrize("tile", [2048, 256, 100])
+def test_packet_sphere_kernel_matches_plain(dev, tile):
+    rng = np.random.default_rng(21)
+    chunks = _sphere_chunks(rng, dev, K=12, n=1400)
+    org, dirs, time = _rays(rng, dev, 5000)
+    cap = torch.full((5000,), 40.0, device=dev)
+    cap[:300] = TMIN                                  # dead lanes
+    packet.reset_launches()
+    t, pay, visits = packet.sphere_packet_hit(org, dirs, time, chunks, TMIN, cap, tile)
+    assert packet.LAUNCHES["packet_sphere"] == 1
+    t_r, pay_r, visited = packet.sphere_packet_plain(org, dirs, time, chunks, TMIN, cap,
+                                                     tile)
+    hit = torch.isfinite(t_r)
+    assert int(hit.sum()) > 100 and not bool(hit[:300].any())
+    assert torch.equal(torch.isfinite(t), hit)
+    for x, x_r in zip(pay[2:], pay_r[2:]):            # mat, pid
+        assert torch.equal(x, x_r)
+    torch.testing.assert_close(t[hit], t_r[hit], rtol=1e-4, atol=1e-4)
+    for x, x_r in zip(pay[:2], pay_r[:2]):
+        torch.testing.assert_close(x[hit], x_r[hit], rtol=0, atol=1e-3)
+    assert visits.tolist() == [len(v) for v in visited]
+
+
+@pytest.mark.parametrize("tri", [False, True])
+def test_packet_planar_kernel_matches_plain(dev, tri):
+    rng = np.random.default_rng(22)
+    chunks = _planar_chunks(rng, dev, K=12, n=1400, holes=True)
+    org, dirs, _ = _rays(rng, dev, 5000)
+    t, pay, visits = packet.planar_packet_hit(org, dirs, chunks, TMIN, tri, 40.0, 512)
+    t_r, pay_r, visited = packet.planar_packet_plain(org, dirs, chunks, TMIN, tri, 40.0,
+                                                     512)
+    hit = torch.isfinite(t_r)
+    assert int(hit.sum()) > 100 and torch.equal(torch.isfinite(t), hit)
+    same = hit & (pay[4] == pay_r[4])
+    near = hit & ~same & ((t - t_r).abs() <= 1e-4 * t_r.abs())
+    assert torch.equal(same | near, hit)
+    assert torch.equal(pay[3][same], pay_r[3][same])
+    torch.testing.assert_close(t[hit], t_r[hit], rtol=1e-4, atol=1e-4)
+    for x, x_r in zip(pay[:3], pay_r[:3]):
+        torch.testing.assert_close(x[same], x_r[same], rtol=0, atol=1e-3)
+    v_r = torch.tensor([len(v) for v in visited], device=dev, dtype=torch.int32)
+    assert int((visits != v_r).sum()) <= 1
+
+
+def test_packet_kernel_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(23)
+    chunks = _sphere_chunks(rng, dev, K=2)
+    org, dirs, time = _rays(rng, dev, 64)
+    pack = fi.pack_sphere_constants(chunks)
+    rays = fi.pack_rays(org, dirs, time)
+    cap = torch.full((64,), 40.0, device=dev)
+    with pytest.raises(ValueError, match="chunks"):
+        big = torch.zeros((packet.MAX_CHUNKS + 1, 3), device=dev)
+        packet.packet_sphere_kernel(rays, cap, pack[:1].expand(packet.MAX_CHUNKS + 1, -1, -1)
+                                    .contiguous(), big, big, TMIN, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        packet.packet_sphere_kernel(rays.cpu(), cap, pack, chunks.lo, chunks.hi, TMIN, 64)
+
+
+def test_sphereflake_render_takes_the_packet_route(dev):
+    scene, cam = catalog.sphereflake(width=64, spp=2, max_depth=3, device=dev)
+    packet.reset_launches()
+    fs.reset_launches()
+    img = integrator.render_image(scene, cam, keys.key(42))
+    assert packet.LAUNCHES["packet_sphere"] > 0
+    assert fs.LAUNCHES["cull_select"] == 0
+    ref = integrator.render_image(*catalog.sphereflake(width=64, spp=2, max_depth=3,
+                                                       device="cpu"), keys.key(42))
+    assert abs(float(img.mean()) - float(ref.mean())) <= 2e-3

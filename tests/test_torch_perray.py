@@ -132,11 +132,11 @@ def test_gradients_are_refused():
     assert t.grad_fn is not None
 
 
-def test_chunked_tables_take_the_per_ray_route():
-    """A 71-chunk table, which the JAX package sends to its tile-packet
-    accelerator (not ported, ROADMAP M11), takes the port's per-ray route,
+def test_chunked_tables_take_the_per_ray_route(monkeypatch):
+    """A 71-chunk table, which ``auto`` sends to the tile-packet route in
+    both packages, takes the port's per-ray route under ``CRT_ACCEL=ray``,
     capped as JAX caps it (``_packet_cap``: the ray's exit from the scene
-    AABB, tmin for dead lanes)."""
+    AABB, tmin for dead lanes), and gives the packet route's hits."""
     from cpu_ray_tracing_implementation_tpu.models import catalog as jcat
     from cpu_ray_tracing_implementation_tpu.ops import intersect as jisect
     from cpu_ray_tracing_implementation_tpu_torch.models import catalog
@@ -155,10 +155,16 @@ def test_chunked_tables_take_the_per_ray_route():
                               jnp.asarray(alive), INF, TMIN)
     np.testing.assert_allclose(cap.numpy(), np.asarray(jcap), rtol=1e-6)
     perray.reset_phases()
-    hit = isect.intersect_brute(scene, torch.as_tensor(org), torch.as_tensor(dirs),
-                                torch.as_tensor(time), TMIN,
-                                torch.zeros((R, 0)), active=torch.as_tensor(alive))
+    args = (scene, torch.as_tensor(org), torch.as_tensor(dirs), torch.as_tensor(time),
+            TMIN, torch.zeros((R, 0)))
+    monkeypatch.delenv("CRT_ACCEL", raising=False)
+    packet_hit = isect.intersect_brute(*args, active=torch.as_tensor(alive))
+    assert perray.PHASES["calls"] == 0
+    monkeypatch.setenv("CRT_ACCEL", "ray")
+    hit = isect.intersect_brute(*args, active=torch.as_tensor(alive))
     assert perray.PHASES["calls"] == 1
+    assert torch.equal(hit.valid, packet_hit.valid) and torch.equal(hit.mat, packet_hit.mat)
+    torch.testing.assert_close(hit.t, packet_hit.t, rtol=1e-4, atol=0)
     assert int(hit.valid.sum()) > 20
     # a dead lane (cap = tmin) hits no triangle; the dense light quad, like
     # JAX's dense tables, does not read the cap

@@ -98,7 +98,10 @@ def test_rechunk_reproduces_the_build():
 def test_gradient_run_goes_through_the_accelerator_twice(monkeypatch):
     """No tape on chunked tables: the forward pass and the backward pass
     each run the per-ray accelerator (one selection-phase loop per bounce
-    and pass), as the JAX package reruns it inside its remat."""
+    and pass), as the JAX package reruns it inside its remat. The 8 px
+    colonnade's 71 chunks take the packet route under ``auto``, so the
+    per-ray route is asked for (``CRT_ACCEL=ray``)."""
+    monkeypatch.setenv("CRT_ACCEL", "ray")
     scene, cam = catalog.sponza(width=8, spp=1, max_depth=2, device="cpu")
     calls = []
     orig = fs.cull_select

@@ -28,9 +28,12 @@ def test_stage_ranges_record_and_restore():
     assert counts["scatter"] == cam.max_depth
 
 
-def test_colonnade_ranges_the_per_ray_accelerator():
+def test_colonnade_ranges_the_per_ray_accelerator(monkeypatch):
     """The colonnade workload at a CPU size: each bounce's intersect range
-    holds at least one select and one sweep range (one per phase)."""
+    holds at least one select and one sweep range (one per phase). At 8 px
+    its 71 chunks take the packet route under ``auto``; the full workload's
+    2,015 take the per-ray route, asked for here (``CRT_ACCEL=ray``)."""
+    monkeypatch.setenv("CRT_ACCEL", "ray")
     scene, cam = catalog.sponza(width=8, spp=1, max_depth=2, device="cpu")
     assert scene.tri_chunks is not None
     profiling.reset_counts()
@@ -80,10 +83,12 @@ def test_gradient_ranges_split_the_passes():
 
 
 @pytest.mark.parametrize("name", ["colonnade_wavefront", "sphereflake_wavefront"])
-def test_wavefront_workloads_count_iterations(name):
+def test_wavefront_workloads_count_iterations(name, monkeypatch):
     """The wavefront workloads at a CPU size: one intersect range per loop
-    iteration, each iteration's per-ray phases counted, and no GPU needed
-    to refuse."""
+    iteration, each iteration's per-ray phases counted (the per-ray route
+    asked for: at 8 px both scenes take the packet route under ``auto``),
+    and no GPU needed to refuse."""
+    monkeypatch.setenv("CRT_ACCEL", "ray")
     make, kwargs, spp, grad, wavefront, cam_kw = profiling.WORKLOADS[name]
     assert wavefront and not grad and kwargs["max_depth"] == 5 and not cam_kw
     scene, cam = make(width=8, spp=2, max_depth=2, device="cpu")

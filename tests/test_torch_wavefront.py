@@ -4,9 +4,9 @@
 tables built on the host; they must equal the JAX package's words bit for
 bit. Every path's radiance is then the scan's, so the wavefront image
 equals the scan's up to the order of summation (atol 1e-6 here), for the
-dense Cornell box and for the per-ray-routed colonnade (triangles) and
-sphereflake (spheres) with a pool smaller than the frame, so that lanes
-are refilled. Against JAX's own wavefront the contract is that of
+dense Cornell box and for the chunked colonnade (triangles, the per-ray
+route) and sphereflake (spheres, the packet and the per-ray route), with
+a pool smaller than the frame, so that lanes are refilled. Against JAX's own wavefront the contract is that of
 tests/test_torch_render.py: mean within 2e-3 and at least 98% of pixels
 within 1e-3. Pixel batching of the scan leaves the image bitwise
 unchanged.
@@ -66,20 +66,24 @@ def test_seed_tables_match_jax():
 @pytest.mark.parametrize("name,spp,lanes", [
     ("cornell_box", 3, None), ("cornell_box", 3, 64),
     ("sponza", 2, 64), ("sphereflake", 2, 64)])
-def test_wavefront_matches_scan(name, spp, lanes):
+def test_wavefront_matches_scan(name, spp, lanes, monkeypatch):
     scene, camera = _scene(name, spp)
     key = keys.key(42)
-    integrator.reset_wavefront()
-    perray.reset_phases()
-    wf = integrator.render_wavefront(scene, camera, key, spp, lanes=lanes)
-    assert integrator.WAVEFRONT["renders"] == 1
-    # a pool smaller than the frame refills: more iterations than bounces
-    n_pix = camera.width * camera.height
-    assert integrator.WAVEFRONT["iterations"] >= (
-        camera.max_depth if lanes is None else n_pix * spp // lanes)
-    # the chunked scenes run the per-ray accelerator inside the loop
-    assert (perray.PHASES["calls"] > 0) == (name != "cornell_box")
-    torch.testing.assert_close(wf, _scan(scene, camera, key, spp), rtol=0, atol=1e-6)
+    # the chunked scenes run their accelerator inside the loop: the per-ray
+    # route asked for, and sphereflake's packet route under auto (58 chunks)
+    routes = {"cornell_box": ("auto",), "sponza": ("ray",), "sphereflake": ("auto", "ray")}
+    for accel in routes[name]:
+        monkeypatch.setenv("CRT_ACCEL", accel)
+        integrator.reset_wavefront()
+        perray.reset_phases()
+        wf = integrator.render_wavefront(scene, camera, key, spp, lanes=lanes)
+        assert integrator.WAVEFRONT["renders"] == 1
+        # a pool smaller than the frame refills: more iterations than bounces
+        n_pix = camera.width * camera.height
+        assert integrator.WAVEFRONT["iterations"] >= (
+            camera.max_depth if lanes is None else n_pix * spp // lanes)
+        assert (perray.PHASES["calls"] > 0) == (accel == "ray")
+        torch.testing.assert_close(wf, _scan(scene, camera, key, spp), rtol=0, atol=1e-6)
 
 
 def test_wavefront_matches_jax():
@@ -165,6 +169,15 @@ def test_automatic_sizes_and_overrides(name, routed, monkeypatch):
     scene, _ = _scene(name, 1)
     monkeypatch.delenv("CRT_SCAN_TILE", raising=False)
     monkeypatch.delenv("CRT_WF_LANES", raising=False)
+    monkeypatch.delenv("CRT_ACCEL", raising=False)
+    # under auto the 16 px colonnade (71 chunks) and sphereflake (58) take
+    # the packet route, which keeps the whole frame, as in the JAX package;
+    # ``routed`` is their routing under CRT_ACCEL=ray
+    assert not integrator._perray_routed(scene)
+    assert integrator.scan_batch_pixels(scene) is None
+    assert integrator.wavefront_lanes(scene, 1000) is None
+    if routed:
+        monkeypatch.setenv("CRT_ACCEL", "ray")
     assert integrator._perray_routed(scene) == routed
     want_batch = integrator.AUTO_SCAN_TILE if routed else None
     assert integrator.scan_batch_pixels(scene) == want_batch
