@@ -76,14 +76,18 @@ Phases (any failure raises and the script exits non-zero):
      table included) at every phase of the 576-triangle stand-in's primary
      and secondary rays.
    - K6 (the tile-packet closest hit, planar and sphere entries) against
-     its plain version (the per-tile loop of ``ops/packet.py``):
-     sphereflake's 160,000 primary rays on its 58 chunks (timed at tiles of
-     2,048, 512 and 256) and the same rays after one bounce,
-     coherence-sorted (timed, no plain time); its table doubled, each chunk
-     followed by a copy with the same entry t (the tie rule, on every 4th
-     primary ray: each keeps the first copy's sphere); perlin_texture_ball's 600x600 primary rays on its 19
-     quad chunks (timed); the 16 px colonnade's 71 triangle chunks and the
-     576-triangle Fox stand-in's 5, primary and secondary rays. Spheres:
+     its plain version (the per-tile loop of ``ops/packet.py``) at
+     ``packet.AUTO_TILE``: sphereflake's 160,000 primary rays on its 58
+     chunks and the same rays after one bounce, coherence-sorted (no plain
+     time); its table doubled, each chunk followed by a copy with the same
+     entry t (the tie rule, on every 4th primary ray: each keeps the first
+     copy's sphere); perlin_texture_ball's 600x600 primary rays on its 19
+     quad chunks; the 16 px colonnade's 71 triangle chunks and the
+     576-triangle Fox stand-in's 5, primary and secondary rays. Timed
+     (kernel, bound, visits per tile, registers and resident blocks): the
+     sphereflake and perlin cases at AUTO_TILE and at tiles of 128, 256
+     and 512 (sphereflake's primary rays at JAX's 2,048 too), the Fox
+     stand-in's at AUTO_TILE. Spheres:
      masks, pids, materials and each tile's visit count equal, t within
      rtol 1e-4; planar: masks equal but at an edge, pids equal but for
      near-ties (both counted), materials, t and payload at K1's
@@ -1039,9 +1043,10 @@ def phase_spectral_kernels(dev):
 
 
 # ------------------------------------------- phase 2: K6 (the packet route)
-# the tiles K6 is timed at on sphereflake's primary rays: JAX's 2,048 gives
-# 79 blocks on 132 SMs
-PACKET_TILES = (2048, 512, 256)
+# the tiles K6 is timed at on sphereflake's primary and secondary rays and
+# perlin's primary rays, packet.AUTO_TILE among them; on sphereflake's
+# primary rays JAX's 2,048 too (79 blocks on 132 SMs)
+PACKET_TILES = (128, 256, 512)
 # a tile's visit count may differ from the plain version's where the two
 # round a planar hit apart and a chunk's entry t falls between their bests:
 # at most this share of the tiles (spheres: none, K2's rounding is the
@@ -1156,21 +1161,29 @@ def packet_bound(sphere, R, T, K, pack, visited, live):
 
 
 def packet_case(label, kind, org, dirs, time_, cap, chunks, pack, errs, tile=None,
-                timed=None, times=None, bounds=None, plain_timed=True):
+                timed=None, times=None, bounds=None, plain_timed=True, tiles=None):
     """K6 (``kind`` "sphere", "quad" or "tri") on these rays against its
     plain version; ``timed``: the key its kernel and plain times and bound
-    go under, at ``tile`` and, for sphereflake's primary rays, at every
-    PACKET_TILES; the plain version's time too unless ``plain_timed`` is
-    False."""
+    go under, at ``tile`` and at each of ``tiles`` (the key's own at
+    ``tile``); the plain version's time too unless ``plain_timed`` is
+    False. Each timed tile's line gives the visits per tile (mean, max) and
+    the instance's registers per thread and resident blocks per SM."""
     sphere, tri = kind == "sphere", kind == "tri"
     name = "packet_sphere" if sphere else "packet_planar"
     tile = tile or packet.AUTO_TILE
     if sphere:
         got = packet.sphere_packet_hit(org, dirs, time_, chunks, TMIN, cap, tile, pack)
-        ref = packet.sphere_packet_plain(org, dirs, time_, chunks, TMIN, cap, tile)
+        plain = lambda T: packet.sphere_packet_plain(org, dirs, time_, chunks, TMIN, cap, T)
     else:
         got = packet.planar_packet_hit(org, dirs, chunks, TMIN, tri, cap, tile, pack)
-        ref = packet.planar_packet_plain(org, dirs, chunks, TMIN, tri, cap, tile)
+        plain = lambda T: packet.planar_packet_plain(org, dirs, chunks, TMIN, tri, cap, T)
+    # the plain loop synchronises at every chunk a tile visits: its one call
+    # is timed on the host's clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain(tile)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     errs[name] = max(errs.get(name, 0.0), packet_compare(label, got, ref, sphere, tri, dirs))
     if not timed:
         return got
@@ -1184,28 +1197,25 @@ def packet_case(label, kind, org, dirs, time_, cap, chunks, pack, errs, tile=Non
             return packet.packet_sphere_kernel(rays, cap, pack, lo, hi, TMIN, t)
         return packet.packet_planar_kernel(rays, cap, pack, lo, hi, TMIN, t, tri)
 
-    for t in (PACKET_TILES if timed == "packet_sphere" else (tile,)):
+    for t in sorted({tile, *(tiles or ())}):
         T = min(t, R)
         ms = cuda_ms(lambda: kernel(T))
-        vis = (ref[2] if T == tile else
-               (packet.sphere_packet_plain(org, dirs, time_, chunks, TMIN, cap, T)
-                if sphere else packet.planar_packet_plain(org, dirs, chunks, TMIN, tri,
-                                                          cap, T))[2])
+        vis = ref[2] if T == tile else plain(T)[2]
         b = packet_bound(sphere, R, T, K, pack, vis, live)
         key = timed if T == tile else f"{timed}_tile{T}"
         times[key] = (ms,)
         bounds[key] = b
+        n = [len(v) for v in vis]
+        info = packet.kernel_info(kind, T, K)
         log(f"  K6 {kind}, {label}, tile {T} ({len(vis)} blocks): kernel {ms:.4f} ms, "
-            f"visits {sum(len(v) for v in vis)}, bound {b[0]:.4f} ms ({b[1]}), "
-            f"bound / kernel {b[0] / ms:.3f}")
-    if not plain_timed:
-        return got
-    plain = (lambda: packet.sphere_packet_plain(org, dirs, time_, chunks, TMIN, cap, tile)
-             ) if sphere else (lambda: packet.planar_packet_plain(org, dirs, chunks, TMIN,
-                                                                  tri, cap, tile))
-    # one call: the plain loop synchronises at every chunk a tile visits
-    times[timed] = (times[timed][0], cuda_ms(plain, iters=1, warmup=0))
-    log(f"  K6 {kind}, {label}: plain version {times[timed][1]:.4f} ms a call")
+            f"visits {sum(n)} (per tile {sum(n) / len(n):.2f}, max {max(n)}), bound "
+            f"{b[0]:.4f} ms ({b[1]}), bound / kernel {b[0] / ms:.3f}; "
+            f"{info['registers']} registers, {info['threads']} threads, "
+            f"{info['rays_per_thread']} rays a thread, {info['threads_per_ray']} threads a "
+            f"ray, {info['blocks_per_sm']} blocks per SM")
+    if plain_timed:
+        times[timed] = (times[timed][0], plain_ms)
+        log(f"  K6 {kind}, {label}: plain version {plain_ms:.4f} ms a call")
     return got
 
 
@@ -1222,11 +1232,12 @@ def duplicated_spheres(chunks):
 def phase_packet(dev, sf_scene, sf_cam, roots):
     """K6 against its plain version at the packet route's shapes:
     sphereflake's 160,000 primary rays on its 58 chunks (timed at each
-    PACKET_TILES) and the same rays after one bounce, coherence-sorted; its
-    table doubled (the tie rule); perlin_texture_ball's 600x600 primary rays
-    on its 19 quad chunks; the 16 px colonnade's 71 triangle chunks and the
-    576-triangle Fox stand-in's 5, primary and secondary rays. Returns
-    (errs, times, bounds)."""
+    PACKET_TILES and 2,048) and the same rays after one bounce,
+    coherence-sorted (timed at each PACKET_TILES); its table doubled (the
+    tie rule); perlin_texture_ball's 600x600 primary rays on its 19 quad
+    chunks (timed at each PACKET_TILES); the 16 px colonnade's 71 triangle
+    chunks and the 576-triangle Fox stand-in's 5, primary and secondary
+    rays (the Fox's timed). Returns (errs, times, bounds)."""
     gen = torch.Generator().manual_seed(12)
     errs, times, bounds = {}, {}, {}
     chunks, pack = sf_scene.sphere_chunks, sf_scene.sphere_pack
@@ -1234,7 +1245,7 @@ def phase_packet(dev, sf_scene, sf_cam, roots):
     t, _, _ = packet_case(f"sphereflake {sf_cam.width}x{sf_cam.height} primary "
                           f"({chunks.rad.shape[0]} chunks)", "sphere", org, dirs, time_,
                           cap, chunks, pack, errs, timed="packet_sphere", times=times,
-                          bounds=bounds)
+                          bounds=bounds, tiles=PACKET_TILES + (2048,))
     o2, d2 = secondary(org, dirs, t, gen)
     lo, hi = org.new_tensor(sf_scene.world_lo), org.new_tensor(sf_scene.world_hi)
     (o2, d2, t2), _ = raysort.sort_rays(raysort.coherence_keys(o2, d2, lo, hi),
@@ -1242,7 +1253,7 @@ def phase_packet(dev, sf_scene, sf_cam, roots):
     cap2 = isect._packet_cap(sf_scene, o2, d2, None, INF, TMIN)
     packet_case("sphereflake secondary, coherence-sorted", "sphere", o2, d2, t2, cap2,
                 chunks, pack, errs, timed="packet_sphere_secondary", times=times,
-                bounds=bounds, plain_timed=False)
+                bounds=bounds, plain_timed=False, tiles=PACKET_TILES)
     # the tie rule on every DOUBLED_STRIDE-th primary ray
     dup = duplicated_spheres(chunks)
     k = DOUBLED_STRIDE
@@ -1259,7 +1270,7 @@ def phase_packet(dev, sf_scene, sf_cam, roots):
     packet_case(f"perlin_texture_ball {cam.width}x{cam.height} primary "
                 f"({scene.quad_chunks.corner.shape[0]} quad chunks)", "quad", org, dirs,
                 time_, cap, scene.quad_chunks, scene.quad_pack, errs,
-                timed="packet_planar", times=times, bounds=bounds)
+                timed="packet_planar", times=times, bounds=bounds, tiles=PACKET_TILES)
     with assets(roots["fox576"]):
         fox = catalog.textured_fox(device=dev)
     for label, (scene, cam) in (
@@ -1268,9 +1279,13 @@ def phase_packet(dev, sf_scene, sf_cam, roots):
         org, dirs, time_, cap = profiling.scene_rays(scene, cam, gen)
         K = scene.tri_chunks.corner.shape[0]
         for which in ("primary", "secondary"):
+            # the Fox's rays are the traffic of textured_fox's and glass_fox's
+            # K6 launches: timed
+            timed = f"packet_planar_fox_{which}" if "Fox" in label else None
             t, _, _ = packet_case(f"{label} {cam.width}x{cam.height} {which} ({K} triangle "
                                   "chunks)", "tri", org, dirs, time_, cap,
-                                  scene.tri_chunks, scene.tri_pack, errs)
+                                  scene.tri_chunks, scene.tri_pack, errs, timed=timed,
+                                  times=times, bounds=bounds, plain_timed=False)
             org, dirs = secondary(org, dirs, t, gen)
             cap = isect._packet_cap(scene, org, dirs, None, INF, TMIN)
     torch.cuda.synchronize()

@@ -128,6 +128,8 @@ def load() -> ctypes.CDLL:
             lib.crt_packet_sphere.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i32, i32,
                                               f32, i32, ptr, ptr, ptr, ptr]
             lib.crt_packet_sphere.restype = i32
+            lib.crt_packet_info.argtypes = [i32, i32, i32, ptr]
+            lib.crt_packet_info.restype = i32
             lib.crt_error_string.argtypes = [i32]
             lib.crt_error_string.restype = ctypes.c_char_p
             _lib = lib

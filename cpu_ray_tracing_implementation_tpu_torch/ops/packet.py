@@ -45,16 +45,18 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 
 INF = float("inf")
 
-# chunks a K6 launch takes (its shared sort keys; csrc/packet_closest.cu)
+# chunks a K6 launch takes (its shared chunk keys; csrc/packet_closest.cu)
 MAX_CHUNKS = 4096
-# The automatic tile (CRT_TILE overrides it): the faster on an NVIDIA H100
-# 80GB HBM3 at 700 W (chip_smoke.py phase 2). At sphereflake's 160,000
-# primary rays K6 took 3.2059 ms in tiles of 2,048 (the JAX package's: 79
-# blocks on 132 SMs), 0.8016 ms in tiles of 512 and 0.4811 ms in tiles of
-# 256 (625 blocks; more visits in all, 3,401 against 618, but every SM
-# busy). The closest hit does not depend on the tile, but for exact ties
-# between chunks.
-AUTO_TILE = 256
+# The automatic tile (CRT_TILE overrides it): the fastest on an NVIDIA H100
+# 80GB HBM3 at 700 W (utils/kernel_ab.py). K6 took, at tiles of 16, 32, 64,
+# 128 and 256: 0.1830, 0.1210, 0.1494, 0.2948 and 0.3691 ms at
+# sphereflake's 160,000 primary rays; 0.4380, 0.3607, 0.4417, 0.7202 and
+# 0.9110 ms at the same rays after one bounce, coherence-sorted; 0.5348,
+# 0.2903, 0.3047, 0.3402 and 0.4022 ms at perlin_texture_ball's 360,000
+# primary rays. A tile's visits run one after another, so the longest tiles
+# set the end; small tiles are short and cull more closely. The closest hit
+# does not depend on the tile, but for exact ties between chunks.
+AUTO_TILE = 32
 
 # kernel launches, by kernel; each wrapper adds one where it launches
 LAUNCHES = {"packet_planar": 0, "packet_sphere": 0}
@@ -228,6 +230,24 @@ def _launch(name, fn, rays, cap, pack, lo, hi, tmin, tile, *extra):
         raise RuntimeError(f"{fn} launch failed: {build.error_string(err)}")
     LAUNCHES[name] += 1
     return out, pid, visits
+
+
+def kernel_info(kind: str, tile: int, K: int) -> dict:
+    """What a K6 launch of ``kind`` ("quad", "tri" or "sphere") at this tile
+    and chunk count takes on the card: registers per thread (as ``ptxas``
+    counts them), threads per block, rays per thread, threads per ray and
+    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    from cpu_ray_tracing_implementation_tpu_torch.kernels import build
+
+    info = (ctypes.c_int * 5)()
+    err = build.load().crt_packet_info(("quad", "tri", "sphere").index(kind), int(tile),
+                                       int(K), info)
+    if err != 0:
+        raise RuntimeError(f"crt_packet_info failed: {build.error_string(err)}")
+    return dict(zip(("registers", "threads", "rays_per_thread", "threads_per_ray",
+                     "blocks_per_sm"), info))
 
 
 def packet_planar_kernel(rays, cap, pack, lo, hi, tmin: float, tile: int,

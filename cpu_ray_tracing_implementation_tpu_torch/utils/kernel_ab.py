@@ -1,14 +1,18 @@
-"""Kernels K1, K2 and K4 of other checkouts of the port beside this one's,
-held to one another and timed in turns on one GPU.
+"""Kernels K1, K2, K4 and K6 of other checkouts of the port beside this
+one's, held to one another and timed in turns on one GPU; and, with
+``--walls``, the packet-routed renders' walls the same way.
 
-    python -m cpu_ray_tracing_implementation_tpu_torch.utils.kernel_ab ROOT [ROOT ...]
+    python -m cpu_ray_tracing_implementation_tpu_torch.utils.kernel_ab [--only PREFIX] ROOT [ROOT ...]
+    python -m cpu_ray_tracing_implementation_tpu_torch.utils.kernel_ab --walls ROOT [ROOT ...]
 
 ROOT is the root of another checkout (the parent commit, for example,
 unpacked with ``git archive`` into the gitignored ``_scratch/``) whose
 ``fused_intersect`` has ``planar_closest_kernel`` and
-``sphere_closest_kernel``, whose ``fused_sweep`` has ``sweep_kernel`` and
-whose ``profiling`` has ``cuda_ms``. This package makes the inputs and
-saves them under ``build/``:
+``sphere_closest_kernel``, whose ``fused_sweep`` has ``sweep_kernel``,
+whose ``packet`` has ``packet_planar_kernel`` and ``packet_sphere_kernel``
+and whose ``profiling`` has ``cuda_ms``. This package makes the inputs and
+saves them under ``build/`` (``--only K6`` keeps the cases whose label
+starts with "K6", and makes no other case's inputs):
 
 - ``CASES``, K1 on cornell_box's 1-chunk view, K2 on three_material_ball's
   and random_motion_ball's: 512*512 primary rays of the scene's camera and
@@ -19,22 +23,45 @@ saves them under ``build/``:
   rays at phases 1, 2 (the rays phase 1 left done marked exhausted) and 3,
   its secondary rays (leaving the primary hits in random directions, a
   tenth dead) at phase 1, sphereflake's 160,000 primary rays, and 40,000
-  random rays against a random table of 6,000 moving spheres in 47 chunks.
+  random rays against a random table of 6,000 moving spheres in 47 chunks;
+- K6 on the packet route's rays with their caps (``profiling.scene_rays``,
+  ``intersect._packet_cap``): sphereflake's 160,000 primary rays, the
+  same rays after one bounce, coherence-sorted (``raysort``), and
+  perlin_texture_ball's 360,000 primary rays (quads), each at
+  ``packet.AUTO_TILE`` and ``TILES`` (sphereflake's primary rays at
+  2,048 too), and the 576-triangle Fox stand-in's primary and secondary
+  rays (written with ``procgen.write_gltf`` as ``chip_smoke.py`` writes
+  it) at ``packet.AUTO_TILE``.
 
 Then one process per turn, in the order this checkout, the others, the
 others reversed, this one, imports the package of its own checkout (which
 builds its own kernels), launches its kernels on those inputs (K1 and K2
 with and without pid) and times each case with CUDA events (K1 and K2 at
-their primary rays). Every turn's outputs (all 8 rows or columns, and the
-pid) must equal the first turn's bit for bit: the ones that differ are
-printed. Prints the card's name and power limit, then one line per turn
-and case.
+their primary rays; K6 with its visits per tile, mean and max, and its
+registers per thread and resident blocks per SM: ``packet.kernel_info``,
+or, for a checkout without it, the same CUDA queries on its
+``csrc/packet_closest.cu`` built into a probe). Every turn's outputs (all
+8 rows or columns, the pid, and K6's visits) must equal the first turn's
+bit for bit: the ones that differ are printed. Prints the card's name and
+power limit, then one line per turn and case.
+
+``--walls``: each turn renders, after a 1-spp warm-up of each scene, the
+packet-routed workloads of ``chip_smoke.py`` (``WALLS``: the sphereflake
+wavefront and scan at 400x400x50 depth 5, perlin_texture_ball at
+600x600x32 depth 5, textured_fox at 600x600x100 and glass_fox at
+600x600x200 depth 5 on the 576-triangle stand-in) and prints each wall;
+each image's mean must be within 2e-3 of the first turn's (the golden
+atol), and the values whose bits differ are printed.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +72,22 @@ TMIN = 1e-3
 CASES = (("K1 cornell_box", "cornell_box", "planar_closest"),
          ("K2 three_material_ball", "three_material_ball", "sphere_closest"),
          ("K2 random_motion_ball", "random_motion_ball", "sphere_closest"))
+# the 576-triangle Fox stand-in (chip_smoke.py's FOX_STANDINS["fox576"] and
+# FOX_NODE): an ellipsoid of 24 segments and 13 rings
+FOX_MESH = (24, 13)
+FOX_NODE = {"mesh": 0, "translation": [0.0, 45.0, 0.0],
+            "rotation": [0.0, 0.38268343, 0.0, 0.92387953], "scale": [1.2, 1.0, 1.2]}
+# the tiles K6 is timed at on sphereflake's primary and secondary rays and
+# perlin's primary rays besides packet.AUTO_TILE (and 2,048, JAX's, on
+# sphereflake's primary rays)
+TILES = (128, 256, 512)
+# (label, catalog scene, spp, wavefront): the packet-routed renders --walls
+# times, at chip_smoke.py's sizes (perlin's 500 spp cut to its 32)
+WALLS = (("sphereflake wavefront", "sphereflake", None, True),
+         ("sphereflake scan", "sphereflake", None, False),
+         ("perlin_texture_ball", "perlin_texture_ball", 32, False),
+         ("textured_fox", "textured_fox", None, False),
+         ("glass_fox", "glass_fox", None, False))
 
 
 def sweep_inputs(dev) -> dict:
@@ -95,9 +138,84 @@ def sweep_inputs(dev) -> dict:
     return out
 
 
-def make_inputs(path: Path) -> None:
-    """Save {label: (primary rays [8,R], secondary rays [8,R], pack)} and
-    the sweep cases' inputs."""
+@contextlib.contextmanager
+def fox_assets():
+    """$CRT_ASSETS at a temporary directory holding the Fox stand-in, while
+    the scenes inside build."""
+    saved = os.environ.get("CRT_ASSETS")
+    with tempfile.TemporaryDirectory() as root:
+        write_fox(root)
+        os.environ["CRT_ASSETS"] = root
+        try:
+            yield
+        finally:
+            if saved is None:
+                del os.environ["CRT_ASSETS"]
+            else:
+                os.environ["CRT_ASSETS"] = saved
+
+
+def write_fox(root: str) -> None:
+    """The 576-triangle Fox stand-in as ``root``/Fox/glTF/Fox.gltf."""
+    from cpu_ray_tracing_implementation_tpu_torch.utils import procgen
+
+    pos, nrm, uv, idx = procgen.ellipsoid_mesh(*FOX_MESH)
+    procgen.write_gltf(os.path.join(root, "Fox", "glTF", "Fox.gltf"), pos, idx, nrm, uv,
+                       png=procgen.checker_png(), image_in="data", nodes=[FOX_NODE])
+
+
+def packet_inputs(dev) -> dict:
+    """{label: (kind, rays [8,R], cap [R], pack, lo, hi, tiles)}: K6's
+    cases, labels starting with "K6"."""
+    from cpu_ray_tracing_implementation_tpu_torch.models import catalog
+    from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+    from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
+    from cpu_ray_tracing_implementation_tpu_torch.ops import packet, raysort
+    from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
+        scene_rays, secondary)
+
+    gen = torch.Generator().manual_seed(12)
+    tile = packet.AUTO_TILE
+    tiles = tuple(sorted({tile, *TILES}))
+    out = {}
+    sf, cam = catalog.sphereflake(device=dev)
+    c = sf.sphere_chunks
+    box = (c.lo.contiguous(), c.hi.contiguous())
+    org, dirs, time_, cap = scene_rays(sf, cam, gen)
+    out["K6 sphereflake primary"] = ("sphere", fi.pack_rays(org, dirs, time_), cap,
+                                     sf.sphere_pack, *box, tiles + (2048,))
+    t = packet.sphere_packet_hit(org, dirs, time_, c, TMIN, cap, tile)[0]
+    o2, d2 = secondary(org, dirs, t, gen)
+    lo, hi = org.new_tensor(sf.world_lo), org.new_tensor(sf.world_hi)
+    (o2, d2, t2), _ = raysort.sort_rays(raysort.coherence_keys(o2, d2, lo, hi),
+                                        [o2, d2, time_])
+    cap2 = isect._packet_cap(sf, o2, d2, None, float("inf"), TMIN)
+    out["K6 sphereflake secondary, coherence-sorted"] = (
+        "sphere", fi.pack_rays(o2, d2, t2), cap2, sf.sphere_pack, *box, tiles)
+    scene, cam = catalog.perlin_texture_ball(spp=1, device=dev)
+    c = scene.quad_chunks
+    org, dirs, _, cap = scene_rays(scene, cam, gen)
+    out["K6 perlin_texture_ball primary"] = ("quad", fi.pack_rays(org, dirs), cap,
+                                             scene.quad_pack, c.lo.contiguous(),
+                                             c.hi.contiguous(), tiles)
+    with fox_assets():
+        scene, cam = catalog.textured_fox(device=dev)
+    c = scene.tri_chunks
+    org, dirs, _, cap = scene_rays(scene, cam, gen)
+    for which in ("primary", "secondary"):
+        out[f"K6 576-triangle Fox stand-in {which}"] = (
+            "tri", fi.pack_rays(org, dirs), cap, scene.tri_pack, c.lo.contiguous(),
+            c.hi.contiguous(), (tile,))
+        t = packet.planar_packet_hit(org, dirs, c, TMIN, True, cap, tile)[0]
+        org, dirs = secondary(org, dirs, t, gen)
+        cap = isect._packet_cap(scene, org, dirs, None, float("inf"), TMIN)
+    return out
+
+
+def make_inputs(path: Path, only: str = "") -> None:
+    """Save {label: (primary rays [8,R], secondary rays [8,R], pack)}, the
+    sweep cases' and the packet cases' inputs, those whose label starts
+    with ``only``."""
     from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
     from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
     from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
@@ -107,6 +225,8 @@ def make_inputs(path: Path) -> None:
     dev = torch.device("cuda", 0)
     inputs = {}
     for label, name, kernel in CASES:
+        if not label.startswith(only):
+            continue
         scene, org, dirs, time = camera_rays(name, gen, dev)
         if kernel == "planar_closest":
             view, pack = scene.quad_view
@@ -116,7 +236,10 @@ def make_inputs(path: Path) -> None:
             t = ch.sphere_closest(org, dirs, time, view, TMIN)[0]
         o2, d2 = secondary(org, dirs, t, gen)
         inputs[label] = (fi.pack_rays(org, dirs, time), fi.pack_rays(o2, d2, time), pack)
-    inputs.update(sweep_inputs(dev))
+    if "K4".startswith(only):
+        inputs.update(sweep_inputs(dev))
+    if "K6".startswith(only):
+        inputs.update(packet_inputs(dev))
     torch.save(inputs, path)
 
 
@@ -131,6 +254,8 @@ def turn(root: str, inputs: Path, outputs: Path) -> None:
     saved = torch.load(inputs)
     outs = {}
     for label, name, kernel in CASES:
+        if label not in saved:
+            continue
         launch = getattr(fi, f"{kernel}_kernel")
         primary, second, pack = saved[label]
         for which, rays in (("primary", primary), ("secondary", second)):
@@ -147,15 +272,137 @@ def turn(root: str, inputs: Path, outputs: Path) -> None:
         visits = int((args[2] < args[3][:, :1]).sum())
         print(f"{label}, {args[1].shape[0]} rays, {visits} visited slots, {root}: "
               f"{ms:.4f} ms", flush=True)
+    for label in (k for k in saved if k.startswith("K6")):
+        packet_turn(root, label, saved[label], outs)
     torch.save(outs, outputs)
+
+
+def packet_turn(root: str, label: str, case: tuple, outs: dict) -> None:
+    """K6 of the checkout at ``root`` on one case, at each of its tiles."""
+    from cpu_ray_tracing_implementation_tpu_torch.ops import packet
+    from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import cuda_ms
+
+    kind, rays, cap, pack, lo, hi, tiles = case
+    for tile in tiles:
+        if kind == "sphere":
+            launch = lambda: packet.packet_sphere_kernel(rays, cap, pack, lo, hi, TMIN, tile)
+        else:
+            launch = lambda: packet.packet_planar_kernel(rays, cap, pack, lo, hi, TMIN, tile,
+                                                         kind == "tri")
+        outs[f"{label}, tile {tile}"] = launch()
+        ms = cuda_ms(launch)
+        v = outs[f"{label}, tile {tile}"][2].float()
+        info = packet_info(root, kind, tile, pack.shape[0])
+        print(f"{label}, {rays.shape[1]} rays, tile {tile}, {root}: {ms:.4f} ms; visits "
+              f"{int(v.sum())} (per tile {float(v.mean()):.2f}, max {int(v.max())}); "
+              f"{info['registers']} registers, {info['threads']} threads, "
+              f"{info['rays_per_thread']} rays a thread, {info['threads_per_ray']} threads "
+              f"a ray, {info['blocks_per_sm']} blocks per SM",
+              flush=True)
+
+
+# the old K6 (one ray a thread, blocks of 256) seen through the CUDA
+# queries: its source's kernels, included into a probe
+PROBE = r"""
+#include "%s"
+extern "C" int k6_probe(int kind, int K, int* info) {
+  cudaFuncAttributes a;
+  int blocks = 0;
+  const size_t smem = (size_t)next_pow2(K) * 8;
+  cudaError_t e;
+  if (kind == 2) {
+    e = cudaFuncGetAttributes(&a, packet_sphere_kernel);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, packet_sphere_kernel, PK_THREADS, smem);
+  } else if (kind == 1) {
+    e = cudaFuncGetAttributes(&a, packet_planar_kernel<true>);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, packet_planar_kernel<true>, PK_THREADS, smem);
+  } else {
+    e = cudaFuncGetAttributes(&a, packet_planar_kernel<false>);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, packet_planar_kernel<false>, PK_THREADS, smem);
+  }
+  info[0] = a.numRegs; info[1] = PK_THREADS; info[2] = 1; info[3] = 1; info[4] = blocks;
+  return (int)e;
+}
+"""
+
+
+def packet_info(root: str, kind: str, tile: int, K: int) -> dict:
+    """``packet.kernel_info`` of the checkout at ``root``, or, where its
+    package has none, the probe built from its source."""
+    import ctypes
+
+    from cpu_ray_tracing_implementation_tpu_torch.kernels import build
+    from cpu_ray_tracing_implementation_tpu_torch.ops import packet
+
+    if hasattr(packet, "kernel_info"):
+        return packet.kernel_info(kind, tile, K)
+    lib = build.BUILD_DIR / "k6_probe.so"
+    if not lib.exists():
+        src = build.BUILD_DIR / "k6_probe.cu"
+        src.write_text(PROBE % (build.CSRC / "packet_closest.cu"))
+        subprocess.run([build._nvcc(), *build.FLAGS, "-Xcompiler", "-fPIC", "-shared",
+                        "-o", str(lib), str(src)], check=True)
+    probe = ctypes.CDLL(str(lib))
+    probe.k6_probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    info = (ctypes.c_int * 5)()
+    if probe.k6_probe(("quad", "tri", "sphere").index(kind), K, info) != 0:
+        raise RuntimeError("k6_probe failed")
+    return dict(zip(("registers", "threads", "rays_per_thread", "threads_per_ray",
+                     "blocks_per_sm"), info))
 
 
 def differences(got: dict, ref: dict) -> list[str]:
     """The (case, output) whose bits differ from the reference's."""
-    names = ("out", "out with pid", "pid")
-    return [f"{case} {n}" for case, outs in got.items()
-            for n, x, y in zip(names, outs, ref[case])
-            if not torch.equal(x.view(torch.int32), y.view(torch.int32))]
+    out = []
+    for case, outs in got.items():
+        names = (("rows", "pid", "visits") if case.startswith("K6") else
+                 ("out", "out with pid", "pid"))
+        out += [f"{case} {n}" for n, x, y in zip(names, outs, ref[case])
+                if not torch.equal(x.view(torch.int32), y.view(torch.int32))]
+    return out
+
+
+def walls_turn(root: str, outputs: Path) -> None:
+    """One --walls turn, in a process of its own: the WALLS renders of the
+    checkout at ``root``. Saves the images; prints the walls."""
+    sys.path[0] = root
+    from cpu_ray_tracing_implementation_tpu_torch.models import catalog, integrator
+    from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+
+    imgs = {}
+    for label, name, spp, wavefront in WALLS:
+        with fox_assets():
+            scene, cam = catalog.SCENES[name](device="cuda")
+        cam = cam.replace(spp=spp or cam.spp)
+        render = integrator.render_image_wavefront if wavefront else integrator.render_image
+        render(scene, cam.replace(spp=1), keys.key(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs[label] = render(scene, cam, keys.key(0))
+        torch.cuda.synchronize()
+        print(f"{label} {cam.width}x{cam.height}x{cam.spp} depth {cam.max_depth}, "
+              f"{root}: {time.perf_counter() - t0:.3f} s", flush=True)
+    torch.save(imgs, outputs)
+
+
+def image_differences(got: dict, ref: dict) -> list[str]:
+    """The walls' images whose means differ from the reference's by more
+    than the golden atol 2e-3 (two tiles may order chunks at an exact tie
+    apart); prints for each image the pixels whose bits differ and the
+    largest difference (the wavefront's flush adds with atomics)."""
+    out = []
+    for label, img in got.items():
+        d = (img - ref[label]).abs()
+        print(f"  {label}: {int((img.view(torch.int32) != ref[label].view(torch.int32)).sum())} "
+              f"values differ in their bits from the first turn's, max abs diff "
+              f"{float(d.max()):.3g}, means {float(img.mean()):.6f} / "
+              f"{float(ref[label].mean()):.6f}", flush=True)
+        if abs(float(img.mean()) - float(ref[label].mean())) > 2e-3:
+            out.append(f"{label} image mean")
+    return out
 
 
 def main(argv=None) -> int:
@@ -163,6 +410,12 @@ def main(argv=None) -> int:
     if argv[:1] == ["--turn"]:
         turn(argv[1], Path(argv[2]), Path(argv[3]))
         return 0
+    if argv[:1] == ["--walls-turn"]:
+        walls_turn(argv[1], Path(argv[2]))
+        return 0
+    walls = argv[:1] == ["--walls"]
+    only = argv[1] if argv[:1] == ["--only"] else ""
+    argv = argv[1:] if walls else argv[2:] if only else argv
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -173,22 +426,25 @@ def main(argv=None) -> int:
     work = Path(own) / "cpu_ray_tracing_implementation_tpu_torch" / "build"
     work.mkdir(exist_ok=True)
     inputs = work / "kernel_ab_inputs.pt"
-    make_inputs(inputs)
+    if not walls:
+        make_inputs(inputs, only)
     others = [str(Path(r).resolve()) for r in argv]
     ref = None
     differ = 0
     for i, root in enumerate([own, *others, *others[::-1], own]):
         outputs = work / f"kernel_ab_outputs_{i}.pt"
-        subprocess.run([sys.executable, __file__, "--turn", root, str(inputs),
-                        str(outputs)], check=True, cwd=root)
+        args = ["--walls-turn", root] if walls else ["--turn", root, str(inputs)]
+        subprocess.run([sys.executable, __file__, *args, str(outputs)], check=True,
+                       cwd=root)
         got = torch.load(outputs)
         outputs.unlink()
         if ref is None:
             ref = got
-        for d in differences(got, ref):
+        for d in (image_differences if walls else differences)(got, ref):
             differ += 1
             print(f"{root}: {d} differs from the first turn's", flush=True)
-    inputs.unlink()
+    if not walls:
+        inputs.unlink()
     print(f"kernel_ab: {differ} outputs differ from the first turn's")
     return 1 if differ else 0
 

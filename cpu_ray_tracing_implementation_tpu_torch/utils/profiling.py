@@ -129,8 +129,8 @@ KERNELS = {"planar_closest": "planar_closest_kernel",
            "sphere_closest": "sphere_closest_kernel",
            "cull_select": "cull_select_kernel",
            "visit_sweep": "visit_sweep_",   # its four stage kernels
-           "packet_planar": "packet_planar_kernel",
-           "packet_sphere": "packet_sphere_kernel"}
+           "packet_planar": "packet_kernel<(anonymous namespace)::Planar",
+           "packet_sphere": "packet_kernel<(anonymous namespace)::Sphere"}
 
 
 @contextlib.contextmanager
@@ -230,8 +230,9 @@ def sweep_phases(org, dirs, time, cap, tabs, K, tmin, triangle, sphere):
 
 
 def kernel_name(key: str) -> str:
-    """A profiler key's kernel name, without its namespace and arguments."""
-    return key.split("(anonymous namespace)::")[-1].split("(")[0]
+    """A profiler key's kernel name, without its namespaces, return type and
+    arguments."""
+    return key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
 
 
 def sweep_stages() -> int:

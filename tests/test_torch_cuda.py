@@ -1008,6 +1008,87 @@ def test_packet_planar_kernel_matches_plain(dev, tri):
     assert int((visits != v_r).sum()) <= 1
 
 
+@pytest.mark.parametrize("tile", [1, 33, packet.AUTO_TILE, 200, 300, 2048])
+@pytest.mark.parametrize("n_rays", [1, 31, 257, 513])
+def test_packet_sphere_kernel_bit_equal_at_ragged_counts(dev, n_rays, tile):
+    """Every instance K6 picks (one ray a thread in four sets up to 64 rays,
+    two rays in two sets up to 256, two rays up to 512, four rays above, in
+    groups past 1,024) on ray counts that leave a tile, a warp and a block
+    part empty: bit for bit the plain version, visits equal."""
+    rng = np.random.default_rng(n_rays * 7 + tile)
+    chunks = _sphere_chunks(rng, dev, K=9, n=1000, holes=True)
+    org, dirs, time = _rays(rng, dev, n_rays)
+    cap = torch.full((n_rays,), 40.0, device=dev)
+    cap[::5] = TMIN                                   # dead lanes
+    t, pay, visits = packet.sphere_packet_hit(org, dirs, time, chunks, TMIN, cap, tile)
+    t_r, pay_r, visited = packet.sphere_packet_plain(org, dirs, time, chunks, TMIN, cap,
+                                                     tile)
+    if n_rays > 100:
+        assert int(torch.isfinite(t_r).sum()) > 10
+    assert torch.equal(t, t_r)
+    for x, x_r in zip(pay, pay_r):                    # center, rad, mat, pid
+        assert torch.equal(x, x_r)
+    assert visits.tolist() == [len(v) for v in visited]
+
+
+@pytest.mark.parametrize("tile", [32, 64, 200])
+def test_packet_sphere_tie_across_chunks_keeps_the_first_visited(dev, tile):
+    """The same sphere in chunk 0 (lane 0) and chunk 1 (lane 1, beside a
+    sphere that pulls chunk 1's box toward the rays, so chunk 1 is visited
+    first): every ray keeps chunk 1's copy, as the plain version does,
+    though the two copies lie in lanes that different threads test."""
+    C = 128
+    c0 = np.zeros((2, C, 3), np.float32)
+    rad = np.full((2, C), 0.1, np.float32)
+    act = np.zeros((2, C), bool)
+    c0[0, 0], rad[0, 0], act[0, 0] = (0, 0, 10), 1.0, True
+    c0[1, 0], rad[1, 0], act[1, 0] = (5, 0, 3), 0.5, True
+    c0[1, 1], rad[1, 1], act[1, 1] = (0, 0, 10), 1.0, True
+    lo = np.where(act[..., None], c0 - rad[..., None], np.inf).min(1)
+    hi = np.where(act[..., None], c0 + rad[..., None], -np.inf).max(1)
+    chunks = ch.SphereChunks(c0=_t(c0, dev), c1=_t(c0, dev), rad=_t(rad, dev),
+                             mat=_t(np.zeros((2, C), np.int32), dev), active=_t(act, dev),
+                             lo=_t(lo.astype(np.float32), dev),
+                             hi=_t(hi.astype(np.float32), dev))
+    rng = np.random.default_rng(25)
+    n = 300
+    dirs = np.c_[rng.uniform(-0.05, 0.05, (n, 2)), np.ones(n)].astype(np.float32)
+    org, dirs, time = _t(np.zeros((n, 3), np.float32), dev), _t(dirs, dev), \
+        torch.zeros(n, device=dev)
+    cap = torch.full((n,), 40.0, device=dev)
+    t, pay, visits = packet.sphere_packet_hit(org, dirs, time, chunks, TMIN, cap, tile)
+    t_r, pay_r, visited = packet.sphere_packet_plain(org, dirs, time, chunks, TMIN, cap,
+                                                     tile)
+    assert bool(torch.isfinite(t).all())
+    assert torch.equal(pay[3], torch.full_like(pay[3], C + 1))
+    assert torch.equal(pay[3], pay_r[3]) and torch.equal(t, t_r)
+    assert visits.tolist() == [len(v) for v in visited]
+
+
+@pytest.mark.parametrize("tile", [31, 77, 301, 1001])
+@pytest.mark.parametrize("tri", [False, True])
+def test_packet_planar_kernel_holes_odd_tiles(dev, tri, tile):
+    """A holed table at odd tiles: one ray a thread in four sets (31), two
+    rays a thread in two sets (77), two rays a thread (301), four (1001)."""
+    rng = np.random.default_rng(24 + tile)
+    chunks = _planar_chunks(rng, dev, K=10, n=1000, holes=True)
+    org, dirs, _ = _rays(rng, dev, 3000)
+    t, pay, visits = packet.planar_packet_hit(org, dirs, chunks, TMIN, tri, 40.0, tile)
+    t_r, pay_r, visited = packet.planar_packet_plain(org, dirs, chunks, TMIN, tri, 40.0,
+                                                     tile)
+    hit = torch.isfinite(t_r)
+    assert int(hit.sum()) > 100 and torch.equal(torch.isfinite(t), hit)
+    same = hit & (pay[4] == pay_r[4])
+    near = hit & ~same & ((t - t_r).abs() <= 1e-4 * t_r.abs())
+    assert torch.equal(same | near, hit)
+    assert torch.equal(pay[3][same], pay_r[3][same])
+    torch.testing.assert_close(t[hit], t_r[hit], rtol=1e-4, atol=1e-4)
+    for x, x_r in zip(pay[:3], pay_r[:3]):
+        torch.testing.assert_close(x[same], x_r[same], rtol=0, atol=1e-3)
+    v_r = torch.tensor([len(v) for v in visited], device=dev, dtype=torch.int32)
+    assert int((visits != v_r).sum()) <= 1
+
+
 def test_packet_kernel_refuses_what_it_does_not_take(dev):
     rng = np.random.default_rng(23)
     chunks = _sphere_chunks(rng, dev, K=2)

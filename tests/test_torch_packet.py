@@ -4,7 +4,8 @@ against the JAX package's ``ops/packet.py`` and the chunk-scan oracle.
 Same random BVH-ordered tables and rays as tests/test_torch_perray.py,
 with per-ray caps, dead lanes (cap = tmin) and misses. Against JAX's
 ``planar_closest_packet`` / ``sphere_closest_packet`` (its ``map``
-schedule) at tiles of 2,048 (one tile) and 64 (five, the last padded):
+schedule) at tiles of 2,048 (one tile), 64 (five, the last padded) and
+32 (``packet.AUTO_TILE``; ten, the last padded):
 equal hit masks, materials and pids, t within rtol 1e-4 (spheres also
 atol 2e-4, the two packages' rounding of the expanded quadratic), every other
 payload field within atol 1e-3 (normal and center 1e-4). The VJP of the
@@ -112,7 +113,7 @@ def _fields(kind, against_jax):
     return {0: 1e-4 if against_jax else 1e-3, 1: 1e-3, 2: 1e-3}
 
 
-@pytest.mark.parametrize("tile", [2048, 64])
+@pytest.mark.parametrize("tile", [2048, 64, 32])
 @pytest.mark.parametrize("kind", ["tri", "quad", "sphere"])
 def test_plain_packet_matches_jax(kind, tile):
     org, dirs, time, cap = _rays(tile)
