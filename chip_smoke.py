@@ -76,11 +76,12 @@ Phases (any failure raises and the script exits non-zero):
      table included) at every phase of the 576-triangle stand-in's primary
      and secondary rays.
    - K6 (the tile-packet closest hit, planar and sphere entries) against
-     its plain version (the per-tile loop of ``ops/packet.py``) at
-     ``packet.AUTO_TILE``: sphereflake's 160,000 primary rays on its 58
-     chunks and the same rays after one bounce, coherence-sorted (no plain
-     time); its table doubled, each chunk followed by a copy with the same
-     entry t (the tie rule, on every 4th primary ray: each keeps the first
+     its plain version (the per-tile loop of ``ops/packet.py``) on every
+     PACKET_PLAIN_STRIDE-th tile of each case (all the rays of those
+     tiles; every tile of the 16 px colonnade's) at ``packet.AUTO_TILE``:
+     sphereflake's 160,000 primary rays on its 58 chunks and the same rays
+     after one bounce, coherence-sorted; its table doubled, each chunk
+     followed by a copy with the same entry t (the tie rule, on every 4th primary ray: each keeps the first
      copy's sphere); perlin_texture_ball's 600x600 primary rays on its 19
      quad chunks; the 16 px colonnade's 71 triangle chunks and the
      576-triangle Fox stand-in's 5, primary and secondary rays. Timed
@@ -92,10 +93,11 @@ Phases (any failure raises and the script exits non-zero):
      rtol 1e-4; planar: masks equal but at an edge, pids equal but for
      near-ties (both counted), materials, t and payload at K1's
      tolerances where the pids agree, visit counts equal in all but 1% of
-     the tiles. Each timed case prints its bound, counted from the run's
-     visit lists (a slab test per tile lane and chunk, a ray test per tile
-     lane and live primitive of each visited chunk), and the plain
-     version's time.
+     the tiles. Each timed case prints its bound, counted from K6's own
+     visit counts at that tile and each tile's crossed chunks in the plain
+     version's visit order (``lanes_tested``: a slab test per tile lane and
+     chunk, a ray test per tile lane and live primitive of each visited
+     chunk), and the plain version's time on the tiles it checks.
    - K5 (gather-sum probe) against its plain version (rel err max |a - b| /
      (|b| + 1) <= 1e-5) at the probe's defaults (an 11.5 MB table, inside
      the L2) and with a 738 MB table (K 131,072: device memory), with its
@@ -153,8 +155,8 @@ Phases (any failure raises and the script exits non-zero):
    image is held against the scan's of the same key above, sphereflake's
    at 4 spp against a 4-spp scan (rtol 1e-5, atol 1e-5: each path's
    radiance is the scan's, only the order of the sums differs). Then the
-   per-ray route's pool and batch sizes on the card: the colonnade's
-   wavefront at the automatic pool and at 8,192 lanes (the automatic pool
+   per-ray route's pool and batch sizes on the card, at POOL_SPP: the
+   colonnade's wavefront at the automatic pool and at 8,192 lanes (the automatic pool
    is the whole frame), and its scan in batches of 8,192 pixels and
    whole; each warmed up, then timed twice in alternation; the batched and
    whole scan images must be bitwise equal (sphereflake, packet routed,
@@ -192,8 +194,8 @@ Phases (any failure raises and the script exits non-zero):
    three_material_ball render K2, the colonnade render K1 (its light
    quad), K3 and K4, and the random_motion_ball render K2 exactly spp x
    depth = 1,000 times; the colonnade wavefront K1, K3 and K4, the
-   sphereflake wavefront K6 (their launches go on a line of their own). Cornell's gradient runs launch K1 2,048 times in the
-   forward pass (256 x 8) and none in the backward pass (the winners are
+   sphereflake wavefront K6 (their launches go on a line of their own). Cornell's gradient runs launch K1 spp x depth times in the
+   forward pass (2,048 at 256 spp) and none in the backward pass (the winners are
    replayed from the tape); the colonnade's gradient run launches K1, K3
    and K4 in both passes (no tape on chunked tables: the accelerator runs
    again). ``loss_and_grads`` with next-event estimation through
@@ -231,14 +233,43 @@ Phases (any failure raises and the script exits non-zero):
    sphereflake cut to 64x64, 1 spp, depth 2: its hits on primary and
    secondary rays against the chunk route's (equal masks and pids), its
    image's mean against the chunk route's. ``render_with_checkpoint`` on
-   the Cornell box 512x512x256 depth 8 in chunks of 64 spp and on the
+   the Cornell box 512x512 depth 8 at CKPT_CORNELL_SPP in chunks of 16 and on the
    sphereflake wavefront in chunks of 16, stopped after two chunks and
    resumed: the scan bitwise the uninterrupted render, the wavefront
    within rtol 1e-5 (its flush is an atomic float ``index_add_`` on the
    card). The ``kernels`` line takes K6's planar launches from the
    perlin render, its sphere launches from the sphereflake wavefront.
+7. Multi-device renders and gradients (``parallel/mesh.py`` over
+   ``torch.distributed``) on the one card, each run's launches of K1, K2,
+   K3, K4 and K6 counted on its own (the ``kernels`` line's
+   ``sharded_launches``), its wall printed beside the single-device one:
+   (a) a 1-rank NCCL group in this process: the pixel-sharded,
+   spp-sharded and 2-D renders of the Cornell box at SHARD_CORNELL,
+   bitwise ``render_image``; the sharded wavefronts of the colonnade and
+   sphereflake against phase 4's single-device wavefront images (within
+   CKPT_WF_TOL: the flush is atomic); ``render_loss_and_grad_sharded`` of
+   Cornell at SHARD_GRAD against ``loss_and_grads`` under deterministic
+   algorithms (SHARD_LOSS_RTOL, SHARD_SCENE_TOL, SHARD_CAMERA_TOL).
+   (b) GLOO_RANKS spawned ranks sharing the card over gloo (NCCL refuses
+   two ranks on one device): which collectives gloo takes on card tensors
+   (the mesh hands them card tensors), then the pixel- and spp-sharded
+   Cornell, the colonnade's and sphereflake's sharded wavefronts, the
+   sharded adaptive Cornell (SHARD_ADAPTIVE), a sharded checkpoint in
+   chunks of SHARD_CKPT_CHUNK stopped after two chunks and resumed, and
+   the sharded training step of all_materials_fixture at SHARD_MATERIALS
+   (K1 and K2); every rank's results held here against the single-device
+   ones (pixel sharding, adaptive and the resumed checkpoint bitwise, spp
+   sharding within atol 1e-5, the wavefronts within CKPT_WF_TOL, the
+   training step at the sharded tolerances under deterministic algorithms
+   with every family of LIVE nonzero), every kernel its path runs
+   launched in every rank. (c) the CLI,
+   ``python -m cpu_ray_tracing_implementation_tpu_torch.cli cornell_box
+   --width 128 --spp 8 -o <tmp>/x.png``, must exit 0. No result crosses
+   cards: the machine has one.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line (each
+kernel's ``plain_ms_on`` says what its plain time covers: K6's per-tile
+loop is timed on every PACKET_PLAIN_STRIDE-th tile, ``ms`` on all), and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without
 printing a result when no CUDA device is present.
 """
@@ -247,15 +278,20 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import json
+import multiprocessing
 import os
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 from cpu_ray_tracing_implementation_tpu_torch.models import (adaptive, aov, catalog, diff, film,
@@ -270,6 +306,8 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import bvh, keys, packet, perr
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
 from cpu_ray_tracing_implementation_tpu_torch.ops import spectrum
 from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
+from cpu_ray_tracing_implementation_tpu_torch.parallel import collectives
+from cpu_ray_tracing_implementation_tpu_torch.parallel import mesh as pm
 from cpu_ray_tracing_implementation_tpu_torch.utils import (checkpoint, denoise, gather_probe,
                                                             procgen, profiling)
 from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
@@ -311,6 +349,11 @@ WAVEFRONT_TOL = dict(rtol=1e-5, atol=1e-5)
 SPHEREFLAKE_CHECK_SPP = 4
 # the scan's pixel batch timed against the whole frame
 SCAN_TILE = 8192
+# Depth cuts that keep the script inside half its time limit with phase 7
+# (it took 602.7 s with only this one on an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md section 6). Each run cut feeds no printed ratio. The colonnade's
+# pool and batch sizes are timed at this spp, cut from its 30 (~30 s)
+POOL_SPP = 8
 PARITY = {"cornell_box": (300, 16, 4, 30.0, 0.04),
           "three_material_ball": (320, 16, 4, 38.0, 0.02)}
 PKG = "cpu_ray_tracing_implementation_tpu_torch/csrc/"
@@ -363,9 +406,9 @@ VOLUME_GRAD = dict(width=256, spp=4, max_depth=5)
 # 400x400, 200 spp to this size, and the Cornell box under camera.qmc
 PRISM_GRAD = dict(width=128, spp=8, max_depth=6)
 QMC_GRAD = dict(width=256, spp=4, max_depth=8)
-# the Cornell render under CRT_RNG=threefry: Cornell's full 256 spp (the
-# script stays well inside its time limit with it, PERF.md section 6)
-THREEFRY_SPP = 256
+# the Cornell render under CRT_RNG=threefry, cut from Cornell's 256 spp
+# (~15 s; see POOL_SPP): its mean is held against camera.qmc's
+THREEFRY_SPP = 64
 # FP32 instructions (a fused multiply-add counts once, a divide, square
 # root, min, max or compare once) per (ray, primitive) or (ray, box) pair,
 # counted from each kernel's source: K1 the plane and edge tests of a live
@@ -1055,6 +1098,11 @@ PACKET_VISIT_SHARE = 0.01
 # the share of sphereflake's primary rays that hold K6's tie rule on its
 # doubled table (every 4th: the plain version's host loop is slow)
 DOUBLED_STRIDE = 4
+# the plain version's per-tile host loop (a synchronisation at every tile
+# and at every chunk a tile visits) holds K6 on every 8th tile: at tile 32
+# the whole loop took 12.6 s (sphereflake) and 40.4 s (perlin) a call on an
+# NVIDIA H100 80GB HBM3 (700 W)
+PACKET_PLAIN_STRIDE = 8
 
 
 def packet_compare(label, got, ref, sphere, tri, dirs):
@@ -1146,49 +1194,82 @@ def packet_compare(label, got, ref, sphere, tri, dirs):
 OPS["packet_cull"] = 27
 
 
-def packet_bound(sphere, R, T, K, pack, visited, live):
+def packet_bound(sphere, R, T, K, pack, n_tiles, lane_tests):
     """K6's bound: bytes, its ray rows (6, or 7 with the time) and cap read,
     8 hit rows and pid written per ray, the pack and boxes read once; ops,
-    a slab test for every (tile lane, chunk) pair of the cull and, for each
-    tile, a test for every (lane, live primitive) pair of the chunks it
-    visited, counted from this run's visit lists (the sphere roots are not
-    counted)."""
+    a slab test for every (tile lane, chunk) pair of the cull of each of
+    ``n_tiles`` tiles and a test for each of ``lane_tests`` (tile lane,
+    live primitive) pairs of the chunks the tiles visited
+    (``lanes_tested``; the sphere roots are not counted)."""
     nbytes = 4 * ((7 if sphere else 6) * R + R + 9 * R + pack.numel() + 6 * K)
-    tests = sum(T * sum(live[k] for k in vis) for vis in visited)
-    ops = len(visited) * T * K * OPS["packet_cull"] + tests * OPS[
+    ops = n_tiles * T * K * OPS["packet_cull"] + lane_tests * OPS[
         "sphere_closest" if sphere else "planar_closest"]
     return bound(nbytes, ops)
 
 
+def lanes_tested(org, dirs, cap, chunks, T, visits) -> int:
+    """The (tile lane, live primitive) pairs K6 tests in tiles of T rays:
+    each tile visits the first ``visits[g]`` (the count K6 reports, held
+    to the plain version's on the tiles ``packet_case`` checks) of the
+    chunks its rays cross, in (entry t, chunk id) order, the plain
+    version's order (``packet._chunk_hits`` of every tile at once)."""
+    R, K = org.shape[0], chunks.lo.shape[0]
+    o, d, c = packet._pad_tiles([org, dirs, cap], R, T)            # [G,T,...]
+    inv = 1.0 / torch.where(d.abs() > 1e-20, d, torch.full_like(d, 1e-20))
+    t0 = (chunks.lo[None, None] - o[:, :, None]) * inv[:, :, None]   # [G,T,K,3]
+    t1 = (chunks.hi[None, None] - o[:, :, None]) * inv[:, :, None]
+    near = torch.minimum(t0, t1).amax(-1)
+    far = torch.maximum(t0, t1).amin(-1)
+    del t0, t1
+    ok = (near <= far) & (far >= TMIN) & (near <= c[:, :, None])
+    near_c = torch.where(ok, torch.clamp(near, min=TMIN), torch.full_like(near, INF))
+    keyed = torch.where(ok.any(1), near_c.amin(1), torch.full_like(near_c[:, 0], INF))
+    order = torch.argsort(keyed, dim=1, stable=True)                 # [G,K]
+    live = chunks.active.sum(dim=1)
+    take = torch.arange(K, device=org.device)[None] < visits.long()[:, None]
+    return T * int((live[order] * take).sum())
+
+
 def packet_case(label, kind, org, dirs, time_, cap, chunks, pack, errs, tile=None,
-                timed=None, times=None, bounds=None, plain_timed=True, tiles=None):
+                timed=None, times=None, bounds=None, tiles=None,
+                stride=PACKET_PLAIN_STRIDE):
     """K6 (``kind`` "sphere", "quad" or "tri") on these rays against its
-    plain version; ``timed``: the key its kernel and plain times and bound
-    go under, at ``tile`` and at each of ``tiles`` (the key's own at
-    ``tile``); the plain version's time too unless ``plain_timed`` is
-    False. Each timed tile's line gives the visits per tile (mean, max) and
-    the instance's registers per thread and resident blocks per SM."""
+    plain version on every ``stride``-th tile (all rays of those tiles,
+    and their visit counts); ``timed``: the key its kernel time,
+    the plain version's time on those tiles and the bound go under, at
+    ``tile`` and at each of ``tiles`` (the key's own at ``tile``; the
+    bound from K6's own visit counts at each tile, ``lanes_tested``). Each
+    timed tile's line gives the visits per tile (mean, max) and the
+    instance's registers per thread and resident blocks per SM."""
     sphere, tri = kind == "sphere", kind == "tri"
     name = "packet_sphere" if sphere else "packet_planar"
     tile = tile or packet.AUTO_TILE
+    R, k = org.shape[0], stride
+    T0 = min(tile, R)
+    sel = (torch.arange(R, device=org.device) // T0) % k == 0
     if sphere:
         got = packet.sphere_packet_hit(org, dirs, time_, chunks, TMIN, cap, tile, pack)
-        plain = lambda T: packet.sphere_packet_plain(org, dirs, time_, chunks, TMIN, cap, T)
+        plain = lambda: packet.sphere_packet_plain(org[sel], dirs[sel], time_[sel], chunks,
+                                                   TMIN, cap[sel], T0)
     else:
         got = packet.planar_packet_hit(org, dirs, chunks, TMIN, tri, cap, tile, pack)
-        plain = lambda T: packet.planar_packet_plain(org, dirs, chunks, TMIN, tri, cap, T)
-    # the plain loop synchronises at every chunk a tile visits: its one call
-    # is timed on the host's clock
+        plain = lambda: packet.planar_packet_plain(org[sel], dirs[sel], chunks, TMIN, tri,
+                                                   cap[sel], T0)
+    # the plain loop synchronises at every tile and every chunk a tile
+    # visits: its one call is timed on the host's clock
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = plain(tile)
+    ref = plain()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    errs[name] = max(errs.get(name, 0.0), packet_compare(label, got, ref, sphere, tri, dirs))
+    got_k = (got[0][sel], tuple(p[sel] for p in got[1]), got[2][::k])
+    errs[name] = max(errs.get(name, 0.0), packet_compare(
+        f"{label}, every {k}th tile", got_k, ref, sphere, tri, dirs[sel]))
+    log(f"  K6 {kind}, {label}: plain version {plain_ms:.4f} ms a call on every {k}th "
+        f"tile ({len(ref[2])} of {got[2].numel()} tiles)")
     if not timed:
         return got
-    R, K = org.shape[0], int(chunks.mat.shape[0])
-    live = chunks.active.sum(dim=1).tolist()
+    K = int(chunks.mat.shape[0])
     rays = fi.pack_rays(org, dirs, time_ if sphere else None)
     lo, hi = chunks.lo.contiguous(), chunks.hi.contiguous()
 
@@ -1200,22 +1281,19 @@ def packet_case(label, kind, org, dirs, time_, cap, chunks, pack, errs, tile=Non
     for t in sorted({tile, *(tiles or ())}):
         T = min(t, R)
         ms = cuda_ms(lambda: kernel(T))
-        vis = ref[2] if T == tile else plain(T)[2]
-        b = packet_bound(sphere, R, T, K, pack, vis, live)
-        key = timed if T == tile else f"{timed}_tile{T}"
-        times[key] = (ms,)
+        visits = got[2] if T == T0 else kernel(T)[2]
+        b = packet_bound(sphere, R, T, K, pack, visits.numel(),
+                         lanes_tested(org, dirs, cap, chunks, T, visits))
+        key = timed if T == T0 else f"{timed}_tile{T}"
+        times[key] = (ms, plain_ms) if T == T0 else (ms,)
         bounds[key] = b
-        n = [len(v) for v in vis]
         info = packet.kernel_info(kind, T, K)
-        log(f"  K6 {kind}, {label}, tile {T} ({len(vis)} blocks): kernel {ms:.4f} ms, "
-            f"visits {sum(n)} (per tile {sum(n) / len(n):.2f}, max {max(n)}), bound "
-            f"{b[0]:.4f} ms ({b[1]}), bound / kernel {b[0] / ms:.3f}; "
-            f"{info['registers']} registers, {info['threads']} threads, "
+        log(f"  K6 {kind}, {label}, tile {T} ({visits.numel()} blocks): kernel {ms:.4f} "
+            f"ms, visits {int(visits.sum())} (per tile {float(visits.float().mean()):.2f}, "
+            f"max {int(visits.max())}), bound {b[0]:.4f} ms ({b[1]}), bound / kernel "
+            f"{b[0] / ms:.3f}; {info['registers']} registers, {info['threads']} threads, "
             f"{info['rays_per_thread']} rays a thread, {info['threads_per_ray']} threads a "
             f"ray, {info['blocks_per_sm']} blocks per SM")
-    if plain_timed:
-        times[timed] = (times[timed][0], plain_ms)
-        log(f"  K6 {kind}, {label}: plain version {plain_ms:.4f} ms a call")
     return got
 
 
@@ -1253,7 +1331,7 @@ def phase_packet(dev, sf_scene, sf_cam, roots):
     cap2 = isect._packet_cap(sf_scene, o2, d2, None, INF, TMIN)
     packet_case("sphereflake secondary, coherence-sorted", "sphere", o2, d2, t2, cap2,
                 chunks, pack, errs, timed="packet_sphere_secondary", times=times,
-                bounds=bounds, plain_timed=False, tiles=PACKET_TILES)
+                bounds=bounds, tiles=PACKET_TILES)
     # the tie rule on every DOUBLED_STRIDE-th primary ray
     dup = duplicated_spheres(chunks)
     k = DOUBLED_STRIDE
@@ -1282,10 +1360,12 @@ def phase_packet(dev, sf_scene, sf_cam, roots):
             # the Fox's rays are the traffic of textured_fox's and glass_fox's
             # K6 launches: timed
             timed = f"packet_planar_fox_{which}" if "Fox" in label else None
+            # the 16 px colonnade's 8 tiles are all checked
             t, _, _ = packet_case(f"{label} {cam.width}x{cam.height} {which} ({K} triangle "
                                   "chunks)", "tri", org, dirs, time_, cap,
                                   scene.tri_chunks, scene.tri_pack, errs, timed=timed,
-                                  times=times, bounds=bounds, plain_timed=False)
+                                  times=times, bounds=bounds,
+                                  stride=PACKET_PLAIN_STRIDE if timed else 1)
             org, dirs = secondary(org, dirs, t, gen)
             cap = isect._packet_cap(scene, org, dirs, None, INF, TMIN)
     torch.cuda.synchronize()
@@ -1304,10 +1384,12 @@ BVH_CUT = dict(width=64, spp=1, max_depth=2)
 # two float32 solves of a grazing hit on a sphereflake sphere, each up to
 # 1.6e-4 of t from the float64 root (ROADMAP section 3)
 SPHERE_GRAZING_RTOL = 3.2e-4
-# checkpoint runs: Cornell 512x512x256 depth 8 in chunks of 64 spp, and the
-# sphereflake wavefront 400x400x50 depth 5 in chunks of 16; each
-# interrupted after two chunks and resumed
-CKPT_CHUNKS = {"cornell": 64, "sphereflake": 16}
+# checkpoint runs: Cornell 512x512 depth 8 at CKPT_CORNELL_SPP, cut from
+# 256 (~15 s; see POOL_SPP), in chunks of 16 spp, and the sphereflake
+# wavefront 400x400x50 depth 5 in chunks of 16; each interrupted after two
+# chunks and resumed
+CKPT_CHUNKS = {"cornell": 16, "sphereflake": 16}
+CKPT_CORNELL_SPP = 64
 # the card's wavefront flushes with an atomic float index_add_: resumed and
 # uninterrupted agree to float32 summation order there, not bitwise
 CKPT_WF_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -1448,7 +1530,8 @@ def checkpoint_runs(dev, sf_scene, sf_cam):
     against the uninterrupted run: the Cornell scan bitwise, the
     sphereflake wavefront within CKPT_WF_TOL. Returns seconds by run."""
     secs = {}
-    scene, cam = catalog.cornell_box(width=512, spp=256, max_depth=8, device=dev)
+    scene, cam = catalog.cornell_box(width=512, spp=CKPT_CORNELL_SPP, max_depth=8,
+                                     device=dev)
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
     for label, sc_, cm, wf in (("cornell", scene, cam, False),
                                ("sphereflake", sf_scene, sf_cam, True)):
@@ -1597,14 +1680,17 @@ def phase_gather(dev):
 
 
 # ------------------------------------------------- phase 3: gradients
-def grads_close(label, got, ref):
-    """(loss, (scene grads, camera grads)) against a reference at the
-    tolerances above; logs each family's largest abs error."""
+def grads_close(label, got, ref, loss_rtol=LOSS_RTOL, scene_tol=SCENE_TOL,
+                camera_tol=CAMERA_TOL):
+    """(loss, (scene grads, camera grads)) against a reference, by default
+    at the tolerances above; logs each family's largest abs error."""
     loss, (gs, gc) = got
     loss_r, (gs_r, gc_r) = ref
-    torch.testing.assert_close(float(loss), float(loss_r), rtol=LOSS_RTOL, atol=0)
+    torch.testing.assert_close(float(loss), float(loss_r), rtol=loss_rtol, atol=0)
     err = {}
-    for grads, grads_r, tol in ((gs, gs_r, SCENE_TOL), (gc, gc_r, CAMERA_TOL)):
+    for grads, grads_r, tol in ((gs, gs_r, scene_tol), (gc, gc_r, camera_tol)):
+        if grads.keys() != grads_r.keys():
+            raise AssertionError(f"{label}: parameter sets differ")
         for name, g in grads.items():
             g, g_r = g.detach().cpu(), grads_r[name].detach().cpu()
             if not bool(torch.isfinite(g).all()):
@@ -2602,6 +2688,365 @@ def phase_gltf(dev, roots, g_scene, g_cam, build_secs, col_img, cornell, cornell
     return secs, counts
 
 
+# ------------------------------------- phase 7: multi-device renders and grads
+# the sharded paths (parallel/mesh.py). The card is one: (a) runs a 1-rank
+# NCCL group in this process, so every call goes through NCCL's
+# collectives; (b) spawns GLOO_RANKS ranks that share the card over gloo
+# (NCCL refuses two ranks on one device). Nothing here is a cross-card
+# result.
+SHARD_CORNELL = dict(width=512, spp=16, max_depth=8)
+SHARD_GRAD = dict(width=128, spp=4, max_depth=8)
+SHARD_ADAPTIVE = dict(rel_tol=0.05, min_spp=8, max_spp=32, chunk_spp=8)
+SHARD_CKPT_CHUNK = 4
+# phase 3's all_materials_fixture check size: its sharded training step
+# launches K1 and K2 in every rank
+SHARD_MATERIALS = dict(width=24, spp=4, max_depth=3)
+GLOO_RANKS = 2
+# a collective that a failed rank left waiting errors out after this long;
+# the script waits this long for a spawned rank's results
+GLOO_TIMEOUT_S = 600
+# the sharded training step against the single-device one (the JAX
+# package's own sharded-against-single tolerances, tests/test_parallel.py)
+SHARD_LOSS_RTOL = 1e-5
+SHARD_SCENE_TOL = dict(rtol=2e-4, atol=1e-7)
+SHARD_CAMERA_TOL = dict(rtol=2e-4, atol=1e-6)
+# the kernels whose launches the sharded runs count
+SHARD_KERNELS = ("planar_closest", "sphere_closest", "cull_select", "visit_sweep",
+                 "packet_sphere")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_run(label, fn, names, mesh=None):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after, timed on the host clock (a barrier first when ``mesh`` is
+    given, a synchronise at both ends on the card). Fails unless each
+    kernel of ``names`` launched (on the card: a CPU run launches none).
+    Returns (result, seconds, launches)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else lambda: None
+    if mesh is not None:
+        collectives.barrier(mesh)
+    profiling.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    secs = time.perf_counter() - t0
+    counts = profiling.launches()
+    missing = [n for n in names if counts[n] <= 0 and torch.cuda.is_available()]
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} were not launched ({counts})")
+    return out, secs, {n: counts[n] for n in SHARD_KERNELS}
+
+
+def gloo_probe(dev) -> dict:
+    """Which collectives gloo takes on card tensors: each is called once on
+    a 4-float tensor of the card by every rank (a refusal is raised by
+    each rank before it sends anything). The mesh hands gloo card tensors
+    (``parallel/collectives.py``): this is the record that it may."""
+    calls = {"all_reduce": lambda t: dist.all_reduce(t),
+             "all_gather": lambda t: dist.all_gather([torch.empty_like(t)
+                                                      for _ in range(GLOO_RANKS)], t),
+             "broadcast": lambda t: dist.broadcast(t, 0)}
+    found = {}
+    for name, call in calls.items():
+        try:
+            call(torch.ones(4, device=dev))
+            found[name] = "takes"
+        except (RuntimeError, ValueError) as e:
+            found[name] = "refuses: " + str(e).strip().splitlines()[0][:160]
+    return found
+
+
+def gloo_rank(rank: int, store: str, ckpt_path: str, device: str, scenes: dict,
+              conn) -> None:
+    """One of GLOO_RANKS spawned ranks of phase 7 (b), all on ``device`` (the
+    card) in one gloo group at the ``file://`` store: each sharded path
+    once on the scenes ``scenes`` names (key -> catalog function, its
+    arguments), its launches counted; sends ("ok", results) or ("error",
+    traceback)."""
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        build_ = lambda k: getattr(catalog, scenes[k][0])(device=dev, **scenes[k][1])
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=GLOO_RANKS,
+                                timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+        out = {"probe": gloo_probe(dev)}
+        mesh = pm.make_mesh(device=dev)
+        scene, cam = build_("cornell")
+        key = keys.key(0)
+        runs = {}
+
+        def run(label, fn, names, warm=True):
+            if warm:   # this process's first call of a path loads its kernels
+                fn()
+            res, secs, counts = sharded_run(label, fn, names, mesh)
+            runs[label] = (secs, counts)
+            return res
+
+        out["pixel"] = run("cornell pixel-sharded", lambda: pm.render_image_sharded(
+            scene, cam, key, mesh), ("planar_closest",)).cpu().numpy()
+        out["spp"] = run("cornell spp-sharded", lambda: pm.render_image_spp_sharded(
+            scene, cam, key, mesh), ("planar_closest",)).cpu().numpy()
+        col_scene, col_cam = build_("colonnade")
+        out["colonnade"] = run("colonnade wavefront", lambda: (
+            pm.render_image_wavefront_sharded(col_scene, col_cam, key, mesh)),
+            ("planar_closest", "cull_select", "visit_sweep")).cpu().numpy()
+        del col_scene
+        sf_scene, sf_cam = build_("sphereflake")
+        out["sphereflake"] = run("sphereflake wavefront", lambda: (
+            pm.render_image_wavefront_sharded(sf_scene, sf_cam, key, mesh)),
+            ("packet_sphere",)).cpu().numpy()
+        img, spp_map = run("cornell adaptive", lambda: adaptive.render_image_adaptive(
+            scene, cam, key, mesh=mesh, return_spp_map=True, **SHARD_ADAPTIVE),
+            ("planar_closest",), warm=False)
+        out["adaptive"] = (img.cpu().numpy(), spp_map)
+
+        class Stop(Exception):
+            pass
+
+        done = []
+
+        def stop(msg):
+            done.append(msg)
+            if sum(m.startswith("[render]") for m in done) == 3:
+                raise Stop   # two chunks are in the file
+
+        try:
+            checkpoint.render_with_checkpoint(scene, cam, chunk_spp=SHARD_CKPT_CHUNK,
+                                              ckpt_path=ckpt_path, log=stop, mesh=mesh)
+            raise AssertionError("sharded checkpoint: the render was not stopped")
+        except Stop:
+            pass
+        logs = []
+        img = run("cornell checkpoint resumed", lambda: checkpoint.render_with_checkpoint(
+            scene, cam, chunk_spp=SHARD_CKPT_CHUNK, ckpt_path=ckpt_path, log=logs.append,
+            mesh=mesh), ("planar_closest",), warm=False)
+        out["checkpoint"] = (img.cpu().numpy(), [m for m in logs if "resuming" in m])
+        am_scene, am_cam = catalog.all_materials_fixture(device=dev, **SHARD_MATERIALS)
+        am_target = torch.zeros((am_cam.height, am_cam.width, 3), device=dev)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss, (gs, gc) = run("all_materials grad sharded", lambda: (
+                pm.render_loss_and_grad_sharded(am_scene, am_cam, key, am_target, mesh)),
+                ("planar_closest", "sphere_closest"), warm=False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["grads"] = (float(loss), ({k: v.cpu().numpy() for k, v in gs.items()},
+                                      {k: v.cpu().numpy() for k, v in gc.items()}))
+        out["runs"] = runs
+        log(f"  gloo rank {rank} of {GLOO_RANKS}, in its own process: launches of "
+            "K1 planar_closest, K2 sphere_closest, K3 cull_select, K4 visit_sweep, K6 "
+            "packet_sphere "
+            + "; ".join(f"{k} {v[1]}" for k, v in runs.items()))
+        conn.send(("ok", out))
+    except Exception:  # noqa: BLE001  (sent to the parent, which fails)
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        conn.close()
+
+
+def hold_sharded(label, got, ref, tol=None):
+    """A sharded image against the single-device one: bitwise, or within
+    ``tol``. Returns the max abs difference."""
+    got, ref = torch.as_tensor(got).cpu(), ref.detach().cpu()
+    err = max_abs(got, ref)
+    if tol is None and not torch.equal(got, ref):
+        raise AssertionError(f"{label}: not bitwise the single-device image "
+                             f"(max abs diff {err:.3g})")
+    if tol is not None:
+        torch.testing.assert_close(got, ref, **tol, msg=lambda m: f"{label}: {m}")
+    log(f"  {label}: against the single-device image, max abs diff {err:.3g} "
+        f"({'bitwise' if tol is None else tol})")
+    return err
+
+
+def phase_sharded_nccl(dev, col, sf):
+    """(a): the sharded paths in a 1-rank NCCL group in this process, each
+    against the single-device path: the pixel-sharded, spp-sharded and 2-D
+    Cornell SHARD_CORNELL renders (bitwise; the 1x1 mesh's sample sum is
+    the single one's), the sharded wavefronts of the colonnade and
+    sphereflake against their single-device wavefront images ``col`` and
+    ``sf`` (scene, camera, image; CKPT_WF_TOL: the atomic flush), and the
+    sharded training step of Cornell SHARD_GRAD against
+    ``diff.loss_and_grads`` under deterministic algorithms. Returns (the
+    single-device Cornell image, walls, launches by run)."""
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = pm.make_mesh(device=dev)
+        mesh2 = pm.make_mesh_2d(device=dev)
+        # NCCL sets up a communicator at its first collective: not timed
+        _, setup, _ = sharded_run("NCCL set-up", lambda: [
+            collectives.all_reduce(torch.zeros(1, device=dev), g)
+            for g in (mesh.group, mesh2.samp_group, mesh2.tile_group)], ())
+        log(f"  1-rank mesh: backend {dist.get_backend(mesh.group)}, device "
+            f"{mesh.device}; 2-D shape {mesh2.shape}; the "
+            f"communicators' first all-reduces {setup:.3f} s")
+        scene, cam = catalog.cornell_box(device=dev, **SHARD_CORNELL)
+        key = keys.key(0)
+        walls, counts = {}, {}
+        ref, walls["cornell single"], _ = sharded_run(
+            "cornell single", lambda: integrator.render_image(scene, cam, key),
+            ("planar_closest",))
+        for label, fn, tol in (
+                ("cornell pixel-sharded", lambda: pm.render_image_sharded(
+                    scene, cam, key, mesh), None),
+                ("cornell spp-sharded", lambda: pm.render_image_spp_sharded(
+                    scene, cam, key, mesh), None),
+                ("cornell 2-D", lambda: pm.render_image_sharded_2d(
+                    scene, cam, key, mesh2), None)):
+            img, walls[label], counts[label] = sharded_run(label, fn, ("planar_closest",))
+            hold_sharded(f"NCCL 1 rank, {label} {cam.width}x{cam.height} {cam.spp}spp "
+                         f"depth {cam.max_depth}", img, ref, tol)
+        for label, (sc_, cm, img_r), names in (
+                ("colonnade wavefront", col, ("planar_closest", "cull_select",
+                                              "visit_sweep")),
+                ("sphereflake wavefront", sf, ("packet_sphere",))):
+            img, walls[label], counts[label] = sharded_run(
+                label, lambda: pm.render_image_wavefront_sharded(sc_, cm, key, mesh), names)
+            hold_sharded(f"NCCL 1 rank, {label} {cm.width}x{cm.height} {cm.spp}spp depth "
+                         f"{cm.max_depth}", img, img_r, CKPT_WF_TOL)
+        g_scene, g_cam = catalog.cornell_box(device=dev, **SHARD_GRAD)
+        target = torch.zeros((g_cam.height, g_cam.width, 3), device=dev)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            got, walls["cornell grad sharded"], counts["cornell grad sharded"] = sharded_run(
+                "cornell grad sharded", lambda: pm.render_loss_and_grad_sharded(
+                    g_scene, g_cam, key, target, mesh), ("planar_closest",))
+            ref_g = diff.loss_and_grads(g_scene, g_cam, key, target, g_cam.spp)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        grads_close(f"NCCL 1 rank, render_loss_and_grad_sharded cornell "
+                    f"{g_cam.width}x{g_cam.height} {g_cam.spp}spp depth "
+                    f"{g_cam.max_depth} against loss_and_grads", got, ref_g,
+                    SHARD_LOSS_RTOL, SHARD_SCENE_TOL, SHARD_CAMERA_TOL)
+    finally:
+        dist.destroy_process_group()
+    log("  NCCL 1-rank walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    log("  NCCL 1-rank launches: " + "; ".join(f"{k} {v}" for k, v in counts.items()))
+    return ref, walls, counts
+
+
+def phase_sharded_gloo(dev, cornell_ref, col_img, sf_img, scenes):
+    """(b): GLOO_RANKS spawned ranks on the one card over gloo run the
+    pixel- and spp-sharded Cornell SHARD_CORNELL, the colonnade's and
+    sphereflake's sharded wavefronts, the sharded adaptive Cornell
+    (SHARD_ADAPTIVE), a sharded checkpoint in chunks of SHARD_CKPT_CHUNK
+    stopped after two chunks and resumed, and the sharded training step
+    of all_materials_fixture at SHARD_MATERIALS. Every rank's results are
+    held here against the single-device ones: pixel-sharded bitwise (a)'s
+    image, spp-sharded within atol 1e-5, the wavefronts within
+    CKPT_WF_TOL, adaptive bitwise (image and spp map), the resumed
+    checkpoint bitwise the uninterrupted single-device run, and the
+    training step at the sharded tolerances, under deterministic
+    algorithms on both sides, with every family of LIVE nonzero.
+    ``scenes``: key -> (catalog function, arguments) of the scenes the
+    ranks build ("cornell", "colonnade", "sphereflake"); the Cornell box's
+    is this function's too. Returns (walls by rank, launches by rank)."""
+    scene, cam = getattr(catalog, scenes["cornell"][0])(device=dev, **scenes["cornell"][1])
+    key = keys.key(0)
+    (ad_img, ad_map), secs, _ = sharded_run(
+        "single-device adaptive", lambda: adaptive.render_image_adaptive(
+            scene, cam, key, return_spp_map=True, **SHARD_ADAPTIVE), ())
+    log(f"  single-device adaptive Cornell {SHARD_ADAPTIVE}: {secs:.3f} s, "
+        f"{ad_map.mean():.2f} spp a pixel")
+    ck_img = checkpoint.render_with_checkpoint(scene, cam, chunk_spp=SHARD_CKPT_CHUNK,
+                                               log=lambda *_: None)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        am_ref = grads_of(*catalog.all_materials_fixture(device=dev, **SHARD_MATERIALS), 0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_")
+    ctx = multiprocessing.get_context("spawn")
+    procs, pipes = [], []
+    try:
+        for r in range(GLOO_RANKS):
+            ours, theirs = ctx.Pipe()
+            p = ctx.Process(target=gloo_rank, args=(r, os.path.join(work.name, "store"),
+                                                    os.path.join(work.name, "c.ckpt"),
+                                                    str(dev), scenes, theirs))
+            p.start()
+            procs.append(p)
+            pipes.append(ours)
+        outs = []
+        for r, c in enumerate(pipes):
+            if not c.poll(GLOO_TIMEOUT_S):
+                raise AssertionError(f"gloo rank {r} sent nothing in {GLOO_TIMEOUT_S} s")
+            status, out = c.recv()
+            if status != "ok":
+                raise AssertionError(f"gloo rank {r} failed:\n{out}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        work.cleanup()
+    walls, counts = {}, {}
+    for r, out in enumerate(outs):
+        tag = f"gloo {GLOO_RANKS} ranks on one card, rank {r}"
+        log(f"  {tag}: collectives on card tensors: {out['probe']}")
+        hold_sharded(f"{tag}, cornell pixel-sharded", out["pixel"], cornell_ref)
+        hold_sharded(f"{tag}, cornell spp-sharded", out["spp"], cornell_ref,
+                     dict(rtol=0, atol=1e-5))
+        hold_sharded(f"{tag}, colonnade wavefront", out["colonnade"], col_img, CKPT_WF_TOL)
+        hold_sharded(f"{tag}, sphereflake wavefront", out["sphereflake"], sf_img,
+                     CKPT_WF_TOL)
+        hold_sharded(f"{tag}, cornell adaptive", out["adaptive"][0], ad_img)
+        if not np.array_equal(out["adaptive"][1], ad_map):
+            raise AssertionError(f"{tag}: the adaptive spp map is not the single one's")
+        img, resumed = out["checkpoint"]
+        if not resumed:
+            raise AssertionError(f"{tag}: the sharded checkpoint did not resume")
+        hold_sharded(f"{tag}, cornell checkpoint stopped after two chunks and resumed "
+                     f"({resumed[0]})", img, ck_img)
+        loss, families = out["grads"]
+        got = (loss, tuple({k: torch.from_numpy(v) for k, v in f.items()}
+                           for f in families))
+        grads_close(f"{tag}, render_loss_and_grad_sharded all_materials_fixture "
+                    f"{SHARD_MATERIALS} against loss_and_grads", got, am_ref,
+                    SHARD_LOSS_RTOL, SHARD_SCENE_TOL, SHARD_CAMERA_TOL)
+        grads = {**got[1][0], **got[1][1]}
+        dead = [n for n in LIVE if not float(grads[n].norm()) > 0.0]
+        if dead:
+            raise AssertionError(f"{tag}: all_materials_fixture families with no "
+                                 f"gradient: {dead}")
+        walls[r] = {k: v[0] for k, v in out["runs"].items()}
+        counts[r] = {k: v[1] for k, v in out["runs"].items()}
+        log(f"  {tag}: walls (s) " + ", ".join(f"{k} {v:.3f}" for k, v in walls[r].items()))
+        log(f"  {tag}: launches " + "; ".join(f"{k} {v}" for k, v in counts[r].items()))
+    return walls, counts
+
+
+def cli_run():
+    """(c): the port's CLI once on the card, in its own process."""
+    out_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    out = os.path.join(out_dir.name, "x.png")
+    cmd = [sys.executable, "-m", "cpu_ray_tracing_implementation_tpu_torch.cli",
+           "cornell_box", "--width", "128", "--spp", "8", "-o", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.getsize(out):
+        raise AssertionError(f"cli: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    done = [ln for ln in proc.stdout.splitlines() if ln.startswith("Done")]
+    log(f"  cli {' '.join(cmd[3:-2])}: exit 0 in {secs:.2f} s of process; {done[0]}")
+    out_dir.cleanup()
+    return secs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2755,25 +3200,26 @@ def main() -> int:
     # phase: its walls against the per-ray route are the packet phase's)
     phase_log("phase 4: pool and batch sizes timed on the card")
     n_pix = col_cam.width * col_cam.height
+    pool_cam = col_cam.replace(spp=POOL_SPP)
     auto = integrator.wavefront_lanes(col_scene, n_pix)
     runs = {f"wavefront, pool {auto or n_pix} (automatic)": lambda: (
-                integrator.render_wavefront(col_scene, col_cam, keys.key(0), col_cam.spp,
+                integrator.render_wavefront(col_scene, pool_cam, keys.key(0), POOL_SPP,
                                             lanes=auto)),
             f"wavefront, pool {n_pix} (L)": lambda: (
-                integrator.render_wavefront(col_scene, col_cam, keys.key(0), col_cam.spp))}
+                integrator.render_wavefront(col_scene, pool_cam, keys.key(0), POOL_SPP))}
     if auto is None:
         runs = {f"wavefront, pool {n_pix} (L, automatic)":
                     runs[f"wavefront, pool {n_pix} (L)"],
                 "wavefront, pool 8192": lambda: (
-                    integrator.render_wavefront(col_scene, col_cam, keys.key(0),
-                                                col_cam.spp, lanes=8192))}
-    time_settings("colonnade", col_cam, runs)
+                    integrator.render_wavefront(col_scene, pool_cam, keys.key(0),
+                                                POOL_SPP, lanes=8192))}
+    time_settings("colonnade", pool_cam, runs)
     scan_runs = {
         f"batch {SCAN_TILE}": lambda: integrator.accumulate_samples(
-            col_scene, col_cam, keys.key(0), 0, col_cam.spp, batch_pixels=SCAN_TILE),
+            col_scene, pool_cam, keys.key(0), 0, POOL_SPP, batch_pixels=SCAN_TILE),
         "whole frame": lambda: integrator.accumulate_samples(
-            col_scene, col_cam, keys.key(0), 0, col_cam.spp)}
-    scan_walls = time_settings("colonnade scan", col_cam, scan_runs)
+            col_scene, pool_cam, keys.key(0), 0, POOL_SPP)}
+    scan_walls = time_settings("colonnade scan", pool_cam, scan_runs)
     imgs = [v[1] for v in scan_walls.values()]
     if not torch.equal(imgs[0], imgs[1]):
         raise AssertionError("colonnade scan: the batched image is not bitwise the "
@@ -2807,6 +3253,17 @@ def main() -> int:
             raise AssertionError(f"colonnade gradient: kernel {name} was not "
                                  "launched in both passes")
     vol_grad_secs = volume_grad(dev)
+
+    phase_log("phase 7: multi-device renders and gradients (torch.distributed) on the "
+              "one card, each run's launches counted on its own; then the CLI")
+    shard_ref, nccl_walls, nccl_counts = phase_sharded_nccl(
+        dev, (col_scene, col_cam, col_wf[2]), (sf_scene, sf_cam, sf_wf[2]))
+    gloo_walls, gloo_counts = phase_sharded_gloo(
+        dev, shard_ref, col_wf[2], sf_wf[2], {"cornell": ("cornell_box", SHARD_CORNELL),
+                                              "colonnade": ("sponza", {}),
+                                              "sphereflake": ("sphereflake", {})})
+    del shard_ref
+    cli_secs = cli_run()
     # K5 lies on no path: its launches are those of one probe call
     profiling.reset_counts()
     R, K, V, rowf = gather_probe.DEFAULTS
@@ -2816,6 +3273,7 @@ def main() -> int:
                             torch.randn((K, rowf), generator=gen, device=dev))
     launches_probe = profiling.launches()
     log(f"  launches in one gather-probe call: {launches_probe}")
+    phase_log("phase 4: the profiled renders (last of the timed work)")
     # last of the timed work: the profiler may leave per-launch costs behind
     device_time("colonnade render", col_scene, col_cam, ("cull_select", "visit_sweep"))
     device_time(f"sphereflake {SPHEREFLAKE_CHECK_SPP}spp scan render", sf_scene, sf_check,
@@ -2869,15 +3327,23 @@ def main() -> int:
     for name, (kid, source, replaces) in KERNELS.items():
         ms, plain_ms = times[name][:2]
         bound_ms, bound_by = bounds[name]
-        log(f"  {kid} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})"
+        # K6's plain per-tile loop is timed on the tiles it is checked on
+        plain_on = (f"every {PACKET_PLAIN_STRIDE}th tile" if name.startswith("packet_")
+                    else "the whole call")
+        log(f"  {kid} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (on "
+            f"{plain_on}), bound {bound_ms:.4f} ms ({bound_by})"
             + (f", with the wrapper's packing {times[name][2]:.4f} ms"
                if len(times[name]) > 2 else ""))
+        # the sharded runs' launches, summed over each rank's runs of phase 7
+        sharded = {"nccl_1_rank": sum(c.get(name, 0) for c in nccl_counts.values()),
+                   **{f"gloo_rank{r}": sum(c.get(name, 0) for c in runs.values())
+                      for r, runs in gloo_counts.items()}}
         kernels.append({"name": f"{kid} {name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                        "plain_ms_on": plain_on,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms.get(name)})
+                        "library_ms": library_ms.get(name), "sharded_launches": sharded})
     n_cornell = cam.width * cam.height * cam.spp
     log(f"full workloads: cornell_box {cornell_secs:.3f} s, {cornell_rps:.1f} camera "
         f"rays/s; colonnade {col_secs:.3f} s, {col_rps:.1f} camera rays/s; "
@@ -2907,6 +3373,11 @@ def main() -> int:
         f"fwd+bwd against the render, per camera ray: cornell_box "
         f"{grad_secs[False] / cornell_secs:.3f}, with geometry "
         f"{grad_secs[True] / cornell_secs:.3f}, colonnade {col_rps / col_grad_rps:.3f}; "
+        f"sharded walls, NCCL 1 rank: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in nccl_walls.items()) + "; gloo "
+        f"{GLOO_RANKS} ranks on one card: " + "; ".join(
+            f"rank {r} " + ", ".join(f"{k} {v:.3f} s" for k, v in w.items())
+            for r, w in gloo_walls.items()) + f"; cli {cli_secs:.2f} s; "
         f"total {time.perf_counter() - t_start:.1f} s")
     asset_dir.cleanup()
     log(gpu_name_and_power())

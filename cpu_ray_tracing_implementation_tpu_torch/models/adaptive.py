@@ -15,8 +15,11 @@ render is bitwise the uniform ``max_spp`` render. The host keeps float64
 accumulators for the stopping rule, as the JAX package does (a float64
 copy of each running sum, and the float64 sum of the rounds' sums of
 squares): each round ends in one copy of its [k,3] sums to the host, the
-round's only synchronisation. The JAX package pads each round's id count to a
-power of two to bound its jit shapes; eager PyTorch has no shapes to
+round's only synchronisation. Over a mesh (``parallel/mesh.py``) each
+round's ids are split over the ranks and the ranks' sums and moments
+gathered onto every rank (``parallel/collectives.map_pixels``), so each
+makes the same host decision and the result is bitwise the single-device
+render. The JAX package pads each round's id count to a power of two to bound its jit shapes; eager PyTorch has no shapes to
 bound, so the port does not pad.
 
 The stopping rule carries the usual adaptive-sampling caveat: stopping on
@@ -31,6 +34,18 @@ import numpy as np
 import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.models import integrator
+from cpu_ray_tracing_implementation_tpu_torch.parallel.collectives import map_pixels
+
+
+def _round(scene, camera, key, ids, offset, step, accum, mesh):
+    """(running sums, sums of squares) [k,3] of one round over ``ids``;
+    over a mesh each rank renders its share and the shares are gathered."""
+    out = map_pixels(mesh, ids, lambda ids, accum: torch.stack(
+        integrator.accumulate_samples_subset(
+            scene, camera, key, ids, offset, step,
+            batch_pixels=integrator.scan_batch_pixels(scene), accum=accum,
+            moments=True), dim=1), accum)
+    return out[:, 0], out[:, 1]
 
 
 def render_image_adaptive(scene, camera, key: np.ndarray, *, rel_tol: float = 0.05,
@@ -49,12 +64,10 @@ def render_image_adaptive(scene, camera, key: np.ndarray, *, rel_tol: float = 0.
     CI that proves nothing (a dark indirect-only corner looks like true
     black until one path lands), so it may not stop before this count; a
     pixel of nonzero constant value (a directly seen emitter) has truly
-    converged and is exempt. ``mesh``: the JAX package's sharded rounds,
-    not ported (ROADMAP M15, queue 1 step 14); a mesh of one device renders
-    here as if it were None."""
-    if mesh is not None and np.size(getattr(mesh, "devices", 1)) > 1:
-        raise NotImplementedError("render_image_adaptive over a device mesh "
-                                  "(ROADMAP M15, queue 1 step 14) is not ported yet")
+    converged and is exempt. ``mesh`` (``parallel.mesh.Mesh``): each
+    round's unconverged ids shard over its ranks, every rank calling with
+    the same arguments; bitwise the single-device render, spp map
+    included."""
     max_spp = camera.spp if max_spp is None else max_spp
     min_spp = min(min_spp, max_spp)
     n_pix = camera.width * camera.height
@@ -71,10 +84,7 @@ def render_image_adaptive(scene, camera, key: np.ndarray, *, rel_tol: float = 0.
         step = int(min(chunk_spp, max_spp - done_spp))
         ids = torch.from_numpy(active).to(dev)
         rows = ids.long()
-        run, sq = integrator.accumulate_samples_subset(
-            scene, camera, key, ids, done_spp, step,
-            batch_pixels=integrator.scan_batch_pixels(scene), accum=total[rows],
-            moments=True)
+        run, sq = _round(scene, camera, key, ids, done_spp, step, total[rows], mesh)
         total[rows] = run
         host = torch.stack([run, sq]).cpu().numpy().astype(np.float64)
         sum_rgb[active] = host[0]

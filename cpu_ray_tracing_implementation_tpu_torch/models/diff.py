@@ -207,29 +207,40 @@ def image_loss(scene, camera, key: np.ndarray, target: torch.Tensor, spp: int,
     return torch.mean((img - target) ** 2)
 
 
-def _forward_pass(scene, camera, key, spp: int, tape) -> torch.Tensor:
+def _forward_pass(scene, camera, key, spp: int, tape, pixel_ids=None,
+                  samples=None) -> torch.Tensor:
     """Pass 1: the [H,W,3] image under no_grad; ``tape`` (a
-    ``replay.Tape`` or None) records each bounce's winners."""
+    ``replay.Tape`` or None) records each bounce's winners. A rank of a
+    mesh (``parallel/mesh.py``) passes its ``pixel_ids`` [N] and its
+    ``samples`` = (offset, count) and gets its [N,3] part of the image:
+    the radiance sum of those samples over ``spp``. The defaults are the
+    whole frame and samples [0, spp)."""
     with torch.no_grad():
-        pixel_ids = torch.arange(camera.width * camera.height,
-                                 dtype=torch.int32, device=scene.device)
+        ids = pixel_ids if pixel_ids is not None else torch.arange(
+            camera.width * camera.height, dtype=torch.int32, device=scene.device)
+        offset, count = samples or (0, spp)
         accum = integrator.accumulate_samples_subset(
-            scene, camera, key, pixel_ids, 0, spp,
+            scene, camera, key, ids, offset, count,
             isect_fn=None if tape is None else tape.record)
-        return (accum / spp).reshape(camera.height, camera.width, 3)
+        img = accum / spp
+        return img if pixel_ids is not None else img.reshape(camera.height,
+                                                             camera.width, 3)
 
 
 def _backward_pass(scene, camera, key, spp: int, sp: dict, cp: dict,
-                   grad_img: torch.Tensor, tape) -> None:
+                   grad_img: torch.Tensor, tape, pixel_ids=None, samples=None) -> None:
     """Pass 2: each sample rendered again from the parameter leaves ``sp``
     and ``cp`` with autograd on, its graph consumed by one backward (its
     share of ``grad_img``) before the next sample; ``tape`` plays the
-    winners back (or None: intersect again)."""
-    pixel_ids = torch.arange(camera.width * camera.height, dtype=torch.int32,
-                             device=scene.device)
+    winners back (or None: intersect again). ``pixel_ids`` and
+    ``samples`` as in ``_forward_pass``; ``grad_img`` is then [N,3]."""
+    if pixel_ids is None:
+        pixel_ids = torch.arange(camera.width * camera.height, dtype=torch.int32,
+                                 device=scene.device)
+    offset, count = samples or (0, spp)
     grad_rad = (grad_img / spp).reshape(-1, 3)
     qmc_words = qmc.seed_words(key) if camera.qmc else None
-    for s in range(spp):
+    for s in range(offset, offset + count):
         with torch.enable_grad():
             s_scene = apply_scene_params(scene, sp)
             s_cam = apply_camera_params(camera, cp)

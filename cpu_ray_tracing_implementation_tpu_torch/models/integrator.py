@@ -321,19 +321,22 @@ def scan_batch_pixels(scene) -> int | None:
     return AUTO_SCAN_TILE if _perray_routed(scene) else None
 
 
-def wavefront_lanes(scene, L: int) -> int | None:
+def wavefront_lanes(scene, L: int, cap: int | None = None) -> int | None:
     """Automatic lane pool of the wavefront for ``L`` pixels (None: one
     lane per pixel). As for the scan's batch, a per-ray-routed pool is
     batch-coupled; ``AUTO_WF_LANES`` records the card's choice. The pool
     size changes no path's radiance, only the order of the flushes into
     the image. Override: ``CRT_WF_LANES=<n|full>`` (``integrator.py:485-504``
-    of the JAX package)."""
+    of the JAX package). ``cap``: at most that many lanes (the CLI's
+    ``--tile-pixels``)."""
     v = os.environ.get("CRT_WF_LANES")
     if v:
-        return None if v == "full" else min(int(v), L)
-    if AUTO_WF_LANES is None or not _perray_routed(scene):
-        return None
-    return min(AUTO_WF_LANES, L)
+        lanes = None if v == "full" else min(int(v), L)
+    elif AUTO_WF_LANES is None or not _perray_routed(scene):
+        lanes = None
+    else:
+        lanes = min(AUTO_WF_LANES, L)
+    return min(int(cap), lanes or L) if cap else lanes
 
 
 def accumulate_samples_subset(scene, camera, key: np.ndarray,
@@ -405,6 +408,18 @@ def render_image(scene, camera, key: np.ndarray, spp: int | None = None,
         scene, camera, key, 0, spp,
         isect_fn=replay.intersect_replay if replay_isect else None,
         batch_pixels=scan_batch_pixels(scene))
+    return (accum / spp).reshape(camera.height, camera.width, 3)
+
+
+def render_image_tiled(scene, camera, key: np.ndarray, spp: int | None = None,
+                       tile_pixels: int = 1 << 18) -> torch.Tensor:
+    """``render_image`` in scan tiles of ``tile_pixels`` pixels, the last
+    one shorter (``integrator.py:828-852`` of the JAX package, which pads
+    it to bound its jit shapes; eager PyTorch does not need to): bitwise
+    the untiled render for any tile, the device holding one tile's lanes
+    at a time."""
+    spp = camera.spp if spp is None else spp
+    accum = accumulate_samples(scene, camera, key, 0, spp, batch_pixels=tile_pixels)
     return (accum / spp).reshape(camera.height, camera.width, 3)
 
 

@@ -20,6 +20,14 @@ sum is deterministic: the scan everywhere, and the wavefront on the CPU.
 On the card the wavefront flushes finished paths with a float
 ``index_add_``, which runs as atomics in no fixed order, so there the two
 agree to float32 summation order (rtol 1e-5), not bitwise.
+
+Over a mesh (``parallel/mesh.py``) each chunk's pixels shard over the
+ranks (``parallel/collectives.map_pixels``, as ``accumulate_samples_sharded``
+and ``accumulate_wavefront_sharded`` shard them) and every rank holds the
+whole sum. Rank 0 writes the file and every rank
+waits at a barrier after each write; a resume reads the same file on every
+rank. The fingerprint does not name the mesh, so a sharded checkpoint
+resumes in a single-rank run and the reverse.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.models import integrator
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+from cpu_ray_tracing_implementation_tpu_torch.parallel.collectives import barrier, map_pixels
 
 
 def _leaves(obj):
@@ -105,17 +114,16 @@ def render_with_checkpoint(scene, camera, seed: int = 0, spp: int | None = None,
     the integrator is part of the fingerprint (``"wf-"``), so a scan
     checkpoint is refused under the wavefront. ``batch_pixels``: the
     scan's pixel batch (default ``integrator.scan_batch_pixels``), or a cap
-    on the wavefront's lane pool. ``mesh``: sharded chunks are not ported
-    (ROADMAP M15, queue 1 step 14); a mesh of one device renders as None."""
-    if mesh is not None and np.size(getattr(mesh, "devices", 1)) > 1:
-        raise NotImplementedError("render_with_checkpoint over a device mesh "
-                                  "(ROADMAP M15, queue 1 step 14) is not ported yet")
+    on the wavefront's lane pool (each rank's, over a mesh). ``mesh``
+    (``parallel.mesh.Mesh``): each chunk's pixels shard over its ranks,
+    every rank calling with the same arguments."""
     spp = camera.spp if spp is None else spp
     key = keys.key(seed)
     fp = _fingerprint(scene, camera, seed)
     if use_wavefront:
         fp = "wf-" + fp
     n_pix = camera.width * camera.height
+    rank = 0 if mesh is None else mesh.rank
 
     accum = np.zeros((n_pix, 3), np.float32)
     done = 0
@@ -125,27 +133,32 @@ def render_with_checkpoint(scene, camera, seed: int = 0, spp: int | None = None,
             accum, done = state
             log(f"[checkpoint] resuming at {done}/{spp} spp from {ckpt_path}")
 
-    lanes = integrator.wavefront_lanes(scene, n_pix) if use_wavefront else None
-    if use_wavefront and batch_pixels:
-        lanes = min(batch_pixels, lanes or n_pix)
+    pixel_ids = torch.arange(n_pix, dtype=torch.int32, device=scene.device)
     scan_batch = batch_pixels or integrator.scan_batch_pixels(scene)
+
+    def chunk(ids):
+        """This rank's radiance sum of the chunk's samples at ``ids``."""
+        if use_wavefront:
+            return integrator.render_wavefront(
+                scene, camera, key, n, pixel_ids=ids, sample_offset=done,
+                lanes=integrator.wavefront_lanes(scene, ids.shape[0], batch_pixels))
+        return integrator.accumulate_samples_subset(scene, camera, key, ids, done, n,
+                                                    batch_pixels=scan_batch)
+
     while done < spp:
         n = min(chunk_spp, spp - done)
         t0 = time.perf_counter()
-        if use_wavefront:
-            part = integrator.render_wavefront(scene, camera, key, n, lanes=lanes,
-                                               sample_offset=done)
-        else:
-            part = integrator.accumulate_samples(scene, camera, key, done, n,
-                                                 batch_pixels=scan_batch)
+        part = map_pixels(mesh, pixel_ids, chunk)
         accum = accum + part.cpu().numpy()
         dt = time.perf_counter() - t0
         done += n
         log(f"[render] {done}/{spp} spp ({n_pix * n / dt / 1e6:.2f}M camera rays/s)")
         if ckpt_path:
-            save(ckpt_path, accum, done, fp)
+            if rank == 0:
+                save(ckpt_path, accum, done, fp)
+            barrier(mesh)
 
-    if ckpt_path and os.path.exists(ckpt_path):
+    if ckpt_path and rank == 0 and os.path.exists(ckpt_path):
         os.remove(ckpt_path)  # complete: the checkpoint is spent
     img = torch.as_tensor(accum / np.float32(spp), device=scene.device)
     return img.reshape(camera.height, camera.width, 3)

@@ -45,6 +45,13 @@ launches of these host-bound paths, and then one more with PyTorch's
 synchronisation debug mode on, which counts the host synchronisations
 that PyTorch's operations make (per bounce or per loop iteration).
 
+For any render, ``RenderStats`` times named phases with their camera rays
+(``Phase``: seconds and rays/s; the clock stops after a synchronise when
+the work is on the card), and ``device_trace(dir)`` writes a
+``torch.profiler`` Chrome trace of what it wraps (a no-op when ``dir`` is
+None): the CLI's ``--profile`` (``utils/profiling.py:19-62`` of the JAX
+package).
+
 ``cuda_ms`` and the card's peak rates are shared with ``chip_smoke.py``
 and ``utils/gather_probe.py``; ``camera_rays`` and ``secondary``, the rays
 at which K1 and K2 are timed, with ``chip_smoke.py`` and
@@ -54,6 +61,8 @@ at which K1 and K2 are timed, with ``chip_smoke.py`` and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import os
 import subprocess
 import sys
 import time
@@ -72,6 +81,66 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
 from cpu_ray_tracing_implementation_tpu_torch.ops import packet, qmc, replay
 from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe
+
+@dataclasses.dataclass
+class Phase:
+    name: str
+    seconds: float = 0.0
+    rays: int = 0
+
+    @property
+    def mrays_per_s(self) -> float:
+        return self.rays / self.seconds / 1e6 if self.seconds > 0 else 0.0
+
+
+@dataclasses.dataclass
+class RenderStats:
+    """Wall seconds and camera rays per named phase of one render.
+    ``device``: where the render's tensors lie; on a card each phase's
+    clock stops only after ``torch.cuda.synchronize``, since its launches
+    return before the work is done."""
+
+    device: object = None
+    phases: dict = dataclasses.field(default_factory=dict)
+
+    @contextlib.contextmanager
+    def phase(self, name: str, rays: int = 0):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device is not None and torch.device(self.device).type == "cuda":
+                torch.cuda.synchronize(self.device)
+            p = self.phases.setdefault(name, Phase(name))
+            p.seconds += time.perf_counter() - t0
+            p.rays += rays
+
+    def summary(self) -> str:
+        lines = []
+        for p in self.phases.values():
+            rate = f" ({p.mrays_per_s:.2f}M rays/s)" if p.rays else ""
+            lines.append(f"  {p.name:<22} {p.seconds:8.3f}s{rate}")
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str | None):
+    """A ``torch.profiler`` trace of the host and, where there is one, the
+    card, written as ``log_dir/trace.json`` (Chrome trace format) when
+    ``log_dir`` is set; a no-op otherwise."""
+    if not log_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[profile] device trace written to {path}")
+
 
 # the card's peak rates (H100 SXM data sheet): 3.35 TB/s of HBM and 67
 # TFLOP/s of FP32, which counts a fused multiply-add as two operations, so

@@ -17,6 +17,7 @@ from cpu_ray_tracing_implementation_tpu.models import adaptive as jadaptive
 from cpu_ray_tracing_implementation_tpu.models import catalog as jcat
 from cpu_ray_tracing_implementation_tpu_torch.models import adaptive, catalog, integrator
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+from cpu_ray_tracing_implementation_tpu_torch.parallel import mesh as pm
 from cpu_ray_tracing_implementation_tpu_torch.utils import convert
 
 
@@ -76,9 +77,12 @@ def test_matches_jax_adaptive():
 
 
 def test_a_device_mesh_is_not_ported(cornell):
-    class Mesh:
-        devices = np.zeros(2)
-
+    """The sharded rounds are ported: a mesh of one rank (no process group)
+    renders bitwise as no mesh (two ranks: tests/test_torch_parallel.py)."""
     scene, cam = cornell
-    with pytest.raises(NotImplementedError, match="M15"):
-        adaptive.render_image_adaptive(scene, cam, keys.key(0), mesh=Mesh())
+    kw = dict(rel_tol=0.05, min_spp=4, max_spp=12, chunk_spp=4, return_spp_map=True)
+    img, spp_map = adaptive.render_image_adaptive(scene, cam, keys.key(0),
+                                                  mesh=pm.make_mesh(device="cpu"), **kw)
+    ref, ref_map = adaptive.render_image_adaptive(scene, cam, keys.key(0), **kw)
+    assert torch.equal(img, ref)
+    np.testing.assert_array_equal(spp_map, ref_map)

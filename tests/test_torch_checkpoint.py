@@ -5,14 +5,13 @@ after two chunks and resumed from its checkpoint is bitwise the
 uninterrupted one, through the scan and through the wavefront (on the
 CPU every chunk's sum is deterministic); a checkpoint of another
 configuration, or of the scan under the wavefront, is refused;
-``batch_pixels`` reaches both integrators; a device mesh of more than one
-device raises. The port's Cornell box at 16 px, 8 spp matches the JAX
+``batch_pixels`` reaches both integrators; a mesh of one rank renders as
+no mesh. The port's Cornell box at 16 px, 8 spp matches the JAX
 package's ``render_with_checkpoint`` (mean within 2e-3, 98% of pixels
 within 1e-3, the contract of tests/test_torch_render.py).
 """
 
 import os
-from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -23,6 +22,7 @@ from cpu_ray_tracing_implementation_tpu.models import catalog as jcat
 from cpu_ray_tracing_implementation_tpu.utils import checkpoint as jckpt
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, integrator
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+from cpu_ray_tracing_implementation_tpu_torch.parallel import mesh as pm
 from cpu_ray_tracing_implementation_tpu_torch.utils import checkpoint as ckpt
 from cpu_ray_tracing_implementation_tpu_torch.utils import convert
 
@@ -108,7 +108,9 @@ def test_mismatched_fingerprint_and_integrator_refused(tmp_path):
 def test_batch_pixels_reaches_both_branches(monkeypatch):
     scene, cam = _scene("cornell_box")
     seen = []
-    real_scan, real_wf = integrator.accumulate_samples, integrator.render_wavefront
+    # the scan's chunks run through accumulate_samples_subset on the frame's
+    # pixel ids (a rank's share of them over a mesh)
+    real_scan, real_wf = integrator.accumulate_samples_subset, integrator.render_wavefront
 
     def scan(*a, **k):
         seen.append(("scan", k["batch_pixels"]))
@@ -118,7 +120,7 @@ def test_batch_pixels_reaches_both_branches(monkeypatch):
         seen.append(("wavefront", k["lanes"]))
         return real_wf(*a, **k)
 
-    monkeypatch.setattr(integrator, "accumulate_samples", scan)
+    monkeypatch.setattr(integrator, "accumulate_samples_subset", scan)
     monkeypatch.setattr(integrator, "render_wavefront", wavefront)
     a = ckpt.render_with_checkpoint(scene, cam, seed=1, spp=2, chunk_spp=2, log=_quiet,
                                     batch_pixels=40)
@@ -133,13 +135,17 @@ def test_batch_pixels_reaches_both_branches(monkeypatch):
 
 
 def test_mesh_of_several_devices_raises():
+    """The sharded chunks are ported: a mesh of one rank (no process group)
+    renders bitwise as no mesh, through the scan and the wavefront (two
+    ranks: tests/test_torch_parallel.py)."""
     scene, cam = _scene("cornell_box")
-    with pytest.raises(NotImplementedError, match="M15"):
-        ckpt.render_with_checkpoint(scene, cam, mesh=SimpleNamespace(
-            devices=np.zeros((2,), object)), log=_quiet)
-    img = ckpt.render_with_checkpoint(scene, cam, spp=1, log=_quiet,
-                                      mesh=SimpleNamespace(devices=np.zeros((1,), object)))
-    assert img.shape == (cam.height, cam.width, 3)
+    mesh = pm.make_mesh(device="cpu")
+    for wavefront in (False, True):
+        img = ckpt.render_with_checkpoint(scene, cam, spp=4, chunk_spp=2, log=_quiet,
+                                          mesh=mesh, use_wavefront=wavefront)
+        ref = ckpt.render_with_checkpoint(scene, cam, spp=4, chunk_spp=2, log=_quiet,
+                                          use_wavefront=wavefront)
+        assert torch.equal(img, ref)
 
 
 def test_cornell_matches_jax_render_with_checkpoint(tmp_path):
