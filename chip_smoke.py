@@ -45,6 +45,15 @@ Phases (any failure raises and the script exits non-zero):
      plain version's. Each timed case prints its bound, counted from what
      the sequential sweep needs of that run's data (``sweep_needs``), and
      the bound at the count before K4's redesign.
+   - The opt-in per-ray routes' kernels at the colonnade's 40,000 primary
+     rays: K3 on the sub-tile boxes (CS 32: 8,060; CS 16: 16,120) at V 24,
+     bit-equal; K7 (the sub-tile sweep) on the lists K3 gives there, at
+     CS 32 and at CS 16 (above the 8,192 sub-tiles its count stage keeps in
+     shared memory); K8 (the quantized-row sweep) on the chunk route's
+     phase-1 lists, timed against K4 on the same lists. K7 and K8 all 8
+     columns bit for bit equal to their plain versions (``sweep_plain`` at
+     the sub-tile width, ``sweep_q16_plain``); phase 1 timed with its
+     bound, K3 and K7 at CS 32.
    - K1 and K2 with their pid output (the winner's lane, which the
      gradient path replays) against the plain versions' pid, at the same
      Cornell, three_material_ball and random_motion_ball shapes: equal
@@ -221,6 +230,29 @@ Phases (any failure raises and the script exits non-zero):
    adaptive render K1 depth x the largest per-pixel spp times, the AOV
    pass K1 once per sample; textured_fox's gradient run K6 in both
    passes (on a line of their own before the ``kernels`` line).
+   The opt-in per-ray routes: the colonnade at 200x200, 30 spp, depth 5,
+   scan and wavefront, under ``CRT_SUBTILE=1`` (K3 on the sub-tile boxes +
+   K7) and under ``CRT_SWEEP_Q16=1`` (K3 + K8), each render's launches
+   counted alone (K1, K3 and the route's sweep launched, K4 not), its
+   selection phases per call, its image against the default route's of
+   the same key (means within MODE_MEAN_ATOL; under CRT_SUBTILE, which is
+   exact, at least MODE_PIXEL_SHARE of the pixels within 1e-3 too; PSNR
+   and the share printed), and its walls against the default route's in
+   turns (default, switched, switched, default); under CRT_SWEEP_Q16 a
+   MODE_TWIN_SPP scan through K8 bitwise equal to one through K8's plain
+   version (the quantized surfaces change secondary paths, MODE_MEAN_ATOL's
+   comment);
+   the colonnade's primary and secondary rays under CRT_SUBTILE against
+   the chunk route (equal hit masks and t; pids equal but at shared edges,
+   counted); sphereflake's primary rays under ``CRT_ACCEL=ray CRT_SUBTILE=1``
+   against the chunk route's (equal hit masks and pids) and the chunk-scan
+   oracle (differing only where the chunk route differs, counted); ``loss_and_grads`` of the colonnade at
+   COLONNADE_GRAD_SPP under deterministic algorithms; at MODE_TWIN_SPP
+   under each switch against the same route on K7's or K8's plain version
+   (LOSS_RTOL, SCENE_TOL, CAMERA_TOL); under CRT_SUBTILE against the
+   default route's, on all but MODE_GRAD_OUTLIERS of each family's elements (ties at
+   shared edges; counted); under CRT_SWEEP_Q16 its difference from the
+   default route's printed.
 6. The packet route (``CRT_ACCEL`` unset: tables under 256 chunks take
    K6, as in the JAX package): sphereflake 400x400x50 depth 5 through the
    wavefront and the scan, perlin_texture_ball 600x600 at 32 spp depth 5,
@@ -369,6 +401,10 @@ KERNELS = {
     # per-tile loops (lax.map over _planar_tile / _sphere_tile)
     "packet_planar": ("K6", PKG + "packet_closest.cu", JAX + "ops/packet.py:110"),
     "packet_sphere": ("K6", PKG + "packet_closest.cu", JAX + "ops/packet.py:158"),
+    # K7 and K8 replace the XLA sweeps of the JAX package's opt-in per-ray
+    # routes (no Pallas counterpart): the sub-tile sweep and the q16 sweep
+    "visit_sweep_sub": ("K7", PKG + "visit_sweep.cu", JAX + "ops/perray.py:567"),
+    "visit_sweep_q16": ("K8", PKG + "visit_sweep.cu", JAX + "ops/perray.py:840"),
 }
 # K5's two tables: the probe's default (11.5 MB, inside the 50 MB L2) and
 # one of 738 MB, whose random rows come mostly from device memory
@@ -428,7 +464,10 @@ THREEFRY_SPP = 64
 OPS = {"planar_closest": 36, "sphere_closest": 38, "sphere_root": 9,
        "cull_select": 30, "visit_sweep_planar": 16, "visit_sweep_planar_edges": 30,
        "visit_sweep_sphere": 26, "visit_sweep_planar_row": 57,
-       "visit_sweep_sphere_row": 4}
+       "visit_sweep_sphere_row": 4,
+       # K8's row: K4's 57 and the dequantization (corner: a product and a
+       # sum per axis; edges: a difference and a product per axis and edge)
+       "visit_sweep_q16_row": 57 + 18}
 # K4's count before its redesign: the whole test, constants included, per
 # pair; its bound is printed beside the new one
 OPS_PER_PAIR_BEFORE = {"planar": 130, "sphere": 50}
@@ -763,28 +802,35 @@ def sweep_needs(rays, ids, nears, best, table, tri, sphere, step=16_384):
     return visits, int(torch.unique(torch.cat(rows)).numel()), more
 
 
-def sweep_check(label, rays, ids, nears, best, table, tri, sphere, timed=False):
-    """K4 against its plain version on one call's inputs (bit for bit);
-    ``timed``: also the kernel's and the plain version's times, the bound
-    (what the sequential sweep needs, ``sweep_needs``, at the redesigned
-    count) and the bound at the count before the redesign. Returns (err,
-    (ms, plain_ms), bound), the last two None unless timed."""
-    got = fsw.sweep_kernel(rays, ids, nears, best, table, TMIN, tri, sphere)
-    ref = fsw.sweep_plain(rays, ids, nears, best, table, TMIN, tri, sphere)
+def sweep_check(label, rays, ids, nears, best, table, tri, sphere, timed=False,
+                kernel=fsw.sweep_kernel, plain=fsw.sweep_plain, q16=None):
+    """K4 (or ``kernel``: K7 on sub-tile rows) against its plain version on
+    one call's inputs (bit for bit); ``q16``: (words, lo, scale), K8 on the
+    quantized rows whose dequantized table is ``table``. ``timed``: also
+    the kernel's and the plain version's times, the bound (what the
+    sequential sweep needs, ``sweep_needs``, at the redesigned count) and
+    the bound at the count before the redesign. Returns (err, (ms,
+    plain_ms), bound), the last two None unless timed."""
+    if q16 is not None:
+        kernel = lambda r, i, n, b, _t, *a: fsw.sweep_q16_kernel(r, i, n, b, *q16, *a[:2])
+        plain = lambda r, i, n, b, _t, *a: fsw.sweep_q16_plain(r, i, n, b, *q16, *a[:2])
+    got = kernel(rays, ids, nears, best, table, TMIN, tri, sphere)
+    ref = plain(rays, ids, nears, best, table, TMIN, tri, sphere)
     err = sweep_compare(label, got, ref, best[:, 0], sphere)
     if not timed:
         return err, None, None
-    ms = cuda_ms(lambda: fsw.sweep_kernel(rays, ids, nears, best, table, TMIN, tri,
-                                          sphere))
-    plain_ms = cuda_ms(lambda: fsw.sweep_plain(rays, ids, nears, best, table, TMIN, tri,
-                                               sphere))
+    ms = cuda_ms(lambda: kernel(rays, ids, nears, best, table, TMIN, tri, sphere))
+    plain_ms = cuda_ms(lambda: plain(rays, ids, nears, best, table, TMIN, tri, sphere))
     R, V = ids.shape
     F, C = table.shape[1], table.shape[2]
     kind = "sphere" if sphere else "planar"
     visits, rows, more = sweep_needs(rays, ids, nears, best, table, tri, sphere)
-    nbytes = 4 * (8 * R + 2 * R * V + 8 * R + 8 * R + rows * F * C)
+    # a quantized row: 5 words a primitive and the chunk's lo and scale
+    row_bytes = 4 * (fsw.Q16_WORDS * C + 6) if q16 is not None else 4 * F * C
+    row_ops = OPS["visit_sweep_q16_row"] if q16 is not None else OPS[f"visit_sweep_{kind}_row"]
+    nbytes = 4 * (8 * R + 2 * R * V + 8 * R + 8 * R) + rows * row_bytes
     b = bound(nbytes, visits * C * OPS[f"visit_sweep_{kind}"]
-              + rows * C * OPS[f"visit_sweep_{kind}_row"]
+              + rows * C * row_ops
               + more * OPS["sphere_root" if sphere else "visit_sweep_planar_edges"])
     b_old = bound(nbytes, visits * C * OPS_PER_PAIR_BEFORE[kind])
     log(f"  {label}, timed: {R} rays, {visits} (ray, slot) pairs visited by the "
@@ -951,6 +997,116 @@ def phase_sphereflake(scene, cam, dev):
         f"{k3_b[0]:.4f} ms ({k3_b[1]})")
     torch.cuda.synchronize()
     return errs, ms, b
+
+
+# ----------------------- phase 2: the opt-in per-ray routes' K3, K7 and K8
+# the switches of the JAX package's opt-in per-ray routes (ops/perray.py)
+MODES = {"subtile": {"CRT_SUBTILE": "1"}, "q16": {"CRT_SWEEP_Q16": "1"}}
+# K7's widths held against the plain version: the default 32 (8,060
+# colonnade sub-tiles) and 16 (16,120: above the 8,192 sub-tiles K7's count
+# stage keeps in shared memory)
+SUB_WIDTHS_CHECKED = (32, 16)
+# K3's and K7's timed sub-tile width (the default CRT_SUBC)
+SUBTILE_TIMED = perray.SUBTILE_C
+# an image under a switch against the default route's of the same key
+# (the pixel share holds for the sub-tile route, which is exact; the
+# quantized rows move the colonnade's surfaces by up to a quantum, 0.11
+# units in its largest chunks and above tmin in 48% of them, so secondary
+# rays change winners and the q16 image is held to the default's by its
+# mean, and bitwise to the q16 route run on K8's plain version)
+MODE_MEAN_ATOL = 2e-3
+MODE_PIXEL_SHARE = 0.99
+# the sub-tile route's gradient against the default route's: a ray through
+# a shared edge (two triangles at one t) keeps the first in visit order,
+# and sub-tiles order them otherwise than chunks, so a few vertex gradients
+# move (on the card 3, 6 and 3 of geo_tri_v0/v1/v2's 773,748, from 2 and 1
+# tied rays of 40,000 primary and secondary); every family within the JAX
+# tolerances on all but this share of its elements (set after that run)
+MODE_GRAD_OUTLIERS = 2e-5
+# samples of the runs held against the same route on K7's or K8's plain
+# version (the plain sweep runs every slot of every ray: ~40-60 ms a call)
+MODE_TWIN_SPP = 2
+
+
+@contextlib.contextmanager
+def switches(env):
+    """The environment switches ``env`` set inside the block."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_modes_kernels(scene, cam, dev):
+    """K3 on the colonnade's sub-tile boxes (V 24), K7 at CS 32 and 16 on
+    the lists K3 gives there, and K8 on the chunk route's phase-1 lists
+    (V 16), each against its plain version (K3 bit-equal, K7 and K8 all 8
+    columns bit for bit) at the colonnade's 40,000 primary rays; phase 1
+    timed (CS 32 for K3 and K7). Returns (errs, times, bounds)."""
+    gen = torch.Generator().manual_seed(1)
+    tabs = scene.tri_perray
+    K = scene.tri_chunks.corner.shape[0]
+    org, dirs, cap = colonnade_rays(scene, cam, gen)
+    R = org.shape[0]
+    rays, srays = fs.pack_rays(org, dirs, cap), fsw.pack_rays(org, dirs)
+    excl = fs.first_excl(R, dev)
+    z = torch.zeros_like(cap)
+    best = fsw.pack_best_planar(cap, torch.zeros_like(org), z, z, z.int(), z.int())
+    errs = {"cull_select": 0.0}
+    times, bounds = {}, {}
+    for CS in SUB_WIDTHS_CHECKED:
+        t0 = time.perf_counter()
+        sub = tabs.subtile(CS)
+        KG = sub.table.shape[0]
+        V = perray.subtile_v(KG, CS)
+        log(f"  colonnade sub-tile tables at CS {CS}: {KG} boxes (Kp "
+            f"{sub.boxes.shape[1]}, id bits {fs.id_bits(sub.boxes.shape[1])}), V {V}, "
+            f"built in {time.perf_counter() - t0:.2f} s")
+        got = fs.cull_select_kernel(rays, sub.boxes, excl, V, KG, TMIN)
+        ref = fs.cull_select_plain(rays, sub.boxes, excl, V, KG, TMIN)
+        errs["cull_select"] = max(errs["cull_select"], bits_equal(
+            f"K3 packed, colonnade sub-tile boxes (CS {CS}), V {V}, phase 1", got, ref))
+        err, ms, b = sweep_check(
+            f"K7 triangles, colonnade sub-tiles (CS {CS}), phase 1", srays, got[0],
+            got[1], best, sub.table, True, False, timed=True,
+            kernel=fsw.sweep_sub_kernel)
+        errs["visit_sweep_sub"] = max(errs.get("visit_sweep_sub", 0.0), err)
+        times[f"visit_sweep_sub_cs{CS}"], bounds[f"visit_sweep_sub_cs{CS}"] = ms, b
+        if CS == SUBTILE_TIMED:
+            k3 = (cuda_ms(lambda: fs.cull_select_kernel(rays, sub.boxes, excl, V, KG,
+                                                        TMIN)),
+                  cuda_ms(lambda: fs.cull_select_plain(rays, sub.boxes, excl, V, KG,
+                                                       TMIN)))
+            nbytes = 4 * (8 * R + sub.boxes.numel() + 2 * R + 2 * V * R + R)
+            times["cull_select_subtile"] = k3
+            bounds["cull_select_subtile"] = bound(nbytes, R * KG * OPS["cull_select"])
+            log(f"  K3 at the colonnade's sub-tile boxes (CS {CS}, V {V}), phase 1: "
+                f"kernel {k3[0]:.4f} ms, plain {k3[1]:.4f} ms, bound "
+                f"{bounds['cull_select_subtile'][0]:.4f} ms "
+                f"({bounds['cull_select_subtile'][1]})")
+    times["visit_sweep_sub"] = times[f"visit_sweep_sub_cs{SUBTILE_TIMED}"]
+    bounds["visit_sweep_sub"] = bounds[f"visit_sweep_sub_cs{SUBTILE_TIMED}"]
+    # K8 on the chunk route's phase-1 lists (K4's phase-1 inputs)
+    q = tabs.q16()
+    V = min(perray.VISIT_BLOCK, K)
+    ids, nears, _ = fs.cull_select_kernel(rays, tabs.boxes, excl, V, K, TMIN)
+    err, ms, b = sweep_check("K8 triangles, colonnade quantized rows, phase 1", srays, ids,
+                             nears, best, fsw.dequant_q16(q.words, q.lo, q.scale), True,
+                             False, timed=True, q16=(q.words, q.lo, q.scale))
+    errs["visit_sweep_q16"] = err
+    times["visit_sweep_q16"], bounds["visit_sweep_q16"] = ms, b
+    k4 = cuda_ms(lambda: fsw.sweep_kernel(srays, ids, nears, best, tabs.table, TMIN, True,
+                                          False))
+    log(f"  K8 against K4 on the same lists, in this call: K8 {ms[0]:.4f} ms, K4 "
+        f"{k4:.4f} ms ({ms[0] / k4:.3f}x)")
+    torch.cuda.synchronize()
+    return errs, times, bounds
 
 
 def phase_estimator_kernels(dev):
@@ -1852,6 +2008,246 @@ def grad_path(label, scene, cam, geometry=True, fwd_secs=None):
            f"the forward render's {fwd_secs:.3f} s" if fwd_secs else ""))
     log(f"  launches: forward pass {fwd}, backward pass {bwd}")
     return secs, rays / secs, (fwd, bwd)
+
+
+# ----------------------------- phases 4, 5: the opt-in per-ray routes
+def psnr(img, ref) -> float:
+    """PSNR in dB of ``img`` against ``ref``, both clipped to [0, 1]."""
+    mse = float(((img.clamp(0, 1) - ref.clamp(0, 1)) ** 2).mean())
+    return float("inf") if mse == 0 else 10.0 * float(np.log10(1.0 / mse))
+
+
+def hold_mode(label, img, ref, pixels=True) -> dict:
+    """An image under a switch against the default route's of the same key:
+    means within MODE_MEAN_ATOL and, with ``pixels``, at least
+    MODE_PIXEL_SHARE of the pixels within 1e-3 (every channel)."""
+    share = float(((img - ref).abs().amax(-1) <= 1e-3).float().mean())
+    out = {"mean": float(img.mean()), "ref_mean": float(ref.mean()), "share": share,
+           "psnr": psnr(img, ref), "max_abs": max_abs(img, ref)}
+    log(f"  {label}: mean {out['mean']:.6f} against the default route's "
+        f"{out['ref_mean']:.6f}; pixels within 1e-3 {share:.4f}; PSNR "
+        f"{out['psnr']:.2f} dB; max abs diff {out['max_abs']:.3g}")
+    if abs(out["mean"] - out["ref_mean"]) > MODE_MEAN_ATOL or (
+            pixels and share < MODE_PIXEL_SHARE):
+        raise AssertionError(f"{label}: the image is outside the gates (mean within "
+                             f"{MODE_MEAN_ATOL}"
+                             + (f", >= {MODE_PIXEL_SHARE} of pixels within 1e-3)"
+                                if pixels else ")"))
+    return out
+
+
+@contextlib.contextmanager
+def plain_sweeps():
+    """K7's and K8's plain versions in place of the kernels inside the
+    block: the reference of a check on the card (the package itself has no
+    such switch)."""
+    saved = fsw.sweep_sub, fsw.sweep_q16
+    fsw.sweep_sub, fsw.sweep_q16 = fsw.sweep_plain, fsw.sweep_q16_plain
+    try:
+        yield
+    finally:
+        fsw.sweep_sub, fsw.sweep_q16 = saved
+
+
+def grads_near(label, got, ref, max_share=MODE_GRAD_OUTLIERS):
+    """Loss within LOSS_RTOL; every gradient family within SCENE_TOL /
+    CAMERA_TOL on all but ``max_share`` of its elements (counted)."""
+    loss, (gs, gc) = got
+    loss_r, (gs_r, gc_r) = ref
+    torch.testing.assert_close(float(loss), float(loss_r), rtol=LOSS_RTOL, atol=0)
+    out = {}
+    for grads, grads_r, tol in ((gs, gs_r, SCENE_TOL), (gc, gc_r, CAMERA_TOL)):
+        for name, g in grads.items():
+            g, g_r = g.detach().float(), grads_r[name].detach().float()
+            bad = (g - g_r).abs() > tol["atol"] + tol["rtol"] * g_r.abs()
+            out[name] = (int(bad.sum()), g.numel())
+            if not bool(torch.isfinite(g).all()) or bad.sum() > max_share * g.numel():
+                raise AssertionError(f"{label}: {name}: {int(bad.sum())} of {g.numel()} "
+                                     "elements outside the tolerances")
+    log(f"  {label}: loss {float(loss):.6f} / {float(loss_r):.6f}; elements outside the "
+        "tolerances: " + (", ".join(f"{k} {n} of {m}" for k, (n, m) in out.items() if n)
+                          or "none"))
+
+
+def mode_walls(label, render, env):
+    """The default route and the route under ``env`` timed in turns
+    (default, switched, switched, default); returns both lists of walls."""
+    walls = {"default": [], "switched": []}
+    for which in ("default", "switched", "switched", "default"):
+        with switches(env if which == "switched" else {}):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render()
+            torch.cuda.synchronize()
+            walls[which].append(time.perf_counter() - t0)
+    log(f"  {label} walls in turns: default {', '.join(f'{w:.3f}' for w in walls['default'])}"
+        f" s, under {env} {', '.join(f'{w:.3f}' for w in walls['switched'])} s")
+    return walls
+
+
+def sphereflake_subtile(sf_scene, sf_cam, dev):
+    """Sphereflake's primary rays on the per-ray route under CRT_SUBTILE
+    (K3 on 232 sub-tile boxes, K7 at width 32) against the chunk route's
+    (K3 + K4; the same sphere test, so equal hit masks and pids) and, with
+    it, against the chunk-scan oracle, whose expanded quadratic rounds
+    apart at sphereflake's tangent spheres and silhouettes: the sub-tile
+    route may differ from the oracle only on the rays the chunk route
+    differs on."""
+    gen = torch.Generator().manual_seed(6)
+    org, dirs, time_, cap = profiling.scene_rays(sf_scene, sf_cam, gen)
+    chunks = sf_scene.sphere_chunks
+    out = {}
+    for mode, env in (("chunk", {}), ("subtile", MODES["subtile"])):
+        with switches({"CRT_ACCEL": "ray", **env}):
+            profiling.reset_counts()
+            perray.reset_phases()
+            out[mode] = perray.sphere_closest_perray(org, dirs, time_, chunks, TMIN, cap,
+                                                     tabs=sf_scene.sphere_perray)
+            torch.cuda.synchronize()
+            launches, phases = profiling.launches(), perray.PHASES["phases"]
+    t_o, pay_o = ch.sphere_closest(org, dirs, time_, chunks, TMIN, tmax=cap)
+
+    def differs(t, pay):
+        hit = torch.isfinite(t)
+        return (hit != torch.isfinite(t_o)) | (hit & (pay[-1] != pay_o[-1]))
+
+    (t_c, pay_c), (t_s, pay_s) = out["chunk"], out["subtile"]
+    same = torch.equal(torch.isfinite(t_s), torch.isfinite(t_c)) and torch.equal(
+        pay_s[-1][torch.isfinite(t_c)], pay_c[-1][torch.isfinite(t_c)])
+    d_c, d_s = differs(t_c, pay_c), differs(t_s, pay_s)
+    log(f"  sphereflake primary rays under CRT_ACCEL=ray CRT_SUBTILE=1: {org.shape[0]} "
+        f"rays, hits {int(torch.isfinite(t_s).sum())}, {phases} phases; hit masks and pids "
+        f"{'equal' if same else 'NOT equal'} to the chunk route's; rays whose hit differs "
+        f"from the oracle's: sub-tile {int(d_s.sum())}, chunk route {int(d_c.sum())}, "
+        f"sub-tile only {int((d_s & ~d_c).sum())}; launches {launches}")
+    if not same or bool((d_s & ~d_c).any()):
+        raise AssertionError("sphereflake under CRT_SUBTILE: hits differ from the chunk "
+                             "route's")
+    if launches["visit_sweep_sub"] <= 0 or launches["visit_sweep"]:
+        raise AssertionError(f"sphereflake under CRT_SUBTILE launched {launches}")
+
+
+def colonnade_subtile_hits(scene, cam):
+    """The colonnade's primary and secondary rays on the sub-tile route
+    against the chunk route (the same triangle test): equal hit masks and
+    t; pids equal but where two triangles give the ray the same t (a
+    shared edge), which the two routes visit in other orders (counted)."""
+    gen = torch.Generator().manual_seed(3)
+    org, dirs, cap = colonnade_rays(scene, cam, gen)
+    t, _ = perray.planar_closest_perray(org, dirs, scene.tri_chunks, TMIN, True, cap,
+                                        tabs=scene.tri_perray)
+    for which, (o, d, c) in (("primary", (org, dirs, cap)),
+                             ("secondary", colonnade_secondary(scene, org, dirs, t, gen))):
+        out = {}
+        for mode, env in (("chunk", {}), ("subtile", MODES["subtile"])):
+            with switches(env):
+                out[mode] = perray.planar_closest_perray(o, d, scene.tri_chunks, TMIN, True,
+                                                         c, tabs=scene.tri_perray)
+        (t_c, pay_c), (t_s, pay_s) = out["chunk"], out["subtile"]
+        hit = torch.isfinite(t_c)
+        other = hit & (pay_s[-1] != pay_c[-1])
+        log(f"  colonnade {which} rays, sub-tile route against the chunk route: hits "
+            f"{int(hit.sum())} of {o.shape[0]}; another winner {int(other.sum())}, each at "
+            "the same t")
+        if not (torch.equal(torch.isfinite(t_s), hit) and torch.equal(t_s[hit], t_c[hit])):
+            raise AssertionError(f"colonnade {which}: the sub-tile route's hits differ")
+
+
+def phase_modes(dev, col_scene, col_cam, col_img, col_wf_img, sf):
+    """The colonnade at its full workload under each opt-in route, scan and
+    wavefront, each render's launches counted alone (K3 and the route's
+    sweep, K7 or K8, launched; K4 not, the triangle table being the one
+    the switch reroutes); images against the default route's; walls in
+    turns with the default's; phases per call; then sphereflake's primary
+    rays under CRT_SUBTILE, and a colonnade fwd+bwd at COLONNADE_GRAD_SPP
+    under each switch against the default route's under deterministic
+    algorithms. Returns ({mode: launches of its scan render}, {label:
+    walls})."""
+    want = {"subtile": "visit_sweep_sub", "q16": "visit_sweep_q16"}
+    label = (f"colonnade {COLONNADE_PX}x{COLONNADE_PX} {col_cam.spp}spp depth "
+             f"{col_cam.max_depth}")
+    counts, walls = {}, {}
+    for mode, env in MODES.items():
+        with switches(env):
+            perray.reset_phases()
+            _, _, img, launches = main_path(f"{label} scan under {env}", col_scene, col_cam,
+                                            ("planar_closest", "cull_select", want[mode]))
+            calls, phases = perray.PHASES["calls"], perray.PHASES["phases"]
+            live = perray.PHASES["live"]
+            perray.reset_phases()
+            wf = wavefront_path(f"{label} wavefront under {env}", col_scene, col_cam,
+                                ("planar_closest", "cull_select", want[mode]))
+        for name, c in (("scan", launches), ("wavefront", wf[3])):
+            if c["visit_sweep"] or c[want[mode]] <= 0:
+                raise AssertionError(f"{label} {name} under {env}: launched {c}")
+        log(f"  {label} scan under {env}: {calls} per-ray calls, {phases} selection "
+            f"phases, {phases / max(calls, 1):.3f} per call; share of rays live by phase: "
+            + ", ".join(f"{p + 1}: {n / live[0]:.4f}" for p, n in enumerate(live)))
+        exact = mode == "subtile"
+        hold_mode(f"{label} scan under {env}", img, col_img, exact)
+        hold_mode(f"{label} wavefront under {env}", wf[2], col_wf_img, exact)
+        if not exact:
+            with switches(env):
+                sweep_twin(f"colonnade {COLONNADE_PX}x{COLONNADE_PX} {MODE_TWIN_SPP}spp "
+                           f"depth {col_cam.max_depth} scan under {env}", col_scene,
+                           col_cam.replace(spp=MODE_TWIN_SPP))
+        counts[mode] = launches
+        walls[f"scan {mode}"] = mode_walls(
+            f"{label} scan", lambda: integrator.render_image(col_scene, col_cam, keys.key(0)),
+            env)
+        walls[f"wavefront {mode}"] = mode_walls(
+            f"{label} wavefront",
+            lambda: integrator.render_image_wavefront(col_scene, col_cam, keys.key(0)), env)
+    colonnade_subtile_hits(col_scene, col_cam)
+    sphereflake_subtile(*sf, dev)
+    grad_cam = col_cam.replace(spp=COLONNADE_GRAD_SPP)
+    glabel = f"colonnade {COLONNADE_PX}x{COLONNADE_PX} {COLONNADE_GRAD_SPP}spp fwd+bwd"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = grads_of(col_scene, grad_cam, 0)
+        for mode, env in MODES.items():
+            with switches(env):
+                profiling.reset_counts()
+                got = grads_of(col_scene, grad_cam, 0)
+                c = profiling.launches()
+                twin_cam = col_cam.replace(spp=MODE_TWIN_SPP)
+                kernel = grads_of(col_scene, twin_cam, 0)
+                with plain_sweeps():
+                    twin = grads_of(col_scene, twin_cam, 0)
+            if c[want[mode]] <= 0 or c["visit_sweep"]:
+                raise AssertionError(f"{glabel} under {env}: launched {c}")
+            kid = "K7" if mode == "subtile" else "K8"
+            grads_close(f"colonnade {COLONNADE_PX}x{COLONNADE_PX} {MODE_TWIN_SPP}spp "
+                        f"fwd+bwd under {env} against the same route on {kid}'s plain "
+                        "version", kernel, twin)
+            if mode == "subtile":
+                grads_near(f"{glabel} under {env} against the default route's", got, ref)
+                continue
+            log(f"  {glabel} under {env} against the default route's (not gated: the "
+                f"quantized surfaces change paths): loss {float(got[0]):.6f} / "
+                f"{float(ref[0]):.6f}; max abs err " + ", ".join(
+                    f"{k} {max_abs(g, ref[1][0][k]):.2e}" for k, g in got[1][0].items()))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return counts, walls
+
+
+def sweep_twin(label, scene, cam):
+    """The scan under CRT_SWEEP_Q16 through K8 and through its plain
+    version on the card: the images bitwise equal (K8 is its plain
+    version's, bit for bit, on every call)."""
+    imgs = []
+    for plain in (False, True):
+        with plain_sweeps() if plain else contextlib.nullcontext():
+            profiling.reset_counts()
+            imgs.append(integrator.render_image(scene, cam, keys.key(0)))
+            c = profiling.launches()
+        if (c["visit_sweep_q16"] > 0) == plain:
+            raise AssertionError(f"{label}: launches {c} with the plain version {plain}")
+    if not torch.equal(imgs[0], imgs[1]):
+        raise AssertionError(f"{label}: K8's image differs from its plain version's (max "
+                             f"abs diff {max_abs(*imgs):.3g})")
+    log(f"  {label}: through K8 and through its plain version bitwise equal")
 
 
 # ------------------------------------------------------------ phases 3-5
@@ -3081,6 +3477,11 @@ def main() -> int:
     errs.update(e)
     times.update(t)
     bounds.update(b)
+    e, t, b = phase_modes_kernels(col_scene, col_cam, dev)
+    errs["cull_select"] = max(errs["cull_select"], e.pop("cull_select"))
+    errs.update(e)
+    times.update(t)
+    bounds.update(b)
     t0 = time.perf_counter()
     sf_scene, sf_cam = catalog.sphereflake(device=dev)
     log(f"  sphereflake {sf_cam.width} px built in {time.perf_counter() - t0:.2f} s: "
@@ -3254,6 +3655,11 @@ def main() -> int:
                                  "launched in both passes")
     vol_grad_secs = volume_grad(dev)
 
+    phase_log("phase 4, 5: the opt-in per-ray routes (CRT_SUBTILE: K3 + K7; "
+              "CRT_SWEEP_Q16: K3 + K8), each run's launches counted on its own")
+    mode_counts, mode_walls_ = phase_modes(dev, col_scene, col_cam, col_img, col_wf[2],
+                                           (sf_scene, sf_cam))
+
     phase_log("phase 7: multi-device renders and gradients (torch.distributed) on the "
               "one card, each run's launches counted on its own; then the CLI")
     shard_ref, nccl_walls, nccl_counts = phase_sharded_nccl(
@@ -3292,12 +3698,25 @@ def main() -> int:
                 "visit_sweep": launches_col["visit_sweep"],
                 "gather_sum": launches_probe["gather_sum"],
                 "packet_planar": launches_perlin["packet_planar"],
-                "packet_sphere": sf_wf[3]["packet_sphere"]}
+                "packet_sphere": sf_wf[3]["packet_sphere"],
+                "visit_sweep_sub": mode_counts["subtile"]["visit_sweep_sub"],
+                "visit_sweep_q16": mode_counts["q16"]["visit_sweep_q16"]}
     library_ms = {"gather_sum": r["library_ms"]}
     log(f"  K4 spheres at sphereflake (its wavefront under CRT_ACCEL=ray): "
         f"{sf_ray[3]['visit_sweep']} launches in that render; kernel "
         f"{sf_k4_times[0]:.4f} ms, plain {sf_k4_times[1]:.4f} ms, bound "
         f"{sf_k4_bound[0]:.4f} ms ({sf_k4_bound[1]})")
+    log(f"  K3 at the colonnade's sub-tile boxes (CS {SUBTILE_TIMED}), phase 1: kernel "
+        f"{times['cull_select_subtile'][0]:.4f} ms, plain "
+        f"{times['cull_select_subtile'][1]:.4f} ms, bound "
+        f"{bounds['cull_select_subtile'][0]:.4f} ms ({bounds['cull_select_subtile'][1]}); "
+        f"{mode_counts['subtile']['cull_select']} launches in the colonnade scan under "
+        f"CRT_SUBTILE, {mode_counts['q16']['cull_select']} under CRT_SWEEP_Q16")
+    log("  K7 at the colonnade's sub-tile widths, phase 1: " + "; ".join(
+        f"CS {CS}: kernel {times[f'visit_sweep_sub_cs{CS}'][0]:.4f} ms, plain "
+        f"{times[f'visit_sweep_sub_cs{CS}'][1]:.4f} ms, bound "
+        f"{bounds[f'visit_sweep_sub_cs{CS}'][0]:.4f} ms "
+        f"({bounds[f'visit_sweep_sub_cs{CS}'][1]})" for CS in SUB_WIDTHS_CHECKED))
     log("  K4 triangles at the colonnade's later phases: " + "; ".join(
         f"{k.replace('visit_sweep_', '')}: kernel {v[0]:.4f} ms, plain {v[1]:.4f} ms, "
         f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
@@ -3373,6 +3792,10 @@ def main() -> int:
         f"fwd+bwd against the render, per camera ray: cornell_box "
         f"{grad_secs[False] / cornell_secs:.3f}, with geometry "
         f"{grad_secs[True] / cornell_secs:.3f}, colonnade {col_rps / col_grad_rps:.3f}; "
+        + "opt-in per-ray routes (colonnade, default / switched walls in turns): "
+        + "; ".join(f"{k} {', '.join(f'{w:.3f}' for w in v['default'])} / "
+                    f"{', '.join(f'{w:.3f}' for w in v['switched'])} s"
+                    for k, v in mode_walls_.items()) + "; "
         f"sharded walls, NCCL 1 rank: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in nccl_walls.items()) + "; gloo "
         f"{GLOO_RANKS} ranks on one card: " + "; ".join(

@@ -38,9 +38,33 @@ from cpu_ray_tracing_implementation_tpu_torch.utils import checkpoint as ckpt
 from cpu_ray_tracing_implementation_tpu_torch.utils import denoise, profiling
 
 
+# The JAX package's environment switches, and what the port does with each
+# (the CLI's help prints them).
+SWITCHES = """\
+environment switches (read per call):
+  CRT_ACCEL       chunked tables' accelerator: auto | ray | packet | bvh | pallas | chunked
+  CRT_RAYV        per-ray visit slots a phase (default 16; K3 takes up to 32)
+  CRT_SUBTILE     1: per-ray sub-tile selection, CRT_SUBC lanes a sub-tile (default 32,
+                  dividing 128, else the chunk route), CRT_RAYV_SUB slots (default 24);
+                  K3 on the sub-tile boxes and K7
+  CRT_SWEEP_Q16   1: per-ray planar sweep over u16-quantized rows, K8 (wins over
+                  CRT_SUBTILE; spheres keep their route)
+  CRT_REPLAY      0: the gradient's chunk-scan VJP instead of the winner replay (both
+                  through K1/K2 on the card)
+  CRT_TILE        packet tile (default packet.AUTO_TILE, 32 on the card)
+  CRT_SORT        coherence sort on the packet route: auto | on | off
+  CRT_RNG, CRT_COSINE, CRT_WF_LANES, CRT_SCAN_TILE, CRT_ASSETS   as the JAX package
+  CRT_PACKET      not read: 'lockstep' is a TPU schedule of K6's function
+  CRT_UNROLL      not read: XLA loop unrolling, no meaning in eager PyTorch
+  CRT_DENSE_PALLAS, CRT_NO_PALLAS, CRT_PALLAS_SWEEP   not read: they choose between
+                  Pallas and XLA forms of one function; the port always runs its kernel
+                  on the card (its plain version on CPU tensors)
+"""
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m cpu_ray_tracing_implementation_tpu_torch.cli",
-                                description=__doc__,
+                                description=__doc__, epilog=SWITCHES,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("scene", nargs="?", help="scene name (see --list) or 1-based index")
     p.add_argument("-o", "--output", default=None, help="output path (.png, .ppm or .exr)")

@@ -40,9 +40,13 @@
 // it from the one lane that holds it (ids are unique, packed keys too). In
 // exact mode a lane's later column with an equal near sorts after its
 // earlier ones, and the merge breaks ties by id, so the order is (near,
-// id). V is a template parameter, 1..16 (the per-ray path takes min(16,
-// K)). What bounds it is FP32 issue in the walk, and two changes of the
-// Hopper redesign go at that:
+// id). The list's capacity N is a template parameter: N = V for V in
+// 1..16 (the per-ray path's default takes min(16, K)), and N = 24 or 32 for
+// V in 17..24 or 25..32 (CRT_RAYV up to 32, and the sub-tile route's 24 at
+// its defaults), which then selects only V: a lane's N+1 smallest hold its
+// share of the ray's V+1 smallest whenever N >= V, so the outputs are those
+// of a list of V+1. What bounds it is the FP32 instruction rate of the
+// walk, and two changes of the Hopper redesign go at that:
 //  - NaN-free fast path. min/max must propagate NaN as torch.minimum /
 //    maximum do, and fminf/fmaxf drop it: twelve NaN-propagating min/max
 //    of ~5 instructions each per (ray, box) were most of the first
@@ -89,7 +93,8 @@ constexpr int GROUP = 8;  // lanes per ray, consecutive lanes of one warp
 constexpr int RAYS_PER_BLOCK = THREADS / GROUP;
 constexpr int TILE_K = 512;
 constexpr int MASKV = 0x7FFFFFFF;
-constexpr int V_MAX = 16;
+constexpr int V_EXACT = 16;  // up to this V the capacity is V itself
+constexpr int V_MAX = 32;
 static_assert(RAYS_PER_BLOCK <= 32, "one warp compacts the block's rays");
 static_assert(GROUP < 32 && 32 % GROUP == 0, "a group lies inside one warp");
 
@@ -149,19 +154,19 @@ __device__ __forceinline__ int excl_key_of(float thr, int lid, int hmask) {
   return thr != thr ? MASKV : 0;
 }
 
-// One ray, as one lane of its group sees it.
-template <int V>
+// One ray, as one lane of its group sees it; N is the lists' capacity.
+template <int N>
 struct Ray {
   float o[3], inv[3];
   float cap, thr;
   int lid, excl_key;
-  int L[V + 1];     // this lane's V+1 smallest: packed keys, or exact ids
-  float Ln[V + 1];  // exact nears
+  int L[N + 1];     // this lane's N+1 smallest: packed keys, or exact ids
+  float Ln[N + 1];  // exact nears
 };
 
 // Lane g's boxes g, g+GROUP, ... of a staged tile of nk boxes.
-template <int V, bool PACKED, bool FAST>
-__device__ __forceinline__ void walk(Ray<V>& q, const float4* s_lo,
+template <int N, bool PACKED, bool FAST>
+__device__ __forceinline__ void walk(Ray<N>& q, const float4* s_lo,
                                      const float4* s_hi, int nk, int k0, int g,
                                      int K_real, float tmin, int hmask) {
 #pragma unroll 4
@@ -181,22 +186,24 @@ __device__ __forceinline__ void walk(Ray<V>& q, const float4* s_lo,
     if (PACKED) {
       const float nearm = ok ? fmaxf(near, tmin) : inf();
       const int key = (__float_as_int(nearm) & hmask) | col;
-      if (key > q.excl_key && key < q.L[V]) insert_key(q.L, key);
+      if (key > q.excl_key && key < q.L[N]) insert_key(q.L, key);
     } else if (ok) {
       const float nearm = fmaxf(near, tmin);
       const bool visited = nearm < q.thr || (nearm == q.thr && col <= q.lid);
-      if (!visited && nearm < q.Ln[V]) insert_pair(q.Ln, q.L, nearm, col);
+      if (!visited && nearm < q.Ln[N]) insert_pair(q.Ln, q.L, nearm, col);
     }
   }
 }
 
-template <int V, bool PACKED>
+template <int N, bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 cull_select_kernel(const float* __restrict__ rays,
                    const float* __restrict__ boxes,
                    const float* __restrict__ excl, int R, int Kp, int K_real,
-                   float tmin, int hmask, int* __restrict__ ids,
+                   int v_sel, float tmin, int hmask, int* __restrict__ ids,
                    float* __restrict__ nears, float* __restrict__ rest) {
+  // the slots selected: N itself up to V_EXACT (a constant), else v_sel <= N
+  const int V = N <= V_EXACT ? N : v_sel;
   __shared__ float4 s_lo[TILE_K], s_hi[TILE_K];
   __shared__ int s_ray[RAYS_PER_BLOCK];  // the block's rays that walk boxes
   __shared__ int s_n;
@@ -234,7 +241,7 @@ cull_select_kernel(const float* __restrict__ rays,
   const unsigned gmask = ((1u << GROUP) - 1u) << (threadIdx.x % 32 - g);
   const bool live = slot < n;
   const int r = live ? s_ray[slot] : 0;
-  Ray<V> q;
+  Ray<N> q;
   q.o[0] = q.o[1] = q.o[2] = 0.f;
   q.inv[0] = q.inv[1] = q.inv[2] = 1.f;
   q.cap = -BIG;
@@ -257,7 +264,7 @@ cull_select_kernel(const float* __restrict__ rays,
   const bool fast = isfinite(q.o[0]) && isfinite(q.o[1]) && isfinite(q.o[2]) &&
                     q.inv[0] != 0.f && q.inv[1] != 0.f && q.inv[2] != 0.f;
 #pragma unroll
-  for (int i = 0; i <= V; ++i) {
+  for (int i = 0; i <= N; ++i) {
     q.L[i] = MASKV;
     q.Ln[i] = inf();
   }
@@ -279,9 +286,9 @@ cull_select_kernel(const float* __restrict__ rays,
     const bool tile_nan = __syncthreads_or(nan_box);
     if (!live) continue;  // the same for the whole group
     if (fast && !tile_nan)
-      walk<V, PACKED, true>(q, s_lo, s_hi, nk, k0, g, K_real, tmin, hmask);
+      walk<N, PACKED, true>(q, s_lo, s_hi, nk, k0, g, K_real, tmin, hmask);
     else
-      walk<V, PACKED, false>(q, s_lo, s_hi, nk, k0, g, K_real, tmin, hmask);
+      walk<N, PACKED, false>(q, s_lo, s_hi, nk, k0, g, K_real, tmin, hmask);
   }
   if (!live) return;  // the same for the whole group
 
@@ -305,12 +312,12 @@ cull_select_kernel(const float* __restrict__ rays,
     }
     if (mk != MASKV && q.L[0] == mk) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
+      for (int i = 0; i < N; ++i) {
         q.L[i] = q.L[i + 1];
         q.Ln[i] = q.Ln[i + 1];
       }
-      q.L[V] = MASKV;
-      q.Ln[V] = inf();
+      q.L[N] = MASKV;
+      q.Ln[N] = inf();
     }
     if (g != 0) continue;
     const size_t o = (size_t)r * V + v;
@@ -333,34 +340,39 @@ cull_select_kernel(const float* __restrict__ rays,
 
 struct Args {
   const float *rays, *boxes, *excl;
-  int R, Kp, K_real;
+  int R, Kp, K_real, V;
   float tmin;
   int hmask;
   int* ids;
   float *nears, *rest;
 };
 
-template <int V>
-void launch(int v, bool packed, const Args& a, cudaStream_t st) {
-  if (v == V) {
-    const dim3 grid((a.R + RAYS_PER_BLOCK - 1) / RAYS_PER_BLOCK);
-    if (packed)
-      cull_select_kernel<V, true><<<grid, THREADS, 0, st>>>(
-          a.rays, a.boxes, a.excl, a.R, a.Kp, a.K_real, a.tmin, a.hmask,
-          a.ids, a.nears, a.rest);
-    else
-      cull_select_kernel<V, false><<<grid, THREADS, 0, st>>>(
-          a.rays, a.boxes, a.excl, a.R, a.Kp, a.K_real, a.tmin, a.hmask,
-          a.ids, a.nears, a.rest);
-  } else if constexpr (V > 1) {
-    launch<V - 1>(v, packed, a, st);
-  }
+template <int N>
+void launch_capacity(bool packed, const Args& a, cudaStream_t st) {
+  const dim3 grid((a.R + RAYS_PER_BLOCK - 1) / RAYS_PER_BLOCK);
+  if (packed)
+    cull_select_kernel<N, true><<<grid, THREADS, 0, st>>>(
+        a.rays, a.boxes, a.excl, a.R, a.Kp, a.K_real, a.V, a.tmin, a.hmask,
+        a.ids, a.nears, a.rest);
+  else
+    cull_select_kernel<N, false><<<grid, THREADS, 0, st>>>(
+        a.rays, a.boxes, a.excl, a.R, a.Kp, a.K_real, a.V, a.tmin, a.hmask,
+        a.ids, a.nears, a.rest);
+}
+
+// capacity V for V up to V_EXACT, then 24 and 32
+template <int N>
+void launch(bool packed, const Args& a, cudaStream_t st) {
+  if (a.V == N)
+    launch_capacity<N>(packed, a, st);
+  else if constexpr (N > 1)
+    launch<N - 1>(packed, a, st);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. Returns cudaGetLastError() after the launch
-// (0 = success), or cudaErrorInvalidValue for a V outside 1..16; nothing
+// (0 = success), or cudaErrorInvalidValue for a V outside 1..32; nothing
 // synchronises. In exact mode the id lists start as MASKV and an exhausted
 // slot reports id 0.
 extern "C" int crt_cull_select(const float* rays, const float* boxes,
@@ -370,8 +382,14 @@ extern "C" int crt_cull_select(const float* rays, const float* boxes,
                                void* stream) {
   if (V < 1 || V > V_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (R <= 0) return 0;
-  const Args a{rays, boxes, excl, R, Kp, K_real, tmin,
+  const Args a{rays, boxes, excl, R, Kp, K_real, V, tmin,
                static_cast<int>(~((1u << id_bits) - 1u)), ids, nears, rest};
-  launch<V_MAX>(V, packed != 0, a, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (V <= V_EXACT)
+    launch<V_EXACT>(packed != 0, a, st);
+  else if (V <= 24)
+    launch_capacity<24>(packed != 0, a, st);
+  else
+    launch_capacity<V_MAX>(packed != 0, a, st);
   return static_cast<int>(cudaGetLastError());
 }

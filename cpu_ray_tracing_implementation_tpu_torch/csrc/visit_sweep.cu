@@ -1,14 +1,36 @@
-// Per-ray visit-list sweep for Hopper (sm_90a): kernel K4.
+// Per-ray visit-list sweep for Hopper (sm_90a): kernels K4, K7 and K8.
 //
-// Replaces cpu_ray_tracing_implementation_tpu/ops/pallas_sweep.py:_kernel
+// K4 replaces cpu_ray_tracing_implementation_tpu/ops/pallas_sweep.py:_kernel
 // (pallas_sweep.py:94-239). Plain version: ops/fused_sweep.py sweep_plain
 // (its decomposition into the stages below: sweep_fold_plain); wrapper:
 // ops/fused_sweep.py sweep.
 //
+// K7 and K8 are K4's four stages on other rows (the same crt_visit_sweep):
+//  - K7, the sub-tile sweep (CRT_SUBTILE; it replaces the XLA
+//    _planar_sweep_sub / _sphere_sweep_sub, perray.py:567-638): rows of CS
+//    lanes, a table [K*G, F, CS] of G = 128/CS slices of each chunk, one
+//    sub-tile a slot, pid = sub-tile id * CS + lane (the global chunk-major
+//    index). The JAX package tests P = 128/CS selected sub-tiles as one
+//    128-lane row whose lanes run sub-tile by sub-tile; the in-order fold
+//    over single sub-tiles below gives that row's first-index minimum (the
+//    first sub-tile attaining the minimum, and its first lane). Plain
+//    version: sweep_plain at that width; wrapper fused_sweep.sweep_sub.
+//  - K8, the quantized-row sweep (CRT_SWEEP_Q16; it replaces the XLA
+//    _planar_sweep_q16, perray.py:786-873): planar rows of 5 x 128 u32
+//    words, each two u16 coordinates of the three points (corner,
+//    corner + eu, corner + ev) in the chunk box's frame, with the chunk's
+//    lo and scale [K, 3]. Stage 3 dequantizes a row once while deriving
+//    its constants (corner = lo + q0 * scale, edges = (q1 - q0) * scale,
+//    integer differences times the scale), stage 4 the winner's lane the
+//    same way; every later operation is K4's on those floats. 2,560 bytes
+//    a row against 4,608. Plain version: sweep_q16_plain; wrapper
+//    fused_sweep.sweep_q16.
+//
 // Layouts are the Pallas kernel's: rays [R,8] f32 (org xyz, dir xyz, time,
 // pad), ids [R,V] int32 (clipped to [0, K-1] here), nears [R,V] f32, best
-// [R,8] f32, table [K,F,C] f32 with C = 128 (planar F = 9: corner, eu, ev;
-// sphere F = 7: c0, c1, rad) -> out [R,8] f32. Best columns: planar t, unit
+// [R,8] f32, table [K,F,C] f32 with C = 128 for K4, C dividing 128 for K7
+// (planar F = 9: corner, eu, ev; sphere F = 7: c0, c1, rad) -> out [R,8]
+// f32. Best columns: planar t, unit
 // normal xyz, u, v, mat, pid; sphere t, center xyz at ray time, rad, v
 // (untouched), mat, pid. mat passes through; pid = id*C + lane in f32.
 //
@@ -23,7 +45,8 @@
 // (sphereflake: 0.62 visits per ray of 16 slots) and derived every
 // primitive's constants again for every (ray, primitive) pair, though
 // they belong to the chunk (colonnade phase 1: 449,504 visits of 385
-// rows). Four kernels and a memset, all on the caller's stream:
+// rows). Four kernels and a memset, all on the caller's stream (C the row
+// width, 128 for K4 and K8):
 //   1. count, SLOTS slots a thread: each slot with near < t_in (t_in the
 //      INPUT best t; NaN and inf nears drop out) takes its place in its
 //      chunk's bucket. A block counts in shared memory, one atomic per
@@ -34,8 +57,8 @@
 //   2. scatter: each visited slot's index r*V+s goes to its bucket.
 //   3. tile: a persistent grid, as many blocks as fit on the card at once
 //      (sized without reading the visit count on the host); each block
-//      walks a contiguous range of tiles. Per chunk row its 128 threads
-//      read the F x 128 raw floats once and derive each primitive's
+//      walks a contiguous range of tiles. Per chunk row its first C threads
+//      read the F x C raw floats once and derive each primitive's
 //      ray-independent constants into shared memory (planar: unit normal
 //      and n.c, ev x w and w x eu with their dot products with the corner;
 //      sphere: c0 with rad^2, c1 - c0). Lane v of each of the four warps
@@ -55,7 +78,8 @@
 // Scratch (counts, offsets, the visit list, (t, lane) per slot) comes from
 // the wrapper.
 //
-// Exactness. The sequential sweep limits slot s's candidates to [tmin,
+// Exactness (whatever the row width). The sequential sweep limits slot s's
+// candidates to [tmin,
 // t_run]; stage 3 limits them to [tmin, t_in], t_run <= t_in. Each
 // primitive's candidate under the smaller limit is its candidate under the
 // larger one when that is <= t_run, else none: planar t and the sphere's
@@ -100,7 +124,7 @@
 namespace {
 
 constexpr float BIG = 1e30f;
-constexpr int C = 128;
+constexpr int CHUNK_C = 128;        // K4's and K8's row width; K7's divides it
 constexpr int TILE = 32;            // visits per tile: a warp's lanes
 constexpr int GROUP = 4;            // warps per tile block, each C / GROUP primitives
 constexpr int TILE_THREADS = TILE * GROUP;
@@ -109,7 +133,7 @@ constexpr int SLOTS = 4;            // slots per thread of the count
 constexpr int SMEM_CHUNKS = 8192;   // up to this K a block counts in shared memory
 constexpr int SCAN_PER = 8;         // chunks per thread in a round of the scan
 constexpr unsigned FULL = 0xffffffffu;
-static_assert(TILE_THREADS == C, "a tile block derives one primitive per thread");
+static_assert(TILE_THREADS == CHUNK_C, "a tile block derives one primitive per thread");
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -136,6 +160,46 @@ __device__ __forceinline__ Ray load_ray(const float* rays, int r) {
   const float4 a = reinterpret_cast<const float4*>(rays)[2 * r];
   const float4 b = reinterpret_cast<const float4*>(rays)[2 * r + 1];
   return Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z};
+}
+
+// Where the rows come from: a float table [K, F, C], or (K8) a quantized
+// planar table [K, 5, C] of u32 words with the chunks' lo and scale [K, 3].
+struct Rows {
+  const float* table;
+  const float* qlo;
+  const float* qscale;
+};
+
+// Lane ``lane`` of row k as the F floats the tests read. A quantized row is
+// dequantized: corner = lo + q0 * scale, eu = (q1 - q0) * scale, ev = (q2 -
+// q0) * scale per axis, the u16 coordinates exact in f32 (the plain
+// version's dequant_q16, operation for operation).
+template <bool SPHERE, bool Q16, int C>
+__device__ __forceinline__ void load_row(const Rows& rows, int k, int lane,
+                                         float (&x)[SPHERE ? 7 : 9]) {
+  if constexpr (Q16) {
+    const unsigned* src =
+        reinterpret_cast<const unsigned*>(rows.table) + (size_t)k * 5 * C + lane;
+    float q[10];
+#pragma unroll
+    for (int f = 0; f < 5; ++f) {
+      const unsigned w = src[f * C];
+      q[2 * f] = static_cast<float>(w >> 16);
+      q[2 * f + 1] = static_cast<float>(w & 0xffffu);
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float lo = rows.qlo[3 * (size_t)k + a], sc = rows.qscale[3 * (size_t)k + a];
+      x[a] = __fadd_rn(lo, __fmul_rn(q[a], sc));
+      x[3 + a] = __fmul_rn(__fsub_rn(q[3 + a], q[a]), sc);
+      x[6 + a] = __fmul_rn(__fsub_rn(q[6 + a], q[a]), sc);
+    }
+  } else {
+    constexpr int F = SPHERE ? 7 : 9;
+    const float* src = rows.table + (size_t)k * F * C + lane;
+#pragma unroll
+    for (int f = 0; f < F; ++f) x[f] = src[f * C];
+  }
 }
 
 // A planar primitive's ray-independent constants: (unit normal, n.c),
@@ -375,14 +439,15 @@ visit_sweep_scatter(const int* __restrict__ ids, const float* __restrict__ nears
 // threads read one primitive's constants at a time: a shared-memory
 // broadcast); the GROUP partial minima meet in shared memory and the first
 // warp takes their first-index minimum in order.
-template <bool SPHERE, bool TRIANGLE>
+template <bool SPHERE, bool TRIANGLE, bool Q16, int C>
 __global__ void __launch_bounds__(TILE_THREADS)
 visit_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best,
-                 const float* __restrict__ table, int V, int K, float tmin,
+                 const Rows rows, int V, int K, float tmin,
                  const int* __restrict__ bucket_off,
                  const int* __restrict__ tile_off,
                  const int* __restrict__ visits, int2* __restrict__ slots) {
-  constexpr int F = SPHERE ? 7 : 9;
+  static_assert(C >= 1 && C <= TILE_THREADS && TILE_THREADS % C == 0,
+                "a row's width divides the tile block");
   constexpr int Q = SPHERE ? 2 : 3;  // float4 constants per primitive
   __shared__ float4 cst[C * Q];
   __shared__ float part_t[GROUP][TILE];
@@ -405,19 +470,19 @@ visit_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best,
     while (tile_off[k + 1] <= tile) ++k;  // chunks without visits hold no tile
     if (k != row_k) {  // uniform: derive the row's constants once
       __syncthreads();  // every thread is done with the last row's
-      const float* src = table + (size_t)k * F * C + threadIdx.x;
-      float x[F];
-#pragma unroll
-      for (int f = 0; f < F; ++f) x[f] = src[f * C];
-      if constexpr (SPHERE) {
-        cst[threadIdx.x * Q] = make_float4(x[0], x[1], x[2], mul(x[6], x[6]));
-        cst[threadIdx.x * Q + 1] =
-            make_float4(sub(x[3], x[0]), sub(x[4], x[1]), sub(x[5], x[2]), 0.f);
-      } else {
-        const Planar p = planar_constants(x);
-        cst[threadIdx.x * Q] = p.n;
-        cst[threadIdx.x * Q + 1] = p.ew;
-        cst[threadIdx.x * Q + 2] = p.we;
+      if (C == TILE_THREADS || threadIdx.x < C) {
+        float x[SPHERE ? 7 : 9];
+        load_row<SPHERE, Q16, C>(rows, k, threadIdx.x, x);
+        if constexpr (SPHERE) {
+          cst[threadIdx.x * Q] = make_float4(x[0], x[1], x[2], mul(x[6], x[6]));
+          cst[threadIdx.x * Q + 1] =
+              make_float4(sub(x[3], x[0]), sub(x[4], x[1]), sub(x[5], x[2]), 0.f);
+        } else {
+          const Planar p = planar_constants(x);
+          cst[threadIdx.x * Q] = p.n;
+          cst[threadIdx.x * Q + 1] = p.ew;
+          cst[threadIdx.x * Q + 2] = p.we;
+        }
       }
       __syncthreads();
       row_k = k;
@@ -476,13 +541,12 @@ visit_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best,
 
 // Stage 4: the in-order fold per ray and the winner's columns. The nears of
 // a ray come as float4s where V is a multiple of 4 and they are aligned.
-template <bool SPHERE>
+template <bool SPHERE, bool Q16, int C>
 __global__ void __launch_bounds__(RAY_THREADS)
 visit_sweep_fold(const float* __restrict__ rays, const int* __restrict__ ids,
                  const float* __restrict__ nears, const float* __restrict__ best,
-                 const float* __restrict__ table, int R, int V, int K,
+                 const Rows rows, int R, int V, int K,
                  const int2* __restrict__ slots, float* __restrict__ out) {
-  constexpr int F = SPHERE ? 7 : 9;
   const int r = blockIdx.x * RAY_THREADS + threadIdx.x;
   if (r >= R) return;
   const float4 ba = reinterpret_cast<const float4*>(best)[2 * r];
@@ -513,10 +577,8 @@ visit_sweep_fold(const float* __restrict__ rays, const int* __restrict__ ids,
   }
   if (ws >= 0) {
     const int id = clip_id(ids[row + ws], K);
-    const float* src = table + (size_t)id * F * C + wl;
-    float x[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) x[f] = src[f * C];
+    float x[SPHERE ? 7 : 9];
+    load_row<SPHERE, Q16, C>(rows, id, wl, x);
     const Ray q = load_ray(rays, r);
     if constexpr (SPHERE) {
       b[1] = add(x[0], mul(q.tm, sub(x[3], x[0])));
@@ -539,49 +601,69 @@ visit_sweep_fold(const float* __restrict__ rays, const int* __restrict__ ids,
 }
 
 // blocks of the persistent tile grid: as many as fit on the card at once
-template <bool SPHERE, bool TRIANGLE>
+template <bool SPHERE, bool TRIANGLE, bool Q16, int C>
 int tile_grid(int dev) {
   static int cached[64] = {};
   if (dev >= 0 && dev < 64 && cached[dev]) return cached[dev];
   int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, visit_sweep_tile<SPHERE, TRIANGLE>, TILE_THREADS, 0);
+      &per_sm, visit_sweep_tile<SPHERE, TRIANGLE, Q16, C>, TILE_THREADS, 0);
   const int grid = sms * per_sm > 0 ? sms * per_sm : 1;
   if (dev >= 0 && dev < 64) cached[dev] = grid;
   return grid;
 }
 
-template <bool SPHERE, bool TRIANGLE>
-cudaError_t launch_tile(const float* rays, const float* best, const float* table,
-                        int V, int K, float tmin, const int* bucket_off,
-                        const int* tile_off, const int* visits, int2* slots,
-                        cudaStream_t st) {
+// Stages 3 and 4 for one row format and width.
+template <bool SPHERE, bool TRIANGLE, bool Q16, int C>
+cudaError_t launch_rows(const float* rays, const int* ids, const float* nears,
+                        const float* best, const Rows& rows, int R, int V, int K,
+                        float tmin, const int* bucket_off, const int* tile_off,
+                        const int* visits, int2* slots, float* out, cudaStream_t st) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const int grid = tile_grid<SPHERE, TRIANGLE>(dev);
+  const int grid = tile_grid<SPHERE, TRIANGLE, Q16, C>(dev);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  visit_sweep_tile<SPHERE, TRIANGLE><<<grid, TILE_THREADS, 0, st>>>(
-      rays, best, table, V, K, tmin, bucket_off, tile_off, visits, slots);
+  visit_sweep_tile<SPHERE, TRIANGLE, Q16, C><<<grid, TILE_THREADS, 0, st>>>(
+      rays, best, rows, V, K, tmin, bucket_off, tile_off, visits, slots);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int ray_blocks = (R + RAY_THREADS - 1) / RAY_THREADS;
+  visit_sweep_fold<SPHERE, Q16, C><<<ray_blocks, RAY_THREADS, 0, st>>>(
+      rays, ids, nears, best, rows, R, V, K, slots, out);
   return cudaGetLastError();
 }
 
-}  // namespace
+// the row widths K7 is built for: 16 to 128 (each more width is six more
+// kernels to compile; a width of 1 or 2 would ask K3 for 64 or 128 slots,
+// past its 32)
+template <bool SPHERE, bool TRIANGLE>
+cudaError_t launch_width(int C, const float* rays, const int* ids, const float* nears,
+                         const float* best, const Rows& rows, int R, int V, int K,
+                         float tmin, const int* bucket_off, const int* tile_off,
+                         const int* visits, int2* slots, float* out, cudaStream_t st) {
+#define CRT_WIDTH(W)                                                              \
+  case W:                                                                         \
+    return launch_rows<SPHERE, TRIANGLE, false, W>(rays, ids, nears, best, rows, R, \
+                                                   V, K, tmin, bucket_off, tile_off, \
+                                                   visits, slots, out, st);
+  switch (C) {
+    CRT_WIDTH(128)
+    CRT_WIDTH(64)
+    CRT_WIDTH(32)
+    CRT_WIDTH(16)
+  }
+#undef CRT_WIDTH
+  return cudaErrorInvalidValue;
+}
 
-// Plain C interface for ctypes. scratch holds 3*R*V + 3*K + 3 int32 (the
-// wrapper's fused_sweep.scratch_ints): (t, lane) per slot as 2*R*V ints,
-// the visit list (R*V), the counts (K) and the last-block ticket (1), the
-// bucket offsets (K+1) and the tile offsets (K+1). Returns the first CUDA
-// error of the memset and the four launches (0 = success); nothing
-// synchronises.
-extern "C" int crt_visit_sweep(const float* rays, const int* ids,
-                               const float* nears, const float* best,
-                               const float* table, int R, int V, int K,
-                               float tmin, int triangle, int sphere,
-                               int* scratch, float* out, void* stream) {
-  if (R <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// Stages 1 and 2, then 3 and 4 for the rows' format and width.
+cudaError_t sweep_rows(const float* rays, const int* ids, const float* nears,
+                       const float* best, const Rows& rows, int R, int V, int K, int C,
+                       float tmin, bool triangle, bool sphere, bool q16, int* scratch,
+                       float* out, cudaStream_t st) {
+  if (q16 && (sphere || C != CHUNK_C)) return cudaErrorInvalidValue;
+  if (R <= 0) return cudaSuccess;
   const size_t RV = (size_t)R * V;
   int2* slots = reinterpret_cast<int2*>(scratch);
   int* visits = scratch + 2 * RV;
@@ -590,37 +672,60 @@ extern "C" int crt_visit_sweep(const float* rays, const int* ids,
   int* bucket_off = counts + K + 1;
   int* tile_off = bucket_off + K + 1;
   cudaError_t err = cudaMemsetAsync(counts, 0, (K + 1) * sizeof(int), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ray_blocks = (R + RAY_THREADS - 1) / RAY_THREADS;
+  if (err != cudaSuccess) return err;
   const int slot_blocks = (int)((RV + RAY_THREADS - 1) / RAY_THREADS);
   const int count_blocks = (int)((RV + SLOTS * RAY_THREADS - 1) / (SLOTS * RAY_THREADS));
   const size_t local = K <= SMEM_CHUNKS ? K * sizeof(int) : 0;
   if (RV > 0) {
     visit_sweep_count<<<count_blocks, RAY_THREADS, local, st>>>(
         ids, nears, best, (int)RV, V, K, counts, ticket, bucket_off, tile_off, slots);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     visit_sweep_scatter<<<slot_blocks, RAY_THREADS, 0, st>>>(
         ids, nears, best, (int)RV, V, K, bucket_off, slots, visits);
     err = cudaGetLastError();
   } else {  // no slots: no tile
     err = cudaMemsetAsync(bucket_off, 0, 2 * (K + 1) * sizeof(int), st);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
+  if (q16)
+    return triangle
+        ? launch_rows<false, true, true, CHUNK_C>(rays, ids, nears, best, rows, R, V, K,
+                                                  tmin, bucket_off, tile_off, visits,
+                                                  slots, out, st)
+        : launch_rows<false, false, true, CHUNK_C>(rays, ids, nears, best, rows, R, V,
+                                                   K, tmin, bucket_off, tile_off,
+                                                   visits, slots, out, st);
   if (sphere)
-    err = launch_tile<true, false>(rays, best, table, V, K, tmin, bucket_off,
-                                   tile_off, visits, slots, st);
-  else if (triangle)
-    err = launch_tile<false, true>(rays, best, table, V, K, tmin, bucket_off,
-                                   tile_off, visits, slots, st);
-  else
-    err = launch_tile<false, false>(rays, best, table, V, K, tmin, bucket_off,
-                                    tile_off, visits, slots, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (sphere)
-    visit_sweep_fold<true><<<ray_blocks, RAY_THREADS, 0, st>>>(
-        rays, ids, nears, best, table, R, V, K, slots, out);
-  else
-    visit_sweep_fold<false><<<ray_blocks, RAY_THREADS, 0, st>>>(
-        rays, ids, nears, best, table, R, V, K, slots, out);
-  return static_cast<int>(cudaGetLastError());
+    return launch_width<true, false>(C, rays, ids, nears, best, rows, R, V, K, tmin,
+                                     bucket_off, tile_off, visits, slots, out, st);
+  if (triangle)
+    return launch_width<false, true>(C, rays, ids, nears, best, rows, R, V, K, tmin,
+                                     bucket_off, tile_off, visits, slots, out, st);
+  return launch_width<false, false>(C, rays, ids, nears, best, rows, R, V, K, tmin,
+                                    bucket_off, tile_off, visits, slots, out, st);
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. scratch holds 3*R*V + 3*K + 3 int32 (the
+// wrapper's fused_sweep.scratch_ints): (t, lane) per slot as 2*R*V ints,
+// the visit list (R*V), the counts (K) and the last-block ticket (1), the
+// bucket offsets (K+1) and the tile offsets (K+1). Returns the first CUDA
+// error of the memset and the four launches (0 = success), or
+// cudaErrorInvalidValue for rows it is not built for; nothing
+// synchronises.
+
+// K4 (q16 = 0, C = 128) and K7 (q16 = 0, C = 16, 32 or 64): table [K,
+// F, C] f32, qlo and qscale unused. K8 (q16 = 1, planar, C = 128): table
+// [K, 5, 128] u32 words, qlo and qscale [K, 3] f32.
+extern "C" int crt_visit_sweep(const float* rays, const int* ids,
+                               const float* nears, const float* best,
+                               const float* table, const float* qlo,
+                               const float* qscale, int R, int V, int K, int C,
+                               float tmin, int triangle, int sphere, int q16,
+                               int* scratch, float* out, void* stream) {
+  const Rows rows{table, qlo, qscale};
+  return static_cast<int>(sweep_rows(rays, ids, nears, best, rows, R, V, K, C, tmin,
+                                     triangle != 0, sphere != 0, q16 != 0, scratch, out,
+                                     static_cast<cudaStream_t>(stream)));
 }

@@ -34,7 +34,7 @@ SOURCES = ("closest_hit.cu", "cull_select.cu", "visit_sweep.cu",
 HEADERS = ("hit_tests.cuh",)
 # multiply-add contraction stays on; a kernel that must round like its plain
 # version says so in its source (K2's sphere quadratic, csrc/closest_hit.cu;
-# K4, csrc/visit_sweep.cu)
+# K4, K7 and K8, csrc/visit_sweep.cu)
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 
 _lock = threading.Lock()
@@ -116,8 +116,8 @@ def load() -> ctypes.CDLL:
             lib.crt_cull_select.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
                                             f32, i32, i32, ptr, ptr, ptr, ptr]
             lib.crt_cull_select.restype = i32
-            lib.crt_visit_sweep.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                            i32, f32, i32, i32, ptr, ptr, ptr]
+            lib.crt_visit_sweep.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                            i32, i32, f32, i32, i32, i32, ptr, ptr, ptr]
             lib.crt_visit_sweep.restype = i32
             lib.crt_gather_sum.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr,
                                            ptr]

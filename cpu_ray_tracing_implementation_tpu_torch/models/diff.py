@@ -68,10 +68,11 @@ NONNEG_PARAMS = frozenset({
 
 def _use_replay(scene, replay_isect: bool | None = None) -> bool:
     """The winner-replay route (``ops/replay.py``): None picks it wherever it
-    applies (dense tables); False forces the remat-everything VJP oracle
-    (the fused kernels' chunk-scan backward)."""
+    applies (dense tables) unless ``CRT_REPLAY=0`` (read per call, as
+    ``diff.py:31-41`` of the JAX package reads it); False forces the
+    remat-everything VJP oracle (the fused kernels' chunk-scan backward)."""
     if replay_isect is None:
-        return replay.supported(scene)
+        return os.environ.get("CRT_REPLAY", "1") != "0" and replay.supported(scene)
     if replay_isect and not replay.supported(scene):
         raise ValueError("the winner replay covers dense tables only; a "
                          "chunked scene replays inside its accelerator")

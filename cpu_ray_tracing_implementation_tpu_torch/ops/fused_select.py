@@ -34,9 +34,9 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 BIG = 1e30
 INF = float("inf")
 MASKV = 0x7FFFFFFF        # above every real key
-# the kernel is instantiated for these visit-block sizes (ops/perray.py
-# takes min(V, K) with V = 16)
-V_MAX = 16
+# the visit-block sizes the kernel is built for (ops/perray.py takes min(V,
+# K), V = 16 by default, CRT_RAYV, or 24 on the sub-tile route)
+V_MAX = 32
 # exact mode's exhausted last id: past every chunk id (ids travel as f32,
 # exact below 2^24), so (+inf, EXHAUSTED_ID) excludes every box
 EXHAUSTED_ID = float(1 << 24)
@@ -177,6 +177,12 @@ def cull_select_plain(rays, boxes, excl, V: int, K_real: int, tmin: float,
 
 
 # ---------------------------------------------------------- kernel call
+def check_v(V: int) -> None:
+    """Raise for a visit block the kernel is not built for."""
+    if not (1 <= V <= V_MAX):
+        raise ValueError(f"K3 is built for V in 1..{V_MAX}, got {V}")
+
+
 def cull_select_kernel(rays, boxes, excl, V: int, K_real: int, tmin: float,
                        packed: bool = True):
     """Kernel K3 on CUDA tensors: rays [R,8], boxes [8,Kp], excl [R,2]
@@ -189,8 +195,7 @@ def cull_select_kernel(rays, boxes, excl, V: int, K_real: int, tmin: float,
     tbl.check_cuda("rays", rays, torch.float32, (R, 8))
     tbl.check_cuda("boxes", boxes, torch.float32, (8, Kp))
     tbl.check_cuda("excl", excl, torch.float32, (R, 2))
-    if not (1 <= V <= V_MAX):
-        raise ValueError(f"K3 is built for V in 1..{V_MAX}, got {V}")
+    check_v(V)
     if Kp % 128 or not (0 < K_real <= Kp):
         raise ValueError(f"boxes must hold K_real={K_real} chunks padded to a "
                          f"multiple of 128, got {Kp}")
@@ -222,7 +227,9 @@ def cull_select(rays, boxes, excl, V: int, K_real: int, tmin: float,
     ``rays``: [R,8] (``pack_rays``); ``boxes``: [8,Kp] (``pack_boxes``);
     ``excl``: [R,2] (threshold, last id as f32), ``first_excl`` for phase
     1, ``next_excl`` after. ``rest`` is the nearest chunk left unselected.
+    V runs from 1 to ``V_MAX`` on either device.
     """
+    check_v(V)
     if rays.device.type == "cpu":
         return cull_select_plain(rays, boxes, excl, V, K_real, tmin, packed)
     return cull_select_kernel(rays, boxes, excl, V, K_real, tmin, packed)

@@ -1,4 +1,4 @@
-"""Per-ray visit-list sweep: the wrapper of CUDA kernel K4.
+"""Per-ray visit-list sweep: the wrappers of CUDA kernels K4, K7 and K8.
 
 Port of ``cpu_ray_tracing_implementation_tpu/ops/pallas_sweep.py``. For
 each ray and each of its V visit slots, the chunk row that the slot names
@@ -25,9 +25,22 @@ step; the kernel writes the same steps with ``__fmul_rn``/``__fadd_rn``
 (never contracted into a multiply-add) and the ``rsqrtf`` that
 ``torch.rsqrt`` runs on the card, so both round alike.
 
-Dispatch is by the device of the tensors: a CPU tensor takes
-``sweep_plain``; a CUDA tensor launches the kernel or raises.
-``LAUNCHES`` counts kernel launches.
+Two opt-in routes of ``ops/perray.py`` sweep other rows with K4's four
+stages (one C entry, ``crt_visit_sweep``):
+
+- K7 (``sweep_sub``, ``CRT_SUBTILE``): sub-tile rows [K*G, F, CS], CS in
+  ``SUB_WIDTHS``, one sub-tile a slot; pid = sub-tile id * CS + lane, the
+  global chunk-major index. Its plain version is ``sweep_plain`` at that
+  width.
+- K8 (``sweep_q16``, ``CRT_SWEEP_Q16``, planar): rows of 5 x 128 u32 words
+  holding the u16 coordinates of each primitive's three points in its
+  chunk box's frame (``ops/perray.py:planar_q16``), dequantized per row
+  (``dequant_q16``) and then tested as K4 tests a float row. Its plain
+  version is ``sweep_q16_plain``.
+
+Dispatch is by the device of the tensors: a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts
+kernel launches, one key a kernel.
 """
 
 from __future__ import annotations
@@ -42,11 +55,16 @@ INF = float("inf")
 PLANAR_ROWS = 9
 SPHERE_ROWS = 7
 
-LAUNCHES = {"visit_sweep": 0}
+# K4, K7 (sub-tile rows), K8 (quantized rows)
+LAUNCHES = {"visit_sweep": 0, "visit_sweep_sub": 0, "visit_sweep_q16": 0}
+# the row widths K7 is built for (csrc/visit_sweep.cu's launch_width)
+SUB_WIDTHS = (16, 32, 64, 128)
+Q16_WORDS = 5
 
 
 def reset_launches() -> None:
-    LAUNCHES["visit_sweep"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def pack_rays(org, dirs, time=None) -> torch.Tensor:
@@ -167,12 +185,45 @@ def _sphere_slot(org, dirs, time, row, tmin, t_best):
 
 def sweep_plain(rays, ids, nears, best, table, tmin: float, triangle: bool,
                 sphere: bool, stats: dict | None = None) -> torch.Tensor:
-    """Plain PyTorch K4: the updated [R, 8] best. Every slot is computed
-    for every ray and masked, as in the Pallas kernel, so nothing waits on
-    the host. ``stats``, when given, gains ``"visits"``: the (ray, slot)
-    pairs whose entry t was below the running best (what the kernel reads
-    and intersects; it synchronises once per slot)."""
+    """Plain PyTorch K4 (and K7, whose rows are narrower): the updated
+    [R, 8] best. Every slot is computed for every ray and masked, as in
+    the Pallas kernel, so nothing waits on the host. ``stats``, when given,
+    gains ``"visits"``: the (ray, slot) pairs whose entry t was below the
+    running best (what the kernel reads and intersects; it synchronises
+    once per slot)."""
     K, _, C = table.shape
+    return _sweep_rows_plain(rays, ids, nears, best, K, C, table.__getitem__, tmin,
+                             triangle, sphere, stats)
+
+
+def dequant_q16(words, lo, scale) -> torch.Tensor:
+    """[..., 5, C] u16-pair words (int32) and their chunks' [..., 3] lo and
+    scale -> the [..., 9, C] float row (corner, eu, ev): corner = lo + q0 *
+    scale, edges (q1 - q0) * scale and (q2 - q0) * scale per axis, each
+    product and sum rounded on its own (K8 dequantizes with the same
+    operations)."""
+    hi16 = ((words >> 16) & 0xFFFF).to(torch.float32)
+    lo16 = (words & 0xFFFF).to(torch.float32)
+    q = torch.stack([hi16, lo16], dim=-2).flatten(-3, -2)       # [..., 10, C]
+    q0, q1, q2 = q[..., 0:3, :], q[..., 3:6, :], q[..., 6:9, :]
+    s = scale[..., :, None]
+    return torch.cat([lo[..., :, None] + q0 * s, (q1 - q0) * s, (q2 - q0) * s], dim=-2)
+
+
+def sweep_q16_plain(rays, ids, nears, best, words, lo, scale, tmin: float,
+                    triangle: bool) -> torch.Tensor:
+    """Plain PyTorch K8: ``sweep_plain``'s planar sweep over quantized rows
+    [K, 5, C], each gathered row dequantized (``dequant_q16``) before the
+    test."""
+    K, _, C = words.shape
+    return _sweep_rows_plain(rays, ids, nears, best, K, C,
+                             lambda i: dequant_q16(words[i], lo[i], scale[i]), tmin,
+                             triangle, False)
+
+
+def _sweep_rows_plain(rays, ids, nears, best, K, C, gather, tmin, triangle, sphere,
+                      stats=None):
+    """The sequential sweep over rows ``gather(chunk ids [R]) -> [R, F, C]``."""
     R, V = ids.shape
     org, dirs, time = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
     ids = torch.clamp(ids, 0, K - 1)
@@ -181,7 +232,7 @@ def sweep_plain(rays, ids, nears, best, table, tmin: float, triangle: bool,
     for s in range(V):
         t_b = best[:, 0]
         ns = nears[:, s]
-        row = table[ids[:, s]]                                # [R, F, C]
+        row = gather(ids[:, s])                               # [R, F, C]
         if sphere:
             ts, planes = _sphere_slot(org, dirs, time, row, tmin, t_b)
         else:
@@ -280,25 +331,25 @@ def scratch_ints(R: int, V: int, K: int) -> int:
     return 3 * R * V + 3 * K + 3
 
 
-def sweep_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
-                 sphere: bool) -> torch.Tensor:
-    """Kernel K4 on CUDA tensors -> the updated [R, 8] best."""
+def _launch(kid, name, rays, ids, nears, best, table, tmin, triangle, sphere,
+            frames=None):
+    """Check one call's inputs and launch ``name`` (K4, K7 or K8) on
+    CUDA tensors -> the updated [R, 8] best."""
     from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 
-    tbl.check_no_grad("crt_visit_sweep", rays, nears, best, table)
+    tbl.check_no_grad(f"crt_{name}", rays, nears, best, table, *(frames or ()))
     K, F, C = table.shape
     R, V = ids.shape
     tbl.check_cuda("rays", rays, torch.float32, (R, 8))
     tbl.check_cuda("ids", ids, torch.int32, (R, V))
     tbl.check_cuda("nears", nears, torch.float32, (R, V))
     tbl.check_cuda("best", best, torch.float32, (R, 8))
-    tbl.check_cuda("table", table, torch.float32, (K, F, C))
-    if F != (SPHERE_ROWS if sphere else PLANAR_ROWS) or C != 128:
-        raise ValueError(f"K4 takes [K, {SPHERE_ROWS if sphere else PLANAR_ROWS}, "
-                         f"128] tables, got {tuple(table.shape)}")
+    tbl.check_cuda("table", table, torch.int32 if frames else torch.float32, (K, F, C))
+    for label, x in zip(("lo", "scale"), frames or ()):
+        tbl.check_cuda(label, x, torch.float32, (K, 3))
     if R * V >= 2**31:
-        raise ValueError(f"K4 indexes slots with int32: R*V = {R * V} is too many")
-    devs = {x.device for x in (rays, ids, nears, best, table)}
+        raise ValueError(f"{kid} indexes slots with int32: R*V = {R * V} is too many")
+    devs = {x.device for x in (rays, ids, nears, best, table, *(frames or ()))}
     if len(devs) != 1:
         raise ValueError("the sweep's inputs lie on different devices")
     out = torch.empty((R, 8), dtype=torch.float32, device=rays.device)
@@ -307,16 +358,53 @@ def sweep_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
     lib = build.load()
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        err = lib.crt_visit_sweep(rays.data_ptr(), ids.data_ptr(),
-                                  nears.data_ptr(), best.data_ptr(),
-                                  table.data_ptr(), R, V, K, float(tmin),
-                                  int(bool(triangle)), int(bool(sphere)),
-                                  scratch.data_ptr(), out.data_ptr(), stream)
+        lo, scale = (x.data_ptr() for x in frames) if frames else (None, None)
+        err = lib.crt_visit_sweep(rays.data_ptr(), ids.data_ptr(), nears.data_ptr(),
+                                  best.data_ptr(), table.data_ptr(), lo, scale, R, V, K,
+                                  C, float(tmin), int(bool(triangle)), int(bool(sphere)),
+                                  int(frames is not None), scratch.data_ptr(),
+                                  out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"crt_visit_sweep launch failed: "
-                           f"{build.error_string(err)}")
-    LAUNCHES["visit_sweep"] += 1
+        raise RuntimeError(f"crt_{name} launch failed: {build.error_string(err)}")
+    LAUNCHES[name] += 1
     return out
+
+
+def _rows(sphere: bool) -> int:
+    return SPHERE_ROWS if sphere else PLANAR_ROWS
+
+
+def sweep_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
+                 sphere: bool) -> torch.Tensor:
+    """Kernel K4 on CUDA tensors -> the updated [R, 8] best."""
+    if tuple(table.shape[1:]) != (_rows(sphere), 128):
+        raise ValueError(f"K4 takes [K, {_rows(sphere)}, 128] tables, got "
+                         f"{tuple(table.shape)}")
+    return _launch("K4", "visit_sweep", rays, ids, nears, best, table, tmin, triangle,
+                   sphere)
+
+
+def sweep_sub_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
+                     sphere: bool) -> torch.Tensor:
+    """Kernel K7 on CUDA tensors: the sweep over sub-tile rows [K*G, F, CS]
+    -> the updated [R, 8] best."""
+    if table.shape[1] != _rows(sphere) or table.shape[2] not in SUB_WIDTHS:
+        raise ValueError(f"K7 takes [K, {_rows(sphere)}, CS] tables with CS in "
+                         f"{SUB_WIDTHS}, got {tuple(table.shape)}")
+    return _launch("K7", "visit_sweep_sub", rays, ids, nears, best, table, tmin,
+                   triangle, sphere)
+
+
+def sweep_q16_kernel(rays, ids, nears, best, words, lo, scale, tmin: float,
+                     triangle: bool) -> torch.Tensor:
+    """Kernel K8 on CUDA tensors: the planar sweep over quantized rows
+    [K, 5, 128] int32 with their chunks' lo and scale [K, 3] -> the updated
+    [R, 8] best."""
+    if tuple(words.shape[1:]) != (Q16_WORDS, 128):
+        raise ValueError(f"K8 takes [K, {Q16_WORDS}, 128] word tables, got "
+                         f"{tuple(words.shape)}")
+    return _launch("K8", "visit_sweep_q16", rays, ids, nears, best, words, tmin,
+                   triangle, False, frames=(lo, scale))
 
 
 def sweep(rays, ids, nears, best, table, tmin: float, triangle: bool,
@@ -330,3 +418,22 @@ def sweep(rays, ids, nears, best, table, tmin: float, triangle: bool,
         return sweep_plain(rays, ids, nears, best, table, tmin, triangle,
                            sphere)
     return sweep_kernel(rays, ids, nears, best, table, tmin, triangle, sphere)
+
+
+def sweep_sub(rays, ids, nears, best, table, tmin: float, triangle: bool,
+              sphere: bool) -> torch.Tensor:
+    """One sweep over sub-tile rows [K*G, F, CS] (``ids`` name sub-tiles)
+    -> the updated [R, 8] best: kernel K7 on CUDA tensors, ``sweep_plain``
+    on CPU tensors."""
+    if rays.device.type == "cpu":
+        return sweep_plain(rays, ids, nears, best, table, tmin, triangle, sphere)
+    return sweep_sub_kernel(rays, ids, nears, best, table, tmin, triangle, sphere)
+
+
+def sweep_q16(rays, ids, nears, best, words, lo, scale, tmin: float,
+              triangle: bool) -> torch.Tensor:
+    """One planar sweep over quantized rows -> the updated [R, 8] best:
+    kernel K8 on CUDA tensors, ``sweep_q16_plain`` on CPU tensors."""
+    if rays.device.type == "cpu":
+        return sweep_q16_plain(rays, ids, nears, best, words, lo, scale, tmin, triangle)
+    return sweep_q16_kernel(rays, ids, nears, best, words, lo, scale, tmin, triangle)

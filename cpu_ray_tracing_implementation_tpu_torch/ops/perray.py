@@ -28,15 +28,38 @@ go through ``PlanarClosestRay`` / ``SphereClosestRay``, the JAX package's
 loop above, which keeps each ray's winning primitive id; their backward is
 the VJP of ``replay.planar_chunks_winner`` / ``sphere_chunks_winner`` at
 that id, O(R) gathers whose backward scatter-adds into the chunk tables.
+The backward replays the exact f32 chunks whichever route ran forward.
+
+Switches, read per call as the JAX package reads them (``perray.py:53-61,
+489-506, 709-741``):
+
+- ``CRT_RAYV``: visit slots a phase when the caller passes no ``V``
+  (default ``VISIT_BLOCK`` = 16; K3 takes up to 32).
+- ``CRT_SWEEP_Q16=1`` (planar tables only; it wins over ``CRT_SUBTILE``):
+  the quantized-row sweep. The rows hold each primitive's three points as
+  u16 coordinates in its chunk box's frame (``planar_q16``), and K8 tests
+  the dequantized geometry exactly; the boxes and K3 are the chunk route's.
+- ``CRT_SUBTILE=1`` where ``CS = CRT_SUBC`` (default 32) divides the chunk
+  width (else the chunk route runs; a width K7 is not built for, under
+  16, raises): sub-tile selection. K3 selects among
+  the boxes of CS-lane slices of each chunk (``subtile_bounds``, K*G boxes,
+  G = C/CS) ``V = min(ceil(CRT_RAYV_SUB / P) * P, ceil(K*G / P) * P)``
+  slots a phase (P = 128/CS, ``CRT_RAYV_SUB`` default 24), and K7 sweeps
+  one sub-tile a slot; pid stays the global chunk-major index.
+
+Both are opt-in experiments the JAX package measured as no faster on its
+chip (``BASELINE.md:142-191, 265-287``). Their tables are built once per
+scene, beside the chunk route's (``PerRayTables.subtile`` / ``.q16``).
 Left out on purpose: the XLA near-matrix route (``_near_matrix``,
-``_select_block``) and the sub-tile and quantized-row experiments (ROADMAP
-M16). The other accelerators are ``ops/packet.py`` and ``ops/bvh.py``
+``_select_block``), which the K3 phase loop replaces. The other
+accelerators are ``ops/packet.py`` and ``ops/bvh.py``
 (``intersect.accel_mode``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, field
 
 import torch
 
@@ -49,6 +72,44 @@ INF = float("inf")
 
 # visit slots selected per phase (the JAX package's CRT_RAYV default)
 VISIT_BLOCK = 16
+# sub-tile width and visit slots per phase (CRT_SUBC, CRT_RAYV_SUB defaults)
+SUBTILE_C = 32
+VISIT_BLOCK_SUB = 24
+# lanes of one packed sub-tile row in the JAX package (P = LANES / CS)
+LANES = 128
+
+
+def visit_block() -> int:
+    """Visit slots a phase: ``CRT_RAYV`` (default ``VISIT_BLOCK``)."""
+    return int(os.environ.get("CRT_RAYV", str(VISIT_BLOCK)))
+
+
+def subtile_c() -> int:
+    """Sub-tile width ``CRT_SUBC`` (default ``SUBTILE_C``)."""
+    cs = int(os.environ.get("CRT_SUBC", str(SUBTILE_C)))
+    if cs < 1:
+        raise ValueError(f"CRT_SUBC must be a positive width, got {cs}")
+    return cs
+
+
+def route(C: int, planar: bool) -> str:
+    """The sweep a table of chunk width C takes: "q16" (``CRT_SWEEP_Q16=1``,
+    planar only), "subtile" (``CRT_SUBTILE=1`` and ``CRT_SUBC`` divides C),
+    else "chunk" (``perray.py:336-341, 443-444`` of the JAX package)."""
+    if planar and os.environ.get("CRT_SWEEP_Q16", "0") == "1":
+        return "q16"
+    if os.environ.get("CRT_SUBTILE", "0") == "1" and C % subtile_c() == 0:
+        return "subtile"
+    return "chunk"
+
+
+def subtile_v(KG: int, CS: int) -> int:
+    """Slots a sub-tile phase selects: a multiple of P = 128/CS
+    (``perray.py:667-670``)."""
+    P = max(1, LANES // CS)
+    vs = int(os.environ.get("CRT_RAYV_SUB", str(VISIT_BLOCK_SUB)))
+    return min(-(-vs // P) * P, -(-KG // P) * P)
+
 
 # closest-hit calls, the phases they ran, and the rays each phase walked
 # boxes for, summed over calls (live[0]: every ray, in phase 1)
@@ -62,10 +123,42 @@ def reset_phases() -> None:
 
 
 @dataclass(frozen=True)
+class SubTileTables:
+    """The sub-tile route's tables at width CS (``PerRayTables.subtile``)."""
+    table: torch.Tensor   # [K*G, F, CS] sub-tile rows
+    boxes: torch.Tensor   # [8, KGp] sub-tile AABB pack
+    CS: int
+
+
+@dataclass(frozen=True)
+class Q16Tables:
+    """The quantized-row route's tables (``planar_q16``)."""
+    words: torch.Tensor   # [K, 5, C] int32: two u16 coordinates a word
+    lo: torch.Tensor      # [K, 3] the chunk boxes' lo
+    scale: torch.Tensor   # [K, 3] extent / 65535
+
+
+@dataclass(frozen=True)
 class PerRayTables:
-    """What the kernels read of one chunked table, built once per scene."""
+    """What the kernels read of one chunked table, built once per scene;
+    the opt-in routes' tables are built from ``chunks`` at their first use
+    and kept here."""
     table: torch.Tensor   # [K, F, C] sweep rows (fused_sweep layout)
     boxes: torch.Tensor   # [8, Kp] chunk AABB pack (fused_select layout)
+    chunks: object = field(default=None, repr=False, compare=False)
+    modes: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def subtile(self, CS: int) -> SubTileTables:
+        if CS not in self.modes:
+            lo, hi = subtile_bounds(self.chunks, CS)
+            self.modes[CS] = SubTileTables(table=subtile_rows(self.table, CS),
+                                           boxes=fs.pack_boxes(lo, hi), CS=CS)
+        return self.modes[CS]
+
+    def q16(self) -> Q16Tables:
+        if "q16" not in self.modes:
+            self.modes["q16"] = planar_q16(self.chunks)
+        return self.modes["q16"]
 
 
 def planar_tables(chunks: ch.PlanarChunks) -> PerRayTables:
@@ -77,7 +170,7 @@ def planar_tables(chunks: ch.PlanarChunks) -> PerRayTables:
     ev = torch.where(act, chunks.ev, torch.zeros_like(chunks.ev))
     table = torch.cat([chunks.corner, eu, ev], dim=2).transpose(1, 2)
     return PerRayTables(table=table.contiguous(),
-                        boxes=fs.pack_boxes(chunks.lo, chunks.hi))
+                        boxes=fs.pack_boxes(chunks.lo, chunks.hi), chunks=chunks)
 
 
 def sphere_tables(chunks: ch.SphereChunks) -> PerRayTables:
@@ -86,7 +179,77 @@ def sphere_tables(chunks: ch.SphereChunks) -> PerRayTables:
     rad = torch.where(chunks.active, chunks.rad, torch.zeros_like(chunks.rad))
     table = torch.cat([chunks.c0, chunks.c1, rad[..., None]], dim=2)
     return PerRayTables(table=table.transpose(1, 2).contiguous(),
-                        boxes=fs.pack_boxes(chunks.lo, chunks.hi))
+                        boxes=fs.pack_boxes(chunks.lo, chunks.hi), chunks=chunks)
+
+
+def subtile_bounds(chunks, CS: int):
+    """([K*G, 3] lo, hi) of each chunk's CS-lane slices, inactive lanes
+    left out (``_subtile_bounds_planar`` / ``_sphere``, ``perray.py:509-536``):
+    planar boxes take the four corners with the +-1e-4 pad of the build,
+    spheres both centers +- rad."""
+    K, C = chunks.mat.shape
+    G = C // CS
+    act = chunks.active.bool()[..., None]
+    inf = torch.full((), INF, dtype=torch.float32, device=act.device)
+    if isinstance(chunks, ch.SphereChunks):
+        rad = torch.where(chunks.active.bool(), chunks.rad,
+                          torch.zeros_like(chunks.rad))[..., None]
+        lane_lo = torch.where(act, torch.minimum(chunks.c0, chunks.c1) - rad, inf)
+        lane_hi = torch.where(act, torch.maximum(chunks.c0, chunks.c1) + rad, -inf)
+    else:
+        eu = torch.where(act, chunks.eu, torch.zeros_like(chunks.eu))
+        ev = torch.where(act, chunks.ev, torch.zeros_like(chunks.ev))
+        c = chunks.corner
+        pts = torch.stack([c, c + eu, c + ev, c + eu + ev])
+        lane_lo = torch.where(act, pts.amin(0) - 1e-4, inf)
+        lane_hi = torch.where(act, pts.amax(0) + 1e-4, -inf)
+    lo = lane_lo.reshape(K, G, CS, 3).amin(dim=2).reshape(K * G, 3)
+    hi = lane_hi.reshape(K, G, CS, 3).amax(dim=2).reshape(K * G, 3)
+    return lo, hi
+
+
+def subtile_rows(table, CS: int) -> torch.Tensor:
+    """[K, F, C] sweep rows -> [K*G, F, CS] sub-tile rows (``_table_sub``,
+    ``perray.py:539-543``): sub-tile k*G + g holds lanes g*CS .. g*CS+CS-1
+    of chunk k."""
+    K, F, C = table.shape
+    G = C // CS
+    return (table.reshape(K, F, G, CS).permute(0, 2, 1, 3)
+            .reshape(K * G, F, CS).contiguous())
+
+
+def planar_q16(chunks: ch.PlanarChunks) -> Q16Tables:
+    """The quantized rows (``_planar_table_q16``, ``perray.py:744-783``):
+    corner, corner + eu and corner + ev as u16 coordinates in the chunk
+    box's frame, round(p - lo) / scale) half to even and clipped to
+    [0, 65535], packed two a word (high, low): (q0x, q0y), (q0z, q1x),
+    (q1y, q1z), (q2x, q2y), (q2z, 0). Inactive lanes quantize all three
+    points alike, so their edges are exactly zero and the plane test's
+    |d.n| guard rejects them."""
+    lo, hi = chunks.lo, chunks.hi
+    ext = torch.clamp(hi - lo, min=1e-20)
+    scale = ext / 65535.0
+    # a true division (a Python scalar over a tensor is its reciprocal times
+    # the scalar in PyTorch)
+    inv = torch.full_like(ext, 65535.0) / ext
+    act = chunks.active.bool()[..., None]
+    p0 = chunks.corner
+    p1 = p0 + torch.where(act, chunks.eu, torch.zeros_like(chunks.eu))
+    p2 = p0 + torch.where(act, chunks.ev, torch.zeros_like(chunks.ev))
+
+    def q(p):
+        u = torch.clamp(torch.round((p - lo[:, None, :]) * inv[:, None, :]), 0.0,
+                        65535.0)
+        return u.to(torch.int64)
+
+    q0, q1, q2 = q(p0), q(p1), q(p2)
+    pairs = [(q0[..., 0], q0[..., 1]), (q0[..., 2], q1[..., 0]),
+             (q1[..., 1], q1[..., 2]), (q2[..., 0], q2[..., 1]),
+             (q2[..., 2], torch.zeros_like(q2[..., 2]))]
+    words = torch.stack([(a << 16) | b for a, b in pairs], dim=1)   # [K, 5, C]
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return Q16Tables(words=words.to(torch.int32).contiguous(), lo=lo.contiguous(),
+                     scale=scale.contiguous())
 
 
 def _recover_mat(chunk_mat, pid, hit):
@@ -134,6 +297,35 @@ def _cap(org, tmax):
         org.shape[:1]).contiguous()
 
 
+def _routed(org, dirs, cap, tabs, K, tmin, V, rays, best0, planar, triangle):
+    """The phase loop on the route ``route`` picks for the table: (boxes
+    and rows of) the chunk route (K3 + K4), the sub-tile route (K3 on the
+    sub-tile boxes + K7) or the quantized-row route (K3 + K8)."""
+    C = tabs.table.shape[2]
+    mode = route(C, planar)
+    if mode == "subtile":
+        CS = subtile_c()
+        if CS not in fsw.SUB_WIDTHS:
+            raise ValueError(f"CRT_SUBC={CS}: the sub-tile sweep (K7) is built for "
+                             f"widths {fsw.SUB_WIDTHS}")
+        sub = tabs.subtile(CS)
+        KG = sub.table.shape[0]
+        V_sub = subtile_v(KG, sub.CS)
+        return _phase_loop(
+            org, dirs, cap, sub, KG, tmin, V_sub,
+            lambda ids, nears, b: fsw.sweep_sub(rays, ids, nears, b, sub.table,
+                                                float(tmin), triangle, not planar),
+            best0)
+    if mode == "q16":
+        q = tabs.q16()
+        sweep = (lambda ids, nears, b: fsw.sweep_q16(rays, ids, nears, b, q.words, q.lo,
+                                                     q.scale, float(tmin), triangle))
+    else:
+        sweep = (lambda ids, nears, b: fsw.sweep(rays, ids, nears, b, tabs.table,
+                                                 float(tmin), triangle, not planar))
+    return _phase_loop(org, dirs, cap, tabs, K, tmin, min(V, K), sweep, best0)
+
+
 def _planar_forward(org, dirs, chunks, tmin, triangle, tmax, V, tabs):
     """The phase loop for a planar table: (t, (unorm, u, v, mat, pid)), no
     graph."""
@@ -145,11 +337,7 @@ def _planar_forward(org, dirs, chunks, tmin, triangle, tmax, V, tabs):
     best0 = fsw.pack_best_planar(cap, torch.zeros_like(org), z, z,
                                  z.to(torch.int32), z.to(torch.int32))
     rays = fsw.pack_rays(org, dirs)
-    best = _phase_loop(
-        org, dirs, cap, tabs, K, tmin, min(V, K),
-        lambda ids, nears, b: fsw.sweep(rays, ids, nears, b, tabs.table,
-                                        float(tmin), triangle, False),
-        best0)
+    best = _routed(org, dirs, cap, tabs, K, tmin, V, rays, best0, True, triangle)
     t, n, u, v, _, p = fsw.unpack_best_planar(best)
     hit = t < cap
     return torch.where(hit, t, torch.full_like(t, INF)), (
@@ -167,11 +355,7 @@ def _sphere_forward(org, dirs, time, chunks, tmin, tmax, V, tabs):
     best0 = fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1.0,
                                  z.to(torch.int32), z.to(torch.int32))
     rays = fsw.pack_rays(org, dirs, time)
-    best = _phase_loop(
-        org, dirs, cap, tabs, K, tmin, min(V, K),
-        lambda ids, nears, b: fsw.sweep(rays, ids, nears, b, tabs.table,
-                                        float(tmin), False, True),
-        best0)
+    best = _routed(org, dirs, cap, tabs, K, tmin, V, rays, best0, False, False)
     t, ctr, rad, _, p = fsw.unpack_best_sphere(best)
     hit = t < cap
     return torch.where(hit, t, torch.full_like(t, INF)), (
@@ -179,8 +363,9 @@ def _sphere_forward(org, dirs, time, chunks, tmin, tmax, V, tabs):
 
 
 class PlanarClosestRay(torch.autograd.Function):
-    """The phase loop forward, the winner replay's VJP backward
-    (``perray.py:901-923`` of the JAX package)."""
+    """The phase loop forward (on the route ``route`` picks), the winner
+    replay's VJP backward on the exact f32 chunks (``perray.py:901-923`` of
+    the JAX package)."""
 
     @staticmethod
     def forward(ctx, org, dirs, corner, eu, ev, chunks, tmin, triangle, tmax,
@@ -210,8 +395,9 @@ class PlanarClosestRay(torch.autograd.Function):
 
 
 class SphereClosestRay(torch.autograd.Function):
-    """The phase loop forward, the winner replay's VJP backward
-    (``perray.py:926-948`` of the JAX package)."""
+    """The phase loop forward (on the route ``route`` picks), the winner
+    replay's VJP backward on the exact f32 chunks (``perray.py:926-948`` of
+    the JAX package)."""
 
     @staticmethod
     def forward(ctx, org, dirs, time, c0, c1, rad, chunks, tmin, tmax, V,
@@ -241,14 +427,17 @@ class SphereClosestRay(torch.autograd.Function):
 
 
 def planar_closest_perray(org, dirs, chunks: ch.PlanarChunks, tmin,
-                          triangle: bool, tmax=INF, V: int = VISIT_BLOCK,
+                          triangle: bool, tmax=INF, V: int | None = None,
                           tabs: PerRayTables | None = None):
-    """Drop-in for ``chunked.planar_closest`` (exact; differentiable through
-    ``PlanarClosestRay`` when an input needs a gradient).
+    """Drop-in for ``chunked.planar_closest`` (exact, but for the opt-in
+    quantized rows; differentiable through ``PlanarClosestRay`` when an
+    input needs a gradient).
 
-    ``tmax``: scalar or per-ray [R] cap (no gradient); ``tabs``: the
-    scene's cached ``planar_tables(chunks)``. Returns (t [R], (unorm [R,3],
-    u [R], v [R], mat [R], pid [R]))."""
+    ``tmax``: scalar or per-ray [R] cap (no gradient); ``V``: visit slots a
+    phase of the chunk and quantized routes (default ``visit_block()``);
+    ``tabs``: the scene's cached ``planar_tables(chunks)``. Returns (t [R],
+    (unorm [R,3], u [R], v [R], mat [R], pid [R]))."""
+    V = visit_block() if V is None else V
     if tbl.needs_grad(org, dirs, chunks.corner, chunks.eu, chunks.ev):
         t, n, u, v, mat, pid = PlanarClosestRay.apply(
             org, dirs, chunks.corner, chunks.eu, chunks.ev, chunks, tmin,
@@ -259,11 +448,12 @@ def planar_closest_perray(org, dirs, chunks: ch.PlanarChunks, tmin,
 
 
 def sphere_closest_perray(org, dirs, time, chunks: ch.SphereChunks, tmin,
-                          tmax=INF, V: int = VISIT_BLOCK,
+                          tmax=INF, V: int | None = None,
                           tabs: PerRayTables | None = None):
     """Drop-in for ``chunked.sphere_closest`` (exact; differentiable through
     ``SphereClosestRay``). Returns (t [R], (center_at_t [R,3], rad [R],
     mat [R], pid [R]))."""
+    V = visit_block() if V is None else V
     if tbl.needs_grad(org, dirs, time, chunks.c0, chunks.c1, chunks.rad):
         t, ctr, rad, mat, pid = SphereClosestRay.apply(
             org, dirs, time, chunks.c0, chunks.c1, chunks.rad, chunks, tmin,

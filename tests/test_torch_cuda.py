@@ -258,7 +258,7 @@ def _boxes_and_rays(rng, dev, K=300, R=5000):
     return boxes, fs.pack_rays(org, dirs, cap)
 
 
-@pytest.mark.parametrize("V", [1, 3, 16])
+@pytest.mark.parametrize("V", [1, 3, 16, 17, 24, 32])
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "exact"])
 @pytest.mark.parametrize("marked", [False, True], ids=["unmarked", "done"])
 def test_cull_select_kernel_bit_equal(dev, packed, V, marked):
@@ -288,8 +288,8 @@ def test_cull_select_kernel_bit_equal(dev, packed, V, marked):
 
 def test_cull_select_refuses_other_v(dev):
     boxes, rays = _boxes_and_rays(np.random.default_rng(0), dev, R=64)
-    with pytest.raises(ValueError, match="V in 1..16"):
-        fs.cull_select(rays, boxes, fs.first_excl(64, dev), 17, 300, TMIN)
+    with pytest.raises(ValueError, match="V in 1..32"):
+        fs.cull_select(rays, boxes, fs.first_excl(64, dev), 33, 300, TMIN)
 
 
 def _random_scene(kind, dev, n=2000):
@@ -328,7 +328,7 @@ def test_sweep_kernel_matches_plain(dev, kind):
             fsw.pack_best_planar(cap, torch.zeros_like(org), z, z, z.int(), z.int()))
     fsw.reset_launches()
     got = fsw.sweep(rays, ids, nears, best, tabs.table, TMIN, kind == "tri", sphere)
-    assert fsw.LAUNCHES == {"visit_sweep": 1}
+    assert fsw.LAUNCHES == {"visit_sweep": 1, "visit_sweep_sub": 0, "visit_sweep_q16": 0}
     ref = fsw.sweep_plain(rays, ids, nears, best, tabs.table, TMIN, kind == "tri",
                           sphere)
     torch.cuda.synchronize()
@@ -352,7 +352,7 @@ def test_sweep_kernel_adversarial_lists(dev, kind, case):
     rays, ids, nears, best, table, tri, sph = cases.make_case(kind, case, dev)
     fsw.reset_launches()
     got = fsw.sweep(rays, ids, nears, best, table, cases.TMIN, tri, sph)
-    assert fsw.LAUNCHES == {"visit_sweep": 1}
+    assert fsw.LAUNCHES == {"visit_sweep": 1, "visit_sweep_sub": 0, "visit_sweep_q16": 0}
     ref = fsw.sweep_plain(rays, ids, nears, best, table, cases.TMIN, tri, sph)
     torch.cuda.synchronize()
     cases.check_case(case, got, ref, best, nears)
@@ -407,6 +407,109 @@ def test_sweep_kernel_one_visit_in_10000_rays(dev, kind):
     assert torch.equal(cases.bits(got), cases.bits(ref))
     changed = (cases.bits(got) != cases.bits(best)).any(1)
     assert torch.nonzero(changed)[:, 0].tolist() in ([], [7_777])
+
+
+def _mode_lists(kind, dev, CS=None, K3_V=24):
+    """The random scene's rays, K3's phase-1 lists at ``K3_V`` slots over
+    the chunk boxes or, with ``CS``, the sub-tile boxes, and the tables."""
+    scene = _random_scene(kind, dev)
+    sphere = kind == "sphere"
+    tabs = scene.sphere_perray if sphere else (
+        scene.tri_perray if kind == "tri" else scene.quad_perray)
+    sel = tabs if CS is None else tabs.subtile(CS)
+    org, dirs, time = _rays(np.random.default_rng(11), dev, 8000)
+    cap = torch.full((8000,), 60.0, device=dev)
+    cap[:500] = TMIN
+    ids, nears, _ = fs.cull_select(fs.pack_rays(org, dirs, cap), sel.boxes,
+                                   fs.first_excl(8000, dev), K3_V, sel.table.shape[0], TMIN)
+    rays = fsw.pack_rays(org, dirs, time if sphere else None)
+    z = torch.zeros_like(cap)
+    best = (fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1, z.int(), z.int())
+            if sphere else
+            fsw.pack_best_planar(cap, torch.zeros_like(org), z, z, z.int(), z.int()))
+    return rays, ids, nears, best, tabs, sel, cap
+
+
+@pytest.mark.parametrize("CS", [32, 64, 16, 128])
+@pytest.mark.parametrize("kind", ["quad", "tri", "sphere"])
+def test_subtile_sweep_kernel_k7_matches_plain(dev, kind, CS):
+    """K7 over sub-tile rows of each width it is built for against
+    ``sweep_plain`` at that width, all 8 columns bit for bit; a width it is
+    not built for raises."""
+    rays, ids, nears, best, _, sub, cap = _mode_lists(kind, dev, CS)
+    fsw.reset_launches()
+    got = fsw.sweep_sub(rays, ids, nears, best, sub.table, TMIN, kind == "tri",
+                        kind == "sphere")
+    assert fsw.LAUNCHES == {"visit_sweep": 0, "visit_sweep_sub": 1, "visit_sweep_q16": 0}
+    ref = fsw.sweep_plain(rays, ids, nears, best, sub.table, TMIN, kind == "tri",
+                          kind == "sphere")
+    torch.cuda.synchronize()
+    assert int((ref[:, 0] < cap).sum()) > 100
+    assert torch.equal(cases.bits(got), cases.bits(ref))
+    narrow = perray.subtile_rows(sub.table, 8) if CS == 16 else None
+    if narrow is not None:
+        with pytest.raises(ValueError, match="K7 takes"):
+            fsw.sweep_sub(rays, ids, nears, best, narrow, TMIN, kind == "tri",
+                          kind == "sphere")
+
+
+def test_subtile_sweep_kernel_k7_many_subtiles(dev):
+    """K7 at width 16 over 9,000 sub-tiles, above the 8,192 a block counts
+    in shared memory (the colonnade's 32,240 at width 16)."""
+    rays, ids, nears, best, table, tri, sph = cases.make_case("tri", "clip", dev, R=2000,
+                                                              V=24, K=9000 * 16 // 128)
+    sub = perray.subtile_rows(table, 16)
+    ids = torch.randint(-4, 9004, ids.shape, device=dev, dtype=torch.int32)
+    got = fsw.sweep_sub_kernel(rays, ids, nears, best, sub, cases.TMIN, tri, sph)
+    ref = fsw.sweep_plain(rays, ids, nears, best, sub, cases.TMIN, tri, sph)
+    torch.cuda.synchronize()
+    assert sub.shape[0] == 9000 and torch.equal(cases.bits(got), cases.bits(ref))
+
+
+@pytest.mark.parametrize("kind", ["quad", "tri"])
+def test_q16_sweep_kernel_k8_matches_plain(dev, kind):
+    """K8 over the quantized rows against ``sweep_q16_plain``, all 8
+    columns bit for bit."""
+    rays, ids, nears, best, tabs, _, cap = _mode_lists(kind, dev, K3_V=16)
+    q = tabs.q16()
+    fsw.reset_launches()
+    got = fsw.sweep_q16(rays, ids, nears, best, q.words, q.lo, q.scale, TMIN,
+                        kind == "tri")
+    assert fsw.LAUNCHES == {"visit_sweep": 0, "visit_sweep_sub": 0, "visit_sweep_q16": 1}
+    ref = fsw.sweep_q16_plain(rays, ids, nears, best, q.words, q.lo, q.scale, TMIN,
+                              kind == "tri")
+    torch.cuda.synchronize()
+    assert int((ref[:, 0] < cap).sum()) > 100
+    assert torch.equal(cases.bits(got), cases.bits(ref))
+
+
+@pytest.mark.parametrize("mode", ["CRT_SUBTILE", "CRT_SWEEP_Q16"])
+@pytest.mark.parametrize("kind", ["tri", "sphere"])
+def test_perray_modes_on_card_match_oracle(dev, monkeypatch, kind, mode):
+    """The opt-in routes' phase loops on the card: the sub-tile route
+    (K3 + K7) exact against the chunk scan, the quantized one (K3 + K8,
+    planar only; spheres keep K4) on all but a few rays."""
+    monkeypatch.setenv(mode, "1")
+    scene = _random_scene(kind, dev)
+    org, dirs, time = _rays(np.random.default_rng(4), dev, 4000)
+    cap = torch.full((4000,), 60.0, device=dev)
+    fsw.reset_launches()
+    if kind == "sphere":
+        t, pay = perray.sphere_closest_perray(org, dirs, time, scene.sphere_chunks, TMIN,
+                                              cap, tabs=scene.sphere_perray)
+        t_o, pay_o = ch.sphere_closest(org, dirs, time, scene.sphere_chunks, TMIN,
+                                       tmax=cap)
+    else:
+        t, pay = perray.planar_closest_perray(org, dirs, scene.tri_chunks, TMIN, True, cap,
+                                              tabs=scene.tri_perray)
+        t_o, pay_o = ch.planar_closest(org, dirs, scene.tri_chunks, TMIN, True, tmax=cap)
+    want = ("visit_sweep_sub" if mode == "CRT_SUBTILE" else
+            "visit_sweep" if kind == "sphere" else "visit_sweep_q16")
+    assert fsw.LAUNCHES[want] > 0 and sum(fsw.LAUNCHES.values()) == fsw.LAUNCHES[want]
+    hit = torch.isfinite(t_o)
+    same = (torch.isfinite(t) == hit) & (pay[-1] == pay_o[-1])
+    assert int(hit.sum()) > 100
+    assert float(same.float().mean()) >= (0.999 if want == "visit_sweep_q16" else 1.0)
 
 
 @pytest.mark.parametrize("kind", ["tri", "sphere"])

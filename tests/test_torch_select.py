@@ -33,6 +33,21 @@ def _tri_boxes():
     return np.array(ch.lo), np.array(ch.hi)
 
 
+def _subtile_boxes():
+    """The 32-lane sub-tile boxes of the same triangles (24 boxes,
+    ``perray._subtile_bounds_planar``): the sub-tile route's K3 input."""
+    from cpu_ray_tracing_implementation_tpu.ops import perray as jperray
+
+    rng = np.random.default_rng(8)
+    b = jscene.SceneBuilder()
+    m = b.lambertian((0.5, 0.5, 0.5))
+    for c in rng.normal(0, 3.0, (700, 3)):
+        v = c + rng.normal(0, 0.3, (3, 3))
+        b.triangle(v[0], v[1], v[2], m)
+    lo, hi = jperray._subtile_bounds_planar(b.build().tri_chunks, 32)
+    return np.array(lo), np.array(hi)
+
+
 def _random_boxes(K, seed):
     rng = np.random.default_rng(seed)
     c = rng.normal(0, 4.0, (K, 3))
@@ -71,9 +86,10 @@ def _check_equal(got, ref, R):
 
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "exact"])
 @pytest.mark.parametrize("boxes,V", [("tri", 2), ("tri", 6), ("random200", 3),
-                                     ("random200", 16)])
+                                     ("random200", 16), ("subtile", 24)])
 def test_plain_matches_jax_kernel_over_three_phases(boxes, V, packed):
-    lo, hi = _tri_boxes() if boxes == "tri" else _random_boxes(200, 1)
+    lo, hi = {"tri": _tri_boxes, "subtile": _subtile_boxes,
+              "random200": lambda: _random_boxes(200, 1)}[boxes]()
     K = lo.shape[0]
     R = 96
     org, d, caps = _rays(R, 2)
