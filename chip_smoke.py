@@ -46,14 +46,15 @@ Phases (any failure raises and the script exits non-zero):
      the sequential sweep needs of that run's data (``sweep_needs``), and
      the bound at the count before K4's redesign.
    - The opt-in per-ray routes' kernels at the colonnade's 40,000 primary
-     rays: K3 on the sub-tile boxes (CS 32: 8,060; CS 16: 16,120) at V 24,
-     bit-equal; K7 (the sub-tile sweep) on the lists K3 gives there, at
-     CS 32 and at CS 16 (above the 8,192 sub-tiles its count stage keeps in
-     shared memory); K8 (the quantized-row sweep) on the chunk route's
-     phase-1 lists, timed against K4 on the same lists. K7 and K8 all 8
-     columns bit for bit equal to their plain versions (``sweep_plain`` at
-     the sub-tile width, ``sweep_q16_plain``); phase 1 timed with its
-     bound, K3 and K7 at CS 32.
+     rays: K3 on the sub-tile boxes (CS 32: 8,060 at V 24; CS 16: 16,120
+     at V 24; CS 8: 32,240 at V 32), bit-equal; K7 (the sub-tile sweep, one
+     instance a row kind for every width) on the lists K3 gives there, at
+     each of those widths, timed with its bound and its time by stage
+     (memset, count, scatter, tile, fold: ``profiling.subtile_stage_ms``);
+     K8 (the quantized-row sweep) on the chunk route's phase-1 lists,
+     timed against K4 on the same lists. K7 and K8 all 8 columns bit for
+     bit equal to their plain versions (``sweep_plain`` at the sub-tile
+     width, ``sweep_q16_plain``); K3 timed at CS 32.
    - K1 and K2 with their pid output (the winner's lane, which the
      gradient path replays) against the plain versions' pid, at the same
      Cornell, three_material_ball and random_motion_ball shapes: equal
@@ -1002,10 +1003,11 @@ def phase_sphereflake(scene, cam, dev):
 # ----------------------- phase 2: the opt-in per-ray routes' K3, K7 and K8
 # the switches of the JAX package's opt-in per-ray routes (ops/perray.py)
 MODES = {"subtile": {"CRT_SUBTILE": "1"}, "q16": {"CRT_SWEEP_Q16": "1"}}
-# K7's widths held against the plain version: the default 32 (8,060
-# colonnade sub-tiles) and 16 (16,120: above the 8,192 sub-tiles K7's count
-# stage keeps in shared memory)
-SUB_WIDTHS_CHECKED = (32, 16)
+# K7's widths held against the plain version and timed: the default 32
+# (8,060 colonnade sub-tiles), 16 (16,120: above the 8,192 buckets a count
+# keeps in shared memory, had K7 kept a bucket a sub-tile) and 8 (32,240;
+# K3 at V 32)
+SUB_WIDTHS_CHECKED = (32, 16, 8)
 # K3's and K7's timed sub-tile width (the default CRT_SUBC)
 SUBTILE_TIMED = perray.SUBTILE_C
 # an image under a switch against the default route's of the same key
@@ -1044,11 +1046,13 @@ def switches(env):
 
 
 def phase_modes_kernels(scene, cam, dev):
-    """K3 on the colonnade's sub-tile boxes (V 24), K7 at CS 32 and 16 on
-    the lists K3 gives there, and K8 on the chunk route's phase-1 lists
-    (V 16), each against its plain version (K3 bit-equal, K7 and K8 all 8
-    columns bit for bit) at the colonnade's 40,000 primary rays; phase 1
-    timed (CS 32 for K3 and K7). Returns (errs, times, bounds)."""
+    """K3 on the colonnade's sub-tile boxes (V 24, 24, 32), K7 at CS 32, 16
+    and 8 on the lists K3 gives there, and K8 on the chunk route's phase-1
+    lists (V 16), each against its plain version (K3 bit-equal, K7 and K8
+    all 8 columns bit for bit) at the colonnade's 40,000 primary rays;
+    phase 1 timed (K3 at CS 32; K7 at each width, with its time by
+    stage). Returns (errs, times, bounds)."""
+    t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(1)
     tabs = scene.tri_perray
     K = scene.tri_chunks.corner.shape[0]
@@ -1078,6 +1082,12 @@ def phase_modes_kernels(scene, cam, dev):
             kernel=fsw.sweep_sub_kernel)
         errs["visit_sweep_sub"] = max(errs.get("visit_sweep_sub", 0.0), err)
         times[f"visit_sweep_sub_cs{CS}"], bounds[f"visit_sweep_sub_cs{CS}"] = ms, b
+        stages = profiling.subtile_stage_ms(srays, got[0], got[1], best, sub.table, TMIN,
+                                            True, False)
+        log(f"  K7 at CS {CS} by stage (CUDA events, each stage added in turn): "
+            + ", ".join(f"{name} {1e3 * t:.2f} us" for name, t in stages.items())
+            + f"; sum {1e3 * sum(stages.values()):.2f} us, whole call {1e3 * ms[0]:.2f} us, "
+            f"bound {1e3 * b[0]:.2f} us ({b[1]}), share {b[0] / ms[0]:.3f}")
         if CS == SUBTILE_TIMED:
             k3 = (cuda_ms(lambda: fs.cull_select_kernel(rays, sub.boxes, excl, V, KG,
                                                         TMIN)),
@@ -1106,6 +1116,7 @@ def phase_modes_kernels(scene, cam, dev):
     log(f"  K8 against K4 on the same lists, in this call: K8 {ms[0]:.4f} ms, K4 "
         f"{k4:.4f} ms ({ms[0] / k4:.3f}x)")
     torch.cuda.synchronize()
+    log(f"  the opt-in routes' kernels took {time.perf_counter() - t_phase:.1f} s")
     return errs, times, bounds
 
 
@@ -3458,7 +3469,9 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     log(f"  built {build.library_path().name} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {build.last_build['seconds']:.2f} s, cached {build.last_build['cached']})")
+        f"(nvcc {build.last_build['seconds']:.2f} s, cached {build.last_build['cached']}; "
+        "per source " + ", ".join(f"{name} {sec:.2f} s" for name, sec in
+                                  build.last_build["sources"].items()) + ")")
     for line in build.last_build["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())

@@ -43,10 +43,11 @@ from cpu_ray_tracing_implementation_tpu_torch.utils import denoise, profiling
 SWITCHES = """\
 environment switches (read per call):
   CRT_ACCEL       chunked tables' accelerator: auto | ray | packet | bvh | pallas | chunked
-  CRT_RAYV        per-ray visit slots a phase (default 16; K3 takes up to 32)
-  CRT_SUBTILE     1: per-ray sub-tile selection, CRT_SUBC lanes a sub-tile (default 32,
-                  dividing 128, else the chunk route), CRT_RAYV_SUB slots (default 24);
-                  K3 on the sub-tile boxes and K7
+  CRT_RAYV        per-ray visit slots a phase (default 16; above 32, K3's largest,
+                  selections of 32 chained)
+  CRT_SUBTILE     1: per-ray sub-tile selection, CRT_SUBC lanes a sub-tile (default 32;
+                  any width dividing 128, else the chunk route), CRT_RAYV_SUB slots
+                  (default 24); K3 on the sub-tile boxes and K7
   CRT_SWEEP_Q16   1: per-ray planar sweep over u16-quantized rows, K8 (wins over
                   CRT_SUBTILE; spheres keep their route)
   CRT_REPLAY      0: the gradient's chunk-scan VJP instead of the winner replay (both

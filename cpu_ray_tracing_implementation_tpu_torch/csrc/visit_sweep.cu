@@ -5,18 +5,21 @@
 // (its decomposition into the stages below: sweep_fold_plain); wrapper:
 // ops/fused_sweep.py sweep.
 //
-// K7 and K8 are K4's four stages on other rows (the same crt_visit_sweep):
+// K7 and K8 sweep other rows:
 //  - K7, the sub-tile sweep (CRT_SUBTILE; it replaces the XLA
 //    _planar_sweep_sub / _sphere_sweep_sub, perray.py:567-638): rows of CS
-//    lanes, a table [K*G, F, CS] of G = 128/CS slices of each chunk, one
-//    sub-tile a slot, pid = sub-tile id * CS + lane (the global chunk-major
-//    index). The JAX package tests P = 128/CS selected sub-tiles as one
-//    128-lane row whose lanes run sub-tile by sub-tile; the in-order fold
-//    over single sub-tiles below gives that row's first-index minimum (the
-//    first sub-tile attaining the minimum, and its first lane). Plain
-//    version: sweep_plain at that width; wrapper fused_sweep.sweep_sub.
-//  - K8, the quantized-row sweep (CRT_SWEEP_Q16; it replaces the XLA
-//    _planar_sweep_q16, perray.py:786-873): planar rows of 5 x 128 u32
+//    lanes (any CS dividing 128, passed at run time), a table [K*G, F, CS]
+//    of G = 128/CS slices of each chunk, one sub-tile a slot, pid =
+//    sub-tile id * CS + lane (the global chunk-major index). The JAX
+//    package tests P = 128/CS selected sub-tiles as one 128-lane row whose
+//    lanes run sub-tile by sub-tile; the in-order fold over single
+//    sub-tiles below gives that row's first-index minimum (the first
+//    sub-tile attaining the minimum, and its first lane). Its own count,
+//    scatter and tile stages (see "K7" below) and K4's fold at that width;
+//    entry crt_subtile_sweep. Plain version: sweep_plain at that width;
+//    wrapper fused_sweep.sweep_sub.
+//  - K8, K4's four stages on quantized rows (CRT_SWEEP_Q16; it replaces the
+//    XLA _planar_sweep_q16, perray.py:786-873): planar rows of 5 x 128 u32
 //    words, each two u16 coordinates of the three points (corner,
 //    corner + eu, corner + ev) in the chunk box's frame, with the chunk's
 //    lo and scale [K, 3]. Stage 3 dequantizes a row once while deriving
@@ -45,8 +48,8 @@
 // (sphereflake: 0.62 visits per ray of 16 slots) and derived every
 // primitive's constants again for every (ray, primitive) pair, though
 // they belong to the chunk (colonnade phase 1: 449,504 visits of 385
-// rows). Four kernels and a memset, all on the caller's stream (C the row
-// width, 128 for K4 and K8):
+// rows). Four kernels and a memset, all on the caller's stream (C = 128,
+// the row width of K4 and K8):
 //   1. count, SLOTS slots a thread: each slot with near < t_in (t_in the
 //      INPUT best t; NaN and inf nears drop out) takes its place in its
 //      chunk's bucket. A block counts in shared memory, one atomic per
@@ -57,7 +60,7 @@
 //   2. scatter: each visited slot's index r*V+s goes to its bucket.
 //   3. tile: a persistent grid, as many blocks as fit on the card at once
 //      (sized without reading the visit count on the host); each block
-//      walks a contiguous range of tiles. Per chunk row its first C threads
+//      walks a contiguous range of tiles. Per chunk row its C threads
 //      read the F x C raw floats once and derive each primitive's
 //      ray-independent constants into shared memory (planar: unit normal
 //      and n.c, ev x w and w x eu with their dot products with the corner;
@@ -118,6 +121,31 @@
 // pair, whatever the data). The bytes each input needs once (rays, lists,
 // best in and out, the rows visited) are ~11 MB at colonnade phase 1, ~3 us
 // at 3.35 TB/s; 36 MB at sphereflake's 160,000 rays.
+//
+// K7 (redesigned for Hopper after K4's stages on sub-tile rows: a tile
+// block derived a CS-lane row and met its four warps, two barriers and a
+// merge in shared memory, every 32 visits, each warp testing CS/4
+// primitives between them; and its count kept one bucket a sub-tile, in
+// global atomics above 8,192). Same memset, four kernels and scratch:
+//   1. count and 2. scatter as K4's, bucketed by CHUNK (sub-tile id >>
+//      log2 G): 2,015 buckets on the colonnade at every width, in shared
+//      memory, against 257,920 sub-tiles at CS 1.
+//   3. tile: a persistent grid as K4's, its tiles split among WARPS: a warp
+//      walks a contiguous range of the chunk buckets' tiles, derives the
+//      128 primitives' constants of each chunk it reaches once (four a
+//      lane, into its own shared memory) and serves every sub-tile of that
+//      chunk from them; lane v takes visit v of a tile and tests the CS
+//      primitives of its own sub-tile's slice in order, so the slot's
+//      first-index minimum stays in the lane: no merge and no block
+//      barrier. Measured on the H100 (PERF.md section 6): a block sharing
+//      its range among its four warps, a barrier pair a chunk, took 1.6x
+//      this stage's time at CS 32 (its slowest block 1.8x its median);
+//      ordering a block's visits by sub-tile (lanes reading one slice,
+//      branching alike) lost 15%, padding the slices apart against bank
+//      conflicts gained 1-3% (at the cost of occupancy here), limiting
+//      each candidate to the lane's running minimum gained nothing.
+//   4. fold: K4's, at the width passed at run time.
+// One instance per row kind (quad, triangle, sphere) serves every width.
 
 #include <cuda_runtime.h>
 
@@ -174,8 +202,8 @@ struct Rows {
 // dequantized: corner = lo + q0 * scale, eu = (q1 - q0) * scale, ev = (q2 -
 // q0) * scale per axis, the u16 coordinates exact in f32 (the plain
 // version's dequant_q16, operation for operation).
-template <bool SPHERE, bool Q16, int C>
-__device__ __forceinline__ void load_row(const Rows& rows, int k, int lane,
+template <bool SPHERE, bool Q16>
+__device__ __forceinline__ void load_row(const Rows& rows, int k, int lane, int C,
                                          float (&x)[SPHERE ? 7 : 9]) {
   if constexpr (Q16) {
     const unsigned* src =
@@ -321,11 +349,20 @@ __device__ __forceinline__ void block_scan2(int n, int t, int& ex_n, int& ex_t,
 // warp and chunk; it then adds each of its non-zero counts to the global
 // ones, four atomics in flight per thread, and a visit's place in its
 // chunk's bucket is the block's base there plus its place in the block. It
-// goes to the .y of the slot's 8 bytes.
+// goes to the .y of the slot's 8 bytes. K4 and K8 bucket by the slot's id
+// (K buckets); K7 (SUB) by its sub-tile's chunk, id (clipped to the KG
+// sub-tiles) >> shift.
+template <bool SUB>
+__device__ __forceinline__ int bucket_of(int id, int K, int KG, int shift) {
+  if constexpr (SUB) return clip_id(id, KG) >> shift;
+  return clip_id(id, K);
+}
+
+template <bool SUB>
 __global__ void __launch_bounds__(RAY_THREADS)
 visit_sweep_count(const int* __restrict__ ids, const float* __restrict__ nears,
-                  const float* __restrict__ best, int RV, int V, int K,
-                  int* counts, unsigned* ticket, int* __restrict__ bucket_off,
+                  const float* __restrict__ best, int RV, int V, int K, int KG,
+                  int shift, int* counts, unsigned* ticket, int* __restrict__ bucket_off,
                   int* __restrict__ tile_off, int2* __restrict__ slots) {
   extern __shared__ int local[];  // K block counts, then the block's bases
   const bool priv = K <= SMEM_CHUNKS;
@@ -341,7 +378,7 @@ visit_sweep_count(const int* __restrict__ ids, const float* __restrict__ nears,
   for (int j = 0; j < SLOTS; ++j) {
     const int i = (blockIdx.x * SLOTS + j) * RAY_THREADS + threadIdx.x;
     vis[j] = i < RV && nears[i] < best[(size_t)(i / V) * 8];
-    id[j] = vis[j] ? clip_id(ids[i], K) : 0;
+    id[j] = vis[j] ? bucket_of<SUB>(ids[i], K, KG, shift) : 0;
   }
 #pragma unroll
   for (int j = 0; j < SLOTS; ++j) {
@@ -423,14 +460,26 @@ visit_sweep_count(const int* __restrict__ ids, const float* __restrict__ nears,
 
 // Stage 2, a thread per slot: each visited slot's index into its chunk's
 // bucket.
+template <bool SUB>
 __global__ void __launch_bounds__(RAY_THREADS)
 visit_sweep_scatter(const int* __restrict__ ids, const float* __restrict__ nears,
-                    const float* __restrict__ best, int RV, int V, int K,
-                    const int* __restrict__ bucket_off,
+                    const float* __restrict__ best, int RV, int V, int K, int KG,
+                    int shift, const int* __restrict__ bucket_off,
                     const int2* __restrict__ slots, int* __restrict__ visits) {
   const int i = blockIdx.x * RAY_THREADS + threadIdx.x;
   if (i < RV && nears[i] < best[(size_t)(i / V) * 8])
-    visits[bucket_off[clip_id(ids[i], K)] + slots[i].y] = i;
+    visits[bucket_off[bucket_of<SUB>(ids[i], K, KG, shift)] + slots[i].y] = i;
+}
+
+// the chunk of tile ``tile``: the last k with tile_off[k] <= tile
+__device__ __forceinline__ int chunk_of_tile(const int* __restrict__ tile_off, int K,
+                                             int tile) {
+  int lo = 0, hi = K - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tile_off[mid] <= tile) lo = mid; else hi = mid - 1;
+  }
+  return lo;
 }
 
 // Stage 3: each visit's row minimum (t, lane) against the input best t. A
@@ -439,15 +488,14 @@ visit_sweep_scatter(const int* __restrict__ ids, const float* __restrict__ nears
 // threads read one primitive's constants at a time: a shared-memory
 // broadcast); the GROUP partial minima meet in shared memory and the first
 // warp takes their first-index minimum in order.
-template <bool SPHERE, bool TRIANGLE, bool Q16, int C>
+template <bool SPHERE, bool TRIANGLE, bool Q16>
 __global__ void __launch_bounds__(TILE_THREADS)
 visit_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best,
                  const Rows rows, int V, int K, float tmin,
                  const int* __restrict__ bucket_off,
                  const int* __restrict__ tile_off,
                  const int* __restrict__ visits, int2* __restrict__ slots) {
-  static_assert(C >= 1 && C <= TILE_THREADS && TILE_THREADS % C == 0,
-                "a row's width divides the tile block");
+  constexpr int C = CHUNK_C;
   constexpr int Q = SPHERE ? 2 : 3;  // float4 constants per primitive
   __shared__ float4 cst[C * Q];
   __shared__ float part_t[GROUP][TILE];
@@ -458,21 +506,15 @@ visit_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best,
   const int begin = (int)((long long)total * blockIdx.x / gridDim.x);
   const int end = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
   if (begin >= end) return;  // uniform across the block
-  // the chunk of the first tile: the last k with tile_off[k] <= begin
-  int lo = 0, hi = K - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (tile_off[mid] <= begin) lo = mid; else hi = mid - 1;
-  }
-  int k = lo;
+  int k = chunk_of_tile(tile_off, K, begin);
   int row_k = -1;
   for (int tile = begin; tile < end; ++tile) {
     while (tile_off[k + 1] <= tile) ++k;  // chunks without visits hold no tile
     if (k != row_k) {  // uniform: derive the row's constants once
       __syncthreads();  // every thread is done with the last row's
-      if (C == TILE_THREADS || threadIdx.x < C) {
+      {
         float x[SPHERE ? 7 : 9];
-        load_row<SPHERE, Q16, C>(rows, k, threadIdx.x, x);
+        load_row<SPHERE, Q16>(rows, k, threadIdx.x, C, x);
         if constexpr (SPHERE) {
           cst[threadIdx.x * Q] = make_float4(x[0], x[1], x[2], mul(x[6], x[6]));
           cst[threadIdx.x * Q + 1] =
@@ -539,16 +581,103 @@ visit_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best,
   }
 }
 
+// K7's stage 3: each visit's first-index minimum (t, lane) over its
+// sub-tile's CS = 128 >> shift primitives against the input best t. The
+// buckets are chunks (2^shift sub-tiles each), and each WARP walks a
+// contiguous range of their tiles: per chunk it reaches, it derives the
+// chunk's 128 primitives' constants into its own shared memory (primitive
+// p = sub-tile p >> (7 - shift), lane p & (CS - 1), at index p), then lane v
+// takes visit v of each tile. Only __syncwarp orders the warp's writes and
+// reads; no block barrier.
+template <bool SPHERE, bool TRIANGLE>
+__global__ void __launch_bounds__(TILE_THREADS)
+subtile_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best,
+                   const Rows rows, const int* __restrict__ ids, int V, int K, int KG,
+                   int shift, float tmin, const int* __restrict__ bucket_off,
+                   const int* __restrict__ tile_off, const int* __restrict__ visits,
+                   int2* __restrict__ slots) {
+  constexpr int Q = SPHERE ? 2 : 3;  // float4 constants per primitive
+  __shared__ float4 cst_warps[GROUP][Q][CHUNK_C];
+  const int cs = CHUNK_C >> shift;
+  const int v = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  float4 (*cst)[CHUNK_C] = cst_warps[w];
+  const int total = tile_off[K];
+  const long long warps = (long long)gridDim.x * GROUP;
+  const long long gw = (long long)blockIdx.x * GROUP + w;
+  const int begin = (int)(total * gw / warps);
+  const int end = (int)(total * (gw + 1) / warps);
+  if (begin >= end) return;  // uniform across the warp
+  int k = chunk_of_tile(tile_off, K, begin);
+  for (int seg = begin, seg_end; seg < end; seg = seg_end) {
+    while (tile_off[k + 1] <= seg) ++k;  // chunks without visits hold no tile
+    seg_end = min(end, tile_off[k + 1]);  // this chunk's tiles in the range
+    __syncwarp();  // the warp is done with the last chunk's constants
+    for (int p = v; p < CHUNK_C; p += TILE) {
+      float x[SPHERE ? 7 : 9];
+      load_row<SPHERE, false>(rows, (k << shift) + (p >> (7 - shift)), p & (cs - 1), cs,
+                              x);
+      if constexpr (SPHERE) {
+        cst[0][p] = make_float4(x[0], x[1], x[2], mul(x[6], x[6]));
+        cst[1][p] = make_float4(sub(x[3], x[0]), sub(x[4], x[1]), sub(x[5], x[2]), 0.f);
+      } else {
+        const Planar pc = planar_constants(x);
+        cst[0][p] = pc.n;
+        cst[1][p] = pc.ew;
+        cst[2][p] = pc.we;
+      }
+    }
+    __syncwarp();
+    for (int tile = seg; tile < seg_end; ++tile) {
+      const int p = bucket_off[k] + (tile - tile_off[k]) * TILE + v;
+      if (p >= bucket_off[k + 1]) continue;  // the bucket's last tile is partial
+      const int i = visits[p];
+      const int r = i / V;
+      const int base = (clip_id(ids[i], KG) - (k << shift)) * cs;  // its slice
+      const Ray q = load_ray(rays, r);
+      const float t_in = best[(size_t)r * 8];
+      float bt = inf();
+      int bj = 0;
+      if constexpr (SPHERE) {
+        const float a_q = dot3(q.dx, q.dy, q.dz, q.dx, q.dy, q.dz);
+        const float fa = mul(4.f, a_q), two_a = mul(2.f, a_q);
+#pragma unroll 4
+        for (int j = 0; j < cs; ++j) {
+          const float t = sphere_t(cst[0][base + j], cst[1][base + j], q, fa, two_a,
+                                   tmin, t_in);
+          if (t < bt) {
+            bt = t;
+            bj = j;
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int j = 0; j < cs; ++j) {
+          const Planar pc{cst[0][base + j], cst[1][base + j], cst[2][base + j]};
+          const float t = planar_t<TRIANGLE>(pc, q, tmin, t_in);
+          if (t < bt) {
+            bt = t;
+            bj = j;
+          }
+        }
+      }
+      slots[i] = make_int2(__float_as_int(bt), bj);
+    }
+  }
+}
+
 // Stage 4: the in-order fold per ray and the winner's columns. The nears of
 // a ray come as float4s where V is a multiple of 4 and they are aligned.
+// The row width is C, or (C = 0, K7) ``width``; ids are clipped to K rows.
 template <bool SPHERE, bool Q16, int C>
 __global__ void __launch_bounds__(RAY_THREADS)
 visit_sweep_fold(const float* __restrict__ rays, const int* __restrict__ ids,
                  const float* __restrict__ nears, const float* __restrict__ best,
-                 const Rows rows, int R, int V, int K,
+                 const Rows rows, int R, int V, int K, int width,
                  const int2* __restrict__ slots, float* __restrict__ out) {
   const int r = blockIdx.x * RAY_THREADS + threadIdx.x;
   if (r >= R) return;
+  const int c = C ? C : width;
   const float4 ba = reinterpret_cast<const float4*>(best)[2 * r];
   const float4 bb = reinterpret_cast<const float4*>(best)[2 * r + 1];
   float b[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
@@ -578,7 +707,7 @@ visit_sweep_fold(const float* __restrict__ rays, const int* __restrict__ ids,
   if (ws >= 0) {
     const int id = clip_id(ids[row + ws], K);
     float x[SPHERE ? 7 : 9];
-    load_row<SPHERE, Q16, C>(rows, id, wl, x);
+    load_row<SPHERE, Q16>(rows, id, wl, c, x);
     const Ray q = load_ray(rays, r);
     if constexpr (SPHERE) {
       b[1] = add(x[0], mul(q.tm, sub(x[3], x[0])));
@@ -593,76 +722,79 @@ visit_sweep_fold(const float* __restrict__ rays, const int* __restrict__ ids,
       b[4] = clip_big(edge(p.ew, q, b[0]));
       b[5] = clip_big(edge(p.we, q, b[0]));
     }
-    b[7] = add(mul(static_cast<float>(id), static_cast<float>(C)),
+    b[7] = add(mul(static_cast<float>(id), static_cast<float>(c)),
                static_cast<float>(wl));
   }
   reinterpret_cast<float4*>(out)[2 * r] = make_float4(b[0], b[1], b[2], b[3]);
   reinterpret_cast<float4*>(out)[2 * r + 1] = make_float4(b[4], b[5], b[6], b[7]);
 }
 
-// blocks of the persistent tile grid: as many as fit on the card at once
-template <bool SPHERE, bool TRIANGLE, bool Q16, int C>
-int tile_grid(int dev) {
-  static int cached[64] = {};
+// blocks of a persistent tile grid: as many of ``kernel`` as fit on the
+// card at once (``cached`` per device)
+template <typename Kernel>
+int resident_grid(Kernel kernel, int dev, int (&cached)[64]) {
   if (dev >= 0 && dev < 64 && cached[dev]) return cached[dev];
   int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, visit_sweep_tile<SPHERE, TRIANGLE, Q16, C>, TILE_THREADS, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TILE_THREADS, 0);
   const int grid = sms * per_sm > 0 ? sms * per_sm : 1;
   if (dev >= 0 && dev < 64) cached[dev] = grid;
   return grid;
 }
 
-// Stages 3 and 4 for one row format and width.
-template <bool SPHERE, bool TRIANGLE, bool Q16, int C>
+// Stages 3 and 4 of K4 (Q16 = false) or K8 (Q16 = true).
+template <bool SPHERE, bool TRIANGLE, bool Q16>
 cudaError_t launch_rows(const float* rays, const int* ids, const float* nears,
                         const float* best, const Rows& rows, int R, int V, int K,
                         float tmin, const int* bucket_off, const int* tile_off,
                         const int* visits, int2* slots, float* out, cudaStream_t st) {
+  static int cached[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const int grid = tile_grid<SPHERE, TRIANGLE, Q16, C>(dev);
+  const int grid = resident_grid(visit_sweep_tile<SPHERE, TRIANGLE, Q16>, dev, cached);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  visit_sweep_tile<SPHERE, TRIANGLE, Q16, C><<<grid, TILE_THREADS, 0, st>>>(
+  visit_sweep_tile<SPHERE, TRIANGLE, Q16><<<grid, TILE_THREADS, 0, st>>>(
       rays, best, rows, V, K, tmin, bucket_off, tile_off, visits, slots);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int ray_blocks = (R + RAY_THREADS - 1) / RAY_THREADS;
-  visit_sweep_fold<SPHERE, Q16, C><<<ray_blocks, RAY_THREADS, 0, st>>>(
-      rays, ids, nears, best, rows, R, V, K, slots, out);
+  visit_sweep_fold<SPHERE, Q16, CHUNK_C><<<ray_blocks, RAY_THREADS, 0, st>>>(
+      rays, ids, nears, best, rows, R, V, K, CHUNK_C, slots, out);
   return cudaGetLastError();
 }
 
-// the row widths K7 is built for: 16 to 128 (each more width is six more
-// kernels to compile; a width of 1 or 2 would ask K3 for 64 or 128 slots,
-// past its 32)
+// Stages 3 and 4 of K7 (KG sub-tile rows of 128 >> shift lanes, K chunks).
 template <bool SPHERE, bool TRIANGLE>
-cudaError_t launch_width(int C, const float* rays, const int* ids, const float* nears,
-                         const float* best, const Rows& rows, int R, int V, int K,
-                         float tmin, const int* bucket_off, const int* tile_off,
-                         const int* visits, int2* slots, float* out, cudaStream_t st) {
-#define CRT_WIDTH(W)                                                              \
-  case W:                                                                         \
-    return launch_rows<SPHERE, TRIANGLE, false, W>(rays, ids, nears, best, rows, R, \
-                                                   V, K, tmin, bucket_off, tile_off, \
-                                                   visits, slots, out, st);
-  switch (C) {
-    CRT_WIDTH(128)
-    CRT_WIDTH(64)
-    CRT_WIDTH(32)
-    CRT_WIDTH(16)
-  }
-#undef CRT_WIDTH
-  return cudaErrorInvalidValue;
+cudaError_t launch_sub(const float* rays, const int* ids, const float* nears,
+                       const float* best, const Rows& rows, int R, int V, int K, int KG,
+                       int shift, float tmin, const int* bucket_off, const int* tile_off,
+                       const int* visits, int2* slots, float* out, int stages,
+                       cudaStream_t st) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int grid = resident_grid(subtile_sweep_tile<SPHERE, TRIANGLE>, dev, cached);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  subtile_sweep_tile<SPHERE, TRIANGLE><<<grid, TILE_THREADS, 0, st>>>(
+      rays, best, rows, ids, V, K, KG, shift, tmin, bucket_off, tile_off, visits, slots);
+  if ((err = cudaGetLastError()) != cudaSuccess || stages < 4) return err;
+  const int ray_blocks = (R + RAY_THREADS - 1) / RAY_THREADS;
+  visit_sweep_fold<SPHERE, false, 0><<<ray_blocks, RAY_THREADS, 0, st>>>(
+      rays, ids, nears, best, rows, R, V, KG, CHUNK_C >> shift, slots, out);
+  return cudaGetLastError();
 }
 
-// Stages 1 and 2, then 3 and 4 for the rows' format and width.
-cudaError_t sweep_rows(const float* rays, const int* ids, const float* nears,
-                       const float* best, const Rows& rows, int R, int V, int K, int C,
-                       float tmin, bool triangle, bool sphere, bool q16, int* scratch,
-                       float* out, cudaStream_t st) {
-  if (q16 && (sphere || C != CHUNK_C)) return cudaErrorInvalidValue;
+// The memset and stages 1 and 2 (bucketed by id, or by K7's chunks), then,
+// up to ``stages`` (0 the memset alone, 1 with the count, 2 with the
+// scatter, 3 with the tile stage, 4 all), K4's or K8's stages 3 and 4, or
+// (SUB) K7's. Scratch layout: crt_visit_sweep's note.
+template <bool SUB>
+cudaError_t sweep_stages(const float* rays, const int* ids, const float* nears,
+                         const float* best, const Rows& rows, int R, int V, int K,
+                         int KG, int shift, float tmin, bool triangle, bool sphere,
+                         bool q16, int* scratch, float* out, int stages,
+                         cudaStream_t st) {
   if (R <= 0) return cudaSuccess;
   const size_t RV = (size_t)R * V;
   int2* slots = reinterpret_cast<int2*>(scratch);
@@ -672,60 +804,88 @@ cudaError_t sweep_rows(const float* rays, const int* ids, const float* nears,
   int* bucket_off = counts + K + 1;
   int* tile_off = bucket_off + K + 1;
   cudaError_t err = cudaMemsetAsync(counts, 0, (K + 1) * sizeof(int), st);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || stages < 1) return err;
   const int slot_blocks = (int)((RV + RAY_THREADS - 1) / RAY_THREADS);
   const int count_blocks = (int)((RV + SLOTS * RAY_THREADS - 1) / (SLOTS * RAY_THREADS));
   const size_t local = K <= SMEM_CHUNKS ? K * sizeof(int) : 0;
   if (RV > 0) {
-    visit_sweep_count<<<count_blocks, RAY_THREADS, local, st>>>(
-        ids, nears, best, (int)RV, V, K, counts, ticket, bucket_off, tile_off, slots);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    visit_sweep_scatter<<<slot_blocks, RAY_THREADS, 0, st>>>(
-        ids, nears, best, (int)RV, V, K, bucket_off, slots, visits);
+    visit_sweep_count<SUB><<<count_blocks, RAY_THREADS, local, st>>>(
+        ids, nears, best, (int)RV, V, K, KG, shift, counts, ticket, bucket_off,
+        tile_off, slots);
+    if ((err = cudaGetLastError()) != cudaSuccess || stages < 2) return err;
+    visit_sweep_scatter<SUB><<<slot_blocks, RAY_THREADS, 0, st>>>(
+        ids, nears, best, (int)RV, V, K, KG, shift, bucket_off, slots, visits);
     err = cudaGetLastError();
   } else {  // no slots: no tile
     err = cudaMemsetAsync(bucket_off, 0, 2 * (K + 1) * sizeof(int), st);
   }
-  if (err != cudaSuccess) return err;
-  if (q16)
-    return triangle
-        ? launch_rows<false, true, true, CHUNK_C>(rays, ids, nears, best, rows, R, V, K,
-                                                  tmin, bucket_off, tile_off, visits,
-                                                  slots, out, st)
-        : launch_rows<false, false, true, CHUNK_C>(rays, ids, nears, best, rows, R, V,
-                                                   K, tmin, bucket_off, tile_off,
-                                                   visits, slots, out, st);
-  if (sphere)
-    return launch_width<true, false>(C, rays, ids, nears, best, rows, R, V, K, tmin,
-                                     bucket_off, tile_off, visits, slots, out, st);
-  if (triangle)
-    return launch_width<false, true>(C, rays, ids, nears, best, rows, R, V, K, tmin,
-                                     bucket_off, tile_off, visits, slots, out, st);
-  return launch_width<false, false>(C, rays, ids, nears, best, rows, R, V, K, tmin,
-                                    bucket_off, tile_off, visits, slots, out, st);
+  if (err != cudaSuccess || stages < 3) return err;
+  if constexpr (SUB) {
+    if (sphere)
+      return launch_sub<true, false>(rays, ids, nears, best, rows, R, V, K, KG, shift,
+                                     tmin, bucket_off, tile_off, visits, slots, out,
+                                     stages, st);
+    if (triangle)
+      return launch_sub<false, true>(rays, ids, nears, best, rows, R, V, K, KG, shift,
+                                     tmin, bucket_off, tile_off, visits, slots, out,
+                                     stages, st);
+    return launch_sub<false, false>(rays, ids, nears, best, rows, R, V, K, KG, shift,
+                                    tmin, bucket_off, tile_off, visits, slots, out,
+                                    stages, st);
+  } else {
+    if (q16)
+      return triangle
+          ? launch_rows<false, true, true>(rays, ids, nears, best, rows, R, V, K, tmin,
+                                           bucket_off, tile_off, visits, slots, out, st)
+          : launch_rows<false, false, true>(rays, ids, nears, best, rows, R, V, K, tmin,
+                                            bucket_off, tile_off, visits, slots, out, st);
+    if (sphere)
+      return launch_rows<true, false, false>(rays, ids, nears, best, rows, R, V, K, tmin,
+                                             bucket_off, tile_off, visits, slots, out, st);
+    if (triangle)
+      return launch_rows<false, true, false>(rays, ids, nears, best, rows, R, V, K, tmin,
+                                             bucket_off, tile_off, visits, slots, out, st);
+    return launch_rows<false, false, false>(rays, ids, nears, best, rows, R, V, K, tmin,
+                                            bucket_off, tile_off, visits, slots, out, st);
+  }
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. scratch holds 3*R*V + 3*K + 3 int32 (the
-// wrapper's fused_sweep.scratch_ints): (t, lane) per slot as 2*R*V ints,
-// the visit list (R*V), the counts (K) and the last-block ticket (1), the
-// bucket offsets (K+1) and the tile offsets (K+1). Returns the first CUDA
-// error of the memset and the four launches (0 = success), or
-// cudaErrorInvalidValue for rows it is not built for; nothing
-// synchronises.
+// wrapper's fused_sweep.scratch_ints, K the buckets: chunks): (t, lane) per
+// slot as 2*R*V ints, the visit list (R*V), the counts (K) and the
+// last-block ticket (1), the bucket offsets (K+1) and the tile offsets
+// (K+1). Each returns the first CUDA error of the memset and the four
+// launches (0 = success), or cudaErrorInvalidValue for rows it does not
+// take; nothing synchronises.
 
-// K4 (q16 = 0, C = 128) and K7 (q16 = 0, C = 16, 32 or 64): table [K,
-// F, C] f32, qlo and qscale unused. K8 (q16 = 1, planar, C = 128): table
-// [K, 5, 128] u32 words, qlo and qscale [K, 3] f32.
+// K4 (q16 = 0): table [K, F, 128] f32, qlo and qscale unused. K8 (q16 = 1,
+// planar): table [K, 5, 128] u32 words, qlo and qscale [K, 3] f32.
 extern "C" int crt_visit_sweep(const float* rays, const int* ids,
                                const float* nears, const float* best,
                                const float* table, const float* qlo,
                                const float* qscale, int R, int V, int K, int C,
                                float tmin, int triangle, int sphere, int q16,
                                int* scratch, float* out, void* stream) {
+  if (C != CHUNK_C || (q16 && sphere)) return static_cast<int>(cudaErrorInvalidValue);
   const Rows rows{table, qlo, qscale};
-  return static_cast<int>(sweep_rows(rays, ids, nears, best, rows, R, V, K, C, tmin,
-                                     triangle != 0, sphere != 0, q16 != 0, scratch, out,
-                                     static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(sweep_stages<false>(
+      rays, ids, nears, best, rows, R, V, K, K, 0, tmin, triangle != 0, sphere != 0,
+      q16 != 0, scratch, out, 4, static_cast<cudaStream_t>(stream)));
+}
+
+// K7: table [KG, F, CS] f32, CS = 128 >> shift (shift 0..7), KG a multiple
+// of 2^shift (KG >> shift chunks, the buckets); ``stages`` as sweep_stages
+// (4 for the sweep; fewer only to time the stages apart).
+extern "C" int crt_subtile_sweep(const float* rays, const int* ids, const float* nears,
+                                 const float* best, const float* table, int R, int V,
+                                 int KG, int shift, float tmin, int triangle, int sphere,
+                                 int* scratch, float* out, int stages, void* stream) {
+  if (shift < 0 || shift > 7 || KG <= 0 || (KG & ((1 << shift) - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Rows rows{table, nullptr, nullptr};
+  return static_cast<int>(sweep_stages<true>(
+      rays, ids, nears, best, rows, R, V, KG >> shift, KG, shift, tmin, triangle != 0,
+      sphere != 0, false, scratch, out, stages, static_cast<cudaStream_t>(stream)));
 }

@@ -39,7 +39,8 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-# what the last build did: {"seconds": float, "cached": bool, "log": str}
+# what the last build did: {"seconds": float, "cached": bool, "log": str,
+# "sources": {source: nvcc seconds}}
 last_build: dict = {}
 
 
@@ -66,16 +67,28 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcrt_kernels_{source_hash()}.so"
 
 
-def _run_all(cmds) -> str:
-    """Run the commands at once; raise with the output of any that fails."""
+def _run_all(cmds) -> tuple[str, list[float]]:
+    """Run the commands at once -> (their output, each one's seconds);
+    raise with the output of any that fails."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
+    outs, secs = [""] * len(procs), [0.0] * len(procs)
+
+    def wait(i):
+        outs[i] = procs[i].communicate()[0]
+        secs[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"{Path(cmd[0]).name} failed ({p.returncode}) "
                                f"on {cmd[-1]}:\n{out}")
-    return "".join(outs)
+    return "".join(outs), secs
 
 
 def compile_library() -> Path:
@@ -83,20 +96,21 @@ def compile_library() -> Path:
     ``nvcc -c`` per source in parallel, then one link."""
     path = library_path()
     if path.exists():
-        last_build.update(seconds=0.0, cached=True, log="")
+        last_build.update(seconds=0.0, cached=True, log="", sources={})
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs = [str(Path(work) / f"{Path(s).stem}.o") for s in SOURCES]
-        log = _run_all([[nvcc, *FLAGS, "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                         "-c", "-o", o, str(CSRC / s)]
-                        for s, o in zip(SOURCES, objs)])
+        log, secs = _run_all([[nvcc, *FLAGS, "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                               "-c", "-o", o, str(CSRC / s)]
+                              for s, o in zip(SOURCES, objs)])
         tmp = str(Path(work) / "lib.so")
-        log += _run_all([[nvcc, *FLAGS, "-shared", "-o", tmp, *objs]])
+        log += _run_all([[nvcc, *FLAGS, "-shared", "-o", tmp, *objs]])[0]
         os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    last_build.update(seconds=time.perf_counter() - t0, cached=False, log=log)
+    last_build.update(seconds=time.perf_counter() - t0, cached=False, log=log,
+                      sources=dict(zip(SOURCES, secs)))
     return path
 
 
@@ -119,6 +133,9 @@ def load() -> ctypes.CDLL:
             lib.crt_visit_sweep.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
                                             i32, i32, f32, i32, i32, i32, ptr, ptr, ptr]
             lib.crt_visit_sweep.restype = i32
+            lib.crt_subtile_sweep.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                              f32, i32, i32, ptr, ptr, i32, ptr]
+            lib.crt_subtile_sweep.restype = i32
             lib.crt_gather_sum.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr,
                                            ptr]
             lib.crt_gather_sum.restype = i32

@@ -35,7 +35,9 @@ BIG = 1e30
 INF = float("inf")
 MASKV = 0x7FFFFFFF        # above every real key
 # the visit-block sizes the kernel is built for (ops/perray.py takes min(V,
-# K), V = 16 by default, CRT_RAYV, or 24 on the sub-tile route)
+# K), V = 16 by default, CRT_RAYV, or 24 on the sub-tile route); a larger
+# block (the sub-tile route's 64 at CRT_SUBC=2, 128 at 1) chains selections
+# of at most V_MAX slots (``cull_select``)
 V_MAX = 32
 # exact mode's exhausted last id: past every chunk id (ids travel as f32,
 # exact below 2^24), so (+inf, EXHAUSTED_ID) excludes every box
@@ -178,7 +180,8 @@ def cull_select_plain(rays, boxes, excl, V: int, K_real: int, tmin: float,
 
 # ---------------------------------------------------------- kernel call
 def check_v(V: int) -> None:
-    """Raise for a visit block the kernel is not built for."""
+    """Raise for a visit block the kernel is not built for (``cull_select``
+    chains larger ones)."""
     if not (1 <= V <= V_MAX):
         raise ValueError(f"K3 is built for V in 1..{V_MAX}, got {V}")
 
@@ -227,9 +230,29 @@ def cull_select(rays, boxes, excl, V: int, K_real: int, tmin: float,
     ``rays``: [R,8] (``pack_rays``); ``boxes``: [8,Kp] (``pack_boxes``);
     ``excl``: [R,2] (threshold, last id as f32), ``first_excl`` for phase
     1, ``next_excl`` after. ``rest`` is the nearest chunk left unselected.
-    V runs from 1 to ``V_MAX`` on either device.
+
+    V above ``V_MAX`` runs ceil(V / V_MAX) selections of at most V_MAX
+    slots, each from the exclusion key of the one before, the rays it left
+    exhausted marked done; the ids and nears are concatenated and ``rest``
+    is the last one's. That is one selection at V bit for bit: a selection
+    excludes exactly the keys at or below its predecessor's last, which are
+    the ones already taken, and an exhausted ray's later slots are
+    exhausted either way.
     """
-    check_v(V)
-    if rays.device.type == "cpu":
-        return cull_select_plain(rays, boxes, excl, V, K_real, tmin, packed)
-    return cull_select_kernel(rays, boxes, excl, V, K_real, tmin, packed)
+    if V < 1:
+        raise ValueError(f"K3 selects V >= 1 slots, got {V}")
+    select = cull_select_plain if rays.device.type == "cpu" else cull_select_kernel
+    sizes = [V_MAX] * ((V - 1) // V_MAX)
+    sizes.append(V - sum(sizes))
+    parts = []
+    for v in sizes:
+        if parts:
+            ids, nears, _ = parts[-1]
+            last = nears[:, -1]
+            done = torch.isnan(last) if packed_mode(tmin, packed) else torch.isposinf(last)
+            excl = next_excl(ids, nears, done, tmin, packed)
+        parts.append(select(rays, boxes, excl, v, K_real, tmin, packed))
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts], dim=1),
+            torch.cat([p[1] for p in parts], dim=1), parts[-1][2])

@@ -25,14 +25,17 @@ step; the kernel writes the same steps with ``__fmul_rn``/``__fadd_rn``
 (never contracted into a multiply-add) and the ``rsqrtf`` that
 ``torch.rsqrt`` runs on the card, so both round alike.
 
-Two opt-in routes of ``ops/perray.py`` sweep other rows with K4's four
-stages (one C entry, ``crt_visit_sweep``):
+Two opt-in routes of ``ops/perray.py`` sweep other rows:
 
-- K7 (``sweep_sub``, ``CRT_SUBTILE``): sub-tile rows [K*G, F, CS], CS in
-  ``SUB_WIDTHS``, one sub-tile a slot; pid = sub-tile id * CS + lane, the
-  global chunk-major index. Its plain version is ``sweep_plain`` at that
+- K7 (``sweep_sub``, ``CRT_SUBTILE``): sub-tile rows [K*G, F, CS], any CS
+  dividing 128 (passed to one kernel instance a row kind at run time), one
+  sub-tile a slot; pid = sub-tile id * CS + lane, the global chunk-major
+  index. Its stages bucket the visits by chunk and serve a chunk's
+  sub-tiles from its constants derived once (C entry
+  ``crt_subtile_sweep``). Its plain version is ``sweep_plain`` at that
   width.
-- K8 (``sweep_q16``, ``CRT_SWEEP_Q16``, planar): rows of 5 x 128 u32 words
+- K8 (``sweep_q16``, ``CRT_SWEEP_Q16``, planar; K4's stages, C entry
+  ``crt_visit_sweep``): rows of 5 x 128 u32 words
   holding the u16 coordinates of each primitive's three points in its
   chunk box's frame (``ops/perray.py:planar_q16``), dequantized per row
   (``dequant_q16``) and then tested as K4 tests a float row. Its plain
@@ -57,8 +60,8 @@ SPHERE_ROWS = 7
 
 # K4, K7 (sub-tile rows), K8 (quantized rows)
 LAUNCHES = {"visit_sweep": 0, "visit_sweep_sub": 0, "visit_sweep_q16": 0}
-# the row widths K7 is built for (csrc/visit_sweep.cu's launch_width)
-SUB_WIDTHS = (16, 32, 64, 128)
+# the chunk width; K7's sub-tile widths divide it
+CHUNK_C = 128
 Q16_WORDS = 5
 
 
@@ -327,14 +330,15 @@ def sweep_fold_plain(rays, ids, nears, best, table, tmin: float, triangle: bool,
 def scratch_ints(R: int, V: int, K: int) -> int:
     """int32 scratch of one kernel call (``csrc/visit_sweep.cu``'s
     layout): (t, lane) per slot, the visit list, the per-chunk counts and
-    a ticket, the bucket and tile offsets."""
+    a ticket, the bucket and tile offsets (K chunks: K7's buckets too)."""
     return 3 * R * V + 3 * K + 3
 
 
 def _launch(kid, name, rays, ids, nears, best, table, tmin, triangle, sphere,
-            frames=None):
-    """Check one call's inputs and launch ``name`` (K4, K7 or K8) on
-    CUDA tensors -> the updated [R, 8] best."""
+            frames=None, shift=None, stages=4):
+    """Check one call's inputs and launch ``name`` on CUDA tensors -> the
+    updated [R, 8] best: K4 or K8 (``frames``), or K7 on sub-tile rows of
+    128 >> ``shift`` lanes, its first ``stages`` stages."""
     from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 
     tbl.check_no_grad(f"crt_{name}", rays, nears, best, table, *(frames or ()))
@@ -353,17 +357,23 @@ def _launch(kid, name, rays, ids, nears, best, table, tmin, triangle, sphere,
     if len(devs) != 1:
         raise ValueError("the sweep's inputs lie on different devices")
     out = torch.empty((R, 8), dtype=torch.float32, device=rays.device)
-    scratch = torch.empty((scratch_ints(R, V, K),), dtype=torch.int32,
+    buckets = K if shift is None else K >> shift
+    scratch = torch.empty((scratch_ints(R, V, buckets),), dtype=torch.int32,
                           device=rays.device)
     lib = build.load()
+    ptrs = (rays.data_ptr(), ids.data_ptr(), nears.data_ptr(), best.data_ptr(),
+            table.data_ptr())
+    flags = (float(tmin), int(bool(triangle)), int(bool(sphere)))
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        lo, scale = (x.data_ptr() for x in frames) if frames else (None, None)
-        err = lib.crt_visit_sweep(rays.data_ptr(), ids.data_ptr(), nears.data_ptr(),
-                                  best.data_ptr(), table.data_ptr(), lo, scale, R, V, K,
-                                  C, float(tmin), int(bool(triangle)), int(bool(sphere)),
-                                  int(frames is not None), scratch.data_ptr(),
-                                  out.data_ptr(), stream)
+        if shift is not None:
+            err = lib.crt_subtile_sweep(*ptrs, R, V, K, shift, *flags,
+                                        scratch.data_ptr(), out.data_ptr(), stages, stream)
+        else:
+            lo, scale = (x.data_ptr() for x in frames) if frames else (None, None)
+            err = lib.crt_visit_sweep(*ptrs, lo, scale, R, V, K, C, *flags,
+                                      int(frames is not None), scratch.data_ptr(),
+                                      out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"crt_{name} launch failed: {build.error_string(err)}")
     LAUNCHES[name] += 1
@@ -377,22 +387,28 @@ def _rows(sphere: bool) -> int:
 def sweep_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
                  sphere: bool) -> torch.Tensor:
     """Kernel K4 on CUDA tensors -> the updated [R, 8] best."""
-    if tuple(table.shape[1:]) != (_rows(sphere), 128):
-        raise ValueError(f"K4 takes [K, {_rows(sphere)}, 128] tables, got "
+    if tuple(table.shape[1:]) != (_rows(sphere), CHUNK_C):
+        raise ValueError(f"K4 takes [K, {_rows(sphere)}, {CHUNK_C}] tables, got "
                          f"{tuple(table.shape)}")
     return _launch("K4", "visit_sweep", rays, ids, nears, best, table, tmin, triangle,
                    sphere)
 
 
 def sweep_sub_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
-                     sphere: bool) -> torch.Tensor:
+                     sphere: bool, stages: int = 4) -> torch.Tensor:
     """Kernel K7 on CUDA tensors: the sweep over sub-tile rows [K*G, F, CS]
-    -> the updated [R, 8] best."""
-    if table.shape[1] != _rows(sphere) or table.shape[2] not in SUB_WIDTHS:
-        raise ValueError(f"K7 takes [K, {_rows(sphere)}, CS] tables with CS in "
-                         f"{SUB_WIDTHS}, got {tuple(table.shape)}")
+    (whole chunks: G = 128/CS rows each) -> the updated [R, 8] best.
+    ``stages`` below 4 runs the memset and only that many of its stages,
+    leaving the result unwritten: only to time the stages apart
+    (``utils/profiling.subtile_stage_ms``)."""
+    KG, F, CS = table.shape
+    if F != _rows(sphere) or CS < 1 or CHUNK_C % CS or KG % (CHUNK_C // CS):
+        raise ValueError(f"K7 takes [K*G, {_rows(sphere)}, CS] tables, CS dividing "
+                         f"{CHUNK_C} and G = {CHUNK_C}/CS rows a chunk, got "
+                         f"{tuple(table.shape)}")
     return _launch("K7", "visit_sweep_sub", rays, ids, nears, best, table, tmin,
-                   triangle, sphere)
+                   triangle, sphere, shift=(CHUNK_C // CS).bit_length() - 1,
+                   stages=stages)
 
 
 def sweep_q16_kernel(rays, ids, nears, best, words, lo, scale, tmin: float,

@@ -34,18 +34,20 @@ Switches, read per call as the JAX package reads them (``perray.py:53-61,
 489-506, 709-741``):
 
 - ``CRT_RAYV``: visit slots a phase when the caller passes no ``V``
-  (default ``VISIT_BLOCK`` = 16; K3 takes up to 32).
+  (default ``VISIT_BLOCK`` = 16; above 32, K3's largest, the selection
+  is chained, ``fused_select.cull_select``).
 - ``CRT_SWEEP_Q16=1`` (planar tables only; it wins over ``CRT_SUBTILE``):
   the quantized-row sweep. The rows hold each primitive's three points as
   u16 coordinates in its chunk box's frame (``planar_q16``), and K8 tests
   the dequantized geometry exactly; the boxes and K3 are the chunk route's.
 - ``CRT_SUBTILE=1`` where ``CS = CRT_SUBC`` (default 32) divides the chunk
-  width (else the chunk route runs; a width K7 is not built for, under
-  16, raises): sub-tile selection. K3 selects among
+  width (else the chunk route runs): sub-tile selection, at every such CS
+  on both devices. K3 selects among
   the boxes of CS-lane slices of each chunk (``subtile_bounds``, K*G boxes,
   G = C/CS) ``V = min(ceil(CRT_RAYV_SUB / P) * P, ceil(K*G / P) * P)``
-  slots a phase (P = 128/CS, ``CRT_RAYV_SUB`` default 24), and K7 sweeps
-  one sub-tile a slot; pid stays the global chunk-major index.
+  slots a phase (P = 128/CS, ``CRT_RAYV_SUB`` default 24; 64 at CS 2 and
+  128 at CS 1, chained selections of 32), and K7 sweeps one sub-tile a
+  slot; pid stays the global chunk-major index.
 
 Both are opt-in experiments the JAX package measured as no faster on its
 chip (``BASELINE.md:142-191, 265-287``). Their tables are built once per
@@ -304,11 +306,7 @@ def _routed(org, dirs, cap, tabs, K, tmin, V, rays, best0, planar, triangle):
     C = tabs.table.shape[2]
     mode = route(C, planar)
     if mode == "subtile":
-        CS = subtile_c()
-        if CS not in fsw.SUB_WIDTHS:
-            raise ValueError(f"CRT_SUBC={CS}: the sub-tile sweep (K7) is built for "
-                             f"widths {fsw.SUB_WIDTHS}")
-        sub = tabs.subtile(CS)
+        sub = tabs.subtile(subtile_c())
         KG = sub.table.shape[0]
         V_sub = subtile_v(KG, sub.CS)
         return _phase_loop(

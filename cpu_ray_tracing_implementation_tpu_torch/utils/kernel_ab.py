@@ -1,18 +1,20 @@
-"""Kernels K1, K2, K4 and K6 of other checkouts of the port beside this
-one's, held to one another and timed in turns on one GPU; and, with
+"""Kernels K1, K2, K4, K6, K7 and K8 of other checkouts of the port beside
+this one's, held to one another and timed in turns on one GPU; and, with
 ``--walls``, the packet-routed renders' walls the same way.
 
-    python -m cpu_ray_tracing_implementation_tpu_torch.utils.kernel_ab [--only PREFIX] ROOT [ROOT ...]
+    python -m cpu_ray_tracing_implementation_tpu_torch.utils.kernel_ab [--only PREFIX[,PREFIX]] ROOT [ROOT ...]
     python -m cpu_ray_tracing_implementation_tpu_torch.utils.kernel_ab --walls ROOT [ROOT ...]
 
 ROOT is the root of another checkout (the parent commit, for example,
 unpacked with ``git archive`` into the gitignored ``_scratch/``) whose
 ``fused_intersect`` has ``planar_closest_kernel`` and
 ``sphere_closest_kernel``, whose ``fused_sweep`` has ``sweep_kernel``,
-whose ``packet`` has ``packet_planar_kernel`` and ``packet_sphere_kernel``
-and whose ``profiling`` has ``cuda_ms``. This package makes the inputs and
-saves them under ``build/`` (``--only K6`` keeps the cases whose label
-starts with "K6", and makes no other case's inputs):
+``sweep_sub_kernel`` and ``sweep_q16_kernel``, whose ``packet`` has
+``packet_planar_kernel`` and ``packet_sphere_kernel`` and whose
+``profiling`` has ``cuda_ms``. This package makes the inputs and saves
+them under ``build/`` (``--only K6`` keeps the cases whose label starts
+with "K6", and makes no other case's inputs; ``--only K4,K7,K8`` those of
+the three sweeps):
 
 - ``CASES``, K1 on cornell_box's 1-chunk view, K2 on three_material_ball's
   and random_motion_ball's: 512*512 primary rays of the scene's camera and
@@ -24,6 +26,11 @@ starts with "K6", and makes no other case's inputs):
   its secondary rays (leaving the primary hits in random directions, a
   tenth dead) at phase 1, sphereflake's 160,000 primary rays, and 40,000
   random rays against a random table of 6,000 moving spheres in 47 chunks;
+- K7 on the sub-tile route's phase-1 lists and input best (the same loop
+  under ``CRT_SUBTILE=1``): the colonnade's primary rays at CS 32 (8,060
+  sub-tile boxes, V 24) and CS 16 (16,120, V 24), and sphereflake's
+  primary rays at CS 32 (232 boxes; ``CRT_ACCEL=ray``); K8 on the
+  colonnade's phase-1 lists of K4 over its quantized rows;
 - K6 on the packet route's rays with their caps (``profiling.scene_rays``,
   ``intersect._packet_cap``): sphereflake's 160,000 primary rays, the
   same rays after one bounce, coherence-sorted (``raysort``), and
@@ -37,7 +44,9 @@ Then one process per turn, in the order this checkout, the others, the
 others reversed, this one, imports the package of its own checkout (which
 builds its own kernels), launches its kernels on those inputs (K1 and K2
 with and without pid) and times each case with CUDA events (K1 and K2 at
-their primary rays; K6 with its visits per tile, mean and max, and its
+their primary rays; K4, K7 and K8 also by stage, from torch.profiler's
+device time of their memset and four kernels over 10 calls, after every
+other timing of the turn; K6 with its visits per tile, mean and max, and its
 registers per thread and resident blocks per SM: ``packet.kernel_info``,
 or, for a checkout without it, the same CUDA queries on its
 ``csrc/packet_closest.cu`` built into a probe). Every turn's outputs (all
@@ -77,6 +86,9 @@ CASES = (("K1 cornell_box", "cornell_box", "planar_closest"),
 FOX_MESH = (24, 13)
 FOX_NODE = {"mesh": 0, "translation": [0.0, 45.0, 0.0],
             "rotation": [0.0, 0.38268343, 0.0, 0.92387953], "scale": [1.2, 1.0, 1.2]}
+# K7's widths on the colonnade (the default CRT_SUBC first, then the width
+# at which its old count left shared memory)
+SUB_TIMED = (32, 16)
 # the tiles K6 is timed at on sphereflake's primary and secondary rays and
 # perlin's primary rays besides packet.AUTO_TILE (and 2,048, JAX's, on
 # sphereflake's primary rays)
@@ -90,9 +102,10 @@ WALLS = (("sphereflake wavefront", "sphereflake", None, True),
          ("glass_fox", "glass_fox", None, False))
 
 
-def sweep_inputs(dev) -> dict:
-    """{label: (rays, ids, nears, best, table, triangle, sphere)}: K4's
-    cases, labels starting with "K4"."""
+def sweep_inputs(dev, only: tuple = ("",)) -> dict:
+    """{label: inputs}: the sweep cases whose label starts with one of
+    ``only``, K4's and K7's (rays, ids, nears, best, table, triangle,
+    sphere), K8's (rays, ids, nears, best, words, lo, scale, triangle)."""
     from cpu_ray_tracing_implementation_tpu_torch.models import catalog
     from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
     from cpu_ray_tracing_implementation_tpu_torch.ops import perray
@@ -100,26 +113,50 @@ def sweep_inputs(dev) -> dict:
     from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
         scene_rays, secondary, sweep_phases)
 
+    def want(kid):
+        return wanted(kid, only)
+
     gen = torch.Generator().manual_seed(1)
     out = {}
     scene, cam = catalog.sponza(device=dev)
     tabs, K = scene.tri_perray, scene.tri_chunks.corner.shape[0]
     org, dirs, time, cap = scene_rays(scene, cam, gen)
     rays, calls = sweep_phases(org, dirs, time, cap, tabs, K, TMIN, True, False)
-    for p, call in enumerate(calls[:3]):
-        out[f"K4 colonnade primary, phase {p + 1}"] = (rays, *call, tabs.table, True, False)
-    t, _ = perray.planar_closest_perray(org, dirs, scene.tri_chunks, TMIN, True, cap,
-                                        tabs=tabs)
-    o2, d2 = secondary(org, dirs, t, gen)
-    alive = (torch.rand(org.shape[0], generator=gen) > 0.1).to(dev)
-    cap2 = isect._packet_cap(scene, o2, d2, alive, float("inf"), TMIN)
-    rays, calls = sweep_phases(o2, d2, time, cap2, tabs, K, TMIN, True, False)
-    out["K4 colonnade secondary, phase 1"] = (rays, *calls[0], tabs.table, True, False)
+    if want("K4"):
+        for p, call in enumerate(calls[:3]):
+            out[f"K4 colonnade primary, phase {p + 1}"] = (rays, *call, tabs.table, True,
+                                                           False)
+    if want("K8"):
+        q = tabs.q16()
+        out["K8 colonnade primary, phase 1"] = (rays, *calls[0], q.words, q.lo, q.scale,
+                                                True)
+    if want("K7"):
+        for CS in SUB_TIMED:
+            r7, c7 = sweep_phases(org, dirs, time, cap, tabs, K, TMIN, True, False, CS)
+            out[f"K7 colonnade primary, CS {CS}, phase 1"] = (r7, *c7[0],
+                                                              tabs.subtile(CS).table,
+                                                              True, False)
+    if want("K4"):
+        t, _ = perray.planar_closest_perray(org, dirs, scene.tri_chunks, TMIN, True, cap,
+                                            tabs=tabs)
+        o2, d2 = secondary(org, dirs, t, gen)
+        alive = (torch.rand(org.shape[0], generator=gen) > 0.1).to(dev)
+        cap2 = isect._packet_cap(scene, o2, d2, alive, float("inf"), TMIN)
+        rays, calls = sweep_phases(o2, d2, time, cap2, tabs, K, TMIN, True, False)
+        out["K4 colonnade secondary, phase 1"] = (rays, *calls[0], tabs.table, True, False)
 
     scene, cam = catalog.sphereflake(device=dev)
     tabs, K = scene.sphere_perray, scene.sphere_chunks.rad.shape[0]
-    rays, calls = sweep_phases(*scene_rays(scene, cam, gen), tabs, K, TMIN, False, True)
-    out["K4 sphereflake primary, phase 1"] = (rays, *calls[0], tabs.table, False, True)
+    sf_rays = scene_rays(scene, cam, gen)
+    if want("K4"):
+        rays, calls = sweep_phases(*sf_rays, tabs, K, TMIN, False, True)
+        out["K4 sphereflake primary, phase 1"] = (rays, *calls[0], tabs.table, False, True)
+    if want("K7"):
+        rays, calls = sweep_phases(*sf_rays, tabs, K, TMIN, False, True, SUB_TIMED[0])
+        out[f"K7 sphereflake primary, CS {SUB_TIMED[0]}, phase 1"] = (
+            rays, *calls[0], tabs.subtile(SUB_TIMED[0]).table, False, True)
+    if not want("K4"):
+        return {k: v for k, v in out.items() if k.startswith(only)}
 
     rng = np.random.default_rng(2)
     b = SceneBuilder()
@@ -135,7 +172,15 @@ def sweep_inputs(dev) -> dict:
     cap = isect._packet_cap(scene, o, d, None, float("inf"), TMIN)
     rays, calls = sweep_phases(o, d, tm, cap, tabs, K, TMIN, False, True)
     out["K4 random 6000 spheres, phase 1"] = (rays, *calls[0], tabs.table, False, True)
-    return out
+    return {k: v for k, v in out.items() if k.startswith(only)}
+
+
+def sweep_call(fsw, label: str, args: tuple):
+    """A call of the sweep kernel (``fsw``'s K4, K7 or K8, by the label's
+    first two characters) on a case's inputs."""
+    kernel, n = {"K4": (fsw.sweep_kernel, 5), "K7": (fsw.sweep_sub_kernel, 5),
+                 "K8": (fsw.sweep_q16_kernel, 7)}[label[:2]]
+    return lambda: kernel(*args[:n], TMIN, *args[n:])
 
 
 @contextlib.contextmanager
@@ -212,10 +257,16 @@ def packet_inputs(dev) -> dict:
     return out
 
 
-def make_inputs(path: Path, only: str = "") -> None:
+def wanted(kid: str, only: tuple) -> bool:
+    """Whether some case of kernel ``kid`` (e.g. "K7") has a label that
+    starts with one of the prefixes ``only``."""
+    return any(kid.startswith(o) or o.startswith(kid) for o in only)
+
+
+def make_inputs(path: Path, only: tuple = ("",)) -> None:
     """Save {label: (primary rays [8,R], secondary rays [8,R], pack)}, the
     sweep cases' and the packet cases' inputs, those whose label starts
-    with ``only``."""
+    with one of ``only``."""
     from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
     from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
     from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
@@ -236,9 +287,9 @@ def make_inputs(path: Path, only: str = "") -> None:
             t = ch.sphere_closest(org, dirs, time, view, TMIN)[0]
         o2, d2 = secondary(org, dirs, t, gen)
         inputs[label] = (fi.pack_rays(org, dirs, time), fi.pack_rays(o2, d2, time), pack)
-    if "K4".startswith(only):
-        inputs.update(sweep_inputs(dev))
-    if "K6".startswith(only):
+    if any(wanted(kid, only) for kid in ("K4", "K7", "K8")):
+        inputs.update(sweep_inputs(dev, only))
+    if wanted("K6", only):
         inputs.update(packet_inputs(dev))
     torch.save(inputs, path)
 
@@ -265,16 +316,44 @@ def turn(root: str, inputs: Path, outputs: Path) -> None:
         ms_pid = cuda_ms(lambda: launch(primary, pack, TMIN, with_pid=True))
         print(f"{label} primary, {primary.shape[1]} rays, {root}: {ms:.4f} ms, "
               f"with pid {ms_pid:.4f} ms", flush=True)
-    for label in (k for k in saved if k.startswith("K4")):
+    sweeps = [k for k in saved if k[:2] in ("K4", "K7", "K8")]
+    for label in sweeps:
         args = saved[label]
-        outs[label] = (fsw.sweep_kernel(*args[:5], TMIN, *args[5:]),)
-        ms = cuda_ms(lambda: fsw.sweep_kernel(*args[:5], TMIN, *args[5:]))
+        call = sweep_call(fsw, label, args)
+        outs[label] = (call(),)
+        ms = cuda_ms(call)
         visits = int((args[2] < args[3][:, :1]).sum())
         print(f"{label}, {args[1].shape[0]} rays, {visits} visited slots, {root}: "
               f"{ms:.4f} ms", flush=True)
     for label in (k for k in saved if k.startswith("K6")):
         packet_turn(root, label, saved[label], outs)
+    # last: the profiler slows what runs after it in its process
+    for label in sweeps:
+        us = stage_us(sweep_call(fsw, label, saved[label]))
+        print(f"{label}, {root}, by stage: " + ", ".join(
+            f"{s} {t:.2f} us" for s, t in us.items()), flush=True)
     torch.save(outs, outputs)
+
+
+# a sweep kernel's memset and four kernels, each named by its stage
+SWEEP_STAGES = ("memset", "count", "scatter", "tile", "fold")
+
+
+def stage_us(call, n=10) -> dict:
+    """{stage: device us a call} of a sweep kernel (K4, K7 or K8) over
+    ``n`` calls under torch.profiler, each kernel (its name without
+    namespaces, return type and arguments) counted to the stage it names."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(SWEEP_STAGES, 0.0)
+    for e in prof.key_averages():
+        name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+        stage = next((s for s in SWEEP_STAGES if s in name.split("(")[0].lower()), None)
+        if stage and e.self_device_time_total > 0:
+            out[stage] += e.self_device_time_total / n
+    return out
 
 
 def packet_turn(root: str, label: str, case: tuple, outs: dict) -> None:
@@ -414,8 +493,8 @@ def main(argv=None) -> int:
         walls_turn(argv[1], Path(argv[2]))
         return 0
     walls = argv[:1] == ["--walls"]
-    only = argv[1] if argv[:1] == ["--only"] else ""
-    argv = argv[1:] if walls else argv[2:] if only else argv
+    only = tuple(argv[1].split(",")) if argv[:1] == ["--only"] else ("",)
+    argv = argv[1:] if walls else argv[2:] if only != ("",) else argv
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2

@@ -25,9 +25,10 @@ at its own 400 px wide (aspect 1.78), depth 5, with next-event estimation
 (the importance-sampled sky as the only light: K2 twice in every bounce
 but the last, no K1); ``cornell_qmc`` is ``cornell`` under ``camera.qmc``
 (Owen-scrambled Sobol uniforms in place of the hash stream).
-``sweep_stages`` times kernel K4 alone on ``utils/kernel_ab.py``'s sweep
-inputs: CUDA events per call and torch.profiler's device time per stage
-kernel. Each other workload runs ``spp`` samples after a 2-sample warm-up: three times on the host
+``sweep_stages`` times kernels K4, K7 and K8 alone on
+``utils/kernel_ab.py``'s sweep inputs: CUDA events per call and
+torch.profiler's device time per stage kernel (memset, count, scatter,
+tile, fold). Each other workload runs ``spp`` samples after a 2-sample warm-up: three times on the host
 clock, then under ``torch.profiler`` with a range around each stage of a bounce
 (on the colonnade also around the per-ray accelerator's select and sweep
 calls; on the gradient, around the forward pass, the backward pass's
@@ -278,23 +279,30 @@ def scene_rays(scene, cam, gen):
     return org, dirs, time, isect._packet_cap(scene, org, dirs, None, float("inf"), 1e-3)
 
 
-def sweep_phases(org, dirs, time, cap, tabs, K, tmin, triangle, sphere):
+def sweep_phases(org, dirs, time, cap, tabs, K, tmin, triangle, sphere, CS=None):
     """(rays, [(ids, nears, best), ...]): the [R, 8] rays K4 takes and the
     lists and input best of each of its calls in the per-ray phase loop
-    (``perray._phase_loop`` itself, its sweep recorded), phase 1 first."""
+    (``perray._phase_loop`` itself, its sweep recorded), phase 1 first.
+    With ``CS``, the sub-tile route's at that width: K3 on the boxes of
+    ``tabs.subtile(CS)`` at ``perray.subtile_v`` slots, K7's calls."""
     rays = fsw.pack_rays(org, dirs, time if sphere else None)
     z = torch.zeros_like(cap)
     best = (fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1, z.int(), z.int())
             if sphere else
             fsw.pack_best_planar(cap, torch.zeros_like(org), z, z, z.int(), z.int()))
     calls = []
+    if CS is None:
+        sel, V, sweep_rows = tabs, min(perray.VISIT_BLOCK, K), fsw.sweep
+    else:
+        sel = tabs.subtile(CS)
+        K = sel.table.shape[0]
+        V, sweep_rows = perray.subtile_v(K, CS), fsw.sweep_sub
 
     def sweep(ids, nears, b):
         calls.append((ids, nears, b))
-        return fsw.sweep(rays, ids, nears, b, tabs.table, tmin, triangle, sphere)
+        return sweep_rows(rays, ids, nears, b, sel.table, tmin, triangle, sphere)
 
-    perray._phase_loop(org, dirs, cap, tabs, K, tmin, min(perray.VISIT_BLOCK, K),
-                       sweep, best)
+    perray._phase_loop(org, dirs, cap, sel, K, tmin, V, sweep, best)
     return rays, calls
 
 
@@ -304,25 +312,29 @@ def kernel_name(key: str) -> str:
     return key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
 
 
+def subtile_stage_ms(rays, ids, nears, best, table, tmin, triangle, sphere) -> dict:
+    """{stage: ms} of one K7 call from CUDA events: the memset alone, then
+    each stage added in turn (``fused_sweep.sweep_sub_kernel``'s
+    ``stages``), the differences of the cumulative times."""
+    from cpu_ray_tracing_implementation_tpu_torch.utils.kernel_ab import SWEEP_STAGES
+
+    cum = [cuda_ms(lambda n=n: fsw.sweep_sub_kernel(rays, ids, nears, best, table, tmin,
+                                                      triangle, sphere, stages=n))
+           for n in range(5)]
+    return {s: cum[i] - (cum[i - 1] if i else 0.0) for i, s in enumerate(SWEEP_STAGES)}
+
+
 def sweep_stages() -> int:
-    """K4 on each of kernel_ab's sweep inputs: the time of a call (CUDA
-    events) and each stage kernel's and the memset's device time (10 calls
-    under torch.profiler)."""
+    """K4, K7 and K8 on each of kernel_ab's sweep inputs: the time of a call
+    (CUDA events) and each stage kernel's and the memset's device time (10
+    calls under torch.profiler)."""
     from cpu_ray_tracing_implementation_tpu_torch.utils import kernel_ab
 
-    acts = [torch.profiler.ProfilerActivity.CUDA]
     for label, args in kernel_ab.sweep_inputs(torch.device("cuda", 0)).items():
-        def call():
-            return fsw.sweep_kernel(*args[:5], kernel_ab.TMIN, *args[5:])
-
+        call = kernel_ab.sweep_call(fsw, label, args)
         ms = cuda_ms(call)
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(10):
-                call()
-            torch.cuda.synchronize()
         print(f"{label}: {1e3 * ms:.2f} us a call; " + ", ".join(
-            f"{kernel_name(e.key)} {e.self_device_time_total / e.count:.2f} us"
-            for e in prof.key_averages() if e.self_device_time_total > 0), flush=True)
+            f"{s} {us:.2f} us" for s, us in kernel_ab.stage_us(call).items()), flush=True)
     return 0
 
 

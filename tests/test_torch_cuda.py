@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 on the card, against their plain versions, and
+"""The CUDA kernels K1-K8 on the card, against their plain versions, and
 the gradient path through them.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
@@ -8,8 +8,9 @@ The file imports no JAX, so it also runs on a machine without it:
 
 Tolerances are chip_smoke.py's. K1, K2: equal hit masks and materials, t
 within rtol 1e-4 / atol 1e-4, every other payload field (normal, u, v;
-center, rad) within atol 1e-3. K3: ids, nears and rest bit-equal. K4:
-all 8 columns bit for bit (the kernel rounds as its plain version does). K1 / K2 pid output: equal to the plain versions' pid.
+center, rad) within atol 1e-3. K3: ids, nears and rest bit-equal. K4,
+K7, K8: all 8 columns bit for bit (the kernels round as their plain
+versions do). K1 / K2 pid output: equal to the plain versions' pid.
 K5: max |a - b| / (|b| + 1) <= 1e-5. K6 (the tile-packet closest hit):
 K2's rounding on spheres, so masks, pids, materials and each tile's visit
 count equal the plain version's and t is within rtol 1e-4; planar, K1's
@@ -287,9 +288,40 @@ def test_cull_select_kernel_bit_equal(dev, packed, V, marked):
 
 
 def test_cull_select_refuses_other_v(dev):
+    """The kernel takes V up to 32 (``cull_select`` chains larger ones)."""
     boxes, rays = _boxes_and_rays(np.random.default_rng(0), dev, R=64)
     with pytest.raises(ValueError, match="V in 1..32"):
-        fs.cull_select(rays, boxes, fs.first_excl(64, dev), 33, 300, TMIN)
+        fs.cull_select_kernel(rays, boxes, fs.first_excl(64, dev), 33, 300, TMIN)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "exact"])
+def test_cull_select_chained_v64_bit_equal(dev, packed):
+    """V = 64 (the sub-tile route's at CRT_SUBC=2): two K3 selections of 32,
+    the second from the first's last key with its exhausted rays marked,
+    equal one plain selection at V 64 bit for bit, over three phases."""
+    rng = np.random.default_rng(64)
+    c = rng.normal(0, 4.0, (300, 3))
+    half = rng.uniform(1.0, 4.0, (300, 3))
+    boxes = fs.pack_boxes(_t((c - half).astype(np.float32), dev),
+                          _t((c + half).astype(np.float32), dev))
+    org, dirs, _ = _rays(rng, dev, 5000)
+    cap = _t(rng.uniform(1.0, 40.0, 5000).astype(np.float32), dev)
+    cap[:100] = TMIN
+    rays = fs.pack_rays(org, dirs, cap)
+    excl = fs.first_excl(5000, dev)
+    for _ in range(3):
+        fs.reset_launches()
+        got = fs.cull_select(rays, boxes, excl, 64, 300, TMIN, packed)
+        assert fs.LAUNCHES == {"cull_select": 2}
+        ref = fs.cull_select_plain(rays, boxes, excl, 64, 300, TMIN, packed)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0])
+        for x, y in zip(got[1:], ref[1:]):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+        excl = fs.next_excl(got[0], got[1])
+    first = fs.cull_select_plain(rays, boxes, fs.first_excl(5000, dev), 64, 300, TMIN,
+                                 packed)
+    assert int((torch.isfinite(first[1]).sum(1) > 32).sum()) > 100
 
 
 def _random_scene(kind, dev, n=2000):
@@ -430,12 +462,13 @@ def _mode_lists(kind, dev, CS=None, K3_V=24):
     return rays, ids, nears, best, tabs, sel, cap
 
 
-@pytest.mark.parametrize("CS", [32, 64, 16, 128])
+@pytest.mark.parametrize("CS", [1, 2, 4, 8, 16, 32, 64, 128])
 @pytest.mark.parametrize("kind", ["quad", "tri", "sphere"])
 def test_subtile_sweep_kernel_k7_matches_plain(dev, kind, CS):
-    """K7 over sub-tile rows of each width it is built for against
-    ``sweep_plain`` at that width, all 8 columns bit for bit; a width it is
-    not built for raises."""
+    """K7 over sub-tile rows of every width dividing 128 (one kernel
+    instance a row kind, the width passed at run time) against
+    ``sweep_plain`` at that width, all 8 columns bit for bit; a width that
+    does not divide 128 raises."""
     rays, ids, nears, best, _, sub, cap = _mode_lists(kind, dev, CS)
     fsw.reset_launches()
     got = fsw.sweep_sub(rays, ids, nears, best, sub.table, TMIN, kind == "tri",
@@ -446,24 +479,79 @@ def test_subtile_sweep_kernel_k7_matches_plain(dev, kind, CS):
     torch.cuda.synchronize()
     assert int((ref[:, 0] < cap).sum()) > 100
     assert torch.equal(cases.bits(got), cases.bits(ref))
-    narrow = perray.subtile_rows(sub.table, 8) if CS == 16 else None
-    if narrow is not None:
+    if CS == 64:
+        wide = sub.table[:, :, :48].contiguous()
         with pytest.raises(ValueError, match="K7 takes"):
-            fsw.sweep_sub(rays, ids, nears, best, narrow, TMIN, kind == "tri",
+            fsw.sweep_sub(rays, ids, nears, best, wide, TMIN, kind == "tri",
                           kind == "sphere")
 
 
-def test_subtile_sweep_kernel_k7_many_subtiles(dev):
-    """K7 at width 16 over 9,000 sub-tiles, above the 8,192 a block counts
-    in shared memory (the colonnade's 32,240 at width 16)."""
+def _subtile_case(kind, case, dev, CS, **kw):
+    """An adversarial case of tests/torch_sweep_cases.py as sub-tile lists
+    at width CS: slot s names sub-tile s mod G of its chunk (out-of-range
+    chunk ids stay out of range, for the clip)."""
+    rays, ids, nears, best, table, tri, sph = cases.make_case(kind, case, dev, **kw)
+    G = 128 // CS
+    sub_ids = ids * G + torch.arange(ids.shape[1], device=dev, dtype=torch.int32) % G
+    return rays, sub_ids.contiguous(), nears, best, perray.subtile_rows(table, CS), tri, sph
+
+
+@pytest.mark.parametrize("CS", [4, 32])
+@pytest.mark.parametrize("case", cases.CASES)
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_subtile_sweep_kernel_k7_adversarial_lists(dev, kind, case, CS):
+    """K7 against ``sweep_plain`` at width CS, all 8 columns bit for bit,
+    on the adversarial lists as sub-tile lists: ties within a sub-tile,
+    across sub-tiles and slots, nears between the running and the input
+    best, every slot exhausted, duplicate and clipped ids, R = 1, K = 1."""
+    rays, ids, nears, best, table, tri, sph = _subtile_case(kind, case, dev, CS)
+    fsw.reset_launches()
+    got = fsw.sweep_sub(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    assert fsw.LAUNCHES == {"visit_sweep": 0, "visit_sweep_sub": 1, "visit_sweep_q16": 0}
+    ref = fsw.sweep_plain(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    torch.cuda.synchronize()
+    assert torch.equal(cases.bits(got), cases.bits(ref))
+    hits = int((ref[:, 0] < best[:, 0]).sum())
+    if case == "exhausted":
+        assert hits == 0
+    elif case != "one_ray":                 # one ray's 8 sub-tiles may all miss
+        assert hits > 0
+
+
+@pytest.mark.parametrize("R", [0, 1, 129, 257])
+def test_subtile_sweep_kernel_k7_ragged_and_empty(dev, R):
+    """R = 0 and R off the block sizes at CS 8, and V = 0 slots (no visit:
+    best unchanged)."""
+    rays, ids, nears, best, table, tri, sph = _subtile_case("sphere", "clip", dev, 8,
+                                                            R=max(R, 1), V=16)
+    rays, ids, nears, best = rays[:R], ids[:R], nears[:R], best[:R]
+    got = fsw.sweep_sub_kernel(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    ref = fsw.sweep_plain(rays, ids, nears, best, table, cases.TMIN, tri, sph)
+    empty = fsw.sweep_sub_kernel(rays, ids[:, :0].contiguous(), nears[:, :0].contiguous(),
+                                 best, table, cases.TMIN, tri, sph)
+    torch.cuda.synchronize()
+    assert got.shape == (R, 8)
+    assert torch.equal(cases.bits(got), cases.bits(ref))
+    assert torch.equal(cases.bits(empty), cases.bits(best))
+
+
+@pytest.mark.parametrize("CS", [16, 4])
+def test_subtile_sweep_kernel_k7_many_subtiles(dev, CS):
+    """K7 over ~9,000 sub-tiles (9,000 at width 16, 9,024 at width 4: whole
+    chunks), ids from -4 past the last (clipped), on the adversarial
+    table's ties: its count keys the chunks (1,125 and 282), in shared
+    memory as the colonnade's 2,015 are at every width."""
+    K = -(-9000 * CS // 128)
     rays, ids, nears, best, table, tri, sph = cases.make_case("tri", "clip", dev, R=2000,
-                                                              V=24, K=9000 * 16 // 128)
-    sub = perray.subtile_rows(table, 16)
-    ids = torch.randint(-4, 9004, ids.shape, device=dev, dtype=torch.int32)
+                                                              V=24, K=K)
+    sub = perray.subtile_rows(table, CS)
+    KG = sub.shape[0]
+    ids = torch.randint(-4, KG + 4, ids.shape, device=dev, dtype=torch.int32)
     got = fsw.sweep_sub_kernel(rays, ids, nears, best, sub, cases.TMIN, tri, sph)
     ref = fsw.sweep_plain(rays, ids, nears, best, sub, cases.TMIN, tri, sph)
     torch.cuda.synchronize()
-    assert sub.shape[0] == 9000 and torch.equal(cases.bits(got), cases.bits(ref))
+    assert KG >= 9000 and torch.equal(cases.bits(got), cases.bits(ref))
+    assert bool((ref[:, 0] < best[:, 0]).any())
 
 
 @pytest.mark.parametrize("kind", ["quad", "tri"])

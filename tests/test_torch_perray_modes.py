@@ -10,7 +10,9 @@ switches per call, set here with ``monkeypatch.setenv``. Tolerances:
 - tables (sub-tile boxes and rows, quantized words) bitwise JAX's;
 - sub-tile route: hit masks and pids equal to the oracle's and to JAX's
   sub-tile route, t within rtol 1e-4 (spheres rtol 5e-4, atol 3e-4, as
-  tests/test_perray.py:238);
+  tests/test_perray.py:238), at CS 64, 32, 8 and (triangles) 2; at CS 2
+  and 8 the route's hits equal the chunk route's, and at CS 1, 4 and 8
+  the sub-tile sweep equals its stage decomposition bit for bit;
 - quantized rows: against JAX's q16, hit masks equal on >= 99.9% of rays,
   pids on >= 99.9% of hits, t within rtol 1e-4 where pids agree; against
   the oracle, JAX's own contract (tests/test_q16_sweep.py:35-56);
@@ -159,16 +161,27 @@ def test_mode_tables_are_jax_bit_for_bit(tri_chunks, sphere_chunks, kind, CS):
 
 
 @pytest.mark.parametrize("kind,CS", [("tri", 32), ("tri", 64), ("sphere", 32),
-                                     ("sphere", 64)])
-def test_subtile_route_matches_oracle_and_jax(tri_chunks, sphere_chunks, env, kind, CS):
-    """8 slots a phase (many phases); every other ray capped at t = 4.0."""
+                                     ("sphere", 64), ("tri", 8), ("sphere", 8),
+                                     ("tri", 2)])
+def test_subtile_route_matches_oracle_and_jax(tri_chunks, sphere_chunks, env,
+                                              monkeypatch, kind, CS):
+    """``CRT_RAYV_SUB=8``: 8 slots a phase at CS 32 and 64 (many phases),
+    16 at CS 8, 64 at CS 2 (one phase of two chained selections of 32);
+    every other ray capped at t = 4.0."""
     jc, tc = tri_chunks if kind == "tri" else sphere_chunks
     env(CRT_SUBTILE=1, CRT_SUBC=CS, CRT_RAYV_SUB=8)
     org, dirs = _rays(2 if kind == "tri" else 21, 800 if kind == "tri" else 512)
     tmax = np.where(np.arange(org.shape[0]) % 2 == 1, 4.0, np.inf).astype(np.float32)
+    sizes = []
+    plain = fs.cull_select_plain
+    monkeypatch.setattr(fs, "cull_select_plain",
+                        lambda *a, **k: sizes.append(a[3]) or plain(*a, **k))
     perray.reset_phases()
     (t_p, p_p), (t_j, p_j), (t_o, p_o) = _closest(kind, tc, jc, org, dirs, tmax)
-    assert perray.PHASES["phases"] >= 2           # the exactness loop re-selects
+    if CS == 2:                                   # each phase chains two selections
+        assert sizes == [32, 32] * perray.PHASES["phases"]
+    else:                                         # the exactness loop re-selects
+        assert perray.PHASES["phases"] >= 2 and max(sizes) <= 16
     hit = np.isfinite(t_p)
     assert hit.sum() > 50 and hit[1::2].sum() > 20
     rtol, atol = (5e-4, 3e-4) if kind == "sphere" else (1e-4, 0.0)
@@ -198,6 +211,36 @@ def test_q16_route_matches_jax_and_the_oracle(tri_chunks, env):
     rel = np.abs(t_p[both] - t_o[both]) / t_o[both]
     assert rel.max() < 0.05 and np.median(rel) < 2e-3
     assert (p_p[both] == p_o[both]).mean() >= 0.99
+
+
+@pytest.mark.parametrize("CS", [1, 4, 8])
+def test_subtile_sweep_is_its_decomposition_at_narrow_widths(tri_chunks, sphere_chunks,
+                                                             CS):
+    """At CS 1, 4 and 8, on the route's own lists (K3 on the sub-tile boxes
+    at ``subtile_v`` slots: 128, 32 and 24, the first chained), the
+    sub-tile sweep equals K7's decomposition (``sweep_fold_plain``) at the
+    same width, all 8 columns bit for bit, for triangles and spheres."""
+    for kind, (_, tc) in (("tri", tri_chunks), ("sphere", sphere_chunks)):
+        sphere = kind == "sphere"
+        tabs = (perray.sphere_tables if sphere else perray.planar_tables)(tc)
+        sub = tabs.subtile(CS)
+        KG = sub.table.shape[0]
+        org, dirs = (torch.as_tensor(x) for x in _rays(9, 300))
+        time = torch.as_tensor(np.random.default_rng(9).uniform(0, 1, 300),
+                               dtype=torch.float32)
+        cap = torch.full((300,), 30.0)
+        V = perray.subtile_v(KG, CS)
+        ids, nears, _ = fs.cull_select(fs.pack_rays(org, dirs, cap), sub.boxes,
+                                       fs.first_excl(300, "cpu"), V, KG, TMIN)
+        z = torch.zeros(300)
+        best = (fsw.pack_best_sphere(cap, torch.zeros_like(org), z + 1, z.int(), z.int())
+                if sphere else
+                fsw.pack_best_planar(cap, torch.zeros_like(org), z, z, z.int(), z.int()))
+        rays = fsw.pack_rays(org, dirs, time if sphere else None)
+        got = fsw.sweep_sub(rays, ids, nears, best, sub.table, TMIN, True, sphere)
+        ref = fsw.sweep_fold_plain(rays, ids, nears, best, sub.table, TMIN, True, sphere)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        assert int((got[:, 0] < cap).sum()) > 30
 
 
 def test_q16_plain_is_the_plain_sweep_on_dequantized_rows(tri_chunks):
@@ -251,8 +294,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_gradients(tri_chunks):
 
 def test_switch_edges(tri_chunks, env):
     """``CRT_SUBC`` not dividing the chunk width takes the chunk route (no
-    sub-tile table is built); a width K7 is not built for (under 16), or a
-    V above 32, raises; ``CRT_RAYV`` sets the chunk route's V."""
+    sub-tile table is built); the narrow widths 2 and 8 render, with the
+    chunk route's hits; K3's kernel entry refuses a V above 32 (the wrapper
+    chains those); ``CRT_RAYV`` sets the chunk route's V."""
     _, tc = tri_chunks
     org, dirs = (torch.as_tensor(x) for x in _rays(5, 300))
     tabs = perray.planar_tables(tc)
@@ -267,11 +311,12 @@ def test_switch_edges(tri_chunks, env):
     assert torch.equal(t0, t1) and torch.equal(pay0[-1], pay1[-1])
     for cs in (2, 8):
         env(CRT_SUBC=cs)
-        with pytest.raises(ValueError, match="built for widths"):
-            perray.planar_closest_perray(org, dirs, tc, TMIN, True, tabs=tabs)
-    rays = fs.pack_rays(org, dirs, torch.full((300,), 30.0))
+        assert perray.route(128, True) == "subtile"
+        t_cs, pay_cs = perray.planar_closest_perray(org, dirs, tc, TMIN, True, tabs=tabs)
+        assert cs in tabs.modes
+        assert torch.equal(t_cs, t0) and torch.equal(pay_cs[-1], pay0[-1])
     with pytest.raises(ValueError, match="V in 1..32"):
-        fs.cull_select(rays, tabs.boxes, fs.first_excl(300, "cpu"), 33, 6, TMIN)
+        fs.check_v(33)
     env(CRT_SUBTILE=0, CRT_RAYV=2)
     perray.reset_phases()
     t2, pay2 = perray.planar_closest_perray(org, dirs, tc, TMIN, True, tabs=tabs)

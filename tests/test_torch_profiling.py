@@ -132,3 +132,33 @@ def test_sweep_phases_records_the_phase_loop():
                                         tabs=tabs)
     hit = last[:, 0] < cap
     assert torch.equal(torch.where(hit, last[:, 0], torch.full_like(cap, float("inf"))), t)
+
+
+def test_sweep_phases_records_the_subtile_phase_loop(monkeypatch):
+    """``sweep_phases`` at a sub-tile width (the K7 inputs kernel_ab times):
+    K3 on the CS 8 boxes at ``subtile_v`` slots, one recorded K7 call per
+    phase, each later phase from the best its predecessor returned, and
+    the last one's result the sub-tile route's closest hit."""
+    from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
+
+    scene, cam = catalog.sponza(width=8, spp=1, max_depth=2, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    org, dirs, time, cap = profiling.scene_rays(scene, cam, gen)
+    tabs, K = scene.tri_perray, scene.tri_chunks.corner.shape[0]
+    sub = tabs.subtile(8)
+    perray.reset_phases()
+    rays, calls = profiling.sweep_phases(org, dirs, time, cap, tabs, K, 1e-3, True, False,
+                                         CS=8)
+    assert len(calls) == perray.PHASES["phases"] >= 1
+    assert calls[0][0].shape[1] == perray.subtile_v(sub.table.shape[0], 8) == 32
+    for (ids, nears, best), (_, _, after) in zip(calls, calls[1:]):
+        assert torch.equal(after, fsw.sweep_sub(rays, ids, nears, best, sub.table, 1e-3,
+                                                True, False))
+    ids, nears, best = calls[-1]
+    last = fsw.sweep_sub(rays, ids, nears, best, sub.table, 1e-3, True, False)
+    monkeypatch.setenv("CRT_SUBTILE", "1")
+    monkeypatch.setenv("CRT_SUBC", "8")
+    t, _ = perray.planar_closest_perray(org, dirs, scene.tri_chunks, 1e-3, True, cap,
+                                        tabs=tabs)
+    hit = last[:, 0] < cap
+    assert torch.equal(torch.where(hit, last[:, 0], torch.full_like(cap, float("inf"))), t)

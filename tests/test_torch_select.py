@@ -6,7 +6,9 @@ Same rays, boxes and exclusion keys go through both, in packed and exact
 mode, for phase 1 and the two phases after it (each fed the previous
 phase's exclusion key), at a K that is not a multiple of 128 and at small
 V. ids, nears and rest must be bit-equal (NaN where NaN): the plain
-version repeats the kernel's operations one for one in float32.
+version repeats the kernel's operations one for one in float32. Above 32
+slots, the chained selection of ``cull_select`` is held to one plain call
+bit for bit. One thread.
 """
 
 import jax.numpy as jnp
@@ -19,6 +21,17 @@ from cpu_ray_tracing_implementation_tpu.ops import pallas_select as jps
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 
 TMIN = 1e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread for this module (its tensors are small; the
+    suite's workers otherwise run on the default count), restored after
+    the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tri_boxes():
@@ -184,3 +197,37 @@ def test_done_rows_get_the_exhausted_key(packed):
         assert (ids2 == 0).all()
         assert np.isposinf(nears2).all() and np.isposinf(rest2).all()
     assert np.isfinite(ref[1][done].numpy()).any()   # marking changed them
+
+
+def _deep_boxes():
+    """300 large overlapping boxes that rays cross up to ~140 at a time."""
+    rng = np.random.default_rng(1)
+    c = rng.normal(0, 1.5, (300, 3))
+    half = rng.uniform(0.5, 2.0, (300, 3))
+    return (c - half).astype(np.float32), (c + half).astype(np.float32)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "exact"])
+@pytest.mark.parametrize("V", [64, 128])
+def test_chained_selection_equals_one_plain_call(V, packed):
+    """Above 32 slots (the sub-tile route's V at CRT_SUBC=2 and 1)
+    ``cull_select`` chains selections of 32, each from the last one's key
+    with its exhausted rays marked done; over four phases (the last past
+    every key: packed mode's NaN) the ids, nears and rest equal one
+    ``cull_select_plain`` call at V bit for bit."""
+    lo, hi = _deep_boxes()
+    R = 96
+    org, d, caps = _rays(R, 2)
+    rays = fs.pack_rays(*(torch.as_tensor(x) for x in (org, d, caps)))
+    boxes = fs.pack_boxes(torch.as_tensor(lo), torch.as_tensor(hi))
+    excl = fs.first_excl(R, "cpu")
+    deep = 0
+    for _ in range(4):
+        got = fs.cull_select(rays, boxes, excl, V, 300, TMIN, packed=packed)
+        ref = fs.cull_select_plain(rays, boxes, excl, V, 300, TMIN, packed=packed)
+        assert torch.equal(got[0], ref[0])
+        for x, y in zip(got[1:], ref[1:]):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+        deep += int((torch.isfinite(ref[1]).sum(1) > 32).sum())
+        excl = fs.next_excl(got[0], got[1])
+    assert deep >= 20                    # rays whose list runs past one selection

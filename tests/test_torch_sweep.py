@@ -42,8 +42,9 @@ R = jpsw.RB
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """PyTorch on one thread for this module: on several, its CPU kernels
-    round a few of the plain sweep's values otherwise from run to run (the
-    suite's workers already run on one), restored after the module."""
+    round a few of the plain sweep's values otherwise from run to run. The
+    suite's workers run on PyTorch's default thread count (8 on an 8-core
+    host); this module's count is restored after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
