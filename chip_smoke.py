@@ -50,9 +50,14 @@ Phases (any failure raises and the script exits non-zero):
      at V 24; CS 8: 32,240 at V 32), bit-equal; K7 (the sub-tile sweep, one
      instance a row kind for every width) on the lists K3 gives there, at
      each of those widths, timed with its bound and its time by stage
-     (memset, count, scatter, tile, fold: ``profiling.subtile_stage_ms``);
+     (memset, count, scatter, tile, fold: ``profiling.sweep_stage_ms``);
      K8 (the quantized-row sweep) on the chunk route's phase-1 lists,
-     timed against K4 on the same lists. K7 and K8 all 8 columns bit for
+     timed against K4 on the same lists and by stage, with two bounds: the
+     cull bound (what its group boxes need: ``q16_cull_needs``; the kernels
+     line's ``bound_ms``) and the row bound (every primitive of each
+     sequentially visited row; ``row_bound_ms`` there), and on
+     the grazing set (rays aimed at every vertex of small and large
+     quantized chunks at +-1,200 units, along the axes and grazing). K7 and K8 all 8 columns bit for
      bit equal to their plain versions (``sweep_plain`` at the sub-tile
      width, ``sweep_q16_plain``); K3 timed at CS 32.
    - K1 and K2 with their pid output (the winner's lane, which the
@@ -468,7 +473,21 @@ OPS = {"planar_closest": 36, "sphere_closest": 38, "sphere_root": 9,
        "visit_sweep_sphere_row": 4,
        # K8's row: K4's 57 and the dequantization (corner: a product and a
        # sum per axis; edges: a difference and a product per axis and edge)
-       "visit_sweep_q16_row": 57 + 18}
+       "visit_sweep_q16_row": 57 + 18,
+       # K8's row stage (csrc/visit_sweep.cu q16_group_box), per primitive of
+       # a row beyond its constants: three compares of the normal with 0,
+       # |eu|^2 and |ev|^2 (5 each), S^2 (a product and a divide), its
+       # compare and max, four square roots, L, and per axis r_i + s_i
+       # (two divides, a sum), S times it, nu_i (a divide), S times it and
+       # the pad's two terms (3 and 4): 61; a group leader's corners, B, A
+       # and C (33 a group of 32, rounded up to 1 a primitive). Its tile
+       # stage per (visit, live group): the limit, three pads (a product and
+       # a sum), six face t (a difference, a sum or difference and a
+       # product), the entry's and exit's five min / max each, two compares
+       # (37); per visit the origin's magnitude and three reciprocals with
+       # their compares (8)
+       "visit_sweep_q16_box": 61 + 1, "visit_sweep_q16_group": 37,
+       "visit_sweep_q16_visit": 8}
 # K4's count before its redesign: the whole test, constants included, per
 # pair; its bound is printed beside the new one
 OPS_PER_PAIR_BEFORE = {"planar": 130, "sphere": 50}
@@ -803,6 +822,103 @@ def sweep_needs(rays, ids, nears, best, table, tri, sphere, step=16_384):
     return visits, int(torch.unique(torch.cat(rows)).numel()), more
 
 
+def q16_cull_needs(rays, ids, nears, best, q, tri, step=16_384):
+    """What K8's cull needs of one call's inputs, the sequential sweep
+    replayed with its group boxes (``fused_sweep.q16_group_boxes`` and
+    ``q16_group_slab``): (visited (ray, slot) pairs, (visit, live group)
+    slab tests, (ray, primitive) pairs tested: the groups a visit enters
+    before its running minimum, that is, exit >= tmin and entry <= the
+    smaller of the running best t and the row's minimum over the groups
+    before; of those, the pairs that take the edge tests: a plane whose t
+    lies in [tmin, that limit])."""
+    K, _, C = q.words.shape
+    G = C // fsw.Q16_GROUP
+    boxes = fsw.q16_group_boxes(q.words, q.lo, q.scale, fsw.Q16_PAD, tri)
+    cid = ids.clamp(0, K - 1)
+    org, dirs = rays[:, 0:3], rays[:, 3:6]
+    t_run = best[:, 0].clone()
+    visits = slabs = tested = edges = 0
+    for s in range(ids.shape[1]):
+        vis = torch.nonzero(nears[:, s] < t_run)[:, 0]
+        visits += vis.numel()
+        for a in range(0, vis.numel(), step):
+            r = vis[a:a + step]
+            k = cid[r, s]
+            n = r.numel()
+            row = fsw.dequant_q16(q.words[k], q.lo[k], q.scale[k])
+            ts, _ = fsw._planar_slot(org[r], dirs[r], row, TMIN, t_run[r], tri)
+            gmin = ts.reshape(n, G, fsw.Q16_GROUP).amin(-1)
+            before = torch.cat([t_run[r][:, None], gmin[:, :-1]], 1).cummin(1).values
+            blo, bhi, A, Cp, live = (x[k] for x in boxes)
+            entry, exit_ = fsw.q16_group_slab(rays[r], blo, bhi, A, Cp)
+            enter = live & (exit_ >= TMIN) & (entry <= before)
+            slabs += int(live.sum())
+            tested += int(enter.sum()) * fsw.Q16_GROUP
+            nrm = torch.cross(row[:, 3:6], row[:, 6:9], dim=1)
+            un = nrm * torch.rsqrt(torch.clamp((nrm * nrm).sum(1, keepdim=True), min=1e-30))
+            d_n = (un * dirs[r][:, :, None]).sum(1)
+            t = ((un * row[:, 0:3]).sum(1) - (un * org[r][:, :, None]).sum(1)) / d_n
+            lim = before.repeat_interleave(fsw.Q16_GROUP, 1)
+            edges += int(((d_n.abs() > 1e-20) & (t >= TMIN) & (t <= lim)
+                          & enter.repeat_interleave(fsw.Q16_GROUP, 1)).sum())
+            t_run[r] = torch.minimum(t_run[r], ts.amin(1))
+    return visits, slabs, tested, edges
+
+
+def q16_cull_bound(rays, ids, nears, best, q, tri):
+    """K8's bound at what its cull needs (``q16_cull_needs``): the row
+    bound's bytes; operations per visit, per slab test, per tested pair
+    and edge test, and per primitive of each distinct row visited (its
+    constants, dequantization and group boxes). -> (bound, needs)."""
+    R, V = ids.shape
+    C = q.words.shape[2]
+    needs = q16_cull_needs(rays, ids, nears, best, q, tri)
+    visits, slabs, tested, edges = needs
+    rows = int(torch.unique(ids.clamp(0, q.words.shape[0] - 1)[nears < best[:, :1]]).numel())
+    nbytes = 4 * (8 * R + 2 * R * V + 8 * R + 8 * R) + rows * 4 * (fsw.Q16_WORDS * C + 6)
+    ops = (visits * OPS["visit_sweep_q16_visit"] + slabs * OPS["visit_sweep_q16_group"]
+           + tested * OPS["visit_sweep_planar"] + edges * OPS["visit_sweep_planar_edges"]
+           + rows * C * (OPS["visit_sweep_q16_row"] + OPS["visit_sweep_q16_box"]))
+    return bound(nbytes, ops), needs
+
+
+def q16_grazing_check(dev):
+    """K8 against its plain version, all 8 columns bit for bit, on the
+    grazing set (``procgen.grazing_table`` and ``vertex_rays``: rays aimed
+    at every vertex of 6 small and large chunks at +-1,200 units, from
+    random directions, along the axes and grazing), triangles and quads:
+    slots (aimed-at chunk, the next, the aimed-at again, id -1), every near
+    0, the input best t inf or 2 (the vertex lies at t = 1); two more
+    chunks get no visit. Returns the largest error (0 when bit-equal)."""
+    err = 0.0
+    for kind in ("tri", "quad"):
+        corner, eu, ev, act, lo, hi = procgen.grazing_table(kind == "quad", K=8)
+        t = lambda x: torch.as_tensor(x, device=dev)
+        q = perray.planar_q16(ch.PlanarChunks(
+            t(corner), t(eu), t(ev), torch.zeros(act.shape, dtype=torch.int32, device=dev),
+            t(act), t(lo), t(hi)))
+        org, dirs, chunk = procgen.vertex_rays(q.words.cpu().numpy(), q.lo.cpu().numpy(),
+                                               q.scale.cpu().numpy(), kind == "quad")
+        keep = np.nonzero(chunk < 6)[0]
+        org, dirs, chunk = t(org[keep]), t(dirs[keep]), t(chunk[keep])
+        R = chunk.numel()
+        ids = torch.stack([chunk, (chunk + 1) % 6, chunk, torch.full_like(chunk, -1)], 1)
+        ids = ids.to(torch.int32).contiguous()
+        nears = torch.zeros((R, 4), device=dev)
+        t_in = torch.where(torch.arange(R, device=dev) % 2 == 0, INF, 2.0)
+        z = torch.zeros_like(t_in)
+        best = fsw.pack_best_planar(t_in, torch.zeros_like(org), z, z, z.int(), z.int())
+        rays = fsw.pack_rays(org, dirs)
+        got = fsw.sweep_q16_kernel(rays, ids, nears, best, q.words, q.lo, q.scale, TMIN,
+                                   kind == "tri")
+        ref = fsw.sweep_q16_plain(rays, ids, nears, best, q.words, q.lo, q.scale, TMIN,
+                                  kind == "tri")
+        err = max(err, sweep_compare(f"K8 {kind}, grazing set ({R} rays aimed at vertices, "
+                                     "on axes and grazing, +-1,200 units)", got, ref,
+                                     best[:, 0], False))
+    return err
+
+
 def sweep_check(label, rays, ids, nears, best, table, tri, sphere, timed=False,
                 kernel=fsw.sweep_kernel, plain=fsw.sweep_plain, q16=None):
     """K4 (or ``kernel``: K7 on sub-tile rows) against its plain version on
@@ -1082,8 +1198,8 @@ def phase_modes_kernels(scene, cam, dev):
             kernel=fsw.sweep_sub_kernel)
         errs["visit_sweep_sub"] = max(errs.get("visit_sweep_sub", 0.0), err)
         times[f"visit_sweep_sub_cs{CS}"], bounds[f"visit_sweep_sub_cs{CS}"] = ms, b
-        stages = profiling.subtile_stage_ms(srays, got[0], got[1], best, sub.table, TMIN,
-                                            True, False)
+        stages = profiling.sweep_stage_ms(lambda n: fsw.sweep_sub_kernel(
+            srays, got[0], got[1], best, sub.table, TMIN, True, False, stages=n))
         log(f"  K7 at CS {CS} by stage (CUDA events, each stage added in turn): "
             + ", ".join(f"{name} {1e3 * t:.2f} us" for name, t in stages.items())
             + f"; sum {1e3 * sum(stages.values()):.2f} us, whole call {1e3 * ms[0]:.2f} us, "
@@ -1109,12 +1225,29 @@ def phase_modes_kernels(scene, cam, dev):
     err, ms, b = sweep_check("K8 triangles, colonnade quantized rows, phase 1", srays, ids,
                              nears, best, fsw.dequant_q16(q.words, q.lo, q.scale), True,
                              False, timed=True, q16=(q.words, q.lo, q.scale))
-    errs["visit_sweep_q16"] = err
-    times["visit_sweep_q16"], bounds["visit_sweep_q16"] = ms, b
+    errs["visit_sweep_q16"] = max(err, q16_grazing_check(dev))
+    times["visit_sweep_q16"], bounds["visit_sweep_q16_row"] = ms, b
     k4 = cuda_ms(lambda: fsw.sweep_kernel(srays, ids, nears, best, tabs.table, TMIN, True,
                                           False))
     log(f"  K8 against K4 on the same lists, in this call: K8 {ms[0]:.4f} ms, K4 "
         f"{k4:.4f} ms ({ms[0] / k4:.3f}x)")
+    # K8's bound: what its group boxes need (the row bound, kept beside it
+    # to compare with K4 and with K8 before its redesign, tests every
+    # primitive of each sequentially visited row)
+    cull, (visits, slabs, tested, edges) = q16_cull_bound(srays, ids, nears, best, q, True)
+    bounds["visit_sweep_q16"] = cull
+    stages = profiling.sweep_stage_ms(lambda n: fsw.sweep_q16_kernel(
+        srays, ids, nears, best, q.words, q.lo, q.scale, TMIN, True, stages=n))
+    log(f"  K8 cull: of {visits} sequentially visited slots, {slabs} (visit, live "
+        f"group) slab tests, {tested} (ray, primitive) pairs tested in the groups "
+        f"entered (against {visits * q.words.shape[2]} in whole rows), {edges} take "
+        f"the edge tests; bound at this count {1e3 * cull[0]:.2f} us ({cull[1]}), "
+        f"share {cull[0] / ms[0]:.3f}; row bound {1e3 * b[0]:.2f} us, share "
+        f"{b[0] / ms[0]:.3f}")
+    log("  K8 by stage (CUDA events, each stage added in turn; its tile stage is "
+        "q16_derive, the row stage, and q16_sweep_tile): "
+        + ", ".join(f"{name} {1e3 * t:.2f} us" for name, t in stages.items())
+        + f"; sum {1e3 * sum(stages.values()):.2f} us, whole call {1e3 * ms[0]:.2f} us")
     torch.cuda.synchronize()
     log(f"  the opt-in routes' kernels took {time.perf_counter() - t_phase:.1f} s")
     return errs, times, bounds
@@ -3730,6 +3863,9 @@ def main() -> int:
         f"{times[f'visit_sweep_sub_cs{CS}'][1]:.4f} ms, bound "
         f"{bounds[f'visit_sweep_sub_cs{CS}'][0]:.4f} ms "
         f"({bounds[f'visit_sweep_sub_cs{CS}'][1]})" for CS in SUB_WIDTHS_CHECKED))
+    log(f"  K8 at the colonnade's phase 1: kernel {times['visit_sweep_q16'][0]:.4f} ms, "
+        f"cull bound {bounds['visit_sweep_q16'][0]:.4f} ms ({bounds['visit_sweep_q16'][1]}), "
+        f"row bound {bounds['visit_sweep_q16_row'][0]:.4f} ms")
     log("  K4 triangles at the colonnade's later phases: " + "; ".join(
         f"{k.replace('visit_sweep_', '')}: kernel {v[0]:.4f} ms, plain {v[1]:.4f} ms, "
         f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
@@ -3775,7 +3911,11 @@ def main() -> int:
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                         "plain_ms_on": plain_on,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms.get(name), "sharded_launches": sharded})
+                        "library_ms": library_ms.get(name), "sharded_launches": sharded,
+                        # K8: its bound before its cull too (every primitive
+                        # of each sequentially visited row)
+                        **({"row_bound_ms": bounds["visit_sweep_q16_row"][0]}
+                           if name == "visit_sweep_q16" else {})})
     n_cornell = cam.width * cam.height * cam.spp
     log(f"full workloads: cornell_box {cornell_secs:.3f} s, {cornell_rps:.1f} camera "
         f"rays/s; colonnade {col_secs:.3f} s, {col_rps:.1f} camera rays/s; "

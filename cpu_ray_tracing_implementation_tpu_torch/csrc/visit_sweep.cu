@@ -18,15 +18,17 @@
 //    scatter and tile stages (see "K7" below) and K4's fold at that width;
 //    entry crt_subtile_sweep. Plain version: sweep_plain at that width;
 //    wrapper fused_sweep.sweep_sub.
-//  - K8, K4's four stages on quantized rows (CRT_SWEEP_Q16; it replaces the
-//    XLA _planar_sweep_q16, perray.py:786-873): planar rows of 5 x 128 u32
+//  - K8, the quantized-row sweep (CRT_SWEEP_Q16; it replaces the XLA
+//    _planar_sweep_q16, perray.py:786-873): planar rows of 5 x 128 u32
 //    words, each two u16 coordinates of the three points (corner,
 //    corner + eu, corner + ev) in the chunk box's frame, with the chunk's
-//    lo and scale [K, 3]. Stage 3 dequantizes a row once while deriving
-//    its constants (corner = lo + q0 * scale, edges = (q1 - q0) * scale,
-//    integer differences times the scale), stage 4 the winner's lane the
-//    same way; every later operation is K4's on those floats. 2,560 bytes
-//    a row against 4,608. Plain version: sweep_q16_plain; wrapper
+//    lo and scale [K, 3]. K4's count, scatter and fold, and a tile stage
+//    of its own that skips groups of primitives by their boxes (see "K8"
+//    below). A row is dequantized once while its constants are derived
+//    (corner = lo + q0 * scale, edges = (q1 - q0) * scale, integer
+//    differences times the scale), the winner's lane in the fold the same
+//    way; every later operation is K4's on those floats. 2,560 bytes a row
+//    against 4,608. Plain version: sweep_q16_plain; wrapper
 //    fused_sweep.sweep_q16.
 //
 // Layouts are the Pallas kernel's: rays [R,8] f32 (org xyz, dir xyz, time,
@@ -146,6 +148,123 @@
 //      each candidate to the lane's running minimum gained nothing.
 //   4. fold: K4's, at the width passed at run time.
 // One instance per row kind (quad, triangle, sphere) serves every width.
+//
+// K8 (redesigned for Hopper after K4's stages on quantized rows, whose tile
+// stage tested all 128 primitives of every visited row and met its four
+// warps in shared memory every 32 visits: 0.82 of its time). Same memset,
+// count, scatter and fold as K4; then, as stage 3, two kernels:
+//   - q16_derive, the row stage: a block per chunk with visits derives its
+//     128 primitives' constants (load_row's and planar_constants'
+//     operations, so the same bits) and the box of each group of 32 (G = 4
+//     a row; a warp each): the integer min and max per axis of the group's
+//     u16 points (q0, q1, q2 and, for quads, q1 + q2 - q0), one warp
+//     reduction each, dequantized as lo + q * scale, with a pad per axis
+//     (below). Primitives whose float normal n = eu x ev is zero are left
+//     out of the boxes: with n = 0 the unit normal is 0, so |n.d| > 1e-20
+//     fails and they are never hit (the inactive lanes, quantized with
+//     three equal points, are such); a group of them only is flagged and
+//     skipped by the whole warp. Into the scratch, once a row.
+//   - q16_sweep_tile: a warp a tile, lane v taking visit v and testing
+//     primitives 0..127 in order, its first-index minimum kept in the lane:
+//     no block barrier, no merge. The row's constants and boxes are read
+//     from the row stage's output, the same address in every lane (one
+//     read a warp, through the read-only cache). Before a group each lane
+//     slab-tests the padded box for its ray (the reciprocal 1/d per
+//     component in IEEE division, once a visit; a zero or subnormal
+//     component takes +-inf, the sign of d: then (lo - o) * inv is +-inf,
+//     and NaN only for a ray in the plane of a padded face, where fminf /
+//     fmaxf drop it and the axis admits no t, which is exact because no hit
+//     point lies on a padded face, below). A lane enters when exit >= tmin
+//     and entry <= its limit, the smaller of t_in and its running minimum
+//     so far, and tests nothing in a group it does not enter; the warp
+//     skips a group no lane enters (__any_sync). Its candidates are limited
+//     to that limit too. The tiles are claimed, not split into ranges: a
+//     warp claims a run of consecutive tiles, its length what was left at
+//     its last claim over twice the warps (at least 1: guided
+//     self-scheduling), with an atomic add on the count stage's ticket; the
+//     row stage gives each tile's chunk and slots.
+// Measured on the H100 (PERF.md section 6), each step against the last:
+// with a contiguous range of tiles a warp (as K7's) and its rows derived
+// in its own shared memory, the skip made tiles unequal (the median warp
+// done at 89 us, the slowest at 190, which the stage waited for); claimed
+// tiles balanced the warps but put a row's derivation in nearly every tile
+// (15,083 for 15,108 tiles), which the row stage does once a row (311 at
+// colonnade phase 1); an isotropic pad (growing with S on every axis) left
+// the colonnade's groups of column sides unskipped. Groups of 16
+// primitives, the limit t_in alone, and the next tile's visits loaded
+// during the current one measured no faster.
+//
+// K8's skip is exact. Every t that planar_t accepts lies in the group's
+// padded [entry, exit] as the lane computes it (the lemma below). A group
+// the lane does not enter therefore holds no candidate t >= tmin with t <=
+// t_in, and none with t < its running minimum bt: entry > bt means every
+// candidate there has t > bt, which the strict t < bt of the in-order
+// minimum rejects, as it rejects t == bt of a later lane (the first index
+// wins). Limiting candidates to min(t_in, bt) rejects only such t. So the
+// lane's (t, lane) is the row's first-index minimum over [tmin, t_in], K4's
+// stage 3 result, and the exactness note above carries over. Rays with a
+// non-finite component accept no finite t (the plane or edge terms turn
+// inf or NaN and fail their compares), and t = inf never lowers a minimum.
+//
+// The pad (lemma). Let c, eu, ev be a primitive's dequantized floats,
+// n* = eu x ev exactly, S = |eu| |ev| / |n*| (1 / sin of their angle), L =
+// |eu| + |ev|, and per axis i r_i = |eu_i| / |eu|, s_i = |ev_i| / |ev|,
+// nu_i = |n*_i| / |n*|; R = max |o_i| of the ray's origin, B the largest
+// magnitude of the group box's corners and of the chunk's lo, u = 2^-24.
+// With float rounding at every multiply and add (__fmul_rn etc., no
+// contraction):
+//   - the computed normal n is within 2.5 u |eu| |ev| of n*, so its
+//     direction within 2.5 u S; w = n / |n|^2 (with |n|^2 >= 1e-20: the
+//     case below it ends this note) then has w.n* within 2.5 u S
+//     + 5 u of 1, and the rounded cross products ev x w, w x eu are off by
+//     at most 1.5 u S in units of the edges: the computed frame reads the
+//     point c + alpha eu + beta ev as an a within (4 u S + 5 u) |alpha| +
+//     1.5 u S |beta| |ev| / |eu| of alpha, and b likewise;
+//   - t = (n.c - n.o) / n.d leaves the point p = o + t d (exact) within
+//     5.1 u M of the computed plane, M = |o| + |t d| + |c|, whatever n.d
+//     (the errors of the numerator and of n.d both scale with t n.d), so
+//     within that plus 2.5 u S |p - c| of the exact one;
+//   - a = (ev x w).(p - c) is evaluated within 4.1 u |ev x w| M + u, and
+//     |ev x w| |eu| = S; b likewise, with |w x eu| |ev| = S.
+// Write p - q = (alpha - a) eu + (beta - b) ev + gamma n*/|n*| (the exact
+// frame), where the accepted (a, b) name the point q = c + a eu + b ev of
+// the primitive. Per axis, with M <= sqrt 3 (2 R + 2 B) + X, X = |p - q|:
+// |p_i - q_i| <= u S (r_i + s_i) (14.3 (R + B) + 11.5 L) + nu_i u (17.7 (R
+// + B) + 2.5 S L) + kappa_i X, kappa_i <= 7.6 u S (r_i + s_i + nu_i). Summing
+// over the axes bounds X by 1.02 u S (94 (R + B) + 61 L) + 43 u (R + B)
+// while S <= Q16_MAX_SKEW = 8192 (the sum of the kappa_i stays below 0.02),
+// so kappa_i X <= u S (r_i + s_i + nu_i) (0.35 (R + B) + 0.23 L) there. The
+// group box holds q up to the rounding of the dequantization (6 u B: a
+// corner is lo + q0 * scale rounded twice, an edge (q1 - q0) * scale once).
+// The slab test computes each face's t as ((lo - pad) - o) * (1 / d), three
+// roundings: the exact t of the face moved inward by at most 3.01 u |lo -
+// pad - o|; the padded face itself is rounded once. So p lies inside the
+// box as the lane tests it, and t in [entry, exit], whenever on every axis
+//   pad_i >= u S (r_i + s_i) (18.1 (R + B) + 11.8 L) + u S nu_i (0.35 (R +
+//            B) + 2.73 L) + 31.8 u (R + B) + 5 u pad_i.
+// Its terms grow with S only along the edges (r_i, s_i) and, through the
+// tilt of the computed plane, along the normal (nu_i): the colonnade's
+// column sides, 500 units long and 0.09 wide (S up to 6,045), err along
+// their length, not across it. K8 pads axis i by
+//   u (64 S (r_i + s_i) (R + B + L) + 8 S nu_i L + S nu_i (R + B) + 128 (R +
+//   B)),
+// each term over 2.8 times what it covers. Per group the warp keeps the
+// maxima A_i of 64 S (r_i + s_i) + S nu_i + 128 and D_i of (64 S (r_i + s_i)
+// + 8 S nu_i) L over its live primitives, C_i = u (A_i B + D_i), and a lane
+// pads axis i by C_i + u A_i R. A group holding a primitive with S > 8192
+// (or S^2 not finite: |n|^2 underflowed) gets an infinite pad and is never
+// skipped. So does one holding a primitive whose computed |n|^2 is below
+// 1e-20, where the lemma's w = n / |n|^2 does not hold: planar_constants
+// (and the plain version) divide by max(|n|^2, 1e-20), which shrinks a and
+// b by |n|^2 / 1e-20, so planar_t accepts the primitive scaled about its
+// corner by 1e-20 / |n|^2 (a one-quantum triangle of a chunk 0.01 wide,
+// |n|^2 ~ 5e-28, is hit ~3 units from its corner), far outside its box.
+// S stays near 1 there, so the skew limit alone would not catch it.
+// fused_sweep.q16_group_boxes builds the same boxes in PyTorch:
+// tests/test_torch_cuda.py holds the row stage's boxes, pads and flags to
+// them bit for bit, and tests/test_torch_sweep.py every candidate of the
+// plain slot test inside them, on grazing and axis-aligned rays and on
+// quantum-wide primitives.
 
 #include <cuda_runtime.h>
 
@@ -162,6 +281,12 @@ constexpr int SMEM_CHUNKS = 8192;   // up to this K a block counts in shared mem
 constexpr int SCAN_PER = 8;         // chunks per thread in a round of the scan
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(TILE_THREADS == CHUNK_C, "a tile block derives one primitive per thread");
+// K8's tile stage (see "K8" above): a group box per warp's worth of
+// primitives (G = 4 a row), the pad's factor, and the S above which a
+// group is never skipped
+constexpr int Q16_GROUPS = CHUNK_C / TILE;
+constexpr float Q16_U = 1.0f / 16777216.0f;  // u = 2^-24, the pad's unit
+constexpr float Q16_MAX_SKEW = 8192.f;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -198,30 +323,50 @@ struct Rows {
   const float* qscale;
 };
 
-// Lane ``lane`` of row k as the F floats the tests read. A quantized row is
-// dequantized: corner = lo + q0 * scale, eu = (q1 - q0) * scale, ev = (q2 -
+// The u16 coordinates q0 xyz, q1 xyz, q2 xyz of a primitive's five words.
+__device__ __forceinline__ void q16_unpack(const unsigned (&w)[5], int (&q)[9]) {
+#pragma unroll
+  for (int f = 0; f < 5; ++f) {
+    q[2 * f] = static_cast<int>(w[f] >> 16);
+    if (f < 4) q[2 * f + 1] = static_cast<int>(w[f] & 0xffffu);
+  }
+}
+
+// The words of lane ``lane`` of quantized row k.
+__device__ __forceinline__ void q16_words(const Rows& rows, int k, int lane, int C,
+                                          unsigned (&w)[5]) {
+  const unsigned* src =
+      reinterpret_cast<const unsigned*>(rows.table) + (size_t)k * 5 * C + lane;
+#pragma unroll
+  for (int f = 0; f < 5; ++f) w[f] = src[f * C];
+}
+
+// Dequantized: corner = lo + q0 * scale, eu = (q1 - q0) * scale, ev = (q2 -
 // q0) * scale per axis, the u16 coordinates exact in f32 (the plain
 // version's dequant_q16, operation for operation).
+__device__ __forceinline__ void q16_dequant(const Rows& rows, int k, const int (&q)[9],
+                                            float (&x)[9]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float lo = rows.qlo[3 * (size_t)k + a], sc = rows.qscale[3 * (size_t)k + a];
+    const float q0 = static_cast<float>(q[a]);
+    x[a] = __fadd_rn(lo, __fmul_rn(q0, sc));
+    x[3 + a] = __fmul_rn(__fsub_rn(static_cast<float>(q[3 + a]), q0), sc);
+    x[6 + a] = __fmul_rn(__fsub_rn(static_cast<float>(q[6 + a]), q0), sc);
+  }
+}
+
+// Lane ``lane`` of row k as the F floats the tests read; a quantized row
+// dequantized.
 template <bool SPHERE, bool Q16>
 __device__ __forceinline__ void load_row(const Rows& rows, int k, int lane, int C,
                                          float (&x)[SPHERE ? 7 : 9]) {
   if constexpr (Q16) {
-    const unsigned* src =
-        reinterpret_cast<const unsigned*>(rows.table) + (size_t)k * 5 * C + lane;
-    float q[10];
-#pragma unroll
-    for (int f = 0; f < 5; ++f) {
-      const unsigned w = src[f * C];
-      q[2 * f] = static_cast<float>(w >> 16);
-      q[2 * f + 1] = static_cast<float>(w & 0xffffu);
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float lo = rows.qlo[3 * (size_t)k + a], sc = rows.qscale[3 * (size_t)k + a];
-      x[a] = __fadd_rn(lo, __fmul_rn(q[a], sc));
-      x[3 + a] = __fmul_rn(__fsub_rn(q[3 + a], q[a]), sc);
-      x[6 + a] = __fmul_rn(__fsub_rn(q[6 + a], q[a]), sc);
-    }
+    unsigned w[5];
+    int q[9];
+    q16_words(rows, k, lane, C, w);
+    q16_unpack(w, q);
+    q16_dequant(rows, k, q, x);
   } else {
     constexpr int F = SPHERE ? 7 : 9;
     const float* src = rows.table + (size_t)k * F * C + lane;
@@ -488,7 +633,7 @@ __device__ __forceinline__ int chunk_of_tile(const int* __restrict__ tile_off, i
 // threads read one primitive's constants at a time: a shared-memory
 // broadcast); the GROUP partial minima meet in shared memory and the first
 // warp takes their first-index minimum in order.
-template <bool SPHERE, bool TRIANGLE, bool Q16>
+template <bool SPHERE, bool TRIANGLE>
 __global__ void __launch_bounds__(TILE_THREADS)
 visit_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best,
                  const Rows rows, int V, int K, float tmin,
@@ -514,7 +659,7 @@ visit_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best,
       __syncthreads();  // every thread is done with the last row's
       {
         float x[SPHERE ? 7 : 9];
-        load_row<SPHERE, Q16>(rows, k, threadIdx.x, C, x);
+        load_row<SPHERE, false>(rows, k, threadIdx.x, C, x);
         if constexpr (SPHERE) {
           cst[threadIdx.x * Q] = make_float4(x[0], x[1], x[2], mul(x[6], x[6]));
           cst[threadIdx.x * Q + 1] =
@@ -666,6 +811,222 @@ subtile_sweep_tile(const float* __restrict__ rays, const float* __restrict__ bes
   }
 }
 
+// K8's stage 3 (see "K8" above). The group box of the 32 primitives p =
+// base + lane of row k (q: the lane's u16 coordinates, x: its dequantized
+// floats): box = ((lo xyz, A.x), (hi xyz, A.y), (C xyz, A.z)), a ray with
+// origin magnitude R padding axis i by C_i + A_i R; returns whether the
+// group holds a primitive with a non-zero normal (warp-uniform).
+template <bool TRIANGLE>
+__device__ __forceinline__ bool q16_group_box(const Rows& rows, int k, const int (&q)[9],
+                                              const float (&x)[9], float4 (&box)[3]) {
+  constexpr int BIGQ = 1 << 30;
+  const float eux = x[3], euy = x[4], euz = x[5], evx = x[6], evy = x[7], evz = x[8];
+  const float nx = sub(mul(euy, evz), mul(euz, evy));
+  const float ny = sub(mul(euz, evx), mul(eux, evz));
+  const float nz = sub(mul(eux, evy), mul(euy, evx));
+  const bool live = nx != 0.f || ny != 0.f || nz != 0.f;
+  // S = |eu| |ev| / |n| (at least 1); a primitive beyond Q16_MAX_SKEW (S^2
+  // inf or NaN too: |n|^2 underflowed), or whose |n|^2 (planar_constants'
+  // bits) lies below the 1e-20 that w = n / |n|^2 clamps it to, makes its
+  // group unskippable
+  const float nn = dot3(nx, ny, nz, nx, ny, nz);
+  const float uu = dot3(eux, euy, euz, eux, euy, euz);
+  const float vv = dot3(evx, evy, evz, evx, evy, evz);
+  const float ratio = mul(uu, vv) / nn;
+  const bool ill = live && (!(ratio <= Q16_MAX_SKEW * Q16_MAX_SKEW) || nn < 1e-20f);
+  const bool ok = live && !ill;
+  const float skew = sqrtf(fmaxf(ratio, 1.f));
+  const float lu = sqrtf(uu), lv = sqrtf(vv), ln = sqrtf(nn), len = add(lu, lv);
+  // the pad's terms in units of u (see "The pad"): A_i = 64 S (r_i + s_i) +
+  // S nu_i + 128 and D_i = (64 S (r_i + s_i) + 8 S nu_i) L, maxima over the
+  // group as non-negative floats (their bits order as ints)
+  const float eu_a[3] = {eux, euy, euz}, ev_a[3] = {evx, evy, evz}, n_a[3] = {nx, ny, nz};
+  float pa[3], pd[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float srs = mul(skew, add(fabsf(eu_a[a]) / lu, fabsf(ev_a[a]) / lv));
+    const float snu = mul(skew, fabsf(n_a[a]) / ln);
+    const float ta = ok ? add(add(mul(64.f, srs), snu), 128.f) : 0.f;
+    const float td = ok ? mul(add(mul(64.f, srs), mul(8.f, snu)), len) : 0.f;
+    pa[a] = __int_as_float(__reduce_max_sync(FULL, __float_as_int(ta)));
+    pd[a] = __int_as_float(__reduce_max_sync(FULL, __float_as_int(td)));
+  }
+  int lo[3], hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    int mn = min(q[a], min(q[3 + a], q[6 + a]));
+    int mx = max(q[a], max(q[3 + a], q[6 + a]));
+    if constexpr (!TRIANGLE) {  // the fourth corner, q1 + q2 - q0
+      const int q3 = q[3 + a] + q[6 + a] - q[a];
+      mn = min(mn, q3);
+      mx = max(mx, q3);
+    }
+    lo[a] = __reduce_min_sync(FULL, live ? mn : BIGQ);
+    hi[a] = __reduce_max_sync(FULL, live ? mx : -BIGQ);
+  }
+  const bool g_live = __any_sync(FULL, live);
+  const bool g_ill = __any_sync(FULL, ill);
+  if ((threadIdx.x & 31) == 0 && g_live) {
+    float bl[3], bh[3], B = 0.f, A[3], C[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float l = rows.qlo[3 * (size_t)k + a], sc = rows.qscale[3 * (size_t)k + a];
+      bl[a] = add(l, mul(static_cast<float>(lo[a]), sc));
+      bh[a] = add(l, mul(static_cast<float>(hi[a]), sc));
+      B = fmaxf(B, fmaxf(fabsf(l), fmaxf(fabsf(bl[a]), fabsf(bh[a]))));
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {  // pad_i = u (A_i (R + B) + D_i) = C_i + A_i R
+      A[a] = g_ill ? 0.f : mul(Q16_U, pa[a]);
+      C[a] = g_ill ? inf() : mul(Q16_U, add(mul(pa[a], B), pd[a]));
+    }
+    box[0] = make_float4(bl[0], bl[1], bl[2], A[0]);
+    box[1] = make_float4(bh[0], bh[1], bh[2], A[1]);
+    box[2] = make_float4(C[0], C[1], C[2], A[2]);
+  }
+  return g_live;
+}
+
+// 1/d in IEEE division for a normal d; +-inf (the sign of d) for a zero or
+// subnormal one
+__device__ __forceinline__ float q16_recip(float d) {
+  return fabsf(d) >= 1.17549435e-38f ? 1.0f / d : copysignf(inf(), d);
+}
+
+// K8's row stage, before its tile stage: a block per chunk with visits
+// derives the row's constants (one primitive a thread, load_row's and
+// planar_constants' operations, so the same bits) and its four group boxes
+// (a warp each) into the scratch: cst [K, 3, 128] float4, boxes [K, G, 3]
+// float4, a flag per group, set where it holds a primitive that can be
+// hit, and for each of its tiles (chunk, first slot, slots).
+template <bool TRIANGLE>
+__global__ void __launch_bounds__(CHUNK_C)
+q16_derive(const Rows rows, const int* __restrict__ bucket_off,
+           const int* __restrict__ tile_off, float4* __restrict__ cst,
+           float4* __restrict__ boxes, int* __restrict__ live, int4* __restrict__ tiles) {
+  const int k = blockIdx.x;
+  const int b0 = bucket_off[k], b1 = bucket_off[k + 1];
+  if (b0 == b1) return;  // no visit: the row is never read
+  const int p = threadIdx.x;
+  for (int t = tile_off[k] + p, t0 = tile_off[k]; t < tile_off[k + 1]; t += CHUNK_C) {
+    const int first = b0 + (t - t0) * TILE;  // each tile: (chunk, first slot, slots)
+    tiles[t] = make_int4(k, first, min(TILE, b1 - first), 0);
+  }
+  unsigned wd[5];
+  int q[9];
+  float x[9];
+  q16_words(rows, k, p, CHUNK_C, wd);
+  q16_unpack(wd, q);
+  q16_dequant(rows, k, q, x);
+  const Planar pc = planar_constants(x);
+  float4* c = cst + (size_t)k * 3 * CHUNK_C;
+  c[p] = pc.n;
+  c[CHUNK_C + p] = pc.ew;
+  c[2 * CHUNK_C + p] = pc.we;
+  float4 box[3];
+  const bool g_live = q16_group_box<TRIANGLE>(rows, k, q, x, box);
+  const int g = (size_t)k * Q16_GROUPS + (p >> 5);
+  if ((p & 31) == 0) {
+    live[g] = g_live;
+    if (g_live) {
+      boxes[3 * (size_t)g] = box[0];
+      boxes[3 * (size_t)g + 1] = box[1];
+      boxes[3 * (size_t)g + 2] = box[2];
+    }
+  }
+}
+
+// K8's tile stage: each visit's first-index minimum (t, lane) over its
+// quantized row against the input best t. The warps share the tiles by
+// guided self-scheduling: a warp claims a run of consecutive tiles, a share
+// of what was left at its last claim over twice the warps (at least one
+// tile), by an atomic add on the count stage's ticket, which that stage
+// leaves at its block count ``base``. Lane v takes visit v of each tile
+// (the row stage gives its chunk and slots) and reads the row's constants
+// and boxes from the row stage's output, the same address in every lane
+// (one read a warp, through the read-only cache), skipping the groups its
+// ray does not enter.
+template <bool TRIANGLE>
+__global__ void __launch_bounds__(TILE_THREADS)
+q16_sweep_tile(const float* __restrict__ rays, const float* __restrict__ best, int V, int K,
+               float tmin, const int* __restrict__ tile_off,
+               const int* __restrict__ visits, const float4* __restrict__ cst,
+               const float4* __restrict__ boxes, const int* __restrict__ live_g,
+               const int4* __restrict__ tiles, unsigned* ticket, unsigned base,
+               int2* __restrict__ slots) {
+  const int v = threadIdx.x & 31;
+  const int total = tile_off[K];
+  const int warps = gridDim.x * GROUP;
+  // a claim of lane 0: [start, start + n), broadcast by the caller
+  auto claim = [&](int left, int& n) {
+    n = max(1, left / (2 * warps));
+    return (int)(atomicAdd(ticket, (unsigned)n) - base);
+  };
+  int start = 0, n = 0;
+  if (v == 0) start = claim(total, n);
+  start = __shfl_sync(FULL, start, 0);
+  n = __shfl_sync(FULL, n, 0);
+  while (start < total) {  // uniform across the warp
+    int next = 0, next_n = 0;
+    const int stop = min(total, start + n);
+    for (int tile = start; tile < stop; ++tile) {
+      const int4 ti = tiles[tile];
+      const int k = ti.x;
+      const int i = v < ti.z ? visits[ti.y + v] : -1;
+      unsigned live = 0;  // the row's groups with a primitive that can be hit
+#pragma unroll
+      for (int g = 0; g < Q16_GROUPS; ++g)
+        if (live_g[(size_t)k * Q16_GROUPS + g]) live |= 1u << g;
+      const float4* ck = cst + (size_t)k * 3 * CHUNK_C;
+      const float4* bk = boxes + (size_t)k * Q16_GROUPS * 3;
+      const bool has = i >= 0;
+      Ray ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float t_in = 0.f;
+      if (has) {
+        ray = load_ray(rays, i / V);
+        t_in = best[(size_t)(i / V) * 8];
+      }
+      const float ro = fmaxf(fabsf(ray.ox), fmaxf(fabsf(ray.oy), fabsf(ray.oz)));
+      const float ix = q16_recip(ray.dx), iy = q16_recip(ray.dy), iz = q16_recip(ray.dz);
+      float bt = inf();
+      int bj = 0;
+#pragma unroll 1
+      for (int g = 0; g < Q16_GROUPS; ++g) {
+        if (!((live >> g) & 1u)) continue;
+        const float4 lo_g = bk[3 * g], hi_g = bk[3 * g + 1], cp_g = bk[3 * g + 2];  // uniform: no primitive there can be hit
+        const float lim = fminf(t_in, bt);
+        const float px = add(cp_g.x, mul(lo_g.w, ro)), py = add(cp_g.y, mul(hi_g.w, ro)),
+                    pz = add(cp_g.z, mul(cp_g.w, ro));
+        const float t0x = mul(sub(sub(lo_g.x, px), ray.ox), ix);
+        const float t1x = mul(sub(add(hi_g.x, px), ray.ox), ix);
+        const float t0y = mul(sub(sub(lo_g.y, py), ray.oy), iy);
+        const float t1y = mul(sub(add(hi_g.y, py), ray.oy), iy);
+        const float t0z = mul(sub(sub(lo_g.z, pz), ray.oz), iz);
+        const float t1z = mul(sub(add(hi_g.z, pz), ray.oz), iz);
+        const float entry = fmaxf(fminf(t0x, t1x), fmaxf(fminf(t0y, t1y), fminf(t0z, t1z)));
+        const float leave = fminf(fmaxf(t0x, t1x), fminf(fmaxf(t0y, t1y), fmaxf(t0z, t1z)));
+        const bool enter = has && leave >= tmin && entry <= lim;
+        if (!__any_sync(FULL, enter)) continue;
+        if (enter) {
+#pragma unroll 4
+          for (int j = g * TILE; j < (g + 1) * TILE; ++j) {
+            const Planar pc{ck[j], ck[CHUNK_C + j], ck[2 * CHUNK_C + j]};
+            const float t = planar_t<TRIANGLE>(pc, ray, tmin, lim);
+            if (t < bt) {
+              bt = t;
+              bj = j;
+            }
+          }
+        }
+      }
+      if (has) slots[i] = make_int2(__float_as_int(bt), bj);
+    }
+    if (v == 0) next = claim(total - start, next_n);
+    start = __shfl_sync(FULL, next, 0);
+    n = __shfl_sync(FULL, next_n, 0);
+  }
+}
+
 // Stage 4: the in-order fold per ray and the winner's columns. The nears of
 // a ray come as float4s where V is a multiple of 4 and they are aligned.
 // The row width is C, or (C = 0, K7) ``width``; ids are clipped to K rows.
@@ -729,6 +1090,15 @@ visit_sweep_fold(const float* __restrict__ rays, const int* __restrict__ ids,
   reinterpret_cast<float4*>(out)[2 * r + 1] = make_float4(b[4], b[5], b[6], b[7]);
 }
 
+// K8's row stage output (the scratch after K4's layout; crt_visit_sweep's
+// note)
+struct Q16Scratch {
+  float4* cst;
+  float4* boxes;
+  int* live;
+  int4* tiles;
+};
+
 // blocks of a persistent tile grid: as many of ``kernel`` as fit on the
 // card at once (``cached`` per device)
 template <typename Kernel>
@@ -742,23 +1112,53 @@ int resident_grid(Kernel kernel, int dev, int (&cached)[64]) {
   return grid;
 }
 
-// Stages 3 and 4 of K4 (Q16 = false) or K8 (Q16 = true).
-template <bool SPHERE, bool TRIANGLE, bool Q16>
+// Stages 3 and 4 of K4, up to ``stages``.
+template <bool SPHERE, bool TRIANGLE>
 cudaError_t launch_rows(const float* rays, const int* ids, const float* nears,
                         const float* best, const Rows& rows, int R, int V, int K,
                         float tmin, const int* bucket_off, const int* tile_off,
-                        const int* visits, int2* slots, float* out, cudaStream_t st) {
+                        const int* visits, int2* slots, float* out, int stages,
+                        cudaStream_t st) {
   static int cached[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const int grid = resident_grid(visit_sweep_tile<SPHERE, TRIANGLE, Q16>, dev, cached);
+  const int grid = resident_grid(visit_sweep_tile<SPHERE, TRIANGLE>, dev, cached);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  visit_sweep_tile<SPHERE, TRIANGLE, Q16><<<grid, TILE_THREADS, 0, st>>>(
+  visit_sweep_tile<SPHERE, TRIANGLE><<<grid, TILE_THREADS, 0, st>>>(
       rays, best, rows, V, K, tmin, bucket_off, tile_off, visits, slots);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess || stages < 4) return err;
   const int ray_blocks = (R + RAY_THREADS - 1) / RAY_THREADS;
-  visit_sweep_fold<SPHERE, Q16, CHUNK_C><<<ray_blocks, RAY_THREADS, 0, st>>>(
+  visit_sweep_fold<SPHERE, false, CHUNK_C><<<ray_blocks, RAY_THREADS, 0, st>>>(
+      rays, ids, nears, best, rows, R, V, K, CHUNK_C, slots, out);
+  return cudaGetLastError();
+}
+
+// Stages 3 and 4 of K8: its row stage into ``q16``, q16_sweep_tile (its
+// tiles claimed on ``ticket`` from ``base``) and K4's fold on quantized
+// rows, up to ``stages``.
+template <bool TRIANGLE>
+cudaError_t launch_q16(const float* rays, const int* ids, const float* nears,
+                       const float* best, const Rows& rows, int R, int V, int K,
+                       float tmin, const int* bucket_off, const int* tile_off,
+                       const int* visits, unsigned* ticket, unsigned base,
+                       const Q16Scratch& q16, int2* slots, float* out, int stages,
+                       cudaStream_t st) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int grid = resident_grid(q16_sweep_tile<TRIANGLE>, dev, cached);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  q16_derive<TRIANGLE><<<K, CHUNK_C, 0, st>>>(rows, bucket_off, tile_off, q16.cst,
+                                              q16.boxes, q16.live, q16.tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  q16_sweep_tile<TRIANGLE><<<grid, TILE_THREADS, 0, st>>>(
+      rays, best, V, K, tmin, tile_off, visits, q16.cst, q16.boxes, q16.live, q16.tiles,
+      ticket, base, slots);
+  if ((err = cudaGetLastError()) != cudaSuccess || stages < 4) return err;
+  const int ray_blocks = (R + RAY_THREADS - 1) / RAY_THREADS;
+  visit_sweep_fold<false, true, CHUNK_C><<<ray_blocks, RAY_THREADS, 0, st>>>(
       rays, ids, nears, best, rows, R, V, K, CHUNK_C, slots, out);
   return cudaGetLastError();
 }
@@ -807,6 +1207,16 @@ cudaError_t sweep_stages(const float* rays, const int* ids, const float* nears,
   if (err != cudaSuccess || stages < 1) return err;
   const int slot_blocks = (int)((RV + RAY_THREADS - 1) / RAY_THREADS);
   const int count_blocks = (int)((RV + SLOTS * RAY_THREADS - 1) / (SLOTS * RAY_THREADS));
+  // the ticket after the count: one per count block (0 without slots)
+  const unsigned base = RV > 0 ? (unsigned)count_blocks : 0u;
+  // K8's rows after that layout, from a 16-byte boundary (the wrapper
+  // allocates them only for K8)
+  float4* q16_cst = reinterpret_cast<float4*>(
+      scratch + (((size_t)(tile_off + K + 1 - scratch) + 3) & ~(size_t)3));
+  float4* q16_boxes = q16_cst + (size_t)K * 3 * CHUNK_C;
+  int* q16_live = reinterpret_cast<int*>(q16_boxes + (size_t)K * Q16_GROUPS * 3);
+  const Q16Scratch q16s{q16_cst, q16_boxes, q16_live,
+                        reinterpret_cast<int4*>(q16_live + (size_t)K * Q16_GROUPS)};
   const size_t local = K <= SMEM_CHUNKS ? K * sizeof(int) : 0;
   if (RV > 0) {
     visit_sweep_count<SUB><<<count_blocks, RAY_THREADS, local, st>>>(
@@ -835,18 +1245,18 @@ cudaError_t sweep_stages(const float* rays, const int* ids, const float* nears,
   } else {
     if (q16)
       return triangle
-          ? launch_rows<false, true, true>(rays, ids, nears, best, rows, R, V, K, tmin,
-                                           bucket_off, tile_off, visits, slots, out, st)
-          : launch_rows<false, false, true>(rays, ids, nears, best, rows, R, V, K, tmin,
-                                            bucket_off, tile_off, visits, slots, out, st);
+          ? launch_q16<true>(rays, ids, nears, best, rows, R, V, K, tmin, bucket_off,
+                             tile_off, visits, ticket, base, q16s, slots, out, stages, st)
+          : launch_q16<false>(rays, ids, nears, best, rows, R, V, K, tmin, bucket_off,
+                              tile_off, visits, ticket, base, q16s, slots, out, stages, st);
     if (sphere)
-      return launch_rows<true, false, false>(rays, ids, nears, best, rows, R, V, K, tmin,
-                                             bucket_off, tile_off, visits, slots, out, st);
+      return launch_rows<true, false>(rays, ids, nears, best, rows, R, V, K, tmin,
+                                      bucket_off, tile_off, visits, slots, out, stages, st);
     if (triangle)
-      return launch_rows<false, true, false>(rays, ids, nears, best, rows, R, V, K, tmin,
-                                             bucket_off, tile_off, visits, slots, out, st);
-    return launch_rows<false, false, false>(rays, ids, nears, best, rows, R, V, K, tmin,
-                                            bucket_off, tile_off, visits, slots, out, st);
+      return launch_rows<false, true>(rays, ids, nears, best, rows, R, V, K, tmin,
+                                      bucket_off, tile_off, visits, slots, out, stages, st);
+    return launch_rows<false, false>(rays, ids, nears, best, rows, R, V, K, tmin,
+                                     bucket_off, tile_off, visits, slots, out, stages, st);
   }
 }
 
@@ -856,23 +1266,29 @@ cudaError_t sweep_stages(const float* rays, const int* ids, const float* nears,
 // wrapper's fused_sweep.scratch_ints, K the buckets: chunks): (t, lane) per
 // slot as 2*R*V ints, the visit list (R*V), the counts (K) and the
 // last-block ticket (1), the bucket offsets (K+1) and the tile offsets
-// (K+1). Each returns the first CUDA error of the memset and the four
-// launches (0 = success), or cudaErrorInvalidValue for rows it does not
-// take; nothing synchronises.
+// (K+1); for K8 then, from the next multiple of 4 ints (the scratch itself
+// 16-byte aligned), its rows: constants [K, 3, 128] and boxes [K, 4, 3]
+// float4, a flag per group [K, 4] int32 and the tiles' (chunk, first slot,
+// slots, 0) [R*V/32 + K] int4, 3 + 1,592 K + 4 (R*V/32) int32 more in all
+// (fused_sweep.q16_scratch_ints). Each returns the first CUDA error of the
+// memset and the launches (0 = success), or cudaErrorInvalidValue for rows
+// it does not take; nothing synchronises.
 
 // K4 (q16 = 0): table [K, F, 128] f32, qlo and qscale unused. K8 (q16 = 1,
 // planar): table [K, 5, 128] u32 words, qlo and qscale [K, 3] f32.
+// ``stages`` as sweep_stages (4 for the sweep; fewer only to time the
+// stages apart).
 extern "C" int crt_visit_sweep(const float* rays, const int* ids,
                                const float* nears, const float* best,
                                const float* table, const float* qlo,
                                const float* qscale, int R, int V, int K, int C,
                                float tmin, int triangle, int sphere, int q16,
-                               int* scratch, float* out, void* stream) {
+                               int* scratch, float* out, int stages, void* stream) {
   if (C != CHUNK_C || (q16 && sphere)) return static_cast<int>(cudaErrorInvalidValue);
   const Rows rows{table, qlo, qscale};
   return static_cast<int>(sweep_stages<false>(
       rays, ids, nears, best, rows, R, V, K, K, 0, tmin, triangle != 0, sphere != 0,
-      q16 != 0, scratch, out, 4, static_cast<cudaStream_t>(stream)));
+      q16 != 0, scratch, out, stages, static_cast<cudaStream_t>(stream)));
 }
 
 // K7: table [KG, F, CS] f32, CS = 128 >> shift (shift 0..7), KG a multiple

@@ -131,7 +131,8 @@ def load() -> ctypes.CDLL:
                                             f32, i32, i32, ptr, ptr, ptr, ptr]
             lib.crt_cull_select.restype = i32
             lib.crt_visit_sweep.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                            i32, i32, f32, i32, i32, i32, ptr, ptr, ptr]
+                                            i32, i32, f32, i32, i32, i32, ptr, ptr, i32,
+                                            ptr]
             lib.crt_visit_sweep.restype = i32
             lib.crt_subtile_sweep.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                               f32, i32, i32, ptr, ptr, i32, ptr]

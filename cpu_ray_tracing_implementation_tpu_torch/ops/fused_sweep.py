@@ -34,11 +34,14 @@ Two opt-in routes of ``ops/perray.py`` sweep other rows:
   sub-tiles from its constants derived once (C entry
   ``crt_subtile_sweep``). Its plain version is ``sweep_plain`` at that
   width.
-- K8 (``sweep_q16``, ``CRT_SWEEP_Q16``, planar; K4's stages, C entry
-  ``crt_visit_sweep``): rows of 5 x 128 u32 words
-  holding the u16 coordinates of each primitive's three points in its
-  chunk box's frame (``ops/perray.py:planar_q16``), dequantized per row
-  (``dequant_q16``) and then tested as K4 tests a float row. Its plain
+- K8 (``sweep_q16``, ``CRT_SWEEP_Q16``, planar; K4's count, scatter and
+  fold and a tile stage of its own, C entry ``crt_visit_sweep``): rows of
+  5 x 128 u32 words holding the u16 coordinates of each primitive's three
+  points in its chunk box's frame (``ops/perray.py:planar_q16``),
+  dequantized per row (``dequant_q16``) and then tested as K4 tests a
+  float row, except that a ray skips each group of 32 primitives whose
+  padded box it does not enter (``q16_group_boxes``, ``q16_group_slab``:
+  the kernel's boxes and slab test in PyTorch, for the tests). Its plain
   version is ``sweep_q16_plain``.
 
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
@@ -63,6 +66,12 @@ LAUNCHES = {"visit_sweep": 0, "visit_sweep_sub": 0, "visit_sweep_q16": 0}
 # the chunk width; K7's sub-tile widths divide it
 CHUNK_C = 128
 Q16_WORDS = 5
+# K8's group boxes (csrc/visit_sweep.cu, "K8"): primitives a group, the
+# pad's unit u, and the 1/sin of the edges' angle above which a group is
+# never skipped
+Q16_GROUP = 32
+Q16_PAD = 2.0 ** -24
+Q16_MAX_SKEW = 8192.0
 
 
 def reset_launches() -> None:
@@ -224,6 +233,87 @@ def sweep_q16_plain(rays, ids, nears, best, words, lo, scale, tmin: float,
                              triangle, False)
 
 
+def q16_group_boxes(words, lo, scale, pad: float = Q16_PAD, triangle: bool = True):
+    """K8's group boxes of quantized rows [K, 5, C] (int32 words, [K, 3]
+    lo and scale), built with the kernel's operations (for the tests and
+    chip_smoke.py; the kernel builds its own) -> (blo [K, G, 3], bhi
+    [K, G, 3], A [K, G, 3], C [K, G, 3], live [K, G] bool), G = C /
+    Q16_GROUP: the integer min and max per axis of each group's u16 points
+    (quads with their fourth corner q1 + q2 - q0), over the primitives
+    whose normal is not zero (``live``: a group that has one), dequantized
+    as lo + q * scale. A ray whose origin's largest |component| is R tests
+    them padded on axis i by C_i + A_i R (the note in csrc/visit_sweep.cu:
+    ``pad`` u times the group's maxima of 64 S (r_i + s_i) + S nu_i + 128
+    and, with B, of (64 S (r_i + s_i) + 8 S nu_i) L); C = inf where a
+    primitive's S = |eu| |ev| / |n| exceeds ``Q16_MAX_SKEW`` or its |n|^2
+    lies below 1e-20 (never skipped). ``pad`` 0 pads nothing, not even
+    those groups."""
+    K, _, C = words.shape
+    group = Q16_GROUP
+    G = C // group
+    q = torch.stack([(words >> 16) & 0xFFFF, words & 0xFFFF], dim=-2).flatten(-3, -2)
+    q0, q1, q2 = q[:, 0:3], q[:, 3:6], q[:, 6:9]                       # [K, 3, C]
+    pts = torch.stack([q0, q1, q2] if triangle else [q0, q1, q2, q1 + q2 - q0])
+    x = dequant_q16(words, lo, scale)
+    eu, ev = x[:, 3:6], x[:, 6:9]
+    n = torch.stack(_cross3(eu[:, 0], eu[:, 1], eu[:, 2], ev[:, 0], ev[:, 1], ev[:, 2]), 1)
+    live = (n != 0).any(1)                                             # [K, C]
+    nn = n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1] + n[:, 2] * n[:, 2]
+    uu = eu[:, 0] * eu[:, 0] + eu[:, 1] * eu[:, 1] + eu[:, 2] * eu[:, 2]
+    vv = ev[:, 0] * ev[:, 0] + ev[:, 1] * ev[:, 1] + ev[:, 2] * ev[:, 2]
+    ratio = uu * vv / nn
+    # beyond the skew limit, or |n|^2 below the 1e-20 that w = n / |n|^2
+    # clamps it to (the primitive is then hit scaled up about its corner)
+    ill = live & (~(ratio <= Q16_MAX_SKEW * Q16_MAX_SKEW) | (nn < 1e-20))
+    ok = (live & ~ill)[:, None]
+    skew = torch.sqrt(torch.fmax(ratio, torch.ones_like(ratio)))[:, None]
+    lu, lv, ln = (torch.sqrt(y)[:, None] for y in (uu, vv, nn))
+    srs = skew * (eu.abs() / lu + ev.abs() / lv)                       # [K, 3, C]
+    snu = skew * (n.abs() / ln)
+    zero = torch.zeros_like(srs)
+    ta = torch.where(ok, 64.0 * srs + snu + 128.0, zero)
+    td = torch.where(ok, (64.0 * srs + 8.0 * snu) * (lu + lv), zero)
+    a_max = ta.reshape(K, 3, G, group).amax(-1).transpose(1, 2)        # [K, G, 3]
+    d_max = td.reshape(K, 3, G, group).amax(-1).transpose(1, 2)
+    big = torch.full_like(q0, 1 << 30)
+    qlo = torch.where(live[:, None], pts.amin(0), big).reshape(K, 3, G, group).amin(-1)
+    qhi = torch.where(live[:, None], pts.amax(0), -big).reshape(K, 3, G, group).amax(-1)
+    blo = (lo[:, :, None] + qlo.to(torch.float32) * scale[:, :, None]).transpose(1, 2)
+    bhi = (lo[:, :, None] + qhi.to(torch.float32) * scale[:, :, None]).transpose(1, 2)
+    B = torch.maximum(lo.abs().amax(-1, keepdim=True),
+                      torch.maximum(blo.abs(), bhi.abs()).amax(-1))[..., None]
+    A = pad * a_max
+    Cp = pad * (a_max * B + d_max)
+    if pad > 0:
+        g_ill = ill.reshape(K, G, group).any(-1)[..., None]
+        A = torch.where(g_ill, torch.zeros_like(A), A)
+        Cp = torch.where(g_ill, torch.full_like(Cp, INF), Cp)
+    return (blo.contiguous(), bhi.contiguous(), A.contiguous(), Cp.contiguous(),
+            live.reshape(K, G, group).any(-1))
+
+
+def q16_group_slab(rays, blo, bhi, A, C):
+    """K8's slab test, with the kernel's operations, of each ray [R, 8]
+    against G padded group boxes gathered per ray (blo, bhi, A, C
+    [R, G, 3]) -> (entry, exit) [R, G]. A lane enters a group when exit >=
+    tmin and entry <= its limit; every candidate t of the group's
+    primitives lies in [entry, exit] (the note in csrc/visit_sweep.cu)."""
+    o = rays[:, None, 0:3]
+    d = rays[:, 3:6]
+    ro = torch.fmax(o[..., 0].abs(), torch.fmax(o[..., 1].abs(), o[..., 2].abs()))
+    # 1/d in IEEE division (a Python scalar over a tensor would be its
+    # reciprocal times the scalar); +-inf for a zero or subnormal component
+    inv = torch.where(d.abs() >= 2.0 ** -126, torch.ones_like(d) / d,
+                      torch.copysign(torch.full_like(d, INF), d))[:, None, :]
+    pad = C + A * ro[..., None]
+    t0 = ((blo - pad) - o) * inv
+    t1 = ((bhi + pad) - o) * inv
+    near, far = torch.fmin(t0, t1), torch.fmax(t0, t1)
+    entry = torch.fmax(near[..., 0], torch.fmax(near[..., 1], near[..., 2]))
+    exit_ = torch.fmin(far[..., 0], torch.fmin(far[..., 1], far[..., 2]))
+    return entry, exit_
+
+
 def _sweep_rows_plain(rays, ids, nears, best, K, C, gather, tmin, triangle, sphere,
                       stats=None):
     """The sequential sweep over rows ``gather(chunk ids [R]) -> [R, F, C]``."""
@@ -334,6 +424,15 @@ def scratch_ints(R: int, V: int, K: int) -> int:
     return 3 * R * V + 3 * K + 3
 
 
+def q16_scratch_ints(R: int, V: int, K: int) -> int:
+    """The int32 K8 adds after ``scratch_ints``: up to 3 to reach a 16-byte
+    boundary, each row's constants [3, 128] and group boxes [4, 3] as
+    float4 and a flag per group, and each tile's (chunk, first slot, slots,
+    0) as int4, at most R*V/32 + K tiles (its row stage's output)."""
+    return (3 + K * (3 * CHUNK_C * 4 + (CHUNK_C // Q16_GROUP) * (3 * 4 + 1))
+            + 4 * (R * V // 32 + K))
+
+
 def _launch(kid, name, rays, ids, nears, best, table, tmin, triangle, sphere,
             frames=None, shift=None, stages=4):
     """Check one call's inputs and launch ``name`` on CUDA tensors -> the
@@ -358,7 +457,8 @@ def _launch(kid, name, rays, ids, nears, best, table, tmin, triangle, sphere,
         raise ValueError("the sweep's inputs lie on different devices")
     out = torch.empty((R, 8), dtype=torch.float32, device=rays.device)
     buckets = K if shift is None else K >> shift
-    scratch = torch.empty((scratch_ints(R, V, buckets),), dtype=torch.int32,
+    extra = q16_scratch_ints(R, V, K) if frames else 0
+    scratch = torch.empty((scratch_ints(R, V, buckets) + extra,), dtype=torch.int32,
                           device=rays.device)
     lib = build.load()
     ptrs = (rays.data_ptr(), ids.data_ptr(), nears.data_ptr(), best.data_ptr(),
@@ -373,7 +473,7 @@ def _launch(kid, name, rays, ids, nears, best, table, tmin, triangle, sphere,
             lo, scale = (x.data_ptr() for x in frames) if frames else (None, None)
             err = lib.crt_visit_sweep(*ptrs, lo, scale, R, V, K, C, *flags,
                                       int(frames is not None), scratch.data_ptr(),
-                                      out.data_ptr(), stream)
+                                      out.data_ptr(), stages, stream)
     if err != 0:
         raise RuntimeError(f"crt_{name} launch failed: {build.error_string(err)}")
     LAUNCHES[name] += 1
@@ -400,7 +500,7 @@ def sweep_sub_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
     (whole chunks: G = 128/CS rows each) -> the updated [R, 8] best.
     ``stages`` below 4 runs the memset and only that many of its stages,
     leaving the result unwritten: only to time the stages apart
-    (``utils/profiling.subtile_stage_ms``)."""
+    (``utils/profiling.sweep_stage_ms``)."""
     KG, F, CS = table.shape
     if F != _rows(sphere) or CS < 1 or CHUNK_C % CS or KG % (CHUNK_C // CS):
         raise ValueError(f"K7 takes [K*G, {_rows(sphere)}, CS] tables, CS dividing "
@@ -412,15 +512,17 @@ def sweep_sub_kernel(rays, ids, nears, best, table, tmin: float, triangle: bool,
 
 
 def sweep_q16_kernel(rays, ids, nears, best, words, lo, scale, tmin: float,
-                     triangle: bool) -> torch.Tensor:
+                     triangle: bool, stages: int = 4) -> torch.Tensor:
     """Kernel K8 on CUDA tensors: the planar sweep over quantized rows
     [K, 5, 128] int32 with their chunks' lo and scale [K, 3] -> the updated
-    [R, 8] best."""
+    [R, 8] best. ``stages`` below 4 runs the memset and only that many of
+    its stages, leaving the result unwritten: only to time the stages apart
+    (``utils/profiling.sweep_stage_ms``)."""
     if tuple(words.shape[1:]) != (Q16_WORDS, 128):
         raise ValueError(f"K8 takes [K, {Q16_WORDS}, 128] word tables, got "
                          f"{tuple(words.shape)}")
     return _launch("K8", "visit_sweep_q16", rays, ids, nears, best, words, tmin,
-                   triangle, False, frames=(lo, scale))
+                   triangle, False, frames=(lo, scale), stages=stages)
 
 
 def sweep(rays, ids, nears, best, table, tmin: float, triangle: bool,

@@ -45,11 +45,15 @@ others reversed, this one, imports the package of its own checkout (which
 builds its own kernels), launches its kernels on those inputs (K1 and K2
 with and without pid) and times each case with CUDA events (K1 and K2 at
 their primary rays; K4, K7 and K8 also by stage, from torch.profiler's
-device time of their memset and four kernels over 10 calls, after every
+device time of their memset and kernels over 10 calls, each stage
+with the kernels it counted (K8's row stage q16_derive and its tile
+stage q16_sweep_tile), after every
 other timing of the turn; K6 with its visits per tile, mean and max, and its
 registers per thread and resident blocks per SM: ``packet.kernel_info``,
 or, for a checkout without it, the same CUDA queries on its
-``csrc/packet_closest.cu`` built into a probe). Every turn's outputs (all
+``csrc/packet_closest.cu`` built into a probe). A checkout's first turn
+prints the registers, spills and shared memory of its K4 and K8 tile
+kernels and K8's row stage from its build's ``-Xptxas -v`` report. Every turn's outputs (all
 8 rows or columns, the pid, and K6's visits) must equal the first turn's
 bit for bit: the ones that differ are printed. Prints the card's name and
 power limit, then one line per turn and case.
@@ -67,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -299,9 +304,13 @@ def turn(root: str, inputs: Path, outputs: Path) -> None:
     ``root`` on the saved inputs. Saves their outputs; prints the times."""
     sys.path[0] = root
     from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+    from cpu_ray_tracing_implementation_tpu_torch.kernels import build
     from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
     from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import cuda_ms
 
+    build.load()  # the first turn of a checkout builds it: its ptxas report
+    for line in ptxas_lines(build.last_build.get("log", "")):
+        print(f"{root}: {line}", flush=True)
     saved = torch.load(inputs)
     outs = {}
     for label, name, kernel in CASES:
@@ -330,29 +339,61 @@ def turn(root: str, inputs: Path, outputs: Path) -> None:
     # last: the profiler slows what runs after it in its process
     for label in sweeps:
         us = stage_us(sweep_call(fsw, label, saved[label]))
-        print(f"{label}, {root}, by stage: " + ", ".join(
-            f"{s} {t:.2f} us" for s, t in us.items()), flush=True)
+        print(f"{label}, {root}, by stage: {stage_text(*us)}", flush=True)
     torch.save(outs, outputs)
 
 
-# a sweep kernel's memset and four kernels, each named by its stage
-SWEEP_STAGES = ("memset", "count", "scatter", "tile", "fold")
+# a sweep kernel's memset and kernels, each named by its stage (K8's row
+# stage, q16_derive, runs between its scatter and tile stages)
+SWEEP_STAGES = ("memset", "count", "scatter", "derive", "tile", "fold")
 
 
-def stage_us(call, n=10) -> dict:
-    """{stage: device us a call} of a sweep kernel (K4, K7 or K8) over
-    ``n`` calls under torch.profiler, each kernel (its name without
-    namespaces, return type and arguments) counted to the stage it names."""
+def stage_us(call, n=10) -> tuple[dict, dict]:
+    """({stage: device us a call}, {stage: the kernels counted to it}) of a
+    sweep kernel (K4, K7 or K8) over ``n`` calls under torch.profiler,
+    each kernel (its name without namespaces, return type and arguments)
+    counted to the stage it names (K8's row and tile stages are
+    ``q16_derive`` and ``q16_sweep_tile``, K4's tile stage
+    ``visit_sweep_tile``)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             call()
         torch.cuda.synchronize()
     out = dict.fromkeys(SWEEP_STAGES, 0.0)
+    names = {s: set() for s in SWEEP_STAGES}
     for e in prof.key_averages():
-        name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-        stage = next((s for s in SWEEP_STAGES if s in name.split("(")[0].lower()), None)
+        name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+        stage = next((s for s in SWEEP_STAGES if s in name.lower()), None)
         if stage and e.self_device_time_total > 0:
             out[stage] += e.self_device_time_total / n
+            names[stage].add(name.split("<")[0])
+    return out, {s: "+".join(sorted(v)) for s, v in names.items()}
+
+
+def stage_text(us: dict, names: dict) -> str:
+    """``stage_us``'s result as text: "tile (q16_sweep_tile) 60.12 us, ..."."""
+    return ", ".join(f"{s} ({names[s]}) {t:.2f} us" if names.get(s) else f"{s} {t:.2f} us"
+                     for s, t in us.items())
+
+
+def ptxas_lines(log: str,
+                kernels=("visit_sweep_tile", "q16_sweep_tile", "q16_derive")) -> list[str]:
+    """Registers, spills and shared memory of the ``kernels`` instances
+    from an ``nvcc -Xptxas -v`` log: one line each, the template's bool
+    arguments in angle brackets."""
+    out, current, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((k for k in kernels if k in m.group(1)), None)
+            args = re.findall(r"Lb(\d)E", m.group(1).split(name)[1].split("Ev")[0]) if name else []
+            current = f"{name}<{','.join(args)}>" if name else None
+            spill = ""
+        elif current and "spill" in line:
+            spill = line.strip()
+        elif current and "Used" in line and "registers" in line:
+            out.append(f"{current}: {line.split(':', 1)[1].strip()}; {spill}")
+            current = None
     return out
 
 

@@ -252,3 +252,105 @@ def write_gltf(path: str, positions, indices=None, normals=None, uvs=None,
     with open(path, "w") as f:
         json.dump(doc, f)
     return path
+
+
+def grazing_table(quads: bool, K: int = 6, C: int = 128, seed: int = 31):
+    """K chunks of C random triangles (or quads) at +-1,200 units with chunk
+    extents from 0.05 (a u16 quantum of 7.6e-7, below the float spacing
+    there) to 800 units, and one of 0.01 within 1 unit of the origin, to
+    stress a quantized table's group boxes. Lane 32g shares its corner and
+    eu with lane 32g - 1 (an edge shared across groups of 32), lanes 5, 6
+    and 7 are slivers (ev = 2 eu plus ~1e-4, ~1e-2 and ~3e-4 of |eu|
+    across: 1 / sin of their angle ~1e4, ~1e2 and ~3e3, needles like the
+    colonnade's column sides) and lanes 50-52 are dead (eu = ev = 0). In
+    the chunk at the origin lanes 72 and 73 are a quantum wide (eu and ev one
+    quantum along two axes), so |n|^2 falls below the 1e-20 that the plane
+    test clamps it to, and the primitive is hit far beyond its box
+    (``vertex_rays`` aims there). -> float32 (corner, eu, ev [K, C, 3],
+    active [K, C] bool, lo, hi [K, 3]: the live points' box)."""
+    rng = np.random.default_rng(seed)
+    corner, eu, ev = (np.zeros((K, C, 3)) for _ in range(3))
+    for k in range(K):
+        ext = (0.05, 0.5, 30.0, 800.0, 2.0, 0.01)[k % 6]
+        centre = rng.uniform(-1200, 1200, 3) / (1200 if k % 6 == 5 else 1)
+        c = centre + rng.uniform(-ext / 2, ext / 2, (C, 3))
+        a, b = rng.normal(0, ext / 6, (C, 3)), rng.normal(0, ext / 6, (C, 3))
+        for g in range(32, C, 32):
+            c[g], a[g] = c[g - 1], a[g - 1]
+        b[5] = 2 * a[5] + rng.normal(0, 1e-4 * ext / 6, 3)
+        b[6] = 2 * a[6] + rng.normal(0, 1e-2 * ext / 6, 3)
+        b[7] = 2 * a[7] + rng.normal(0, 3e-4 * ext / 6, 3)
+        if k % 6 == 5:  # a quantum wide: set below, once the box is known
+            c[72:74], a[72:74], b[72:74] = centre, 0.0, 0.0
+        corner[k], eu[k], ev[k] = c, a, b
+    active = np.ones((K, C), bool)
+    active[:, 50:53] = False
+    eu[~active] = ev[~active] = 0.0
+    pts = np.stack([corner, corner + eu, corner + ev] + ([corner + eu + ev] if quads else []))
+    lo = np.where(active[..., None], pts.min(0), np.inf).min(1)
+    hi = np.where(active[..., None], pts.max(0), -np.inf).max(1)
+    for k in range(5, K, 6):  # inside the box, which they leave as it is
+        quantum = (hi[k] - lo[k]) / 65535
+        eu[k, 72], ev[k, 72] = quantum * (1, 0, 0), quantum * (0, 1, 0)
+        eu[k, 73], ev[k, 73] = quantum * (0, 0, 1), quantum * (0, 1, 0)
+    f32 = lambda x: np.asarray(x, np.float32)
+    return f32(corner), f32(eu), f32(ev), active, f32(lo), f32(hi)
+
+
+def vertex_rays(words, lo, scale, quads: bool, seed: int = 7):
+    """Rays aimed at every vertex of every primitive of a quantized table
+    (words [K, 5, C] int32 of u16 pairs, lo and scale [K, 3] float32; the
+    vertices dequantized as lo + q0 * scale and (q1 - q0) * scale, each
+    operation rounded in float32), so at each group's extreme vertices and
+    at the ends of shared edges: from random directions 1-600 units away,
+    along an axis (two zero direction components) and grazing (along eu,
+    nearly in the primitive's plane); the direction ends at the vertex
+    (t = 1 there). Then, for each live primitive whose |n|^2 (n = eu x ev,
+    each product and difference rounded in float32) lies below 1e-20, rays
+    at three points of the region the plane test's clamp of |n|^2 to 1e-20
+    makes it hit: c + f (a eu + b ev), f = 1e-20 / |n|^2, (a, b) = (0.25,
+    0.25), (0.6, 0.1) and (0.1, 0.6), each from two random directions 1-50
+    units away and along an axis. -> float32 (org [R, 3], dirs [R, 3]),
+    chunk [R] int64."""
+    rng = np.random.default_rng(seed)
+    w = words.astype(np.int64) & 0xFFFFFFFF
+    q = np.stack([w >> 16, w & 0xFFFF], axis=-2).reshape(w.shape[0], 10, -1)[:, :9]
+    q = q.astype(np.float32).transpose(0, 2, 1)                        # [K, C, 9]
+    s = scale[:, None, :]
+    c = lo[:, None, :] + q[..., 0:3] * s
+    eu, ev = (q[..., 3:6] - q[..., 0:3]) * s, (q[..., 6:9] - q[..., 0:3]) * s
+    verts = np.stack([c, c + eu, c + ev] + ([c + eu + ev] if quads else []), 2)
+    K, C, nv, _ = verts.shape
+    P = verts.reshape(-1, 3)
+    n = P.shape[0]
+    u = rng.normal(size=(n, 3))
+    o_rand = P + rng.uniform(1, 600, (n, 1)) * u / np.linalg.norm(u, axis=1, keepdims=True)
+    axis = np.zeros((n, 3))
+    axis[np.arange(n), rng.integers(0, 3, n)] = rng.choice([-1.0, 1.0], n)
+    o_axis = P - axis * rng.uniform(1, 600, (n, 1))
+    e = np.repeat(eu.reshape(K * C, 1, 3), nv, axis=1).reshape(n, 3).astype(np.float64)
+    e += 1e-3 * np.linalg.norm(e, axis=1, keepdims=True) * rng.normal(size=(n, 3))
+    o_graze = P - e * rng.uniform(1, 50, (n, 1))
+    orgs, dirs = [o_rand, o_axis, o_graze], [P - o_rand, axis, P - o_graze]
+    chunks = [np.tile(np.repeat(np.arange(K), C * nv), 3)]
+    nx = eu[..., 1] * ev[..., 2] - eu[..., 2] * ev[..., 1]
+    ny = eu[..., 2] * ev[..., 0] - eu[..., 0] * ev[..., 2]
+    nz = eu[..., 0] * ev[..., 1] - eu[..., 1] * ev[..., 0]
+    nn = nx * nx + ny * ny + nz * nz
+    kt, lt = np.nonzero((nn < 1e-20) & ((nx != 0) | (ny != 0) | (nz != 0)))
+    if kt.size:
+        f = (1e-20 / nn[kt, lt].astype(np.float64))[:, None, None]
+        ab = np.array([[0.25, 0.25], [0.6, 0.1], [0.1, 0.6]])[None, :, :, None]
+        T = (c[kt, lt][:, None] + f * (ab[:, :, 0] * eu[kt, lt][:, None]
+                                       + ab[:, :, 1] * ev[kt, lt][:, None])).reshape(-1, 3)
+        m = T.shape[0]
+        u = rng.normal(size=(2 * m, 3))
+        o = np.tile(T, (2, 1)) + rng.uniform(1, 50, (2 * m, 1)) * u / np.linalg.norm(
+            u, axis=1, keepdims=True)
+        ax = np.zeros((m, 3))
+        ax[np.arange(m), rng.integers(0, 3, m)] = rng.choice([-1.0, 1.0], m)
+        orgs += [o, T - ax * rng.uniform(1, 50, (m, 1))]
+        dirs += [np.tile(T, (2, 1)) - o, ax]
+        chunks.append(np.tile(np.repeat(kt, 3), 3))
+    org = np.concatenate(orgs).astype(np.float32)
+    return org, np.concatenate(dirs).astype(np.float32), np.concatenate(chunks)

@@ -312,16 +312,18 @@ def kernel_name(key: str) -> str:
     return key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
 
 
-def subtile_stage_ms(rays, ids, nears, best, table, tmin, triangle, sphere) -> dict:
-    """{stage: ms} of one K7 call from CUDA events: the memset alone, then
-    each stage added in turn (``fused_sweep.sweep_sub_kernel``'s
-    ``stages``), the differences of the cumulative times."""
+def sweep_stage_ms(launch) -> dict:
+    """{stage: ms} of one K7 or K8 call from CUDA events: ``launch(n)`` runs
+    the memset and the first n stages (``fused_sweep.sweep_sub_kernel``'s
+    or ``sweep_q16_kernel``'s ``stages``); the memset alone, then each
+    stage added in turn, the differences of the cumulative times. The
+    stages are ``kernel_ab.SWEEP_STAGES`` but K8's row stage, "derive",
+    which its "tile" holds here."""
     from cpu_ray_tracing_implementation_tpu_torch.utils.kernel_ab import SWEEP_STAGES
 
-    cum = [cuda_ms(lambda n=n: fsw.sweep_sub_kernel(rays, ids, nears, best, table, tmin,
-                                                      triangle, sphere, stages=n))
-           for n in range(5)]
-    return {s: cum[i] - (cum[i - 1] if i else 0.0) for i, s in enumerate(SWEEP_STAGES)}
+    names = [s for s in SWEEP_STAGES if s != "derive"]
+    cum = [cuda_ms(lambda n=n: launch(n)) for n in range(len(names))]
+    return {s: cum[i] - (cum[i - 1] if i else 0.0) for i, s in enumerate(names)}
 
 
 def sweep_stages() -> int:
@@ -333,8 +335,8 @@ def sweep_stages() -> int:
     for label, args in kernel_ab.sweep_inputs(torch.device("cuda", 0)).items():
         call = kernel_ab.sweep_call(fsw, label, args)
         ms = cuda_ms(call)
-        print(f"{label}: {1e3 * ms:.2f} us a call; " + ", ".join(
-            f"{s} {us:.2f} us" for s, us in kernel_ab.stage_us(call).items()), flush=True)
+        print(f"{label}: {1e3 * ms:.2f} us a call; "
+              + kernel_ab.stage_text(*kernel_ab.stage_us(call)), flush=True)
     return 0
 
 

@@ -554,10 +554,36 @@ def test_subtile_sweep_kernel_k7_many_subtiles(dev, CS):
     assert bool((ref[:, 0] < best[:, 0]).any())
 
 
+def _q16_grazing_lists(kind, dev):
+    """The grazing set (tests/torch_sweep_cases.py) as K8 lists over 8
+    chunks of which the rays name only the first 6 (chunks 6 and 7 get no
+    visit), shuffled, 5 rays dropped (chunks 0 and 1 end on a partial tile
+    of 32 visits): slot 0 the aimed-at chunk, slot 1 the next, slot 2 the aimed-at
+    one again, slot 3 id -1 (clipped to 0); every near 0; the input best t
+    inf for half the rays and 2 (the aimed-at vertex lies at t = 1) for the
+    others."""
+    q, rays, chunk = cases.q16_grazing(kind, dev, K=8)
+    keep = torch.nonzero(chunk < 6)[5:, 0]
+    keep = keep[torch.randperm(keep.numel(), generator=torch.Generator().manual_seed(3))
+                .to(dev)]
+    rays, chunk = rays[keep].contiguous(), chunk[keep]
+    R = rays.shape[0]
+    ids = torch.stack([chunk, (chunk + 1) % 6, chunk, torch.full_like(chunk, -1)], 1)
+    nears = torch.zeros((R, 4), device=dev)
+    t_in = torch.where(torch.arange(R, device=dev) % 2 == 0, float("inf"), 2.0)
+    z = torch.zeros_like(t_in)
+    best = fsw.pack_best_planar(t_in, torch.zeros((R, 3), device=dev), z, z, z.int(),
+                                z.int())
+    return rays, ids.to(torch.int32).contiguous(), nears, best, q
+
+
 @pytest.mark.parametrize("kind", ["quad", "tri"])
 def test_q16_sweep_kernel_k8_matches_plain(dev, kind):
     """K8 over the quantized rows against ``sweep_q16_plain``, all 8
-    columns bit for bit."""
+    columns bit for bit: on the random scene's K3 lists, and on the grazing
+    set (rays aimed at every vertex, along the axes and grazing, at +-1,200
+    units; partial tiles; chunks with no visit), where its group boxes are
+    tightest."""
     rays, ids, nears, best, tabs, _, cap = _mode_lists(kind, dev, K3_V=16)
     q = tabs.q16()
     fsw.reset_launches()
@@ -569,6 +595,62 @@ def test_q16_sweep_kernel_k8_matches_plain(dev, kind):
     torch.cuda.synchronize()
     assert int((ref[:, 0] < cap).sum()) > 100
     assert torch.equal(cases.bits(got), cases.bits(ref))
+    rays, ids, nears, best, q = _q16_grazing_lists(kind, dev)
+    got = fsw.sweep_q16_kernel(rays, ids, nears, best, q.words, q.lo, q.scale, TMIN,
+                               kind == "tri")
+    ref = fsw.sweep_q16_plain(rays, ids, nears, best, q.words, q.lo, q.scale, TMIN,
+                              kind == "tri")
+    torch.cuda.synchronize()
+    assert int((ref[:, 0] < best[:, 0]).sum()) > rays.shape[0] // 2
+    # some rays hit a quantum-wide primitive beyond its box (its |n|^2 below
+    # the plane test's clamp), which only an unskipped group finds
+    won = ref[:, 0] < best[:, 0]
+    assert bool(cases.q16_thin(q).reshape(-1)[ref[won, 7].long()].any())
+    assert torch.equal(cases.bits(got), cases.bits(ref))
+
+
+@pytest.mark.parametrize("kind", ["quad", "tri"])
+def test_q16_group_boxes_match_kernel_row_stage(dev, kind):
+    """K8's row stage builds the group boxes that ``q16_group_boxes``
+    builds, which the CPU test of the cull holds every candidate in: the
+    boxes, pads and flags it leaves in the scratch (a call through the C
+    entry that stops after the tile stage), bit for bit for every chunk
+    with visits, on the grazing set and the random scene's lists."""
+    from cpu_ray_tracing_implementation_tpu_torch.kernels import build
+
+    tri = kind == "tri"
+    rays, ids, nears, best, tabs, _, _ = _mode_lists(kind, dev, K3_V=16)
+    for rays, ids, nears, best, q in (_q16_grazing_lists(kind, dev),
+                                      (rays, ids, nears, best, tabs.q16())):
+        K, R, V = q.words.shape[0], *ids.shape
+        base = fsw.scratch_ints(R, V, K)
+        scratch = torch.zeros(base + fsw.q16_scratch_ints(R, V, K), dtype=torch.int32,
+                              device=dev)
+        out = torch.empty((R, 8), device=dev)
+        with torch.cuda.device(dev):
+            err = build.load().crt_visit_sweep(
+                rays.data_ptr(), ids.data_ptr(), nears.data_ptr(), best.data_ptr(),
+                q.words.data_ptr(), q.lo.data_ptr(), q.scale.data_ptr(), R, V, K,
+                fsw.CHUNK_C, TMIN, int(tri), 0, 1, scratch.data_ptr(), out.data_ptr(), 3,
+                torch.cuda.current_stream(dev).cuda_stream)
+        assert err == 0
+        torch.cuda.synchronize()
+        # the scratch layout of csrc/visit_sweep.cu's C interface note
+        bucket = scratch[3 * R * V + K + 1:3 * R * V + 2 * K + 2]
+        visited = bucket[1:] > bucket[:-1]
+        G = fsw.CHUNK_C // fsw.Q16_GROUP
+        at = (base + 3) // 4 * 4 + K * 3 * fsw.CHUNK_C * 4
+        box = scratch[at:at + K * G * 12].view(torch.float32).reshape(K, G, 3, 4)
+        live = scratch[at + K * G * 12:at + K * G * 13].reshape(K, G) != 0
+        blo, bhi, A, C, want = fsw.q16_group_boxes(q.words, q.lo, q.scale, fsw.Q16_PAD, tri)
+        assert int(visited.sum()) >= 6
+        assert torch.equal(live[visited], want[visited])
+        m = visited[:, None] & want
+        got = torch.cat([box[:, :, 0, :3], box[:, :, 1, :3], box[:, :, 2, :3],
+                         box[:, :, :, 3]], -1)[m]
+        assert torch.equal(got.view(torch.int32),
+                           torch.cat([blo, bhi, C, A], -1)[m].view(torch.int32))
+        assert bool(torch.isfinite(C[m]).any())
 
 
 @pytest.mark.parametrize("mode", ["CRT_SUBTILE", "CRT_SWEEP_Q16"])

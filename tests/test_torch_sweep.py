@@ -198,3 +198,73 @@ def test_cpu_tensors_launch_nothing_and_kernel_refuses_them():
         "visit_sweep": 0, "visit_sweep_sub": 0, "visit_sweep_q16": 0}
     with pytest.raises(ValueError, match="CUDA"):
         fsw.sweep_kernel(rays, ids, nears, best, table, TMIN, False, False)
+
+
+@pytest.mark.parametrize("kind", ["tri", "quad"])
+def test_q16_group_boxes_hold_every_candidate(kind):
+    """K8's cull is conservative: every candidate t of the plain slot test
+    (``_planar_slot``, unbounded above) lies in its group's padded [entry,
+    exit] as the kernel computes it (``q16_group_boxes``,
+    ``q16_group_slab``), on tests/torch_sweep_cases.py's grazing set: rays
+    aimed at every vertex (the boxes' extreme ones among them) from random
+    directions, along the axes and grazing, on small and large chunks at
+    +-1,200 units with slivers and dead lanes (``procgen.grazing_table``,
+    ``vertex_rays``), and a quantum-wide primitive near the origin, hit by
+    rays aimed where the clamp of |n|^2 to 1e-20 makes it reach. The groups
+    never skipped (infinite pad) are exactly those holding a primitive whose
+    1/sin of its edges' angle exceeds ``Q16_MAX_SKEW`` or whose |n|^2 lies
+    below 1e-20. Without the pad some candidates fall outside: the pad is
+    needed."""
+    q, rays, chunk = cases.q16_grazing(kind, "cpu")
+    tri = kind == "tri"
+    R = rays.shape[0]
+    row = fsw.dequant_q16(q.words[chunk], q.lo[chunk], q.scale[chunk])
+    ts, _ = fsw._planar_slot(rays[:, 0:3], rays[:, 3:6], row, TMIN,
+                             torch.full((R,), float("inf")), tri)
+    cand = torch.isfinite(ts)
+    assert int(cand.sum()) > R // 2
+    group = torch.arange(fsw.CHUNK_C) // fsw.Q16_GROUP
+    outside = {}
+    for pad in (fsw.Q16_PAD, 0.0):
+        blo, bhi, A, C, live = fsw.q16_group_boxes(q.words, q.lo, q.scale, pad, tri)
+        entry, exit_ = fsw.q16_group_slab(rays, blo[chunk], bhi[chunk], A[chunk],
+                                          C[chunk])
+        inside = (entry[:, group] <= ts) & (ts <= exit_[:, group])
+        assert bool(live[chunk][:, group][cand].all())
+        outside[pad] = int((cand & ~inside).sum())
+        if pad:   # never skipped: the groups holding a live S above the limit
+            x = fsw.dequant_q16(q.words, q.lo, q.scale)
+            eu, ev = x[:, 3:6], x[:, 6:9]
+            # the kernel's normal, products and differences rounded on their
+            # own: zero means never hit, and left out
+            n32 = torch.stack(fsw._cross3(*eu.unbind(1), *ev.unbind(1)), 1)
+            eu, ev = eu.double(), ev.double()
+            skew = (eu.norm(dim=1) * ev.norm(dim=1)
+                    / torch.linalg.cross(eu, ev, dim=1).norm(dim=1))
+            thin = cases.q16_thin(q)                    # w = n / |n|^2 clamped
+            ill = ((n32 != 0).any(1) & (skew > fsw.Q16_MAX_SKEW)) | thin
+            never = torch.isinf(C).all(-1)
+            assert torch.equal(never, ill.reshape(-1, 4, fsw.Q16_GROUP).any(-1))
+            assert bool(never.any()) and bool(torch.isfinite(C).any())
+            # the thin primitives are hit, far outside their boxes' unpadded
+            # faces, by the rays aimed at the region the clamp adds
+            assert bool((cand & thin[chunk]).any())
+    assert outside[fsw.Q16_PAD] == 0
+    assert outside[0.0] > 0
+
+
+def test_q16_group_boxes_leave_dead_lanes_out():
+    """A group of dead lanes only (eu = ev = 0: zero normal, never hit) is
+    not live; a live group's box is the integer hull of its live lanes'
+    points, the fourth corner included for quads."""
+    q, _, _ = cases.q16_grazing("quad", "cpu", K=1)
+    words = q.words.clone()
+    words[:, :, 64:96] = words[:, :, 50:51]          # group 2: dead lanes only
+    for tri in (True, False):
+        blo, bhi, _, _, live = fsw.q16_group_boxes(words, q.lo, q.scale, fsw.Q16_PAD, tri)
+        assert live[0].tolist() == [True, True, False, True]
+        x = fsw.dequant_q16(words, q.lo, q.scale)[0]
+        c, eu, ev = x[0:3, 96:], x[3:6, 96:], x[6:9, 96:]
+        pts = torch.stack([c, c + eu, c + ev] + ([] if tri else [c + eu + ev]))
+        assert bool((pts.amin((0, 2)) >= blo[0, 3] - 1e-3).all())
+        assert bool((pts.amax((0, 2)) <= bhi[0, 3] + 1e-3).all())

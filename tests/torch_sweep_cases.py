@@ -105,3 +105,37 @@ def check_case(case: str, got: torch.Tensor, ref: torch.Tensor, best: torch.Tens
     if case == "between":
         between = (nears >= ref[:, :1]) & (nears < best[:, :1])
         assert int(between.sum()) > 0
+
+
+def q16_grazing(kind: str, device, K: int = 6, seed: int = 7):
+    """K8's grazing set: a quantized table of K small and large chunks at
+    +-1,200 units (``procgen.grazing_table``: slivers, dead lanes, edges
+    shared across groups) and rays aimed at every vertex, from random
+    directions, along the axes and grazing (``procgen.vertex_rays``). ->
+    (perray.Q16Tables, rays [R, 8], the chunk each ray aims at [R])."""
+    from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
+    from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
+    from cpu_ray_tracing_implementation_tpu_torch.ops import perray
+    from cpu_ray_tracing_implementation_tpu_torch.utils import procgen
+
+    corner, eu, ev, act, lo, hi = procgen.grazing_table(kind == "quad", K)
+    t = lambda x: torch.as_tensor(x, device=device)
+    q = perray.planar_q16(ch.PlanarChunks(
+        t(corner), t(eu), t(ev), torch.zeros(act.shape, dtype=torch.int32, device=device),
+        t(act), t(lo), t(hi)))
+    org, dirs, chunk = procgen.vertex_rays(q.words.cpu().numpy(), q.lo.cpu().numpy(),
+                                           q.scale.cpu().numpy(), kind == "quad", seed)
+    return q, fsw.pack_rays(t(org), t(dirs)), t(chunk)
+
+
+def q16_thin(q) -> torch.Tensor:
+    """[K, C] bool: the live primitives of quantized tables ``q`` whose
+    |n|^2 (n = eu x ev, each product, difference and sum rounded in
+    float32, as the kernel computes it) lies below the 1e-20 that the plane
+    test clamps it to, so that they are hit beyond their box."""
+    from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
+
+    x = fsw.dequant_q16(q.words, q.lo, q.scale)
+    n = torch.stack(fsw._cross3(*x[:, 3:6].unbind(1), *x[:, 6:9].unbind(1)), 1)
+    nn = n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1] + n[:, 2] * n[:, 2]
+    return (n != 0).any(1) & (nn < 1e-20)
