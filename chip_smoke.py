@@ -114,9 +114,11 @@ Phases (any failure raises and the script exits non-zero):
      chunk, a ray test per tile lane and live primitive of each visited
      chunk), and the plain version's time on the tiles it checks.
    - K5 (gather-sum probe) against its plain version (rel err max |a - b| /
-     (|b| + 1) <= 1e-5) at the probe's defaults (an 11.5 MB table, inside
-     the L2) and with a 738 MB table (K 131,072: device memory), with its
-     time, gathered GB/s, bound and the embedding_bag call's time.
+     (|b| + 1) <= 1e-5, and the count of outputs whose bits differ) at the
+     probe's defaults (an 11.5 MB table, inside the L2) and with a 738 MB
+     table (K 131,072: device memory), with its time, its bound (the named
+     rows, ids and output moved once) and share of it, and the
+     embedding_bag call's time and gathered GB/s (a row per ray and slot).
    Kernel and plain times from CUDA events.
 3. Checks, their launches not counted: cornell_box, three_material_ball,
    random_motion_ball, sponza (the colonnade) and the scenes that need
@@ -412,9 +414,6 @@ KERNELS = {
     "visit_sweep_sub": ("K7", PKG + "visit_sweep.cu", JAX + "ops/perray.py:567"),
     "visit_sweep_q16": ("K8", PKG + "visit_sweep.cu", JAX + "ops/perray.py:840"),
 }
-# K5's two tables: the probe's default (11.5 MB, inside the 50 MB L2) and
-# one of 738 MB, whose random rows come mostly from device memory
-GATHER_KS = (2_048, 131_072)
 # gradient tolerances: the JAX package's replay-against-remat test
 # (tests/test_replay.py:106-112)
 LOSS_RTOL = 1e-4
@@ -1965,14 +1964,15 @@ def phase_gather(dev):
     probe's results (the first at the defaults)."""
     R, _, V, rowf = gather_probe.DEFAULTS
     results = []
-    for K in GATHER_KS:
+    for K in gather_probe.TABLE_ROWS:
         r = gather_probe.measure(R, K, V, rowf, dev)
-        log(f"  K5 {R} rays x {V} slots from a {r['table_mb']:.1f} MB table: kernel "
-            f"{r['ms']:.4f} ms ({r['gbps']:.1f} GB/s gathered), plain "
-            f"{r['plain_ms']:.4f} ms, embedding_bag {r['library_ms']:.4f} ms "
-            f"({r['library_gbps']:.1f} GB/s), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}); rel err {r['rel_err']:.3g} (embedding_bag "
-            f"{r['library_rel_err']:.3g})")
+        log(f"  K5 {R} rays x {V} slots from a {r['table_mb']:.1f} MB table "
+            f"({r['named_rows']} of {K} rows named): kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share {r['share']:.3f}; plain "
+            f"{r['plain_ms']:.4f} ms; embedding_bag {r['library_ms']:.4f} ms "
+            f"({r['library_gbps']:.1f} GB/s gathered, a row per ray and slot); rel err "
+            f"{r['rel_err']:.3g} (embedding_bag {r['library_rel_err']:.3g}), "
+            f"{r['bit_unequal']} of {R} outputs bit-unequal to the plain version's")
         if not r["rel_err"] <= 1e-5:
             raise AssertionError(f"K5 rel err {r['rel_err']} > 1e-5 at K {K}")
         results.append(r)

@@ -137,7 +137,7 @@ def load() -> ctypes.CDLL:
             lib.crt_subtile_sweep.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                               f32, i32, i32, ptr, ptr, i32, ptr]
             lib.crt_subtile_sweep.restype = i32
-            lib.crt_gather_sum.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr,
+            lib.crt_gather_sum.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr, ptr,
                                            ptr]
             lib.crt_gather_sum.restype = i32
             lib.crt_packet_planar.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i32, i32,

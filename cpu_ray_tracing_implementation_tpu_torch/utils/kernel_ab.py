@@ -1,6 +1,6 @@
-"""Kernels K1, K2, K4, K6, K7 and K8 of other checkouts of the port beside
-this one's, held to one another and timed in turns on one GPU; and, with
-``--walls``, the packet-routed renders' walls the same way.
+"""Kernels K1, K2, K4, K5, K6, K7 and K8 of other checkouts of the port
+beside this one's, held to one another and timed in turns on one GPU; and,
+with ``--walls``, the packet-routed renders' walls the same way.
 
     python -m cpu_ray_tracing_implementation_tpu_torch.utils.kernel_ab [--only PREFIX[,PREFIX]] ROOT [ROOT ...]
     python -m cpu_ray_tracing_implementation_tpu_torch.utils.kernel_ab --walls ROOT [ROOT ...]
@@ -10,8 +10,9 @@ unpacked with ``git archive`` into the gitignored ``_scratch/``) whose
 ``fused_intersect`` has ``planar_closest_kernel`` and
 ``sphere_closest_kernel``, whose ``fused_sweep`` has ``sweep_kernel``,
 ``sweep_sub_kernel`` and ``sweep_q16_kernel``, whose ``packet`` has
-``packet_planar_kernel`` and ``packet_sphere_kernel`` and whose
-``profiling`` has ``cuda_ms``. This package makes the inputs and saves
+``packet_planar_kernel`` and ``packet_sphere_kernel``, whose
+``gather_probe`` has ``gather_sum_kernel`` and whose ``profiling`` has
+``cuda_ms``. This package makes the inputs and saves
 them under ``build/`` (``--only K6`` keeps the cases whose label starts
 with "K6", and makes no other case's inputs; ``--only K4,K7,K8`` those of
 the three sweeps):
@@ -44,18 +45,23 @@ Then one process per turn, in the order this checkout, the others, the
 others reversed, this one, imports the package of its own checkout (which
 builds its own kernels), launches its kernels on those inputs (K1 and K2
 with and without pid) and times each case with CUDA events (K1 and K2 at
-their primary rays; K4, K7 and K8 also by stage, from torch.profiler's
+their primary rays; K4, K7, K8 and K5 also by stage, from torch.profiler's
 device time of their memset and kernels over 10 calls, each stage
 with the kernels it counted (K8's row stage q16_derive and its tile
-stage q16_sweep_tile), after every
-other timing of the turn; K6 with its visits per tile, mean and max, and its
+stage q16_sweep_tile; K5's row_sums and fold stages, or the first
+kernel's one gather_sum_kernel), after every other timing of the turn;
+K5 with its share of the bound; K6 with its visits per tile, mean and max, and its
 registers per thread and resident blocks per SM: ``packet.kernel_info``,
 or, for a checkout without it, the same CUDA queries on its
 ``csrc/packet_closest.cu`` built into a probe). A checkout's first turn
 prints the registers, spills and shared memory of its K4 and K8 tile
 kernels and K8's row stage from its build's ``-Xptxas -v`` report. Every turn's outputs (all
 8 rows or columns, the pid, and K6's visits) must equal the first turn's
-bit for bit: the ones that differ are printed. Prints the card's name and
+bit for bit: the ones that differ are printed. K5's outputs are held to
+the first turn's at the probe's measure (max |a - b| / (|b| + 1) <= 1e-5:
+two designs sum each ray's 22,528 floats in f64 in other orders and round
+once, so a few outputs may differ in their last bit), and the count of
+bit-unequal outputs is printed. Prints the card's name and
 power limit, then one line per turn and case.
 
 ``--walls``: each turn renders, after a 1-spp warm-up of each scene, the
@@ -98,6 +104,9 @@ SUB_TIMED = (32, 16)
 # perlin's primary rays besides packet.AUTO_TILE (and 2,048, JAX's, on
 # sphereflake's primary rays)
 TILES = (128, 256, 512)
+# K5's stages: the row sums and the fold; gather_sum_kernel is the first
+# kernel's one stage
+GATHER_STAGES = ("row_sums", "fold", "gather_sum")
 # (label, catalog scene, spp, wavefront): the packet-routed renders --walls
 # times, at chip_smoke.py's sizes (perlin's 500 spp cut to its 32)
 WALLS = (("sphereflake wavefront", "sphereflake", None, True),
@@ -296,7 +305,32 @@ def make_inputs(path: Path, only: tuple = ("",)) -> None:
         inputs.update(sweep_inputs(dev, only))
     if wanted("K6", only):
         inputs.update(packet_inputs(dev))
+    if wanted("K5", only):
+        inputs.update(gather_inputs(dev))
     torch.save(inputs, path)
+
+
+def gather_inputs(dev) -> dict:
+    """{label: (ids, table, bound ms, bound term)}: K5's cases, the probe's
+    rays on each of ``gather_probe.TABLE_ROWS``, made as
+    ``gather_probe.measure`` makes them (seed 0), with this checkout's
+    bound; prints each case's named rows and bound."""
+    from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe, profiling
+
+    R, _, V, rowf = gather_probe.DEFAULTS
+    out = {}
+    for K in gather_probe.TABLE_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        table = torch.randn((K, rowf), generator=gen, device=dev)
+        ids = torch.randint(0, K, (R, V), generator=gen, device=dev, dtype=torch.int32)
+        named = gather_probe.named_rows(ids, K)
+        b = gather_probe.bound(R, V, rowf, named, profiling.HBM_BYTES_PER_S,
+                               profiling.FP32_INSTR_PER_S)
+        label = f"K5 {R} rays, {K * rowf * 4 / 1e6:.1f} MB table, K {K}"
+        print(f"{label}: {V} slots, {named} rows named, bound {b[0]:.4f} ms ({b[1]})",
+              flush=True)
+        out[label] = (ids, table, *b)
+    return out
 
 
 def turn(root: str, inputs: Path, outputs: Path) -> None:
@@ -306,6 +340,7 @@ def turn(root: str, inputs: Path, outputs: Path) -> None:
     from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
     from cpu_ray_tracing_implementation_tpu_torch.kernels import build
     from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
+    from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe
     from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import cuda_ms
 
     build.load()  # the first turn of a checkout builds it: its ptxas report
@@ -336,9 +371,21 @@ def turn(root: str, inputs: Path, outputs: Path) -> None:
               f"{ms:.4f} ms", flush=True)
     for label in (k for k in saved if k.startswith("K6")):
         packet_turn(root, label, saved[label], outs)
+    gathers = [k for k in saved if k.startswith("K5")]
+    for label in gathers:
+        ids, table, bound_ms, bound_by = saved[label]
+        call = lambda: gather_probe.gather_sum_kernel(ids, table)
+        outs[label] = (call(),)
+        ms = cuda_ms(call)
+        print(f"{label}, {root}: {ms:.4f} ms, share of the bound {bound_ms:.4f} ms "
+              f"({bound_by}) {bound_ms / ms:.3f}", flush=True)
     # last: the profiler slows what runs after it in its process
     for label in sweeps:
         us = stage_us(sweep_call(fsw, label, saved[label]))
+        print(f"{label}, {root}, by stage: {stage_text(*us)}", flush=True)
+    for label in gathers:
+        ids, table = saved[label][:2]
+        us = stage_us(lambda: gather_probe.gather_sum_kernel(ids, table), GATHER_STAGES)
         print(f"{label}, {root}, by stage: {stage_text(*us)}", flush=True)
     torch.save(outs, outputs)
 
@@ -348,22 +395,22 @@ def turn(root: str, inputs: Path, outputs: Path) -> None:
 SWEEP_STAGES = ("memset", "count", "scatter", "derive", "tile", "fold")
 
 
-def stage_us(call, n=10) -> tuple[dict, dict]:
+def stage_us(call, stages=SWEEP_STAGES, n=10) -> tuple[dict, dict]:
     """({stage: device us a call}, {stage: the kernels counted to it}) of a
-    sweep kernel (K4, K7 or K8) over ``n`` calls under torch.profiler,
-    each kernel (its name without namespaces, return type and arguments)
-    counted to the stage it names (K8's row and tile stages are
-    ``q16_derive`` and ``q16_sweep_tile``, K4's tile stage
-    ``visit_sweep_tile``)."""
+    sweep kernel (K4, K7 or K8), or of K5 with ``GATHER_STAGES``, over
+    ``n`` calls under torch.profiler, each kernel (its name without
+    namespaces, return type and arguments) counted to the first of
+    ``stages`` it names (K8's row and tile stages are ``q16_derive`` and
+    ``q16_sweep_tile``, K4's tile stage ``visit_sweep_tile``)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             call()
         torch.cuda.synchronize()
-    out = dict.fromkeys(SWEEP_STAGES, 0.0)
-    names = {s: set() for s in SWEEP_STAGES}
+    out = dict.fromkeys(stages, 0.0)
+    names = {s: set() for s in stages}
     for e in prof.key_averages():
         name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
-        stage = next((s for s in SWEEP_STAGES if s in name.lower()), None)
+        stage = next((s for s in stages if s in name.lower()), None)
         if stage and e.self_device_time_total > 0:
             out[stage] += e.self_device_time_total / n
             names[stage].add(name.split("<")[0])
@@ -475,9 +522,20 @@ def packet_info(root: str, kind: str, tile: int, K: int) -> dict:
 
 
 def differences(got: dict, ref: dict) -> list[str]:
-    """The (case, output) whose bits differ from the reference's."""
+    """The (case, output) whose bits differ from the reference's; K5's
+    outputs, those beyond the probe's measure (each case's bit-unequal
+    outputs printed)."""
+    from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe
+
     out = []
     for case, outs in got.items():
+        if case.startswith("K5"):
+            err = gather_probe.rel_err(outs[0], ref[case][0])
+            print(f"  {case}: {gather_probe.bit_unequal(outs[0], ref[case][0])} of "
+                  f"{outs[0].shape[0]} outputs bit-unequal to the first turn's, rel err "
+                  f"{err:.3g}", flush=True)
+            out += [f"{case} out"] if not err <= 1e-5 else []
+            continue
         names = (("rows", "pid", "visits") if case.startswith("K6") else
                  ("out", "out with pid", "pid"))
         out += [f"{case} {n}" for n, x, y in zip(names, outs, ref[case])

@@ -737,17 +737,55 @@ def test_pid_output_matches_plain(dev, kind):
     assert torch.equal(pid, pay_r[-1])
 
 
-@pytest.mark.parametrize("K", [64, 2048])
-def test_gather_sum_kernel_matches_plain(dev, K):
+# K5's cases: (R, K, V, ROWF). "clamped": ids past both ends of the table,
+# read through a pointer 4 bytes past a 16-byte boundary; "unnamed": K far
+# above R*V, so most rows are unnamed (the row stage sums them all, the
+# fold reads only the named ones); "ragged": R not a multiple of the fold's
+# block of 128 and V not of 4; "cancelling": rows of values near 1e6 in
+# pairs that cancel, whose sums only an f64 accumulation gets within the
+# measure
+GATHER_CASES = {"64": (5000, 64, 16, 1408), "2048": (5000, 2048, 16, 1408),
+                "clamped": (5000, 2048, 16, 1408), "unnamed": (500, 131_072, 16, 1408),
+                "ragged": (1001, 2048, 5, 1408), "cancelling": (4000, 512, 16, 1408)}
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_gather_sum_kernel_matches_plain(dev, case):
+    R, K, V, rowf = GATHER_CASES[case]
     gen = torch.Generator(device=dev).manual_seed(K)
-    table = torch.randn((K, 1408), generator=gen, device=dev)
-    ids = torch.randint(0, K, (5000, 16), generator=gen, device=dev, dtype=torch.int32)
+    table = torch.randn((K, rowf), generator=gen, device=dev)
+    ids = torch.randint(0, K, (R, V), generator=gen, device=dev, dtype=torch.int32)
+    if case == "clamped":
+        buf = torch.empty(R * V + 1, dtype=torch.int32, device=dev)
+        ids = buf[1:].view(R, V).copy_(ids)
+        ids[::3, 0] = -7
+        ids[1::3, V - 1] = K + 11
+        ids[2::5, 4] = 2**31 - 1
+    elif case == "cancelling":
+        big = 1e6 * torch.randn((K // 2, rowf), generator=gen, device=dev)
+        table[0::2] = big
+        table[1::2] = torch.randn((K // 2, rowf), generator=gen, device=dev) - big
+        pairs = torch.randint(0, K // 2, (R, V // 2), generator=gen, device=dev,
+                              dtype=torch.int32)
+        ids = torch.stack([2 * pairs, 2 * pairs + 1], dim=2).reshape(R, V)
     gather_probe.reset_launches()
     got = gather_probe.gather_sum(ids, table)
     assert gather_probe.LAUNCHES == {"gather_sum": 1}
     ref = gather_probe.gather_sum_plain(ids, table)
     torch.cuda.synchronize()
+    assert got.shape == (R, 1) and torch.isfinite(got).all()
     assert gather_probe.rel_err(got, ref) <= 1e-5
+    if case == "cancelling":  # the same sums in f32 miss by far more
+        f32 = sum(table[ids[:, s].long()].sum(dim=1, keepdim=True) for s in range(V))
+        assert gather_probe.rel_err(f32, ref) > 1e-3
+
+
+def test_gather_sum_kernel_refuses_an_empty_table(dev):
+    """With no row to clamp an id to, K5 raises instead of reading before
+    the table (its plain version raises an IndexError on the CPU)."""
+    ids = torch.zeros((8, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="has none"):
+        gather_probe.gather_sum_kernel(ids, torch.empty((0, 16), device=dev))
 
 
 def test_kernel_route_gradients_match_plain_autograd(dev):

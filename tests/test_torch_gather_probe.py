@@ -66,13 +66,47 @@ def test_ids_past_the_table_clamp_as_xla_does(tool):
 
 
 def test_bound_at_the_tool_defaults():
-    """The bound the kernel is held to at the tool's defaults: 0.92e9 f32
-    adds (27.5 us at 33.5e12/s) against 14.3 MB read once (4.3 us)."""
+    """The bound K5 is held to at the tool's defaults, where the ids name
+    all 2,048 rows: 14.3 MB moved once (the rows, the ids, the output),
+    4.3 us at 3.35 TB/s, against 3.5e6 adds (0.1 us at 33.5e12/s)."""
     R0, K0, V0, F0 = gather_probe.DEFAULTS
-    ms, by = gather_probe.bound(R0, K0, V0, F0, 3.35e12, 33.5e12)
+    ms, by = gather_probe.bound(R0, V0, F0, K0, 3.35e12, 33.5e12)
+    assert by == "bytes"
+    assert ms == pytest.approx(4 * (R0 * V0 + K0 * F0 + R0) / 3.35e12 * 1e3)
+    assert round(ms, 4) == 0.0043
+
+
+def test_bound_counts_the_named_rows():
+    """At a tiny shape whose ids name 5 of 32 rows (one only through an id
+    past the table's end), the bound is the hand count of what the function
+    needs: those rows, the ids and the output moved once; and their adds."""
+    ids = torch.tensor([[0, 3, 3, 40], [3, 0, 7, 9], [9, -2, 7, 31]], dtype=torch.int32)
+    n = gather_probe.named_rows(ids, 32)
+    assert n == 5  # rows 0, 3, 7, 9, 31
+    ms, by = gather_probe.bound(3, 4, ROWF, n, 3.35e12, 33.5e12)
+    assert by == "bytes"
+    assert ms == pytest.approx(4 * (3 * 4 + 5 * ROWF + 3) / 3.35e12 * 1e3)
+    # where only operations are counted, N*ROWF + R*V adds
+    ms, by = gather_probe.bound(3, 4, ROWF, n, float("inf"), 33.5e12)
     assert by == "operations"
-    assert ms == pytest.approx(R0 * V0 * F0 / 33.5e12 * 1e3)
-    assert 0.027 < ms < 0.028
+    assert ms == pytest.approx((5 * ROWF + 3 * 4) / 33.5e12 * 1e3)
+
+
+def test_bound_never_exceeds_the_old_count():
+    """The old count (every (ray, slot)'s row added, R*V*ROWF FP32 adds,
+    against all K rows, the ids and the output moved once) was no floor of
+    the function: the recount lies at or under it at every shape, here
+    random shapes and ids of every density."""
+    rng = np.random.default_rng(3)
+    for _ in range(200):
+        r, k, v = (int(x) for x in rng.integers(1, 3000, 3))
+        f = 4 * int(rng.integers(1, 600))
+        ids = torch.as_tensor(rng.integers(-5, k + 5, (r, v)).astype(np.int32))
+        n = gather_probe.named_rows(ids, k)
+        assert 1 <= n <= min(k, r * v)
+        new = gather_probe.bound(r, v, f, n, 3.35e12, 33.5e12)[0]
+        old = 1e3 * max(4 * (r * v + k * f + r) / 3.35e12, r * v * f / 33.5e12)
+        assert new <= old
 
 
 def test_kernel_wrapper_takes_cuda_tensors_only():
