@@ -14,7 +14,8 @@ It renders on the card (``main(argv, device="cpu")`` renders on the CPU).
 ``--sharded`` shards the pixels over every rank of the job: one rank
 unless the command runs under torchrun, whose environment it joins (NCCL
 when each rank has a card of its own, gloo when ranks share one); rank 0
-writes the image. ``--profile DIR`` writes a ``torch.profiler`` trace.
+writes the image. ``--profile DIR`` writes a ``torch.profiler`` trace that
+names the port's layers (``utils/trace.py``).
 """
 
 from __future__ import annotations

@@ -57,6 +57,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import bvh
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, qmc, replay
+from cpu_ray_tracing_implementation_tpu_torch.utils import trace
 
 # Families that fit_scene projects onto [0, inf); geometry coordinates are
 # free-sign.
@@ -216,7 +217,7 @@ def _forward_pass(scene, camera, key, spp: int, tape, pixel_ids=None,
     ``samples`` = (offset, count) and gets its [N,3] part of the image:
     the radiance sum of those samples over ``spp``. The defaults are the
     whole frame and samples [0, spp)."""
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("crt.forward"):
         ids = pixel_ids if pixel_ids is not None else torch.arange(
             camera.width * camera.height, dtype=torch.int32, device=scene.device)
         offset, count = samples or (0, spp)
@@ -235,20 +236,22 @@ def _backward_pass(scene, camera, key, spp: int, sp: dict, cp: dict,
     share of ``grad_img``) before the next sample; ``tape`` plays the
     winners back (or None: intersect again). ``pixel_ids`` and
     ``samples`` as in ``_forward_pass``; ``grad_img`` is then [N,3]."""
-    if pixel_ids is None:
-        pixel_ids = torch.arange(camera.width * camera.height, dtype=torch.int32,
-                                 device=scene.device)
-    offset, count = samples or (0, spp)
-    grad_rad = (grad_img / spp).reshape(-1, 3)
-    qmc_words = qmc.seed_words(key) if camera.qmc else None
-    for s in range(offset, offset + count):
-        with torch.enable_grad():
-            s_scene = apply_scene_params(scene, sp)
-            s_cam = apply_camera_params(camera, cp)
-            rad = integrator.render_sample(
-                s_scene, s_cam, keys.fold_in(key, s), pixel_ids, sample_idx=s,
-                isect_fn=None if tape is None else tape.play, qmc_words=qmc_words)
-        torch.autograd.backward(rad, grad_rad)
+    with trace.span("crt.backward"):
+        if pixel_ids is None:
+            pixel_ids = torch.arange(camera.width * camera.height, dtype=torch.int32,
+                                     device=scene.device)
+        offset, count = samples or (0, spp)
+        grad_rad = (grad_img / spp).reshape(-1, 3)
+        qmc_words = qmc.seed_words(key) if camera.qmc else None
+        for s in range(offset, offset + count):
+            with torch.enable_grad(), trace.span("crt.sample"):
+                s_scene = apply_scene_params(scene, sp)
+                s_cam = apply_camera_params(camera, cp)
+                rad = integrator.render_sample(
+                    s_scene, s_cam, keys.fold_in(key, s), pixel_ids, sample_idx=s,
+                    isect_fn=None if tape is None else tape.play, qmc_words=qmc_words)
+            with trace.span("crt.autograd"):
+                torch.autograd.backward(rad, grad_rad)
 
 
 def _value_and_grad(scene, camera, key, target, spp: int, rep: bool,
@@ -285,11 +288,12 @@ def loss_and_grads(scene, camera, key: np.ndarray, target: torch.Tensor,
     ``geometry``: include the ``geo_*`` families (``scene_params``).
     ``replay_isect``: None = the winner replay where it applies, False =
     the remat-everything VJP oracle (``_use_replay``)."""
-    rep = _use_replay(scene, replay_isect)
-    sp = _leaves(scene_params(scene, geometry=geometry))
-    cp = _leaves(camera_params(camera))
-    loss = _value_and_grad(scene, camera, key, target, spp, rep, sp, cp)
-    return loss, (_grads(sp), _grads(cp))
+    with trace.entry("crt.grad_step"):
+        rep = _use_replay(scene, replay_isect)
+        sp = _leaves(scene_params(scene, geometry=geometry))
+        cp = _leaves(camera_params(camera))
+        loss = _value_and_grad(scene, camera, key, target, spp, rep, sp, cp)
+        return loss, (_grads(sp), _grads(cp))
 
 
 # ---------------------------------------------------------------- fitting

@@ -61,6 +61,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import replay
 from cpu_ray_tracing_implementation_tpu_torch.ops import spectrum
 from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
 from cpu_ray_tracing_implementation_tpu_torch.ops.textures import eval_texture
+from cpu_ray_tracing_implementation_tpu_torch.utils import trace
 
 T_MIN = 1e-3  # shadow-acne bias, interval(0.001, inf) (src/camera.h:198)
 # the fold of the path key that seeds the Russian-roulette stream, leaving
@@ -132,10 +133,12 @@ def _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
     nee = emis_w is not None
     isect_fn = isect.intersect_brute if isect_fn is None else isect_fn
     u_vol = u[:, mat_ops.SLOT_VOLUME0:]
-    hit = isect_fn(scene, org, dirs, time, T_MIN, u_vol, active=alive)
+    with trace.span("crt.intersect"):
+        hit = isect_fn(scene, org, dirs, time, T_MIN, u_vol, active=alive)
 
     # miss -> background, lane terminates
-    bg = background_color(scene, dirs)
+    with trace.span("crt.background"):
+        bg = background_color(scene, dirs)
     if nee:
         bg = bg * emis_w[:, None]
     miss = (alive & ~hit.valid)[:, None]
@@ -145,16 +148,19 @@ def _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
     # emission at the hit (front-face diffuse_light); the material rows and
     # texture are shared with the scatter path
     lit = alive & hit.valid
-    pre = mat_ops.mat_rows(scene, hit)
-    emit = mat_ops.emitted(scene, hit, pre=pre)
+    with trace.span("crt.mat_rows"):
+        pre = mat_ops.mat_rows(scene, hit)
+    with trace.span("crt.emitted"):
+        emit = mat_ops.emitted(scene, hit, pre=pre)
     if nee:
         emit = emit * emis_w[:, None]
     radiance = radiance + torch.where(lit[:, None], throughput * emit,
                                       torch.zeros_like(emit))
 
     if nee:
-        (new_dir, weight, continues, emis_w_next, nee_dir,
-         nee_w) = mat_ops.scatter_nee(scene, hit, dirs, u, ior_shift, pre=pre)
+        with trace.span("crt.scatter"):
+            (new_dir, weight, continues, emis_w_next, nee_dir,
+             nee_w) = mat_ops.scatter_nee(scene, hit, dirs, u, ior_shift, pre=pre)
         if scene.has_lights and nee_shadow is not False:
             # the shadow ray: occluders are non-emissive, so the emission of
             # its nearest hit is visibility x L_e; a volume on the way
@@ -162,18 +168,23 @@ def _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
             # uniform of its own), an unbiased transmittance estimate
             sh_active = lit & nee_shadow
             u_vol_sh = torch.remainder(u_vol + SHADOW_U_SHIFT, 1.0)
-            sh = isect_fn(scene, hit.p, nee_dir, time, T_MIN, u_vol_sh,
-                          active=sh_active)
-            sh_le = mat_ops.emitted(scene, sh)
+            with trace.span("crt.intersect"):
+                sh = isect_fn(scene, hit.p, nee_dir, time, T_MIN, u_vol_sh,
+                              active=sh_active)
+            with trace.span("crt.emitted"):
+                sh_le = mat_ops.emitted(scene, sh)
             if scene.has_env_light:
+                with trace.span("crt.background"):
+                    sh_bg = background_color(scene, nee_dir)
                 sh_le = sh_le + torch.where(sh.valid[:, None], torch.zeros_like(sh_le),
-                                            background_color(scene, nee_dir))
+                                            sh_bg)
             radiance = radiance + torch.where(sh_active[:, None],
                                               throughput * nee_w * sh_le,
                                               torch.zeros_like(sh_le))
     else:
-        new_dir, weight, continues = mat_ops.scatter(scene, hit, dirs, u, ior_shift,
-                                                     pre=pre)
+        with trace.span("crt.scatter"):
+            new_dir, weight, continues = mat_ops.scatter(scene, hit, dirs, u, ior_shift,
+                                                         pre=pre)
     alive = lit & continues
     throughput = torch.where(alive[:, None], throughput * weight,
                              torch.zeros_like(weight))
@@ -223,17 +234,19 @@ def render_rays(scene, org, dirs, time, key: np.ndarray, max_depth: int,
               if nee else None)
     k_rr = keys.fold_in(key, RR_FOLD) if rr_depth else None
     for bounce in range(max_depth):
-        if qmc_words is not None:
-            u = qmc.uniforms(qmc_words, ray_ids, sample_idx,
-                             qmc.N_CAM_GROUPS + bounce * n_groups, groups, dims)
-        else:
-            u = _per_ray_uniforms(keys.fold_in(key, bounce), ray_ids, nslot)
-        # below rr_depth every lane is exempt (p = 1, a no-op), so no draw
-        rr_u = (_per_ray_uniforms(keys.fold_in(k_rr, bounce), ray_ids, 1)[:, 0]
-                if rr_depth and bounce >= rr_depth else None)
-        out = _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
-                          isect_fn, rr_u=rr_u, emis_w=emis_w,
-                          nee_shadow=bounce < max_depth - 1, ior_shift=ior_shift)
+        with trace.span("crt.bounce"):
+            with trace.span("crt.uniforms"):
+                if qmc_words is not None:
+                    u = qmc.uniforms(qmc_words, ray_ids, sample_idx,
+                                     qmc.N_CAM_GROUPS + bounce * n_groups, groups, dims)
+                else:
+                    u = _per_ray_uniforms(keys.fold_in(key, bounce), ray_ids, nslot)
+                # below rr_depth every lane is exempt (p = 1, a no-op), so no draw
+                rr_u = (_per_ray_uniforms(keys.fold_in(k_rr, bounce), ray_ids, 1)[:, 0]
+                        if rr_depth and bounce >= rr_depth else None)
+            out = _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
+                              isect_fn, rr_u=rr_u, emis_w=emis_w,
+                              nee_shadow=bounce < max_depth - 1, ior_shift=ior_shift)
         org, dirs, time, throughput, radiance, alive = out[:6]
         if nee:
             emis_w = out[6]
@@ -252,18 +265,19 @@ def render_sample(scene, camera, key: np.ndarray, pixel_ids: torch.Tensor,
     (``qmc.seed_words`` of the render's base key, not of this sample's key)
     that ``camera.qmc`` needs, with ``sample_idx``."""
     k_cam, k_path = keys.split(key)
-    if camera.qmc:
-        if qmc_words is None or sample_idx is None:
-            raise ValueError("a camera.qmc render needs qmc_words and "
-                             "sample_idx (qmc.seed_words of the base key)")
-        # the Sobol jitter is stratified already; stratify's grid would
-        # break the (0,2) progression, so it is skipped
-        u_cam = qmc.uniforms(qmc_words, pixel_ids, sample_idx, 0,
-                             qmc.CAM_GROUP, qmc.CAM_DIM)
-    else:
-        u_cam = _per_ray_uniforms(k_cam, pixel_ids, cam_mod.N_CAM_SLOTS)
-        u_cam = cam_mod.stratify_pixel_jitter(camera, u_cam, sample_idx)
-    org, dirs, time = cam_mod.generate_rays(camera, pixel_ids, u_cam)
+    if camera.qmc and (qmc_words is None or sample_idx is None):
+        raise ValueError("a camera.qmc render needs qmc_words and "
+                         "sample_idx (qmc.seed_words of the base key)")
+    with trace.span("crt.raygen"):
+        if camera.qmc:
+            # the Sobol jitter is stratified already; stratify's grid would
+            # break the (0,2) progression, so it is skipped
+            u_cam = qmc.uniforms(qmc_words, pixel_ids, sample_idx, 0,
+                                 qmc.CAM_GROUP, qmc.CAM_DIM)
+        else:
+            u_cam = _per_ray_uniforms(k_cam, pixel_ids, cam_mod.N_CAM_SLOTS)
+            u_cam = cam_mod.stratify_pixel_jitter(camera, u_cam, sample_idx)
+        org, dirs, time = cam_mod.generate_rays(camera, pixel_ids, u_cam)
     wavelength = None
     if scene.has_dispersion:
         # a fold of its own keeps the RGB render's streams untouched
@@ -370,8 +384,9 @@ def accumulate_samples_subset(scene, camera, key: np.ndarray,
                  if accum is None else accum[start:start + step])
         sq = torch.zeros_like(total) if moments else None
         for s, k in enumerate(sample_keys):
-            rad = render_sample(scene, camera, k, ids, sample_idx=sample_offset + s,
-                                isect_fn=isect_fn, qmc_words=qmc_words)
+            with trace.span("crt.sample"):
+                rad = render_sample(scene, camera, k, ids, sample_idx=sample_offset + s,
+                                    isect_fn=isect_fn, qmc_words=qmc_words)
             total = total + rad
             if moments:
                 sq = sq + rad * rad
@@ -404,11 +419,12 @@ def render_image(scene, camera, key: np.ndarray, spp: int | None = None,
     key). ``replay_isect``: the gradient path's intersection
     (``ops/replay.py``), dense tables only."""
     spp = camera.spp if spp is None else spp
-    accum = accumulate_samples(
-        scene, camera, key, 0, spp,
-        isect_fn=replay.intersect_replay if replay_isect else None,
-        batch_pixels=scan_batch_pixels(scene))
-    return (accum / spp).reshape(camera.height, camera.width, 3)
+    with trace.entry("crt.render"):
+        accum = accumulate_samples(
+            scene, camera, key, 0, spp,
+            isect_fn=replay.intersect_replay if replay_isect else None,
+            batch_pixels=scan_batch_pixels(scene))
+        return (accum / spp).reshape(camera.height, camera.width, 3)
 
 
 def render_image_tiled(scene, camera, key: np.ndarray, spp: int | None = None,
@@ -419,8 +435,9 @@ def render_image_tiled(scene, camera, key: np.ndarray, spp: int | None = None,
     the untiled render for any tile, the device holding one tile's lanes
     at a time."""
     spp = camera.spp if spp is None else spp
-    accum = accumulate_samples(scene, camera, key, 0, spp, batch_pixels=tile_pixels)
-    return (accum / spp).reshape(camera.height, camera.width, 3)
+    with trace.entry("crt.render"):
+        accum = accumulate_samples(scene, camera, key, 0, spp, batch_pixels=tile_pixels)
+        return (accum / spp).reshape(camera.height, camera.width, 3)
 
 
 # ------------------------------------------------------------ wavefront
@@ -560,7 +577,8 @@ def render_wavefront(scene, camera, key: np.ndarray, spp: int,
 
     path_id = torch.arange(R, dtype=torch.int32, device=dev)
     bounce = torch.zeros((R,), dtype=torch.int32, device=dev)
-    org, dirs, time, alive = spawn(path_id)
+    with trace.span("crt.raygen"):
+        org, dirs, time, alive = spawn(path_id)
     throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
     radiance = torch.zeros((R, 3), dtype=torch.float32, device=dev)
     issued = torch.tensor(R, dtype=torch.int32, device=dev)
@@ -569,60 +587,64 @@ def render_wavefront(scene, camera, key: np.ndarray, spp: int,
     wl = spawn_wavelength(path_id) if dispersive else None
     iterations = 0
     while bool(alive.any()):
-        iterations += 1
-        lane = torch.remainder(path_id, L)
-        pix = gpix(lane)
-        b = torch.clamp(bounce, 0, max_depth - 1)
-        row = (sample_of(path_id) * max_depth + b).long()
-        if use_qmc:
-            u = qmc.uniforms(q_words, pix, sample_offset + sample_of(path_id),
-                             qmc.N_CAM_GROUPS + b * qb_ngroups, qb_groups, qb_dims)
-        else:
-            u = draw("path", row, pix, nslot)
-        rr_u = None
-        if rr_depth:
-            rr_u = torch.where(bounce >= rr_depth, draw("rr", row, pix, 1)[:, 0],
-                               torch.full((R,), -1.0, device=dev))
-        out = _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
-                          rr_u=rr_u, emis_w=emis_w,
-                          nee_shadow=bounce < max_depth - 1,
-                          ior_shift=spectrum.cauchy_ior_shift(wl) if dispersive else None)
-        org, dirs, time, throughput, radiance, alive2 = out[:6]
-        bounce = bounce + 1
-        alive2 = alive2 & (bounce < max_depth)
+        with trace.span("crt.iteration"):
+            iterations += 1
+            lane = torch.remainder(path_id, L)
+            pix = gpix(lane)
+            b = torch.clamp(bounce, 0, max_depth - 1)
+            row = (sample_of(path_id) * max_depth + b).long()
+            with trace.span("crt.uniforms"):
+                if use_qmc:
+                    u = qmc.uniforms(q_words, pix, sample_offset + sample_of(path_id),
+                                     qmc.N_CAM_GROUPS + b * qb_ngroups, qb_groups,
+                                     qb_dims)
+                else:
+                    u = draw("path", row, pix, nslot)
+                rr_u = None
+                if rr_depth:
+                    rr_u = torch.where(bounce >= rr_depth, draw("rr", row, pix, 1)[:, 0],
+                                       torch.full((R,), -1.0, device=dev))
+            out = _shade_step(scene, org, dirs, time, throughput, radiance, alive, u,
+                              rr_u=rr_u, emis_w=emis_w,
+                              nee_shadow=bounce < max_depth - 1,
+                              ior_shift=spectrum.cauchy_ior_shift(wl) if dispersive else None)
+            org, dirs, time, throughput, radiance, alive2 = out[:6]
+            bounce = bounce + 1
+            alive2 = alive2 & (bounce < max_depth)
 
-        done = alive & ~alive2              # the path just ended
-        flush = radiance
-        if dispersive:
-            # the scan's weighting: radiance is linear in the initial throughput
-            flush = radiance * spectrum.spectral_path_weight(wl)
-        if camera.clamp > 0.0:
-            flush = torch.clamp(flush, max=camera.clamp)  # firefly clamp
-        image.index_add_(0, lane.long(),
-                         torch.where(done[:, None], flush, torch.zeros_like(flush)))
+            done = alive & ~alive2              # the path just ended
+            flush = radiance
+            if dispersive:
+                # the scan's weighting: radiance is linear in the initial throughput
+                flush = radiance * spectrum.spectral_path_weight(wl)
+            if camera.clamp > 0.0:
+                flush = torch.clamp(flush, max=camera.clamp)  # firefly clamp
+            image.index_add_(0, lane.long(),
+                             torch.where(done[:, None], flush, torch.zeros_like(flush)))
 
-        # refill the finished lanes with the next unissued paths, in order
-        done_i = done.to(torch.int32)
-        new_id = issued + torch.cumsum(done_i, 0, dtype=torch.int32) - 1
-        take = done & (new_id < total)
-        path_id = torch.where(take, new_id,
-                              torch.where(done, torch.full_like(path_id, total),
-                                          path_id))
-        issued = issued + done_i.sum(dtype=torch.int32)
+            # refill the finished lanes with the next unissued paths, in order
+            done_i = done.to(torch.int32)
+            new_id = issued + torch.cumsum(done_i, 0, dtype=torch.int32) - 1
+            take = done & (new_id < total)
+            path_id = torch.where(take, new_id,
+                                  torch.where(done, torch.full_like(path_id, total),
+                                              path_id))
+            issued = issued + done_i.sum(dtype=torch.int32)
 
-        s_org, s_dirs, s_time, s_active = spawn(path_id)
-        fresh = done[:, None]
-        org = torch.where(fresh, s_org, org)
-        dirs = torch.where(fresh, s_dirs, dirs)
-        time = torch.where(done, s_time, time)
-        throughput = torch.where(fresh, torch.ones_like(throughput), throughput)
-        radiance = torch.where(fresh, torch.zeros_like(radiance), radiance)
-        bounce = torch.where(done, torch.zeros_like(bounce), bounce)
-        alive = torch.where(done, s_active, alive2)
-        if dispersive:
-            wl = torch.where(done, spawn_wavelength(path_id), wl)
-        if nee:
-            emis_w = torch.where(done, torch.ones_like(out[6]), out[6])
+            with trace.span("crt.raygen"):
+                s_org, s_dirs, s_time, s_active = spawn(path_id)
+            fresh = done[:, None]
+            org = torch.where(fresh, s_org, org)
+            dirs = torch.where(fresh, s_dirs, dirs)
+            time = torch.where(done, s_time, time)
+            throughput = torch.where(fresh, torch.ones_like(throughput), throughput)
+            radiance = torch.where(fresh, torch.zeros_like(radiance), radiance)
+            bounce = torch.where(done, torch.zeros_like(bounce), bounce)
+            alive = torch.where(done, s_active, alive2)
+            if dispersive:
+                wl = torch.where(done, spawn_wavelength(path_id), wl)
+            if nee:
+                emis_w = torch.where(done, torch.ones_like(out[6]), out[6])
     WAVEFRONT["renders"] += 1
     WAVEFRONT["iterations"] += iterations
     return image
@@ -638,18 +660,19 @@ def render_image_wavefront(scene, camera, key: np.ndarray, spp: int | None = Non
     (``integrator.py:772-805`` of the JAX package)."""
     spp = camera.spp if spp is None else spp
     n_pix = camera.width * camera.height
-    if tile_pixels is None or tile_pixels >= n_pix:
-        accum = render_wavefront(scene, camera, key, spp,
-                                 lanes=wavefront_lanes(scene, n_pix))
-        return (accum / spp).reshape(camera.height, camera.width, 3)
-    tile = int(tile_pixels)
-    out = []
-    for start in range(0, n_pix, tile):
-        n_real = min(tile, n_pix - start)
-        ids = torch.zeros((tile,), dtype=torch.int32, device=scene.device)
-        ids[:n_real] = torch.arange(start, start + n_real, dtype=torch.int32,
-                                    device=scene.device)
-        acc = render_wavefront(scene, camera, key, spp, pixel_ids=ids,
-                               lanes=wavefront_lanes(scene, tile))
-        out.append(acc[:n_real])
-    return (torch.cat(out) / spp).reshape(camera.height, camera.width, 3)
+    with trace.entry("crt.render"):
+        if tile_pixels is None or tile_pixels >= n_pix:
+            accum = render_wavefront(scene, camera, key, spp,
+                                     lanes=wavefront_lanes(scene, n_pix))
+            return (accum / spp).reshape(camera.height, camera.width, 3)
+        tile = int(tile_pixels)
+        out = []
+        for start in range(0, n_pix, tile):
+            n_real = min(tile, n_pix - start)
+            ids = torch.zeros((tile,), dtype=torch.int32, device=scene.device)
+            ids[:n_real] = torch.arange(start, start + n_real, dtype=torch.int32,
+                                        device=scene.device)
+            acc = render_wavefront(scene, camera, key, spp, pixel_ids=ids,
+                                   lanes=wavefront_lanes(scene, tile))
+            out.append(acc[:n_real])
+        return (torch.cat(out) / spp).reshape(camera.height, camera.width, 3)

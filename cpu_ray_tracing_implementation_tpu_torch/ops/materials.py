@@ -41,6 +41,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import sampling as smp
 from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
 from cpu_ray_tracing_implementation_tpu_torch.ops.textures import eval_texture
+from cpu_ray_tracing_implementation_tpu_torch.utils import trace
 
 NSLOT = 9
 
@@ -297,18 +298,21 @@ def scatter(scene, hit, ray_dir: torch.Tensor, u: torch.Tensor, ior_shift=None,
     continues [R] bool). Lanes whose material does not scatter
     (diffuse_light, src/material.h:43) get continues=False. ``ior_shift``:
     see ``_sample_lobes``."""
-    (mt, atten, det_dir, det_weight, is_det, is_iso, is_rand, mat_sample,
-     score_w) = _sample_lobes(scene, hit, ray_dir, u, ior_shift, pre=pre)
+    with trace.span("crt.scatter.lobes"):
+        (mt, atten, det_dir, det_weight, is_det, is_iso, is_rand, mat_sample,
+         score_w) = _sample_lobes(scene, hit, ray_dir, u, ior_shift, pre=pre)
     n = hit.normal
 
     # kRandom lanes: dual-pdf light MIS when a light is registered
     if scene.has_lights:
-        ldir = light_sample(scene, hit.p, u[:, SLOT_LIGHT_PICK],
-                            u[:, SLOT_LIGHT_U], u[:, SLOT_LIGHT_V])
+        with trace.span("crt.scatter.light_sample"):
+            ldir = light_sample(scene, hit.p, u[:, SLOT_LIGHT_PICK],
+                                u[:, SLOT_LIGHT_U], u[:, SLOT_LIGHT_V])
         pick_light = u[:, SLOT_MIS] < 0.5
         rnd_dir = torch.where(pick_light[:, None], ldir, mat_sample)
-        pdf_val = (0.5 * _mat_pdf(n, is_iso, rnd_dir)
-                   + 0.5 * light_pdf(scene, hit.p, rnd_dir))
+        with trace.span("crt.scatter.light_pdf"):
+            pl = light_pdf(scene, hit.p, rnd_dir)
+        pdf_val = 0.5 * _mat_pdf(n, is_iso, rnd_dir) + 0.5 * pl
     else:
         rnd_dir = mat_sample
         pdf_val = _mat_pdf(n, is_iso, rnd_dir)
@@ -337,8 +341,9 @@ def scatter_nee(scene, hit, ray_dir: torch.Tensor, u: torch.Tensor, ior_shift=No
     ray's direction; ``nee_w`` [R,3], its factor atten * p_scat * pdf_L /
     (pdf_L^2 + pdf_B^2), zero on specular or invalid lanes. The caller
     traces ``nee_dir`` and multiplies by the radiance it finds."""
-    (mt, atten, det_dir, det_weight, is_det, is_iso, is_rand, rnd_dir,
-     score_w) = _sample_lobes(scene, hit, ray_dir, u, ior_shift, pre=pre)
+    with trace.span("crt.scatter.lobes"):
+        (mt, atten, det_dir, det_weight, is_det, is_iso, is_rand, rnd_dir,
+         score_w) = _sample_lobes(scene, hit, ray_dir, u, ior_shift, pre=pre)
     n = hit.normal
     pdf_b = _mat_pdf(n, is_iso, rnd_dir)
     rnd_weight = atten * _safe_div(_p_scat(n, is_iso, rnd_dir), pdf_b, 0.0)[:, None]
@@ -348,15 +353,18 @@ def scatter_nee(scene, hit, ray_dir: torch.Tensor, u: torch.Tensor, ior_shift=No
     nee_w = torch.zeros_like(atten)
     if scene.has_lights:
         # w_B = pdf_B^2 / (pdf_B^2 + pdf_L^2) for the continuation's emission
-        pl_b = light_pdf(scene, hit.p, rnd_dir)
+        with trace.span("crt.scatter.light_pdf"):
+            pl_b = light_pdf(scene, hit.p, rnd_dir)
         w_b = _safe_div(pdf_b * pdf_b, pdf_b * pdf_b + pl_b * pl_b, 1.0)
         live = is_rand & hit.valid
         emis_w_next = torch.where(live, w_b, torch.ones_like(w_b))
         # the direct-lighting shadow sample; f/pdf_L * w_L collapses to
         # p_scat * pl / (pl^2 + pb^2)
-        ldir = light_sample(scene, hit.p, u[:, SLOT_LIGHT_PICK],
-                            u[:, SLOT_LIGHT_U], u[:, SLOT_LIGHT_V])
-        pl = light_pdf(scene, hit.p, ldir)
+        with trace.span("crt.scatter.light_sample"):
+            ldir = light_sample(scene, hit.p, u[:, SLOT_LIGHT_PICK],
+                                u[:, SLOT_LIGHT_U], u[:, SLOT_LIGHT_V])
+        with trace.span("crt.scatter.light_pdf"):
+            pl = light_pdf(scene, hit.p, ldir)
         pb_l = _mat_pdf(n, is_iso, ldir)
         factor = _safe_div(_p_scat(n, is_iso, ldir) * pl, pl * pl + pb_l * pb_l, 0.0)
         nee_dir = ldir

@@ -69,6 +69,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
+from cpu_ray_tracing_implementation_tpu_torch.utils import trace
 
 INF = float("inf")
 
@@ -275,9 +276,11 @@ def _phase_loop(org, dirs, cap, tabs: PerRayTables, K_real, tmin, V,
         if len(PHASES["live"]) <= phases:
             PHASES["live"].append(0)
         PHASES["live"][phases] += live
-        ids, nears, rest = fs.cull_select(rays, tabs.boxes, excl, V, K_real,
-                                          float(tmin))
-        best = sweep_fn(ids, nears, best)
+        with trace.span("crt.intersect.select"):
+            ids, nears, rest = fs.cull_select(rays, tabs.boxes, excl, V, K_real,
+                                              float(tmin))
+        with trace.span("crt.intersect.sweep"):
+            best = sweep_fn(ids, nears, best)
         phases += 1
         # A ray whose rest is not below its best t is done: every later
         # near is at or above rest (the next phase starts at exactly the

@@ -29,29 +29,28 @@ but the last, no K1); ``cornell_qmc`` is ``cornell`` under ``camera.qmc``
 ``utils/kernel_ab.py``'s sweep inputs: CUDA events per call and
 torch.profiler's device time per stage kernel (memset, count, scatter,
 tile, fold). Each other workload runs ``spp`` samples after a 2-sample warm-up: three times on the host
-clock, then under ``torch.profiler`` with a range around each stage of a bounce
-(on the colonnade also around the per-ray accelerator's select and sweep
-calls; on the gradient, around the forward pass, the backward pass's
-re-render, the winner decision and the replay; the kernels autograd's
-backward launches from its own thread fall in no range and are counted
-apart). The stage functions are wrapped for the
-profiled run only, so the main path carries no instrumentation. It prints
-the wall seconds of both runs, the device time summed over kernels,
-kernels per bounce, the device busy share, the top kernels by device time,
-each stage's host and device time, the wrapper calls, device kernels
-and device time of kernels K1-K4 (K4 runs four kernels a call), and the
-per-ray selection phases per bounce. Last it times
-three more unprofiled runs: what the profiler leaves behind on later
-launches of these host-bound paths, and then one more with PyTorch's
-synchronisation debug mode on, which counts the host synchronisations
-that PyTorch's operations make (per bounce or per loop iteration).
+clock, then under ``torch.profiler`` and ``trace.recording()``, so that the
+port's own spans (``utils/trace.py``: entry, pass, sample, bounce and its
+stages, the per-ray route's select and sweep, wavefront iteration) are
+ranges of the profile. The kernels
+autograd's backward launches from its own thread fall in no range of the
+main thread and are counted apart. It prints the wall seconds of both
+runs, the device time summed over kernels, kernels per bounce, the device
+busy share, the top kernels by device time, each span's count, host
+seconds and the device time of the kernels launched inside it,
+the wrapper calls, device kernels and device time of kernels K1-K4 (K4
+runs four kernels a call), and the per-ray selection phases per bounce.
+Last it times three more unprofiled runs: what the profiler leaves behind
+on later launches of these host-bound paths, and then one more under
+``trace.recording()`` alone, which counts the host synchronisations that
+PyTorch's operations make by span (per bounce or per loop iteration).
 
 For any render, ``RenderStats`` times named phases with their camera rays
 (``Phase``: seconds and rays/s; the clock stops after a synchronise when
 the work is on the card), and ``device_trace(dir)`` writes a
-``torch.profiler`` Chrome trace of what it wraps (a no-op when ``dir`` is
-None): the CLI's ``--profile`` (``utils/profiling.py:19-62`` of the JAX
-package).
+``torch.profiler`` Chrome trace of what it wraps, the port's spans in it
+(a no-op when ``dir`` is None): the CLI's ``--profile``
+(``utils/profiling.py:19-62`` of the JAX package).
 
 ``cuda_ms`` and the card's peak rates are shared with ``chip_smoke.py``
 and ``utils/gather_probe.py``; ``camera_rays`` and ``secondary``, the rays
@@ -61,6 +60,7 @@ at which K1 and K2 are timed, with ``chip_smoke.py`` and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
@@ -73,15 +73,12 @@ import torch
 from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, integrator
-from cpu_ray_tracing_implementation_tpu_torch.ops import envlight
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
-from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
-from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
-from cpu_ray_tracing_implementation_tpu_torch.ops import packet, qmc, replay
-from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe
+from cpu_ray_tracing_implementation_tpu_torch.ops import keys, packet, perray
+from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe, trace
 
 @dataclasses.dataclass
 class Phase:
@@ -128,14 +125,15 @@ class RenderStats:
 def device_trace(log_dir: str | None):
     """A ``torch.profiler`` trace of the host and, where there is one, the
     card, written as ``log_dir/trace.json`` (Chrome trace format) when
-    ``log_dir`` is set; a no-op otherwise."""
+    ``log_dir`` is set; a no-op otherwise. The port's spans are recorded
+    inside it (``trace.recording()``), so the trace names the layers."""
     if not log_dir:
         yield
         return
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof, trace.recording():
         yield
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, "trace.json")
@@ -149,27 +147,6 @@ def device_trace(log_dir: str | None):
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 33.5e12
 
-# (module, function, range name): the stages of one bounce and of raygen,
-# and the per-ray accelerator's calls inside the intersect stage
-STAGES = (
-    (isect, "intersect_brute", "intersect"),
-    (integrator, "background_color", "background"),
-    (mat_ops, "mat_rows", "mat_rows"),
-    (mat_ops, "emitted", "emitted"),
-    (mat_ops, "scatter", "scatter"),
-    (mat_ops, "scatter_nee", "scatter_nee"),
-    (integrator, "_per_ray_uniforms", "uniforms"),
-    (qmc, "uniforms", "qmc uniforms"),
-    (envlight, "sample", "env sample"),
-    (envlight, "pdf", "env pdf"),
-    (cam_mod, "generate_rays", "raygen"),
-    (fs, "cull_select", "select"),
-    (fsw, "sweep", "sweep"),
-    (diff, "_forward_pass", "forward pass"),
-    (diff, "_backward_pass", "backward pass"),
-    (replay, "winner_pack", "decide"),
-    (replay, "replay_hit", "replay"),
-)
 # name -> (catalog scene, its arguments, samples profiled, gradient or not,
 # wavefront or scan, camera fields replaced)
 WORKLOADS = {
@@ -193,34 +170,12 @@ WORKLOADS = {
 }
 TOP = 20  # kernels listed by device time
 REPEATS = 3  # unprofiled runs before the profiled one, and after it
-# the gradient step's two top-level ranges
-PASSES = ("forward pass", "backward pass")
 KERNELS = {"planar_closest": "planar_closest_kernel",
            "sphere_closest": "sphere_closest_kernel",
            "cull_select": "cull_select_kernel",
            "visit_sweep": "visit_sweep_",   # its four stage kernels
            "packet_planar": "packet_kernel<(anonymous namespace)::Planar",
            "packet_sphere": "packet_kernel<(anonymous namespace)::Sphere"}
-
-
-@contextlib.contextmanager
-def stage_ranges():
-    """Wrap each stage function in a ``record_function`` range."""
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in STAGES]
-
-    def ranged(fn, label):
-        def wrapper(*args, **kwargs):
-            with torch.profiler.record_function(label):
-                return fn(*args, **kwargs)
-        return wrapper
-
-    for (mod, name, label), (_, _, fn) in zip(STAGES, saved):
-        setattr(mod, name, ranged(fn, label))
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 def launches() -> dict:
@@ -394,17 +349,17 @@ def main(argv=None) -> int:
 
     reset_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with stage_ranges(), torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof, trace.recording() as rec:
         t0 = time.perf_counter()
         run(spp)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
 
     cuda = torch.autograd.DeviceType.CUDA
-    ranges = {label for _, _, label in STAGES}
+    spans = {s.name for s in rec.spans}
     events = prof.key_averages()
     kern = sorted(((e.key, e.count, e.self_device_time_total) for e in events
-                   if e.device_type == cuda and e.key not in ranges),
+                   if e.device_type == cuda and e.key not in spans),
                   key=lambda k: -k[2])
     dev_s = sum(k[2] for k in kern) / 1e6
     n_kern = sum(k[1] for k in kern)
@@ -443,45 +398,37 @@ def main(argv=None) -> int:
     print("top kernels (name, count, device us, share of device time):")
     for key, count, us in kern[:TOP]:
         print(f"  {key[:100]:100} {count:7d} {us:10.1f} {us / 1e6 / dev_s:.4f}")
-    print("stages (count, host s, device s of the kernels launched inside):")
-    passes = 0.0
+    print("spans (count, host s, device s of the kernels launched inside on the "
+          "span's thread):")
+    device_s = {}
     for e in events:
-        if e.key in ranges and e.device_type != cuda:
-            print(f"  {e.key:12} {e.count:6d} host {e.cpu_time_total / 1e6:.4f} "
+        if e.key in spans and e.device_type != cuda:
+            print(f"  {e.key:26} {e.count:6d} host {e.cpu_time_total / 1e6:.4f} "
                   f"device {e.device_time_total / 1e6:.4f}")
-            if e.key in PASSES:
-                passes += e.device_time_total / 1e6
+            device_s[e.key] = e.device_time_total / 1e6
     if grad:
         # autograd runs the backward's kernels on its own thread, outside
-        # every range of the main thread: the rest of the device time
-        print(f"  autograd backward (no range): device {dev_s - passes:.4f}")
+        # every span of the main thread: the rest of the device time
+        top = device_s.get("crt.grad_step", 0.0)
+        print(f"  autograd backward (no span): device {dev_s - top:.4f}")
     wall_after, after = walls()
     print(f"wall unprofiled after the profiler: {wall_after:.4f} s (median of "
           f"{after}), against {wall:.4f} s before it")
-    n_sync = count_syncs(lambda: run(spp))
+    reset_counts()
+    with trace.recording() as rec:
+        run(spp)
+        torch.cuda.synchronize()
+    syncs = collections.Counter()
+    for s in rec.spans:
+        syncs[s.name] += s.syncs
+    n_sync = sum(syncs.values()) + rec.outside
     its = integrator.WAVEFRONT["iterations"] if wavefront else 0
     print(f"host synchronisations PyTorch reports in one more run: {n_sync} "
           + (f"({n_sync / its:.3f} per loop iteration)" if its else
-             f"({n_sync / bounces:.3f} per bounce)"))
+             f"({n_sync / bounces:.3f} per bounce)") + "; by span: "
+          + ", ".join(f"{k} {v}" for k, v in syncs.most_common() if v)
+          + f", outside every span {rec.outside}")
     return 0
-
-
-def count_syncs(fn) -> int:
-    """The host synchronisations that PyTorch's operations make while
-    ``fn`` runs: its synchronisation debug mode warns once for each."""
-    import warnings
-
-    reset_counts()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 if __name__ == "__main__":

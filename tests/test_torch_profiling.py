@@ -1,31 +1,44 @@
-"""The port's profiling entry point: stage ranges wrap and restore, and a
-CPU render under the profiler records one range per stage call, for the
-Cornell and the colonnade workloads."""
+"""The port's profiling entry point: a CPU render under the profiler and
+``trace.recording()`` records one range per span of the port's code, for
+the Cornell, gradient, colonnade and wavefront workloads."""
+
+import time
 
 import pytest
 import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, integrator
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
-from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray
-from cpu_ray_tracing_implementation_tpu_torch.utils import profiling
+from cpu_ray_tracing_implementation_tpu_torch.ops import keys, perray, replay
+from cpu_ray_tracing_implementation_tpu_torch.utils import profiling, trace
+
+ACTS = [torch.profiler.ProfilerActivity.CPU]
+
+
+def _profiled(fn):
+    """(what ``fn`` returns, {range: count} of the profile, the recording)."""
+    with torch.profiler.profile(activities=ACTS) as prof, trace.recording() as rec:
+        out = fn()
+    return out, {e.key: e.count for e in prof.key_averages()}, rec
 
 
 def test_stage_ranges_record_and_restore():
-    before = [getattr(mod, name) for mod, name, _ in profiling.STAGES]
+    """The spans are ranges of the profile, and no module attribute is
+    swapped to make them."""
+    before = isect.intersect_brute
     scene, cam = catalog.cornell_box(width=8, spp=1, max_depth=2,
                                       device="cpu")
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    with profiling.stage_ranges(), torch.profiler.profile(activities=acts) as prof:
-        assert isect.intersect_brute is not before[0]
-        img = integrator.render_image(scene, cam, keys.key(0))
+    img, counts, rec = _profiled(lambda: integrator.render_image(scene, cam, keys.key(0)))
     assert bool(torch.isfinite(img).all())
-    assert [getattr(mod, name) for mod, name, _ in profiling.STAGES] == before
-    counts = {e.key: e.count for e in prof.key_averages()}
+    assert isect.intersect_brute is before
     # one camera pass, then intersect and scatter once per bounce
-    assert counts["raygen"] == 1
-    assert counts["intersect"] == cam.max_depth
-    assert counts["scatter"] == cam.max_depth
+    assert counts["crt.render"] == counts["crt.sample"] == counts["crt.raygen"] == 1
+    assert counts["crt.intersect"] == counts["crt.bounce"] == cam.max_depth
+    assert counts["crt.scatter"] == counts["crt.scatter.light_pdf"] == cam.max_depth
+    # a range for every span recorded, and nothing else named as the spans
+    names = [s.name for s in rec.spans]
+    assert {n: names.count(n) for n in names} == {k: v for k, v in counts.items()
+                                                  if k.startswith("crt.")}
 
 
 def test_colonnade_ranges_the_per_ray_accelerator(monkeypatch):
@@ -37,15 +50,11 @@ def test_colonnade_ranges_the_per_ray_accelerator(monkeypatch):
     scene, cam = catalog.sponza(width=8, spp=1, max_depth=2, device="cpu")
     assert scene.tri_chunks is not None
     profiling.reset_counts()
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    with profiling.stage_ranges(), torch.profiler.profile(activities=acts) as prof:
-        img = integrator.render_image(scene, cam, keys.key(0))
+    img, counts, _ = _profiled(lambda: integrator.render_image(scene, cam, keys.key(0)))
     assert bool(torch.isfinite(img).all())
-    counts = {e.key: e.count for e in prof.key_averages()}
-    assert counts["intersect"] == cam.max_depth
-    assert counts["select"] == counts["sweep"] >= cam.max_depth
-    assert counts["select"] == perray.PHASES["phases"]
-    assert perray.PHASES["calls"] == cam.max_depth
+    assert counts["crt.intersect"] == cam.max_depth == perray.PHASES["calls"]
+    assert counts["crt.intersect.select"] == counts["crt.intersect.sweep"] >= cam.max_depth
+    assert counts["crt.intersect.select"] == perray.PHASES["phases"]
     # CPU tensors take the plain versions: no kernel launched
     assert set(profiling.launches().values()) == {0}
 
@@ -65,21 +74,32 @@ def test_main_needs_a_gpu():
     assert profiling.main(["nope"]) == 2
 
 
-def test_gradient_ranges_split_the_passes():
+def test_gradient_ranges_split_the_passes(monkeypatch):
     """The cornell_grad workload at a CPU size: one forward-pass range (which
     decides every bounce's winner) and one backward-pass range (which
-    replays them and decides none)."""
+    replays them and decides none), a re-render and an autograd range a
+    sample."""
     scene, cam = catalog.cornell_box(width=8, spp=2, max_depth=2, device="cpu")
     assert profiling.WORKLOADS["cornell_grad"][3]
     target = torch.zeros((cam.height, cam.width, 3))
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    with profiling.stage_ranges(), torch.profiler.profile(activities=acts) as prof:
-        loss, _ = diff.loss_and_grads(scene, cam, keys.key(0), target, 2)
+    calls = {"winner_pack": [], "replay_hit": []}
+    for name, at in calls.items():
+        def counted(*a, _fn=getattr(replay, name), _at=at, **kw):
+            _at.append(time.time_ns())
+            return _fn(*a, **kw)
+        monkeypatch.setattr(replay, name, counted)
+    (loss, _), counts, rec = _profiled(
+        lambda: diff.loss_and_grads(scene, cam, keys.key(0), target, 2))
     assert bool(torch.isfinite(loss))
-    counts = {e.key: e.count for e in prof.key_averages()}
-    assert counts["forward pass"] == 1 and counts["backward pass"] == 1
-    assert counts["decide"] == 2 * cam.max_depth
-    assert counts["replay"] == 2 * 2 * cam.max_depth
+    assert counts["crt.grad_step"] == counts["crt.forward"] == counts["crt.backward"] == 1
+    assert counts["crt.sample"] == 2 * 2 and counts["crt.autograd"] == 2
+    assert counts["crt.intersect"] == 2 * 2 * cam.max_depth
+    assert len(rec.requests()) == 1
+    # every decision is the forward pass's; both passes replay
+    (fwd,) = [s for s in rec.spans if s.name == "crt.forward"]
+    assert len(calls["winner_pack"]) == 2 * cam.max_depth
+    assert all(fwd.start_ns <= t <= fwd.end_ns for t in calls["winner_pack"])
+    assert len(calls["replay_hit"]) == 2 * 2 * cam.max_depth
 
 
 @pytest.mark.parametrize("name", ["colonnade_wavefront", "sphereflake_wavefront"])
@@ -93,17 +113,16 @@ def test_wavefront_workloads_count_iterations(name, monkeypatch):
     assert wavefront and not grad and kwargs["max_depth"] == 5 and not cam_kw
     scene, cam = make(width=8, spp=2, max_depth=2, device="cpu")
     profiling.reset_counts()
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    with profiling.stage_ranges(), torch.profiler.profile(activities=acts) as prof:
-        img = integrator.render_image_wavefront(scene, cam, keys.key(0))
+    img, counts, _ = _profiled(
+        lambda: integrator.render_image_wavefront(scene, cam, keys.key(0)))
     assert bool(torch.isfinite(img).all())
     its = integrator.WAVEFRONT["iterations"]
-    counts = {e.key: e.count for e in prof.key_averages()}
     assert integrator.WAVEFRONT["renders"] == 1 and its >= cam.max_depth
-    assert counts["intersect"] == its == perray.PHASES["calls"]
-    assert counts["select"] == perray.PHASES["phases"] >= its
+    assert counts["crt.iteration"] == counts["crt.intersect"] == its
+    assert its == perray.PHASES["calls"]
+    assert counts["crt.intersect.select"] == perray.PHASES["phases"] >= its
     # raygen once before the loop and once per iteration (the refill)
-    assert counts["raygen"] == its + 1
+    assert counts["crt.raygen"] == its + 1
     if not torch.cuda.is_available():
         assert profiling.main([name]) == 2
 
