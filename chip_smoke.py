@@ -119,6 +119,14 @@ Phases (any failure raises and the script exits non-zero):
      table (K 131,072: device memory), with its time, its bound (the named
      rows, ids and output moved once) and share of it, and the
      embedding_bag call's time and gathered GB/s (a row per ray and slot).
+   - K9 (one bounce's scatter) against its plain version on every bounce
+     of one sample: the Cornell box at the scan cell's 600x600, depth 4,
+     under both ``CRT_COSINE`` samplers, and all_materials_fixture, the
+     volume box, the sphere-light box and dispersion_prism at 256x256
+     (``kernel_ab.scatter_check``: continues equal, new_dir and weight
+     within atol 1e-5 / rtol 1e-4 but on at most 1 lane in 10,000, each at
+     a light's edge, printed with the lanes equal bit for bit); timed on
+     the Cornell box's second bounce, with its bound (bytes).
    Kernel and plain times from CUDA events.
 3. Checks, their launches not counted: cornell_box, three_material_ball,
    random_motion_ball, sponza (the colonnade) and the scenes that need
@@ -207,13 +215,15 @@ Phases (any failure raises and the script exits non-zero):
    route equal to plain autograd (every closest hit's plain version on the
    card) under deterministic algorithms.
 5. Kernel launch counts of each phase-4 run, set to 0 just before it and
-   read just after: the Cornell render must launch K1, the
+   read just after: the Cornell render must launch K1 and K9 (K9 spp x
+   depth times, as in a render at the scan cell's 600x600, 40 spp, depth
+   4: 160), the
    three_material_ball render K2, the colonnade render K1 (its light
    quad), K3 and K4, and the random_motion_ball render K2 exactly spp x
    depth = 1,000 times; the colonnade wavefront K1, K3 and K4, the
-   sphereflake wavefront K6 (their launches go on a line of their own). Cornell's gradient runs launch K1 spp x depth times in the
+   sphereflake wavefront K6 (their launches go on a line of their own). Cornell's gradient runs launch K1 and K9 spp x depth times in the
    forward pass (2,048 at 256 spp) and none in the backward pass (the winners are
-   replayed from the tape); the colonnade's gradient run launches K1, K3
+   replayed from the tape; the backward's scatter is the differentiable eager one); the colonnade's gradient run launches K1, K3
    and K4 in both passes (no tape on chunked tables: the accelerator runs
    again). ``loss_and_grads`` with next-event estimation through
    cornell_box_with_volume, cut to 256x256, 4 spp, depth 5: K1 launched
@@ -339,6 +349,7 @@ from cpu_ray_tracing_implementation_tpu_torch.models import (adaptive, aov, cata
 from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_scatter as fsc
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
@@ -349,7 +360,7 @@ from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
 from cpu_ray_tracing_implementation_tpu_torch.parallel import collectives
 from cpu_ray_tracing_implementation_tpu_torch.parallel import mesh as pm
 from cpu_ray_tracing_implementation_tpu_torch.utils import (checkpoint, denoise, gather_probe,
-                                                            procgen, profiling)
+                                                            kernel_ab, procgen, profiling)
 from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import (
     FP32_INSTR_PER_S, HBM_BYTES_PER_S, camera_rays, cuda_ms, secondary)
 
@@ -413,7 +424,13 @@ KERNELS = {
     # routes (no Pallas counterpart): the sub-tile sweep and the q16 sweep
     "visit_sweep_sub": ("K7", PKG + "visit_sweep.cu", JAX + "ops/perray.py:567"),
     "visit_sweep_q16": ("K8", PKG + "visit_sweep.cu", JAX + "ops/perray.py:840"),
+    # K9 replaces no Pallas kernel: the JAX package leaves the scatter's
+    # elementwise graph to XLA's fusion
+    "scatter": ("K9", PKG + "scatter.cu", JAX + "ops/materials.py:328"),
 }
+# K9's launches: the scan cell's render (600x600, 40 spp, depth 4), once a
+# bounce
+SCAN_CELL = dict(width=600, spp=40, max_depth=4)
 # gradient tolerances: the JAX package's replay-against-remat test
 # (tests/test_replay.py:106-112)
 LOSS_RTOL = 1e-4
@@ -1977,6 +1994,48 @@ def phase_gather(dev):
             raise AssertionError(f"K5 rel err {r['rel_err']} > 1e-5 at K {K}")
         results.append(r)
     return results
+
+
+def phase_scatter(dev):
+    """K9 against its plain version (``kernel_ab.scatter_check``) on every
+    bounce of one sample: the Cornell box at the scan cell's 600x600,
+    depth 4, under both cosine samplers, and all_materials_fixture, the
+    volume box, the sphere-light box and dispersion_prism at 256x256; then
+    K9 and its plain version timed on the Cornell box's second bounce.
+    Returns (max abs err, (ms, plain ms), (bound ms, bound term))."""
+    scenes = [("cornell_box 600x600 (the scan cell's bounces)", "sphere",
+               lambda: catalog.cornell_box(width=600, spp=1, max_depth=4, device=dev))]
+    scenes.append(("cornell_box 600x600 under CRT_COSINE=onb", "onb", scenes[0][2]))
+    for name in ("all_materials_fixture", "cornell_box_with_volume",
+                 "cornell_box_with_sphere_light", "dispersion_prism"):
+        scenes.append((f"{name} 256x256", "sphere",
+                       lambda n=name: getattr(catalog, n)(width=256, spp=1, max_depth=4,
+                                                          device=dev)))
+    err = 0.0
+    for label, cosine, make in scenes:
+        with switches({"CRT_COSINE": cosine}):
+            scene, cam = make()
+            calls = kernel_ab.scatter_calls(scene, cam, keys.key(0))
+            r = kernel_ab.scatter_check(scene, calls)
+        log(f"  K9 {label}: {len(calls)} bounces, {r['lanes']} lanes, {r['bit_equal']} "
+            f"bit for bit with the plain version, max abs err {r['max_abs_err']:.3g}; "
+            f"beyond atol {kernel_ab.SCATTER_TOL['atol']} / rtol "
+            f"{kernel_ab.SCATTER_TOL['rtol']} (bounce, lane), each at a light's edge: "
+            f"{r['outliers']}")
+        if not r["ok"]:
+            raise AssertionError(f"K9 {label}: differs from its plain version")
+        err = max(err, r["max_abs_err"])
+    scene, cam = scenes[0][2]()
+    hit, ray_dir, u, ior_shift, pre = kernel_ab.scatter_calls(scene, cam, keys.key(0))[1]
+    with torch.no_grad():
+        ms = profiling.cuda_ms(lambda: fsc.scatter(scene, hit, ray_dir, u, ior_shift, *pre))
+        plain_ms = profiling.cuda_ms(lambda: mat_ops.scatter_plain(scene, hit, ray_dir, u,
+                                                                   ior_shift, pre))
+    R = hit.p.shape[0]
+    bound_ms = kernel_ab.scatter_bytes(R, False) / profiling.HBM_BYTES_PER_S * 1e3
+    log(f"  K9 at the Cornell box's second bounce ({R} rays): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), share {bound_ms / ms:.3f}")
+    return err, (ms, plain_ms), (bound_ms, "bytes")
 
 
 # ------------------------------------------------- phase 3: gradients
@@ -3651,6 +3710,7 @@ def main() -> int:
     errs["gather_sum"] = r["max_abs_err"]
     times["gather_sum"] = (r["ms"], r["plain_ms"])
     bounds["gather_sum"] = (r["bound_ms"], r["bound_by"])
+    errs["scatter"], times["scatter"], bounds["scatter"] = phase_scatter(dev)
 
     phase_log("phase 3: checks (their launches are not counted)")
     for name in (*GOLDEN_MEANS, *F1_SCENES):
@@ -3665,7 +3725,16 @@ def main() -> int:
     phase_log("phase 4, 5: main paths, each render's launches counted on its own")
     scene, cam = catalog.cornell_box(width=512, spp=256, max_depth=8, device=dev)
     cornell_secs, cornell_rps, cornell_img, launches_cornell = main_path(
-        "cornell_box 512x512 256spp depth 8", scene, cam, ("planar_closest",))
+        "cornell_box 512x512 256spp depth 8", scene, cam, ("planar_closest", "scatter"))
+    _, _, _, launches_scan = main_path(
+        "cornell_box 600x600 40spp depth 4 (the scan cell)",
+        *catalog.cornell_box(**SCAN_CELL, device=dev), ("planar_closest", "scatter"))
+    for label, c, want in (("cornell_box 512x512", launches_cornell, cam.spp * cam.max_depth),
+                           ("the scan cell", launches_scan,
+                            SCAN_CELL["spp"] * SCAN_CELL["max_depth"])):
+        if c["scatter"] != want:
+            raise AssertionError(f"{label}: K9 launched {c['scatter']} times, want spp x "
+                                 f"depth = {want}")
     # the slice-1 path's sphere scene at its parity size, which the gate reads
     _, _, img, launches_ball = main_path(
         "three_material_ball 320px 16spp depth 5",
@@ -3782,10 +3851,11 @@ def main() -> int:
         grad_secs[geometry], _, (fwd, bwd) = grad_path(label, scene, cam, geometry,
                                                        fwd_secs=cornell_secs)
         want = cam.spp * cam.max_depth
-        if fwd["planar_closest"] != want or bwd["planar_closest"] != 0:
-            raise AssertionError(f"{label}: K1 launched {fwd['planar_closest']} times "
-                                 f"in the forward pass (want {want}) and "
-                                 f"{bwd['planar_closest']} in the backward (want 0)")
+        for kid, name in (("K1", "planar_closest"), ("K9", "scatter")):
+            if fwd[name] != want or bwd[name] != 0:
+                raise AssertionError(f"{label}: {kid} launched {fwd[name]} times in the "
+                                     f"forward pass (want {want}) and {bwd[name]} in the "
+                                     "backward (want 0)")
     col_grad_cam = col_cam.replace(spp=COLONNADE_GRAD_SPP)
     perray.reset_phases()
     col_grad_secs, col_grad_rps, (fwd, bwd) = grad_path(
@@ -3846,7 +3916,8 @@ def main() -> int:
                 "packet_planar": launches_perlin["packet_planar"],
                 "packet_sphere": sf_wf[3]["packet_sphere"],
                 "visit_sweep_sub": mode_counts["subtile"]["visit_sweep_sub"],
-                "visit_sweep_q16": mode_counts["q16"]["visit_sweep_q16"]}
+                "visit_sweep_q16": mode_counts["q16"]["visit_sweep_q16"],
+                "scatter": launches_scan["scatter"]}
     library_ms = {"gather_sum": r["library_ms"]}
     log(f"  K4 spheres at sphereflake (its wavefront under CRT_ACCEL=ray): "
         f"{sf_ray[3]['visit_sweep']} launches in that render; kernel "

@@ -29,12 +29,13 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 SOURCES = ("closest_hit.cu", "cull_select.cu", "visit_sweep.cu",
-           "gather_sum.cu", "packet_closest.cu")
+           "gather_sum.cu", "packet_closest.cu", "scatter.cu")
 # headers the sources include: part of the library's hash
 HEADERS = ("hit_tests.cuh",)
 # multiply-add contraction stays on; a kernel that must round like its plain
 # version says so in its source (K2's sphere quadratic, csrc/closest_hit.cu;
-# K4, K7 and K8, csrc/visit_sweep.cu)
+# K4, K7 and K8, csrc/visit_sweep.cu; K9 rounds each operation on its own,
+# csrc/scatter.cu)
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 
 _lock = threading.Lock()
@@ -148,6 +149,11 @@ def load() -> ctypes.CDLL:
             lib.crt_packet_sphere.restype = i32
             lib.crt_packet_info.argtypes = [i32, i32, i32, ptr]
             lib.crt_packet_info.restype = i32
+            lib.crt_scatter.argtypes = ([ptr, i32, i32, ptr, i32, i32] + [ptr] * 4
+                                        + [i32, i32, ptr, i32, i32, ptr, ptr, i32, i32]
+                                        + [ptr] * 7 + [i32] + [ptr] * 4 + [i32] + [ptr] * 2
+                                        + [i32, i32] + [ptr] * 4)
+            lib.crt_scatter.restype = i32
             lib.crt_error_string.argtypes = [i32]
             lib.crt_error_string.restype = ctypes.c_char_p
             _lib = lib

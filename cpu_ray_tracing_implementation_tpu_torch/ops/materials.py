@@ -10,9 +10,11 @@ times the path's ``ior_shift`` (``spectrum.cauchy_ior_shift`` of the hero
 wavelength).
 
 Two estimators: ``scatter`` is the reference's one-sample 50/50 mixture of
-the material and light pdfs; ``scatter_nee`` (camera.nee) splits each
-diffuse vertex into a pure material sample for the path and a separate
-light sample for a shadow ray, combined with the power heuristic.
+the material and light pdfs (its forward alone, where no gradient is
+asked for, one launch of kernel K9 on the card); ``scatter_nee``
+(camera.nee) splits each diffuse vertex into a pure material sample for
+the path and a separate light sample for a shadow ray, combined with the
+power heuristic.
 
 Random numbers arrive as a [R, NSLOT(+V)] uniform block with the JAX
 package's slot layout:
@@ -36,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from cpu_ray_tracing_implementation_tpu_torch.models import scene as sc
-from cpu_ray_tracing_implementation_tpu_torch.ops import envlight
+from cpu_ray_tracing_implementation_tpu_torch.ops import envlight, fused_scatter
 from cpu_ray_tracing_implementation_tpu_torch.ops import sampling as smp
 from cpu_ray_tracing_implementation_tpu_torch.ops import tables as tbl
 from cpu_ray_tracing_implementation_tpu_torch.ops import vecmath as vm
@@ -297,7 +299,28 @@ def scatter(scene, hit, ray_dir: torch.Tensor, u: torch.Tensor, ior_shift=None,
     """One scatter decision per lane -> (new_dir [R,3], weight [R,3],
     continues [R] bool). Lanes whose material does not scatter
     (diffuse_light, src/material.h:43) get continues=False. ``ior_shift``:
-    see ``_sample_lobes``."""
+    see ``_sample_lobes``.
+
+    Where autograd records nothing from the inputs and the scene has no
+    environment light (``fused_scatter.takes``), the forward alone is
+    computed under the span ``crt.scatter.fused``: by kernel K9 on the
+    card, by its plain version ``scatter_plain`` on the CPU. Otherwise
+    ``scatter_plain`` runs, whose graph carries the gradients."""
+    pre = mat_rows(scene, hit) if pre is None else pre
+    if fused_scatter.takes(scene, hit, ray_dir, u, ior_shift, pre[1]):
+        with trace.span("crt.scatter.fused"):
+            if hit.p.is_cuda:
+                return fused_scatter.scatter(scene, hit, ray_dir, u[:, :NSLOT], ior_shift,
+                                             *pre)
+            return scatter_plain(scene, hit, ray_dir, u, ior_shift, pre)
+    return scatter_plain(scene, hit, ray_dir, u, ior_shift, pre)
+
+
+def scatter_plain(scene, hit, ray_dir: torch.Tensor, u: torch.Tensor, ior_shift=None,
+                  pre=None):
+    """``scatter`` as eager tensor ops, differentiable: the plain version
+    of kernel K9, and the route of every call where ``fused_scatter.takes``
+    does not hold (a gradient asked for, an environment light)."""
     with trace.span("crt.scatter.lobes"):
         (mt, atten, det_dir, det_weight, is_det, is_iso, is_rand, mat_sample,
          score_w) = _sample_lobes(scene, hit, ray_dir, u, ior_shift, pre=pre)

@@ -56,7 +56,7 @@ def cosine_local_dir(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
                         torch.sin(phi) * sq_r2], dim=-1)
 
 
-def _cosine_impl() -> str:
+def cosine_impl() -> str:
     """``CRT_COSINE``: "sphere" (the default) or "onb"."""
     return os.environ.get("CRT_COSINE", "sphere")
 
@@ -67,7 +67,7 @@ def cosine_dir(normal: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> torc
     under ``CRT_COSINE=onb`` the local cosine direction in the normal's
     basis. Both sample cos(theta)/pi; they map (u1, u2) to different
     directions."""
-    if _cosine_impl() == "onb":
+    if cosine_impl() == "onb":
         x, y, z = vm.onb_from_normal(normal)
         return vm.onb_transform(cosine_local_dir(u1, u2), x, y, z)
     s = unit_sphere_dir(u1, u2)

@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K4, K5, K6, K7 and K8 of other checkouts of the port
+"""Kernels K1, K2, K4, K5, K6, K7, K8 and K9 of other checkouts of the port
 beside this one's, held to one another and timed in turns on one GPU; and,
 with ``--walls``, the packet-routed renders' walls the same way.
 
@@ -11,7 +11,8 @@ unpacked with ``git archive`` into the gitignored ``_scratch/``) whose
 ``sphere_closest_kernel``, whose ``fused_sweep`` has ``sweep_kernel``,
 ``sweep_sub_kernel`` and ``sweep_q16_kernel``, whose ``packet`` has
 ``packet_planar_kernel`` and ``packet_sphere_kernel``, whose
-``gather_probe`` has ``gather_sum_kernel`` and whose ``profiling`` has
+``gather_probe`` has ``gather_sum_kernel``, whose ``fused_scatter`` (if
+any) has ``scatter``, and whose ``profiling`` has
 ``cuda_ms``. This package makes the inputs and saves
 them under ``build/`` (``--only K6`` keeps the cases whose label starts
 with "K6", and makes no other case's inputs; ``--only K4,K7,K8`` those of
@@ -39,7 +40,10 @@ the three sweeps):
   ``packet.AUTO_TILE`` and ``TILES`` (sphereflake's primary rays at
   2,048 too), and the 576-triangle Fox stand-in's primary and secondary
   rays (written with ``procgen.write_gltf`` as ``chip_smoke.py`` writes
-  it) at ``packet.AUTO_TILE``.
+  it) at ``packet.AUTO_TILE``;
+- K9 (``SCATTER_CASE``) on the arguments of the Cornell box's second
+  ``materials.scatter`` call at the scan cell's 600x600, one sample (a
+  checkout without ``ops/fused_scatter.py`` skips it).
 
 Then one process per turn, in the order this checkout, the others, the
 others reversed, this one, imports the package of its own checkout (which
@@ -50,7 +54,7 @@ device time of their memset and kernels over 10 calls, each stage
 with the kernels it counted (K8's row stage q16_derive and its tile
 stage q16_sweep_tile; K5's row_sums and fold stages, or the first
 kernel's one gather_sum_kernel), after every other timing of the turn;
-K5 with its share of the bound; K6 with its visits per tile, mean and max, and its
+K5 and K9 with their shares of the bound; K6 with its visits per tile, mean and max, and its
 registers per thread and resident blocks per SM: ``packet.kernel_info``,
 or, for a checkout without it, the same CUDA queries on its
 ``csrc/packet_closest.cu`` built into a probe). A checkout's first turn
@@ -307,6 +311,8 @@ def make_inputs(path: Path, only: tuple = ("",)) -> None:
         inputs.update(packet_inputs(dev))
     if wanted("K5", only):
         inputs.update(gather_inputs(dev))
+    if wanted("K9", only):
+        inputs.update(scatter_inputs(dev))
     torch.save(inputs, path)
 
 
@@ -331,6 +337,162 @@ def gather_inputs(dev) -> dict:
               flush=True)
         out[label] = (ids, table, *b)
     return out
+
+
+# K9's case: the Cornell box at the scan cell's 600x600, the second bounce
+# of one sample (rays leaving the first hits)
+SCATTER_CASE = ("K9 cornell_box 600x600, bounce 1", "cornell_box", 600, 1)
+# K9 against its plain version: atol / rtol of new_dir and weight, and the
+# share of lanes that may lie beyond them (each where light_pdf's edge test
+# rounds apart)
+SCATTER_TOL = dict(atol=1e-5, rtol=1e-4)
+SCATTER_OUTLIERS = 1e-4
+# a lane is at a light's edge when the ray meets the plane this near (in
+# units of the quad's edges) to an edge, or the sphere this near its rim
+EDGE_EPS = 1e-4
+
+
+def scatter_calls(scene, cam, key) -> list:
+    """[(hit, ray_dir, u, ior_shift, pre)]: the arguments of each
+    ``materials.scatter`` call (one a bounce) of a render of ``cam`` under
+    no_grad, in bounce order; ``u`` cut to the NSLOT slots the scatter
+    reads, as K9 takes it."""
+    from cpu_ray_tracing_implementation_tpu_torch.models import integrator
+    from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
+
+    calls = []
+    inner = mat_ops.scatter
+
+    def record(scene_, hit, ray_dir, u, ior_shift=None, pre=None):
+        calls.append((hit, ray_dir, u[:, :mat_ops.NSLOT], ior_shift, pre))
+        return inner(scene_, hit, ray_dir, u, ior_shift, pre)
+
+    mat_ops.scatter = record
+    try:
+        with torch.no_grad():
+            integrator.render_image(scene, cam, key)
+    finally:
+        mat_ops.scatter = inner
+    return calls
+
+
+def scatter_bytes(R: int, dispersive: bool) -> int:
+    """The bytes K9 must move for R hits (``csrc/scatter.cu``): 119 a ray,
+    4 more under dispersion."""
+    return R * (119 + 4 * dispersive)
+
+
+def near_light_edge(scene, p, d) -> torch.Tensor:
+    """[R] bool: the rays (p, d) that meet some light's boundary within
+    EDGE_EPS, in float64: a quad light's edge or its plane at t = 1e-3, a
+    sphere light's rim. There light_pdf's edge test can round either way."""
+    p, d = p.double(), d.double()
+    near = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
+    inside = lambda v: (v > -EDGE_EPS) & (v < 1 + EDGE_EPS)
+    edge = lambda v: torch.minimum(v.abs(), (v - 1).abs()) < EDGE_EPS
+    for q in scene.lights.tolist():
+        c, eu, ev = (getattr(scene.quads, f)[q].double() for f in ("corner", "eu", "ev"))
+        n = torch.linalg.cross(eu, ev)
+        w = n / (n @ n)
+        denom = d @ n
+        t = ((c - p) @ n) / torch.where(denom == 0, torch.ones_like(denom), denom)
+        x = p + t[:, None] * d - c
+        a, b = x @ torch.linalg.cross(ev, w), x @ torch.linalg.cross(w, eu)
+        near |= inside(a) & inside(b) & (edge(a) | edge(b) | ((t - 1e-3).abs() < EDGE_EPS))
+    if scene.sphere_lights is not None:
+        for i in scene.sphere_lights.tolist():
+            c, rad = scene.spheres.c0[i].double(), float(scene.spheres.rad[i])
+            ud = d / d.norm(dim=1, keepdim=True)
+            dc = c - p
+            proj = (dc * ud).sum(1)
+            # the ray's squared distance from the center against rad^2
+            miss = (dc * dc).sum(1) - proj * proj - rad * rad
+            near |= miss.abs() < EDGE_EPS * rad * rad
+    return near
+
+
+def scatter_check(scene, calls) -> dict:
+    """K9 against its plain version on the card, call by call: continues
+    must be equal; new_dir and weight within SCATTER_TOL but on at most a
+    SCATTER_OUTLIERS share of the lanes, each at a light's edge. Returns
+    {"lanes", "bit_equal" (lanes whose outputs equal the plain version's
+    bit for bit), "outliers" [(call, lane)], "max_abs_err", "ok"}."""
+    from cpu_ray_tracing_implementation_tpu_torch.ops import fused_scatter
+    from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
+
+    lanes = bit_equal = 0
+    outliers, max_err, ok = [], 0.0, True
+    with torch.no_grad():
+        for i, (hit, ray_dir, u, ior_shift, pre) in enumerate(calls):
+            got = fused_scatter.scatter(scene, hit, ray_dir, u, ior_shift, *pre)
+            ref = mat_ops.scatter_plain(scene, hit, ray_dir, u, ior_shift, pre)
+            ok &= torch.equal(got[2], ref[2])
+            same = torch.ones_like(ref[2])
+            close = torch.ones_like(ref[2])
+            for g, r in zip(got[:2], ref[:2]):
+                same &= (g.view(torch.int32) == r.view(torch.int32)).all(1)
+                close &= ((g - r).abs() <= SCATTER_TOL["atol"]
+                          + SCATTER_TOL["rtol"] * r.abs()).all(1)
+                max_err = max(max_err, float((g - r).abs().max()))
+            far = ~close
+            if bool(far.any()):
+                edge = (near_light_edge(scene, hit.p, got[0])
+                        | near_light_edge(scene, hit.p, ref[0]))
+                ok &= bool(edge[far].all())
+                outliers += [(i, lane) for lane in far.nonzero()[:, 0].tolist()]
+            lanes += ref[2].shape[0]
+            bit_equal += int(same.sum())
+    ok &= len(outliers) <= SCATTER_OUTLIERS * lanes
+    return {"lanes": lanes, "bit_equal": bit_equal, "outliers": outliers,
+            "max_abs_err": max_err, "ok": bool(ok)}
+
+
+def scatter_inputs(dev) -> dict:
+    """{label: (the kernel's arguments as a dict of tensors, bound ms,
+    bound term)}: K9's case, made with this checkout's package."""
+    from cpu_ray_tracing_implementation_tpu_torch.models import catalog
+    from cpu_ray_tracing_implementation_tpu_torch.ops import keys
+    from cpu_ray_tracing_implementation_tpu_torch.utils import profiling
+
+    label, name, width, bounce = SCATTER_CASE
+    scene, cam = catalog.SCENES[name](width=width, spp=1, device=dev)
+    hit, ray_dir, u, ior_shift, (mt, atten) = scatter_calls(scene, cam, keys.key(0))[bounce]
+    args = {"p": hit.p, "normal": hit.normal, "front": hit.front, "valid": hit.valid,
+            "mat": hit.mat, "ray_dir": ray_dir, "u": u, "mt": mt, "atten": atten,
+            "lights": scene.lights, "corner": scene.quads.corner, "eu": scene.quads.eu,
+            "ev": scene.quads.ev, "c0": scene.spheres.c0, "rad": scene.spheres.rad,
+            **{f: getattr(scene.materials, f)
+               for f in ("fuzz", "ior", "dispersion", "smoothness", "spec_prob")}}
+    nbytes = scatter_bytes(hit.p.shape[0], ior_shift is not None)
+    bound_ms = nbytes / profiling.HBM_BYTES_PER_S * 1e3
+    print(f"{label}: {hit.p.shape[0]} rays, bound {bound_ms:.4f} ms (bytes)", flush=True)
+    return {label: (args, bound_ms, "bytes")}
+
+
+def scatter_turn(root: str, label: str, case: tuple, outs: dict) -> None:
+    """K9 of the checkout at ``root`` on its saved case, timed; a checkout
+    without it is skipped."""
+    from types import SimpleNamespace as NS
+
+    from cpu_ray_tracing_implementation_tpu_torch.utils.profiling import cuda_ms
+    try:
+        from cpu_ray_tracing_implementation_tpu_torch.ops import fused_scatter
+    except ImportError:
+        print(f"{label}, {root}: no K9", flush=True)
+        return
+    a, bound_ms, bound_by = case
+    scene = NS(lights=a["lights"], sphere_lights=None, n_sphere_lights=0,
+               quads=NS(corner=a["corner"], eu=a["eu"], ev=a["ev"]),
+               spheres=NS(c0=a["c0"], rad=a["rad"]),
+               materials=NS(**{f: a[f] for f in ("fuzz", "ior", "dispersion",
+                                                 "smoothness", "spec_prob")}))
+    hit = NS(**{f: a[f] for f in ("p", "normal", "front", "valid", "mat")})
+    call = lambda: fused_scatter.scatter(scene, hit, a["ray_dir"], a["u"], None, a["mt"],
+                                         a["atten"])
+    outs[label] = call()
+    ms = cuda_ms(call)
+    print(f"{label}, {root}: {ms:.4f} ms, share of the bound {bound_ms:.4f} ms "
+          f"({bound_by}) {bound_ms / ms:.3f}", flush=True)
 
 
 def turn(root: str, inputs: Path, outputs: Path) -> None:
@@ -379,6 +541,8 @@ def turn(root: str, inputs: Path, outputs: Path) -> None:
         ms = cuda_ms(call)
         print(f"{label}, {root}: {ms:.4f} ms, share of the bound {bound_ms:.4f} ms "
               f"({bound_by}) {bound_ms / ms:.3f}", flush=True)
+    for label in (k for k in saved if k.startswith("K9")):
+        scatter_turn(root, label, saved[label], outs)
     # last: the profiler slows what runs after it in its process
     for label in sweeps:
         us = stage_us(sweep_call(fsw, label, saved[label]))
@@ -537,9 +701,10 @@ def differences(got: dict, ref: dict) -> list[str]:
             out += [f"{case} out"] if not err <= 1e-5 else []
             continue
         names = (("rows", "pid", "visits") if case.startswith("K6") else
+                 ("new_dir", "weight", "continues") if case.startswith("K9") else
                  ("out", "out with pid", "pid"))
         out += [f"{case} {n}" for n, x, y in zip(names, outs, ref[case])
-                if not torch.equal(x.view(torch.int32), y.view(torch.int32))]
+                if not torch.equal(x.view(torch.uint8), y.view(torch.uint8))]
     return out
 
 

@@ -38,8 +38,9 @@ main thread and are counted apart. It prints the wall seconds of both
 runs, the device time summed over kernels, kernels per bounce, the device
 busy share, the top kernels by device time, each span's count, host
 seconds and the device time of the kernels launched inside it,
-the wrapper calls, device kernels and device time of kernels K1-K4 (K4
-runs four kernels a call), and the per-ray selection phases per bounce.
+the wrapper calls, device kernels and device time of kernels K1-K4, K6
+and K9 (K4 runs four kernels a call), and the per-ray selection phases
+per bounce.
 Last it times three more unprofiled runs: what the profiler leaves behind
 on later launches of these host-bound paths, and then one more under
 ``trace.recording()`` alone, which counts the host synchronisations that
@@ -74,6 +75,7 @@ from cpu_ray_tracing_implementation_tpu_torch.kernels import build
 from cpu_ray_tracing_implementation_tpu_torch.models import camera as cam_mod
 from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, integrator
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_scatter as fsc
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
@@ -175,16 +177,18 @@ KERNELS = {"planar_closest": "planar_closest_kernel",
            "cull_select": "cull_select_kernel",
            "visit_sweep": "visit_sweep_",   # its four stage kernels
            "packet_planar": "packet_kernel<(anonymous namespace)::Planar",
-           "packet_sphere": "packet_kernel<(anonymous namespace)::Sphere"}
+           "packet_sphere": "packet_kernel<(anonymous namespace)::Sphere",
+           "scatter": "scatter_mixture_kernel"}
 
 
 def launches() -> dict:
     return {**fi.LAUNCHES, **fs.LAUNCHES, **fsw.LAUNCHES, **packet.LAUNCHES,
-            **gather_probe.LAUNCHES}
+            **gather_probe.LAUNCHES, **fsc.LAUNCHES}
 
 
 def reset_counts() -> None:
     fi.reset_launches()
+    fsc.reset_launches()
     fs.reset_launches()
     fsw.reset_launches()
     packet.reset_launches()

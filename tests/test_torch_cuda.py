@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K8 on the card, against their plain versions, and
+"""The CUDA kernels K1-K9 on the card, against their plain versions, and
 the gradient path through them.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
@@ -15,10 +15,15 @@ K5: max |a - b| / (|b| + 1) <= 1e-5. K6 (the tile-packet closest hit):
 K2's rounding on spheres, so masks, pids, materials and each tile's visit
 count equal the plain version's and t is within rtol 1e-4; planar, K1's
 tolerances on rays whose pid agrees, pids equal but for near-ties.
-Gradients (the JAX package's
+K9 (one bounce's scatter): continues equal;
+new_dir and weight within atol 1e-5 / rtol 1e-4 but on at most 1 lane in
+10,000, each where light_pdf's edge test rounds apart
+(``kernel_ab.scatter_check``). Gradients (the JAX package's
 replay-against-remat tolerances): loss rtol 1e-4, scene rtol 2e-3 / atol
 1e-5, camera rtol 5e-3 / atol 1e-4.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -30,12 +35,13 @@ from cpu_ray_tracing_implementation_tpu_torch.models import catalog, diff, integ
 from cpu_ray_tracing_implementation_tpu_torch.models.scene import SceneBuilder
 from cpu_ray_tracing_implementation_tpu_torch.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_intersect as fi
+from cpu_ray_tracing_implementation_tpu_torch.ops import fused_scatter as fsc
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_select as fs
 from cpu_ray_tracing_implementation_tpu_torch.ops import fused_sweep as fsw
 from cpu_ray_tracing_implementation_tpu_torch.ops import intersect as isect
 from cpu_ray_tracing_implementation_tpu_torch.ops import keys, packet, perray
 from cpu_ray_tracing_implementation_tpu_torch.ops import materials as mat_ops
-from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe
+from cpu_ray_tracing_implementation_tpu_torch.utils import gather_probe, kernel_ab
 
 pytestmark = pytest.mark.cuda
 
@@ -1425,3 +1431,103 @@ def test_sphereflake_render_takes_the_packet_route(dev):
     ref = integrator.render_image(*catalog.sphereflake(width=64, spp=2, max_depth=3,
                                                        device="cpu"), keys.key(42))
     assert abs(float(img.mean()) - float(ref.mean())) <= 2e-3
+
+
+# K9's scenes: the Cornell box at the scan cell's bounce shapes (600x600,
+# depth 4), every material family (all_materials_fixture: lambertian, metal,
+# dielectric, gloss, diffuse light; the volume box: isotropic), a sphere
+# light, and a dispersive scene (ior_shift)
+SCATTER_SCENES = {
+    "cornell_box_scan": lambda d: catalog.cornell_box(width=600, spp=1, max_depth=4, device=d),
+    "all_materials": lambda d: catalog.all_materials_fixture(width=128, spp=1, max_depth=4,
+                                                             device=d),
+    "volume": lambda d: catalog.cornell_box_with_volume(width=128, spp=1, max_depth=4,
+                                                        device=d),
+    "sphere_light": lambda d: catalog.cornell_box_with_sphere_light(width=128, spp=1,
+                                                                    max_depth=4, device=d),
+    "dispersion_prism": lambda d: catalog.dispersion_prism(width=128, spp=1, max_depth=4,
+                                                           device=d),
+}
+
+
+def _scatter_check(scene, calls):
+    r = kernel_ab.scatter_check(scene, calls)
+    print(f"K9: {r['lanes']} lanes, {r['bit_equal']} bit for bit, max abs err "
+          f"{r['max_abs_err']:.3g}; beyond the tolerance (call, lane): {r['outliers']}")
+    assert r["ok"], r["outliers"]
+
+
+@pytest.mark.parametrize("cosine", ["sphere", "onb"])
+@pytest.mark.parametrize("name", sorted(SCATTER_SCENES))
+def test_scatter_kernel_matches_plain(dev, monkeypatch, name, cosine):
+    monkeypatch.setenv("CRT_COSINE", cosine)
+    scene, cam = SCATTER_SCENES[name](dev)
+    calls = kernel_ab.scatter_calls(scene, cam, keys.key(11))
+    assert len(calls) == cam.max_depth
+    if name == "dispersion_prism":
+        assert calls[0][3] is not None
+    _scatter_check(scene, calls)
+
+
+def test_scatter_kernel_on_invalid_lanes(dev):
+    """A third of the lanes marked invalid: they do not continue, and their
+    outputs are the plain version's all the same."""
+    scene, cam = catalog.all_materials_fixture(width=96, spp=1, max_depth=3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    calls = []
+    for hit, *rest in kernel_ab.scatter_calls(scene, cam, keys.key(2)):
+        drop = torch.rand(hit.valid.shape, generator=gen, device=dev) < 1 / 3
+        calls.append((dataclasses.replace(hit, valid=hit.valid & ~drop), *rest))
+    _scatter_check(scene, calls)
+    hit, ray_dir, u, ior_shift, pre = calls[0]
+    continues = fsc.scatter(scene, hit, ray_dir, u, ior_shift, *pre)[2]
+    assert not bool(continues[~hit.valid].any())
+
+
+def test_scatter_kernel_launches_once_a_bounce_without_grad(dev):
+    """Under no_grad a render launches K9 once a bounce; with a leaf that
+    needs a gradient it runs the eager route and launches none; a gradient
+    step launches it in its forward pass alone."""
+    scene, cam = catalog.cornell_box(width=32, spp=3, max_depth=4, device=dev)
+    fsc.reset_launches()
+    with torch.no_grad():
+        integrator.render_image(scene, cam, keys.key(0))
+    assert fsc.LAUNCHES["scatter"] == cam.spp * cam.max_depth
+    fsc.reset_launches()
+    color0 = scene.textures.color0.clone().requires_grad_()
+    leafy = scene.replace(textures=dataclasses.replace(scene.textures, color0=color0))
+    with torch.enable_grad():
+        img = integrator.render_image(leafy, cam, keys.key(0))
+    assert img.requires_grad and fsc.LAUNCHES["scatter"] == 0
+    fsc.reset_launches()
+    target = torch.zeros((cam.height, cam.width, 3), device=dev)
+    diff.loss_and_grads(scene, cam, keys.key(0), target, cam.spp)
+    assert fsc.LAUNCHES["scatter"] == cam.spp * cam.max_depth
+
+
+def test_scatter_kernel_strides_and_refusals(dev):
+    """The [R,3] rows and the uniforms are read at their strides (a
+    transposed layout gives the same bits); what the kernel does not take
+    raises."""
+    scene, cam = catalog.cornell_box(width=16, spp=1, max_depth=2, device=dev)
+    hit, ray_dir, u, ior_shift, (mt, atten) = kernel_ab.scatter_calls(scene, cam,
+                                                                       keys.key(0))[1]
+    flip = lambda x: x.T.contiguous().T
+    ref = fsc.scatter(scene, hit, ray_dir, u, ior_shift, mt, atten)
+    got = fsc.scatter(scene, dataclasses.replace(hit, p=flip(hit.p), normal=flip(hit.normal)),
+                      flip(ray_dir), flip(u), ior_shift, mt, flip(atten))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="contiguous"):
+        fsc.scatter(scene, hit, ray_dir, u, ior_shift, torch.stack([mt, mt], 1)[:, 0], atten)
+    with pytest.raises(TypeError, match="int32"):
+        fsc.scatter(scene, hit, ray_dir, u, ior_shift, mt.long(), atten)
+    with pytest.raises(ValueError, match="u has shape"):
+        fsc.scatter(scene, hit, ray_dir, u[:, :8], ior_shift, mt, atten)
+    with pytest.raises(RuntimeError, match="gradient"):
+        with torch.enable_grad():
+            fsc.scatter(scene, hit, ray_dir, u, ior_shift, mt, atten.clone().requires_grad_())
+    # more lights than a block's 48 KB of shared memory holds: the launch is refused
+    many = scene.replace(lights=scene.lights.repeat(600))
+    with pytest.raises(RuntimeError, match="crt_scatter launch failed"):
+        fsc.scatter(many, hit, ray_dir, u, ior_shift, mt, atten)

@@ -13,6 +13,9 @@ SPP, DEPTH = 2, 2
 BOUNCE = ["crt.uniforms", "crt.intersect", "crt.background", "crt.mat_rows",
           "crt.emitted", "crt.scatter"]
 SCATTER = ["crt.scatter.lobes", "crt.scatter.light_sample", "crt.scatter.light_pdf"]
+# with no gradient asked for, the scatter takes the fused route (kernel K9 on
+# the card, its plain version, with the same three spans, on the CPU)
+FUSED = "crt.scatter.fused"
 
 
 def _cornell(width=8):
@@ -26,14 +29,19 @@ def _children(rec):
     return kids
 
 
-def _check_sample(sample, kids):
+def _check_sample(sample, kids, fused=True):
     """A sample: raygen, then a bounce per depth with its stages, and the
-    scatter's three children."""
+    scatter's three children, under the fused route's span when
+    ``fused``."""
     assert [c.name for c in kids[sample.id]] == ["crt.raygen"] + ["crt.bounce"] * DEPTH
     for bounce in kids[sample.id][1:]:
         stages = kids[bounce.id]
         assert [c.name for c in stages] == BOUNCE
-        assert [c.name for c in kids[stages[-1].id]] == SCATTER
+        scatter = stages[-1]
+        if fused:
+            assert [c.name for c in kids[scatter.id]] == [FUSED]
+            scatter = kids[scatter.id][0]
+        assert [c.name for c in kids[scatter.id]] == SCATTER
 
 
 def _check_closed(rec):
@@ -83,7 +91,7 @@ def test_render_span_tree():
         assert [s.name for s in samples] == ["crt.sample"] * SPP
         for sample in samples:
             _check_sample(sample, kids)
-    assert len(rec.spans) == 2 * (1 + SPP * (2 + DEPTH * (1 + len(BOUNCE) + len(SCATTER))))
+    assert len(rec.spans) == 2 * (1 + SPP * (2 + DEPTH * (2 + len(BOUNCE) + len(SCATTER))))
 
 
 def test_grad_step_span_tree():
@@ -100,9 +108,14 @@ def test_grad_step_span_tree():
     fwd, bwd = kids[step.id]
     assert [c.name for c in kids[fwd.id]] == ["crt.sample"] * SPP
     assert [c.name for c in kids[bwd.id]] == ["crt.sample", "crt.autograd"] * SPP
-    for sample in kids[fwd.id] + kids[bwd.id][::2]:
+    # the forward pass (no grad) takes the fused scatter, the backward's
+    # re-render with autograd the differentiable one
+    for sample in kids[fwd.id]:
         _check_sample(sample, kids)
+    for sample in kids[bwd.id][::2]:
+        _check_sample(sample, kids, fused=False)
     assert sum(s.name == "crt.bounce" for s in rec.spans) == 2 * SPP * DEPTH
+    assert sum(s.name == FUSED for s in rec.spans) == SPP * DEPTH
 
 
 def test_nested_entry_keeps_the_outer_request():
