@@ -1,5 +1,7 @@
 """The comparison that decides ``correct``: the program's answer against
-the plain reference's, number by number, each beside its limit.
+the plain reference's, number by number, each beside its limit. The
+reference is the plain side of the configuration's family
+(``reference/<family>.py``), called with the traffic's options.
 
 - A render (``scan``, ``wavefront``): ``image_mae_rel``, the mean absolute
   difference over the checked pixels divided by the mean absolute value of
@@ -18,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from port_bench.reference import tracer
+from port_bench import families
 
 RENDER_KINDS = ("scan", "wavefront")
 
@@ -37,23 +39,6 @@ def render_numbers(img: torch.Tensor, ref: torch.Tensor) -> dict:
     return {"image_mae_rel": float(gap / ref.abs().mean().clamp(min=1e-30))}
 
 
-def expected_leaves(program_grads: dict, ref_grads: dict, tex_rows, bg_row) -> dict:
-    """The reference's gradients in the layout of the program's leaves:
-    each material's color gradient on its texture row of ``tex_color0``,
-    the background's on its row, each camera leaf's as ``camera.<name>``,
-    every other leaf zero."""
-    out = {k: torch.zeros_like(v, dtype=torch.float32, device="cpu")
-           for k, v in program_grads.items()}
-    tex = out["tex_color0"]
-    for i, row in enumerate(tex_rows):
-        tex[row] += ref_grads["color"][i].cpu()
-    if bg_row is not None and ref_grads["background"] is not None:
-        tex[bg_row] += ref_grads["background"].cpu()
-    for k, g in ref_grads["camera"].items():
-        out[f"camera.{k}"] = g.detach().float().cpu().reshape(out[f"camera.{k}"].shape)
-    return out
-
-
 def grad_numbers(loss: float, grads: dict, ref_loss: float, expected: dict) -> dict:
     norms = {k: float(v.norm()) for k, v in expected.items()}
     floor = 1e-3 * max(norms.values())
@@ -65,42 +50,48 @@ def grad_numbers(loss: float, grads: dict, ref_loss: float, expected: dict) -> d
             "grad_rel": rel}
 
 
-def reference_numbers(kind, desc, traffic, key, answer, pixels, target, tex_rows, bg_row,
+def reference_numbers(kind, family, desc, traffic, key, answer, pixels, target, leaves,
                       dtype=torch.float32, device="cpu") -> dict:
     """The check's numbers for the program's ``answer`` to the request keyed
-    ``key``: an image [H,W,3], or (loss, grads) of a step."""
+    ``key``: an image [H,W,3], or (loss, grads) of a step. ``family``
+    names the reference (``reference/<family>.py``); ``leaves``: what the
+    family's ``build_scene`` returned beside the scene."""
+    ref = families.reference(family)
     W, spp, D = traffic["width"], traffic["spp"], traffic["max_depth"]
+    cam = traffic.get("camera", {})
     if kind in RENDER_KINDS:
-        ref = tracer.render(desc, W, spp, D, key, pixel_ids=pixels, dtype=dtype,
-                            device=device)
+        want = ref.render(desc, W, spp, D, key, pixel_ids=pixels, dtype=dtype, device=device,
+                          **cam)
         img = answer.reshape(-1, 3)
         if pixels is not None:
             img = img[torch.as_tensor(pixels, device=img.device)]
-        return render_numbers(img, ref)
+        return render_numbers(img, want)
     loss, grads = answer
-    ref_loss, ref_grads = tracer.loss_and_grads(desc, W, spp, D, key, target,
-                                                dtype=dtype, device=device)
+    ref_loss, ref_grads = ref.loss_and_grads(desc, W, spp, D, key, target, dtype=dtype,
+                                             device=device, **cam,
+                                             **traffic.get("entry_options", {}))
     return grad_numbers(float(loss), grads, ref_loss,
-                        expected_leaves(grads, ref_grads, tex_rows, bg_row))
+                        ref.expected_leaves(grads, ref_grads, leaves))
 
 
-def control_numbers(kind, desc, traffic, key, pixels, target, tex_rows, bg_row,
+def control_numbers(kind, family, desc, traffic, key, pixels, target, leaves,
                     dtype=torch.bfloat16, device="cpu") -> dict:
     """The control: the reference computed in ``dtype`` put in the
     program's place and compared as the program's answer is."""
+    ref = families.reference(family)
     W, spp, D = traffic["width"], traffic["spp"], traffic["max_depth"]
+    cam = traffic.get("camera", {})
     if kind in RENDER_KINDS:
-        low = tracer.render(desc, W, spp, D, key, pixel_ids=pixels, dtype=dtype,
-                            device=device)
-        ref = tracer.render(desc, W, spp, D, key, pixel_ids=pixels, device=device)
-        return render_numbers(low, ref)
-    low_loss, low_grads = tracer.loss_and_grads(desc, W, spp, D, key, target, dtype=dtype,
-                                                device=device)
-    ref_loss, ref_grads = tracer.loss_and_grads(desc, W, spp, D, key, target,
-                                                device=device)
-    n_tex = max(tex_rows + [bg_row if bg_row is not None else -1]) + 1
-    shape = {"tex_color0": torch.zeros((n_tex, 3))}
-    shape.update({f"camera.{k}": torch.zeros(g.shape) for k, g in ref_grads["camera"].items()})
-    got = expected_leaves(shape, low_grads, tex_rows, bg_row)
-    want = expected_leaves(shape, ref_grads, tex_rows, bg_row)
+        low = ref.render(desc, W, spp, D, key, pixel_ids=pixels, dtype=dtype, device=device,
+                         **cam)
+        want = ref.render(desc, W, spp, D, key, pixel_ids=pixels, device=device, **cam)
+        return render_numbers(low, want)
+    ent = traffic.get("entry_options", {})
+    low_loss, low_grads = ref.loss_and_grads(desc, W, spp, D, key, target, dtype=dtype,
+                                             device=device, **cam, **ent)
+    ref_loss, ref_grads = ref.loss_and_grads(desc, W, spp, D, key, target, device=device,
+                                             **cam, **ent)
+    shape = ref.leaf_shapes(ref_grads, leaves)
+    got = ref.expected_leaves(shape, low_grads, leaves)
+    want = ref.expected_leaves(shape, ref_grads, leaves)
     return grad_numbers(low_loss, got, ref_loss, want)

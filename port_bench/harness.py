@@ -5,16 +5,22 @@ Everything that belongs to one configuration, traffic mix, metric or cell
 is found by the name ``BENCHMARK.json`` gives it: ``configs/<config>.json``
 (the file its entry names), ``traffic/<mix>.json``, ``metrics/<metric>.py``
 (a reader with ``read(run) -> float | None``) and ``limits/<cell>.json``
-(the limit of each number the check compares).
+(the limit of each number the check compares). A configuration's scene is
+built, on the port's side and on the reference's, by the family it names
+(``families/``), and a kernel's roofline is read by its file
+(``rooflines/<id>.py``).
 
 A traffic mix names the entry a request runs (``program.ENTRIES``: scan,
 wavefront, grad) and its sizes: ``width``, ``spp``, ``max_depth``, and
 ``check_pixels`` (the pixels of a render the check compares, drawn from
-the seed; 0 for all), ``profile_requests`` (the requests of a traced
-run's profiled slice) and, for a gradient step, ``target_scale`` (the
-target image is uniform in [0, target_scale), drawn from the seed).
-Requests run back to back in one closed loop; request ``i`` is keyed by
-``fold_in(key(seed), i)``.
+the seed; 0 for all), ``profile_requests`` (the requests of each of a
+traced run's two profiled slices) and, for a gradient step,
+``target_scale`` (the target image is uniform in [0, target_scale), drawn
+from the seed). It may add ``camera`` (options of the family's
+``build_camera``) and ``entry_options`` (keyword parameters of the entry);
+``load_cell`` refuses one that the camera or entry does not take or that
+the family's reference does not implement. Requests run back to back in
+one closed loop; request ``i`` is keyed by ``fold_in(key(seed), i)``.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from port_bench import check, scenes
+from port_bench import check, families
 from port_bench.reference import rng
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -53,6 +59,29 @@ def _listed(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def check_options(config: dict, traffic: dict, where: str) -> None:
+    """Raise, naming the key, where the traffic's ``camera`` or
+    ``entry_options`` hold an option that the family's ``build_camera`` or
+    the entry does not take, or that the family's reference does not
+    implement; and where the family has no files."""
+    from port_bench import program
+
+    family = families.name_of(config)
+    prog, ref = families.program(family), families.reference(family)
+    for group, takes, implements, by in (
+            ("camera", prog.CAMERA_OPTIONS, ref.CAMERA_OPTIONS,
+             f"family {family!r}'s build_camera"),
+            ("entry_options", program.entry_options(traffic["entry"]), ref.ENTRY_OPTIONS,
+             f"entry {traffic['entry']!r}")):
+        for key in traffic.get(group, {}):
+            if key not in takes:
+                raise ValueError(f"{where}: {group} option {key!r} is not taken by {by} "
+                                 f"(it takes {sorted(takes)})")
+            if key not in implements:
+                raise ValueError(f"{where}: {group} option {key!r} is not implemented by "
+                                 f"reference/{family}.py (it implements {sorted(implements)})")
+
+
 def load_cell(name: str, manifest: dict | None = None) -> Cell:
     if manifest is None:
         manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -63,8 +92,10 @@ def load_cell(name: str, manifest: dict | None = None) -> Cell:
     conf = {c["name"]: c for c in manifest["configs"]}[w["config"]]
     traffic = json.loads((BENCH / "traffic" / f"{w['traffic']}.json").read_text())
     limits_file = BENCH / "limits" / f"{name}.json"
+    config = json.loads((ROOT / conf["file"]).read_text())
+    check_options(config, traffic, f"workload {name!r} (traffic {w['traffic']!r})")
     return Cell(name=name, kind=traffic["entry"],
-                config=json.loads((ROOT / conf["file"]).read_text()), traffic=traffic,
+                config=config, traffic=traffic,
                 end_to_end=[m for m in manifest["end_to_end"] if _listed(m, name)],
                 per_layer=[m for m in manifest["per_layer"] if _listed(m, name)],
                 limits=json.loads(limits_file.read_text()) if limits_file.exists() else {})
@@ -105,15 +136,45 @@ class Run:
     profile: dict | None = None
     profile_rays: int = 0
     profile_wall_s: float = 0.0
-    isect_bound_s: float = 0.0
+    # {roofline id: {"bound_s", "device_s", "calls"}} (``tracing.roofline_table``)
+    rooflines: dict = dataclasses.field(default_factory=dict)
+    # {span name: figures per request} of the second slice (``tracing.span_table``),
+    # and the seconds that slice took, its reading included
+    spans: dict | None = None
+    spans_s: float = 0.0
 
     @property
     def rays(self) -> int:
         return len(self.walls) * self.rays_per_request
 
+    def roofline_share(self, ids) -> float | None:
+        """Percent: the summed bound of roofline ids ``ids`` over their
+        summed device seconds; None where their kernels did not run."""
+        bound_s = device_s = 0.0
+        for i in ids:  # added in turn, as the calls' bounds were
+            if i in self.rooflines:
+                bound_s += self.rooflines[i]["bound_s"]
+                device_s += self.rooflines[i]["device_s"]
+        if not device_s:
+            return None
+        return 100.0 * bound_s / device_s
+
     def p90(self) -> float:
         w = sorted(self.walls)
         return w[0] if len(w) < 2 else statistics.quantiles(w, n=10, method="inclusive")[-1]
+
+
+def build(config: dict, traffic: dict, device, scene_overrides: dict | None = None):
+    """(family, description, scene, leaves, camera) of a configuration at a
+    traffic mix's sizes, built by the configuration's family
+    (``families/<family>.py``) with the mix's ``camera`` options."""
+    family = families.name_of(config)
+    side = families.program(family)
+    desc = side.describe(config, scene_overrides)
+    scene, leaves = side.build_scene(desc, device)
+    camera = side.build_camera(desc, traffic["width"], traffic["spp"], traffic["max_depth"],
+                               device, **traffic.get("camera", {}))
+    return family, desc, scene, leaves, camera
 
 
 def make_target(seed: int, H: int, W: int, traffic: dict, device):
@@ -141,18 +202,18 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda", t0=No
     traffic = {**cell.traffic, **overrides.get("traffic", {})}
     kind = traffic["entry"]
     entry = program.ENTRIES[kind]
-    desc = scenes.describe(cell.config, overrides.get("scene"))
+    entry_options = traffic.get("entry_options", {})
     key0 = base_key(seed)
-    W, spp, D = traffic["width"], traffic["spp"], traffic["max_depth"]
-    scene, tex_rows, bg_row = program.build_scene(desc, device)
-    camera = program.build_camera(desc, W, spp, D, device)
+    W, spp = traffic["width"], traffic["spp"]
+    family, desc, scene, leaves, camera = build(cell.config, traffic, device,
+                                                overrides.get("scene"))
     H = camera.height
     target = make_target(seed, H, W, traffic, device) if kind == "grad" else None
     _sync(device)
     times["scene_s"] = time.perf_counter() - t0 - times["imports_s"]
 
     def request(i):
-        return entry(scene, camera, rng.fold_in(key0, i), target)
+        return entry(scene, camera, rng.fold_in(key0, i), target, **entry_options)
 
     request(WARMUP_INDEX)
     _sync(device)
@@ -190,6 +251,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda", t0=No
         a = time.perf_counter()
         _traced(res, request, n, device, traffic)
         times["traced_s"] = time.perf_counter() - a
+        times["spans_s"] = res.spans_s
 
     # the check: the kept request of the window, its pixels drawn from the seed
     pixels = check.check_pixels(W * H, traffic.get("check_pixels", 0),
@@ -205,8 +267,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda", t0=No
     if is_cuda:
         torch.cuda.empty_cache()
     a = time.perf_counter()
-    numbers = check.reference_numbers(kind, desc, traffic, rng.fold_in(key0, j), answer,
-                                      pixels, target, tex_rows, bg_row, device=device)
+    numbers = check.reference_numbers(kind, family, desc, traffic, rng.fold_in(key0, j),
+                                      answer, pixels, target, leaves, device=device)
     times["check_s"] = time.perf_counter() - a
     checks = {k: {"value": v, "limit": cell.limits.get(k)} for k, v in numbers.items()}
     ok = all(c["limit"] is not None and c["value"] <= c["limit"] for c in checks.values())
@@ -229,13 +291,17 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda", t0=No
                             "idle_gaps": res.profile["idle_gaps"]}
     out["checks"] = checks
     lines = [" ".join(f"{k} {v:.3f}" for k, v in times.items())]
+    for name, row in (res.spans or {}).items():
+        lines.append(f"span {name} " + " ".join(f"{k} {v!r}" for k, v in row.items()))
     lines += [f"check {k} {c['value']!r} limit {c['limit']!r}" for k, c in checks.items()]
     return out, lines
 
 
 def _traced(res: Run, request, n: int, device, traffic: dict) -> None:
     """After the window: one request under the synchronisation debug mode,
-    then the profiled slice, ranges and kernel calls recorded."""
+    then the profiled slice, ranges and kernel calls recorded, and read;
+    then a second profiled slice of as many requests, keyed past the
+    first, under the port's span recording (``Run.spans``)."""
     from port_bench import tracing
 
     is_cuda = torch.device(device).type == "cuda"
@@ -257,7 +323,17 @@ def _traced(res: Run, request, n: int, device, traffic: dict) -> None:
         res.profile_wall_s = time.perf_counter() - a
     res.profile_rays = k * res.rays_per_request
     res.profile = tracing.summarize(prof)
-    res.isect_bound_s = tracing.bounds_s(calls)
+    res.rooflines = tracing.roofline_table(calls, res.profile["kernel_s"])
+    del prof, calls
+
+    _sync(device)
+    a = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof, tracing.recording() as rec:
+        for i in range(k):
+            request(n + 1 + k + i)
+            _sync(device)
+    res.spans = tracing.span_table(prof, rec, is_cuda)
+    res.spans_s = time.perf_counter() - a
 
 
 def power_limit() -> str | None:

@@ -19,7 +19,7 @@ import time
 
 import torch
 
-from port_bench import check, harness, program, scenes
+from port_bench import check, harness, program
 from port_bench.reference import rng
 
 
@@ -36,10 +36,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     cell = harness.load_cell(args.cell)
     tr = cell.traffic
-    desc = scenes.describe(cell.config)
     t = time.perf_counter()
-    scene, tex_rows, bg_row = program.build_scene(desc, dev)
-    camera = program.build_camera(desc, tr["width"], tr["spp"], tr["max_depth"], dev)
+    family, desc, scene, leaves, camera = harness.build(cell.config, tr, dev)
     H, W = camera.height, camera.width
     print(json.dumps({"cell": cell.name, "build_s": time.perf_counter() - t}), flush=True)
     seeds = [args.first + i for i in range(args.seeds)]
@@ -47,7 +45,8 @@ def main(argv=None) -> int:
         key = rng.fold_in(harness.base_key(seed), 0)
         target = harness.make_target(seed, H, W, tr, dev) if cell.kind == "grad" else None
         t = time.perf_counter()
-        answer = program.ENTRIES[cell.kind](scene, camera, key, target)
+        answer = program.ENTRIES[cell.kind](scene, camera, key, target,
+                                            **tr.get("entry_options", {}))
         torch.cuda.synchronize()
         t_prog = time.perf_counter() - t
         if cell.kind in check.RENDER_KINDS:
@@ -56,15 +55,15 @@ def main(argv=None) -> int:
             answer = (float(answer[0]), {k: v.detach().float().cpu() for k, v in answer[1].items()})
         pixels = check.check_pixels(W * H, tr.get("check_pixels", 0), seed)
         t = time.perf_counter()
-        nums = check.reference_numbers(cell.kind, desc, tr, key, answer, pixels, target,
-                                       tex_rows, bg_row, device=dev)
+        nums = check.reference_numbers(cell.kind, family, desc, tr, key, answer, pixels,
+                                       target, leaves, device=dev)
         t_ref = time.perf_counter() - t
         print(json.dumps({"cell": cell.name, "seed": seed, "side": "program", **nums,
                           "program_s": t_prog, "reference_s": t_ref}), flush=True)
         if i < args.controls:
             t = time.perf_counter()
-            low = check.control_numbers(cell.kind, desc, tr, key, pixels, target, tex_rows,
-                                        bg_row, device=dev)
+            low = check.control_numbers(cell.kind, family, desc, tr, key, pixels, target,
+                                        leaves, device=dev)
             print(json.dumps({"cell": cell.name, "seed": seed, "side": "control", **low,
                               "control_s": time.perf_counter() - t}), flush=True)
     return 0

@@ -1,6 +1,8 @@
-"""The plain reference: a straightforward path tracer in PyTorch.
+"""The plain references: straightforward path tracers in PyTorch, one
+plain side a configuration family (``<family>.py``, found by
+``port_bench.families``), and what they share (``tracer.py``, ``rng.py``).
 
-It imports neither JAX nor anything of the port. It takes a scene
+None imports JAX or anything of the port. ``planar`` takes a scene
 description (``port_bench.scenes.Description``), a key and the render's
 sizes, builds its own intersection structures and traces the same
 estimator the port states: camera rays, closest hits on quads and

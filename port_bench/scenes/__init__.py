@@ -4,9 +4,10 @@ A configuration (``configs/<name>.json``) gives the scene as data: its
 materials, quads, boxes, triangle meshes (a mesh is a generator of this
 package, found by its name, and its arguments), which quads are lights, the background and
 the camera. ``describe`` expands it into one ``Description`` of numpy
-arrays. The harness hands that same description to the port's
-``SceneBuilder`` and to the plain reference (``reference/``), so both
-render the same numbers.
+arrays: the ``planar`` family's description (``families/planar.py``). The
+harness hands that same description to the port's ``SceneBuilder`` and to
+the plain reference (``reference/planar.py``), so both render the same
+numbers.
 """
 
 from __future__ import annotations

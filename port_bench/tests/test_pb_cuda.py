@@ -10,7 +10,7 @@ import json
 import pytest
 import torch
 
-from port_bench import check, harness, program, scenes
+from port_bench import check, harness
 from port_bench.reference import rng
 
 MANIFEST = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
@@ -49,11 +49,11 @@ def test_control_on_the_card(cell):
     dev = _card()
     c, ov = _reduced(cell)
     tr = {**c.traffic, **ov["traffic"]}
-    desc = scenes.describe(c.config)
-    _, tex_rows, bg_row = program.build_scene(desc, dev)
-    H = tr["width"]
+    family, desc, _, leaves, cam = harness.build(c.config, tr, dev)
+    H = cam.height
     target = harness.make_target(SEED, H, tr["width"], tr, dev) if c.kind == "grad" else None
     pixels = check.check_pixels(tr["width"] * H, tr.get("check_pixels", 0), SEED)
-    nums = check.control_numbers(c.kind, desc, tr, rng.fold_in(harness.base_key(SEED), 0),
-                                 pixels, target, tex_rows, bg_row, device=dev)
+    nums = check.control_numbers(c.kind, family, desc, tr,
+                                 rng.fold_in(harness.base_key(SEED), 0), pixels, target, leaves,
+                                 device=dev)
     assert any(v > c.limits[k] for k, v in nums.items())

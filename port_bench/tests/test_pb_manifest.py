@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from port_bench import harness, scenes
+from port_bench import families, harness
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -76,7 +76,7 @@ def test_configuration_files(conf):
     data = json.loads((harness.ROOT / conf["file"]).read_text())
     assert data["name"] == conf["name"] and data["reduced"] == conf["reduced"]
     assert "assumed" in data and data["precision"] == "float32"
-    desc = scenes.describe(data, {"target_tris": 2000})
+    desc = families.program(families.name_of(data)).describe(data, {"target_tris": 2000})
     assert len(desc.lights) >= 1 and len(desc.materials) >= 2
     files = [c["file"] for c in MANIFEST["configs"]]
     assert len(files) == len(set(files))

@@ -16,7 +16,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from port_bench import check, harness, program, scenes
+from port_bench import check, harness
 from port_bench.reference import rng
 from cpu_ray_tracing_implementation_tpu_torch.models import diff, integrator
 
@@ -155,12 +155,12 @@ def test_control_fails_the_check(cell):
     """The reference in bfloat16, put in the program's place."""
     c, ov = small(cell)
     tr = {**c.traffic, **ov["traffic"]}
-    desc = scenes.describe(c.config, ov.get("scene"))
-    sc, tex_rows, bg_row = program.build_scene(desc, "cpu")
-    H = program.build_camera(desc, tr["width"], tr["spp"], tr["max_depth"], "cpu").height
+    family, desc, _, leaves, cam = harness.build(c.config, tr, "cpu", ov.get("scene"))
+    H = cam.height
     target = harness.make_target(SEED, H, tr["width"], tr, "cpu") if c.kind == "grad" else None
-    nums = check.control_numbers(c.kind, desc, tr, rng.fold_in(harness.base_key(SEED), 0),
-                                 None, target, tex_rows, bg_row, dtype=torch.bfloat16)
+    nums = check.control_numbers(c.kind, family, desc, tr,
+                                 rng.fold_in(harness.base_key(SEED), 0), None, target, leaves,
+                                 dtype=torch.bfloat16)
     assert any(v > c.limits[k] for k, v in nums.items())
 
 
